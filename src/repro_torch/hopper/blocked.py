@@ -1,0 +1,142 @@
+"""Plain blocked forms of the attention ops (the reference's ``xla`` impls).
+
+Each runs the same online-softmax algorithm as the kernel it stands beside,
+in plain tensor code, so it runs on any device: the CPU tests use it, and
+on the card it is the kernel's plain version. Numerics follow the
+reference: fp32 scores with ``q`` scaled before the dot, ``NEG = -1e30``
+for masked scores, masked probabilities set to exactly 0 (so a
+fully-masked row yields 0), and ``l`` clamped at 1e-30.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.hopper.dispatch import resolve_blocks
+
+NEG = -1e30
+
+
+def _online_softmax_step(m, denom, acc, s, mask, vblk, pv_eq):
+    s = torch.where(mask, s, NEG)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    # fully-masked rows: exp(NEG - NEG) == 1, so zero them by the mask
+    p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+    corr = torch.exp(m - m_new)
+    denom = denom * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum(pv_eq, p, vblk)
+    return m_new, denom, acc
+
+
+def flash_attention_blocked(q, k, v, *, causal=True, window=0, q_offset=0,
+                            scale=None, bq=None, bk=None, return_lse=False):
+    """FA-2 forward as a loop over KV blocks of ``bk`` keys.
+
+    q (B, H, Sq, D); k/v (B, K, Sk, D), GQA with H = K * G. A lookback
+    ``window`` bounds keys to ``(q_pos - window, q_pos]`` regardless of
+    ``causal``; ``q_offset`` is the absolute position of q row 0.
+    ``bq``/``bk`` resolve through ``dispatch.resolve_blocks`` (only ``bk``
+    shapes this form). ``return_lse`` also returns the (B, H, Sq) fp32
+    log-sum-exp ``m + log(max(l, 1e-30))``.
+    """
+    B, H, Sq, D = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    block_k = min(resolve_blocks("flash_attention", bq=bq, bk=bk)["bk"], Sk)
+    pad = (-Sk) % block_k
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    nb = (Sk + pad) // block_k
+    dev = q.device
+
+    qf = (q.float() * scale).reshape(B, K, G, Sq, D)
+    q_pos = torch.arange(Sq, device=dev) + q_offset
+    m = torch.full((B, K, G, Sq), NEG, device=dev)
+    denom = torch.zeros((B, K, G, Sq), device=dev)
+    acc = torch.zeros((B, K, G, Sq, D), device=dev)
+    for i in range(nb):
+        sl = slice(i * block_k, (i + 1) * block_k)
+        kblk = k[:, :, sl].float()
+        vblk = v[:, :, sl].float()
+        s = torch.einsum("bkgqd,bksd->bkgqs", qf, kblk)
+        k_pos = i * block_k + torch.arange(block_k, device=dev)
+        mask = (k_pos[None, :] < Sk).expand(Sq, block_k)
+        if causal or window:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+        m, denom, acc = _online_softmax_step(
+            m, denom, acc, s, mask, vblk, "bkgqs,bksd->bkgqd"
+        )
+    o = acc / denom.clamp_min(1e-30)[..., None]
+    o = o.reshape(B, H, Sq, D).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = (m + torch.log(denom.clamp_min(1e-30))).reshape(B, H, Sq)
+    return o, lse
+
+
+def decode_attention_blocked(q, k, v, position, *, window=0, scale=None,
+                             bs=None, block_table=None, pos_offset=0,
+                             return_lse=False):
+    """Single-token attention as a loop over cache blocks.
+
+    Contiguous: k/v (B, K, S, D), streamed in blocks of ``bs`` rows
+    (``dispatch.resolve_blocks``). Paged (``block_table`` (B, NB) int):
+    k/v are page pools (P, K, bs, D) and the page size is the block. Both
+    layouts are rearranged into one contiguous (nb, B, K, bs, D) stream and
+    run the same loop body, so paged decode is bitwise equal to contiguous
+    decode when the contiguous length is ``NB * bs``. ``position`` (B,) is
+    each token's absolute position; ``pos_offset`` the absolute position of
+    logical block 0; ``return_lse`` adds the (B, H) fp32 log-sum-exp.
+    """
+    B, H, D = q.shape
+    K = k.shape[1]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    dev = q.device
+    if block_table is not None:
+        bs = k.shape[2]
+        nb = block_table.shape[1]
+        S = nb * bs
+
+        def blk(x):  # (P, K, bs, D)[table] -> (nb, B, K, bs, D)
+            return x[block_table.long()].transpose(0, 1).contiguous()
+    else:
+        S = k.shape[2]
+        bs = min(resolve_blocks("decode_attention", bs=bs)["bs"], S)
+        pad = (-S) % bs
+        if pad:
+            k = F.pad(k, (0, 0, 0, pad))
+            v = F.pad(v, (0, 0, 0, pad))
+        nb = (S + pad) // bs
+
+        def blk(x):  # (B, K, nb*bs, D) -> (nb, B, K, bs, D)
+            return x.reshape(B, K, nb, bs, D).permute(2, 0, 1, 3, 4).contiguous()
+
+    kb, vb = blk(k), blk(v)
+    qf = (q.float() * scale).reshape(B, K, G, D)
+    position = position.to(dev)
+    m = torch.full((B, K, G), NEG, device=dev)
+    denom = torch.zeros((B, K, G), device=dev)
+    acc = torch.zeros((B, K, G, D), device=dev)
+    for i in range(nb):
+        s = torch.einsum("bkgd,bksd->bkgs", qf, kb[i].float())
+        idx = pos_offset + i * bs + torch.arange(bs, device=dev)[None, :]
+        mask = (idx < pos_offset + S) & (idx <= position[:, None])
+        if window:
+            mask = mask & (idx > position[:, None] - window)
+        m, denom, acc = _online_softmax_step(
+            m, denom, acc, s, mask[:, None, None, :], vb[i].float(),
+            "bkgs,bksd->bkgd",
+        )
+    o = acc / denom.clamp_min(1e-30)[..., None]
+    o = o.reshape(B, H, D).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = (m + torch.log(denom.clamp_min(1e-30))).reshape(B, H)
+    return o, lse

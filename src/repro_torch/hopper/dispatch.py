@@ -1,0 +1,147 @@
+"""Implementation resolver for the port's ops, and the kernels' launch counts.
+
+Each op registers up to three implementations:
+
+  - ``cuda``:  the op's hand-written Hopper kernel wrapper. It launches the
+               kernel for CUDA tensors and raises if the kernel does not
+               build or launch; for CPU tensors, and only for them, it runs
+               the op's plain version instead.
+  - ``torch``: the plain blocked form (the counterpart of the reference's
+               ``xla`` impl): the same online-softmax algorithm in plain
+               tensor code, on any device.
+  - ``ref``:   the naive oracle.
+
+Selection: explicit ``impl=`` > ``set_default_impl()`` / ``default_impl()``
+> ``auto``, which is ``cuda`` where the op has a kernel and ``torch``
+otherwise. Nothing here retreats from one implementation to another.
+
+Block sizes (``resolve_blocks``: explicit > ``set_block_override`` > the
+static table) are the **plain** forms' tiles. A CUDA kernel's tiles are
+compile-time constants of its source.
+
+``LAUNCHES`` counts kernel launches per op: a wrapper adds one where it
+launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+from typing import Callable
+
+VALID_IMPLS = ("auto", "cuda", "torch", "ref")
+
+_REGISTRY: dict[str, dict[str, Callable]] = {}
+_default_impl: str | None = None
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def register_kernel(op: str, *, impl: str) -> Callable:
+    """Decorator: ``@register_kernel("flash_attention", impl="torch")``."""
+    if impl not in VALID_IMPLS or impl == "auto":
+        raise ValueError(f"cannot register impl {impl!r}; one of {VALID_IMPLS[1:]}")
+
+    def deco(fn: Callable) -> Callable:
+        _REGISTRY.setdefault(op, {})[impl] = fn
+        return fn
+
+    return deco
+
+
+def implementations(op: str) -> list[str]:
+    if op not in _REGISTRY:
+        raise KeyError(f"unknown op {op!r}; registered: {sorted(_REGISTRY)}")
+    return sorted(_REGISTRY[op])
+
+
+def set_default_impl(impl: str | None) -> None:
+    global _default_impl
+    if impl is not None and impl not in VALID_IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; one of {VALID_IMPLS}")
+    _default_impl = impl
+
+
+@contextlib.contextmanager
+def default_impl(impl: str | None):
+    """Scoped ``set_default_impl``: restores the previous default on exit."""
+    old = _default_impl
+    set_default_impl(impl)
+    try:
+        yield
+    finally:
+        set_default_impl(old)
+
+
+def resolve_impl(op: str, impl: str | None = None) -> str:
+    impl = impl or _default_impl or "auto"
+    if impl not in VALID_IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; one of {VALID_IMPLS}")
+    if impl == "auto":
+        return "cuda" if "cuda" in implementations(op) else "torch"
+    return impl
+
+
+def kernel_call(op: str, *args, impl: str | None = None, **kwargs):
+    """Run ``op`` through its resolved implementation."""
+    impl = resolve_impl(op, impl)
+    fn = _REGISTRY[op].get(impl)
+    if fn is None:
+        raise NotImplementedError(
+            f"op {op!r} has no {impl!r} implementation; "
+            f"available: {implementations(op)}"
+        )
+    return fn(*args, **kwargs)
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+# ---------------------------------------------------------------------------
+# Block sizes of the plain forms
+# ---------------------------------------------------------------------------
+
+_BLOCK_DEFAULTS: dict[str, dict[str, int]] = {
+    "flash_attention": {"bq": 128, "bk": 128},
+    "decode_attention": {"bs": 512},
+}
+_block_overrides: dict[str, dict[str, int]] = {}
+
+
+def _known_blocks(op: str, names) -> dict[str, int]:
+    known = _BLOCK_DEFAULTS.get(op)
+    if known is None:
+        raise KeyError(f"op {op!r} has no block-size table; known: {sorted(_BLOCK_DEFAULTS)}")
+    bad = set(names) - set(known)
+    if bad:
+        raise ValueError(f"{op!r} has no block parameters {sorted(bad)}")
+    return known
+
+
+def set_block_override(op: str, **sizes: int) -> None:
+    """Override the plain form's default block sizes for ``op``."""
+    _known_blocks(op, sizes)
+    _block_overrides.setdefault(op, {}).update(sizes)
+
+
+def resolve_blocks(op: str, **explicit: int | None) -> dict[str, int]:
+    """explicit kwarg > ``set_block_override`` > static default; ``None``
+    entries fall through. Unknown parameter names raise."""
+    known = _known_blocks(op, explicit)
+    resolved = {**known, **_block_overrides.get(op, {})}
+    resolved.update({k: v for k, v in explicit.items() if v is not None})
+    return resolved
+
+
+@contextlib.contextmanager
+def block_override(op: str, **sizes: int):
+    """Scoped ``set_block_override``."""
+    had = op in _block_overrides
+    old = dict(_block_overrides.get(op, {}))
+    set_block_override(op, **sizes)
+    try:
+        yield
+    finally:
+        if had:
+            _block_overrides[op] = old
+        else:
+            _block_overrides.pop(op, None)

@@ -1,0 +1,118 @@
+"""FA-2 forward on Hopper: the wrapper of ``csrc/flash_attention.cu``.
+
+Replaces the reference's Pallas kernel ``repro/kernels/flash_attention.py``
+``_fa_kernel`` (plain and ``return_lse`` forms). For CUDA tensors the
+wrapper checks its inputs, allocates the outputs, launches the kernel on
+PyTorch's current stream, raises on a launch error and adds one to
+``dispatch.LAUNCHES["flash_attention"]``. For CPU tensors, and only for
+them, it runs the plain version ``blocked.flash_attention_blocked``.
+
+The kernel takes element strides, so the transformer's (B, S, H, D) ->
+(B, H, S, D) transposed views go in without a copy; the head dim must be
+unit-stride. Inputs it does not take raise; nothing is copied to make
+them fit. The output has q's strides.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.hopper import blocked, build
+from repro_torch.hopper.dispatch import LAUNCHES
+
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's compiled head dims
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        lib = build.load("flash_attention")
+        fn = lib.repro_fa_fwd
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                       i32, i32, i32, ptr]
+        fn.restype = i32
+        _fn = (lib, fn)
+    return _fn
+
+
+def _check(q, k, v):
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(
+            f"flash_attention: q/k/v must share one CUDA device, got "
+            f"{q.device}/{k.device}/{v.device}"
+        )
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash_attention kernel takes float32 or bfloat16 q/k/v of one "
+            f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"flash_attention: q (B,H,Sq,D), k/v (B,K,Sk,D), got "
+            f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}"
+        )
+    B, H, _, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[1]:
+        raise ValueError(
+            f"flash_attention: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}"
+        )
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel: head dim {D} not in {HEAD_DIMS}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1:
+            raise ValueError(
+                f"flash_attention kernel: {name} must be unit-stride in its "
+                f"head dim, got strides {x.stride()}"
+            )
+        # the bf16 kernel moves rows in 16-byte chunks
+        if x.dtype == torch.bfloat16 and (
+            x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3])
+        ):
+            raise ValueError(
+                f"flash_attention bf16 kernel: {name} needs a 16-byte aligned "
+                f"start and (b, h, s) strides that are multiples of 8, got "
+                f"strides {x.stride()}"
+            )
+
+
+def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0,
+                         scale=None, return_lse=False, **blocks):
+    """q (B, H, Sq, D); k/v (B, K, Sk, D). Launches the Hopper kernel for
+    CUDA tensors; runs ``blocked.flash_attention_blocked`` for CPU tensors
+    (``blocks`` — the plain form's ``bq``/``bk`` — reach only that form).
+    Returns o, and (o, lse) with ``return_lse``."""
+    if q.device.type == "cpu":
+        return blocked.flash_attention_blocked(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            scale=scale, return_lse=return_lse, **blocks,
+        )
+    _check(q, k, v)
+    B, H, Sq, D = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    o = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if Sq:
+        lib, fn = _kernel()
+        strides = (ctypes.c_longlong * 12)(
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]
+        )
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr() if lse is not None else None,
+                DTYPES[q.dtype], B, H, K, Sq, Sk, D, strides, float(scale),
+                int(bool(causal)), int(window), int(q_offset), stream,
+            )
+        build.check(lib, err, "flash_attention kernel launch")
+        LAUNCHES["flash_attention"] += 1
+    return (o, lse) if return_lse else o

@@ -1,0 +1,80 @@
+"""Naive attention oracles: the obviously-correct forms the tests hold the
+blocked forms and the kernels to (counterparts of ``repro.kernels.ref``'s
+non-scaled attention oracles)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def mha_ref(q, k, v, *, causal=True, window=0, q_offset=0, scale=None,
+            return_lse=False):
+    """q (B, H, Sq, D); k/v (B, K, Sk, D) with H = K * G. ``window > 0`` is
+    a lookback window: keys in ``(q_pos - window, q_pos]``, so it bounds
+    ``k_pos <= q_pos`` even with ``causal=False``. ``return_lse`` adds the
+    (B, H, Sq) fp32 log-sum-exp, floored at -1e30."""
+    B, H, Sq, D = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qf = q.reshape(B, K, G, Sq, D).float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * scale
+    q_pos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal or window:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)  # fully-masked rows
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    o = o.reshape(B, H, Sq, D).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1).clamp_min(-1e30).reshape(B, H, Sq)
+    return o, lse
+
+
+def decode_attention_ref(q, k, v, position, *, window=0, scale=None,
+                         pos_offset=0, return_lse=False):
+    """One new token per sequence against a contiguous cache: q (B, H, D),
+    k/v (B, K, S, D), ``position`` (B,) absolute index of the new token.
+    ``pos_offset`` is the absolute position of cache row 0."""
+    B, H, D = q.shape
+    K, S = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qf = q.reshape(B, K, G, D).float()
+    s = torch.einsum("bkgd,bksd->bkgs", qf, k.float()) * scale
+    idx = torch.arange(S, device=q.device)[None, :] + pos_offset
+    mask = idx <= position[:, None]
+    if window:
+        mask &= idx > position[:, None] - window
+    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+    o = torch.einsum("bkgs,bksd->bkgd", p, v.float())
+    o = o.reshape(B, H, D).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1).clamp_min(-1e30).reshape(B, H)
+    return o, lse
+
+
+def decode_attention_paged_ref(q, k, v, block_table, position, *, window=0,
+                               scale=None, pos_offset=0, return_lse=False):
+    """Paged-cache oracle: gather each sequence's pages (k/v pools
+    (P, K, bs, D), ``block_table`` (B, NB)) back into the contiguous
+    (B, K, NB*bs, D) layout and run ``decode_attention_ref``."""
+    B, nb = block_table.shape
+    K, bs, D = k.shape[1], k.shape[2], k.shape[3]
+
+    def gather(pool):
+        return pool[block_table].transpose(1, 2).reshape(B, K, nb * bs, D)
+
+    return decode_attention_ref(
+        q, gather(k), gather(v), position, window=window, scale=scale,
+        pos_offset=pos_offset, return_lse=return_lse,
+    )

@@ -1,0 +1,283 @@
+"""Decoder-only transformer LM, dense family (port of
+``repro.models.transformer``).
+
+Parameters are a plain dict of tensors with the reference's layout: the
+per-layer leaves stacked on a leading ``num_layers`` axis (layer ``i`` is
+the view ``leaf[i]``). Covers GQA/MQA, qk-norm, QKV biases, gated/plain
+MLPs and the GPT-J parallel-residual block. Prefill attention goes through
+``ops.flash_attention`` (the Hopper FA-2 kernel on the card); paged decode
+through ``ops.decode_attention``. Projections are ``torch.matmul``, as the
+reference leaves them to XLA einsums. Prefill logits are cast to the
+activation dtype; decode logits stay fp32, as in the reference.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.hopper import ops
+from repro_torch.models import layers as L
+
+
+def _check_family(cfg):
+    if cfg.family != "dense" or cfg.num_experts:
+        raise NotImplementedError(
+            f"the port serves the dense transformer family, got {cfg.family!r}"
+        )
+
+
+# ---------------------------------------------------------------------------
+# init / weight carry-over
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg, *, seed: int = 0, device=None):
+    """Random parameters with the reference's shapes and scales, drawn on
+    ``device`` (default ``cuda``; raises without CUDA unless a device is
+    given) from a ``torch.Generator`` seeded with ``seed``. The draws differ
+    from ``jax.random``'s; tests carry JAX weights over with
+    ``params_from_jax``."""
+    _check_family(cfg)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dtype = getattr(torch, cfg.dtype)
+    d, f = cfg.d_model, cfg.d_ff
+    hd = cfg.resolved_head_dim()
+    H, K, nl = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
+    vp = L.padded_vocab(cfg.vocab_size)
+
+    def dense(shape, scale=None):
+        return L.dense_init(gen, shape, scale=scale, dtype=dtype, device=device)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    layers = {
+        "attn_norm": ones(nl, d),
+        "wq": dense((nl, d, H * hd)),
+        "wk": dense((nl, d, K * hd)),
+        "wv": dense((nl, d, K * hd)),
+        "wo": dense((nl, H * hd, d), scale=1.0 / math.sqrt(H * hd)),
+    }
+    if cfg.qkv_bias:
+        layers.update(bq=zeros(nl, H * hd), bk=zeros(nl, K * hd),
+                      bv=zeros(nl, K * hd))
+    if cfg.qk_norm:
+        layers.update(q_norm=ones(nl, hd), k_norm=ones(nl, hd))
+    if not cfg.parallel_block:
+        layers["mlp_norm"] = ones(nl, d)
+    layers["wi"] = dense((nl, d, f))
+    if L.is_gated(cfg.activation):
+        layers["wg"] = dense((nl, d, f))
+    layers["wo_mlp"] = dense((nl, f, d), scale=1.0 / math.sqrt(f))
+    params = {
+        "embed": dense((vp, d), scale=0.02),
+        "layers": layers,
+        "final_norm": ones(d),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((d, vp))
+    return params
+
+
+def _to_torch(x, device):
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bf16: carry the raw bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def params_from_jax(np_params, *, device=None):
+    """Carry a reference parameter tree (``repro.models.transformer.
+    init_params``, as numpy arrays or anything ``np.asarray`` takes) over
+    to the port's dict of tensors on ``device`` (default ``cuda``)."""
+    device = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _to_torch(node, device)
+
+    return conv(np_params)
+
+
+def _head(params):
+    head = params.get("lm_head")
+    return params["embed"].T if head is None else head
+
+
+def _layer(params, i):
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+def _rope(cfg, positions):
+    if not cfg.rope_theta:
+        return None, None
+    return L.rope_cos_sin(positions, cfg.resolved_head_dim(), cfg.rope_theta)
+
+
+def _mlp(p, cfg, x):
+    q = {"wi": p["wi"], "wo": p["wo_mlp"]}
+    if "wg" in p:
+        q["wg"] = p["wg"]
+    return L.mlp(q, x, cfg.activation)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def attention(p, cfg, x, cos, sin, *, causal=True, window=0, q_offset=0,
+              return_kv=False):
+    """x (B, S, d) -> (B, S, d); with ``return_kv`` also the (B, K, S, hd)
+    k/v this layer caches."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    q, k, v = (torch.matmul(x, p[w]) for w in ("wq", "wk", "wv"))
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, K, hd)
+    v = v.reshape(B, S, K, hd)
+    if "q_norm" in p:
+        q = L.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = L.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cos is not None:
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+    # (B, S, H, hd) -> (B, H, S, hd) views: the kernel takes the strides
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    o = ops.flash_attention(qt, kt, vt, causal=causal, window=window,
+                            q_offset=q_offset)
+    out = torch.matmul(o.transpose(1, 2).reshape(B, S, H * hd), p["wo"])
+    if return_kv:
+        return out, (kt, vt)
+    return out
+
+
+def _block(p, cfg, h, cos, sin, *, q_offset=0, return_kv=False):
+    n = L.rms_norm(h, p["attn_norm"], cfg.norm_eps)
+    a = attention(p, cfg, n, cos, sin, window=cfg.sliding_window,
+                  q_offset=q_offset, return_kv=return_kv)
+    a, kv = a if return_kv else (a, None)
+    if cfg.parallel_block:
+        h = h + a + _mlp(p, cfg, n)
+    else:
+        h = h + a
+        h = h + _mlp(p, cfg, L.rms_norm(h, p["mlp_norm"], cfg.norm_eps))
+    return h, kv
+
+
+def _logits(params, cfg, h):
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return torch.matmul(h, _head(params))
+
+
+# ---------------------------------------------------------------------------
+# forward / prefill
+# ---------------------------------------------------------------------------
+
+
+def forward(params, cfg, batch, *, q_offset=0):
+    """batch {"tokens": (B, S)} -> (logits (B, S, V_pad), aux_loss 0.0)."""
+    _check_family(cfg)
+    h = params["embed"][batch["tokens"].long()]
+    S = h.shape[1]
+    cos, sin = _rope(cfg, torch.arange(S, device=h.device) + q_offset)
+    for i in range(cfg.num_layers):
+        h, _ = _block(_layer(params, i), cfg, h, cos, sin, q_offset=q_offset)
+    return _logits(params, cfg, h), 0.0
+
+
+def prefill_step(params, cfg, batch, max_len: int):
+    """Process full prompts: -> (logits (B, S, V_pad) in the activation
+    dtype, cache {"k", "v"}: (nl, B, K, max_len, hd), zero past S)."""
+    _check_family(cfg)
+    h = params["embed"][batch["tokens"].long()]
+    S = h.shape[1]
+    cos, sin = _rope(cfg, torch.arange(S, device=h.device))
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        h, (k, v) = _block(_layer(params, i), cfg, h, cos, sin, return_kv=True)
+        ks.append(k)
+        vs.append(v)
+    pad = max_len - S
+    k_all, v_all = torch.stack(ks), torch.stack(vs)
+    if pad > 0:
+        k_all = torch.nn.functional.pad(k_all, (0, 0, 0, pad))
+        v_all = torch.nn.functional.pad(v_all, (0, 0, 0, pad))
+    return _logits(params, cfg, h), {"k": k_all, "v": v_all}
+
+
+# ---------------------------------------------------------------------------
+# paged decode (serving engine: block-table KV cache)
+# ---------------------------------------------------------------------------
+
+
+def attention_decode_paged(p, cfg, x, cos, sin, k_pool, v_pool, block_table,
+                           position, *, window=0):
+    """One layer's decode against paged pools ``k_pool``/``v_pool``
+    (P, K, bs, hd). The new token's k/v is written **in place** into page
+    ``block_table[b, pos // bs]`` at row ``pos % bs``, then attention runs
+    through the paged ``ops.decode_attention``. Inactive slots point at the
+    shared scratch page, which live prefixes never reference."""
+    B, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    bs = k_pool.shape[2]
+    q, k, v = (torch.matmul(x, p[w]) for w in ("wq", "wk", "wv"))
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, H, hd)
+    k = k.reshape(B, K, hd)
+    v = v.reshape(B, K, hd)
+    if "q_norm" in p:
+        q = L.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = L.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cos is not None:
+        q = L.apply_rope(q[:, None], cos[:, None], sin[:, None])[:, 0]
+        k = L.apply_rope(k[:, None], cos[:, None], sin[:, None])[:, 0]
+
+    phys = torch.gather(block_table, 1, (position // bs).long()[:, None])[:, 0].long()
+    offset = (position % bs).long()
+    heads = torch.arange(K, device=x.device)[None, :]
+    k_pool[phys[:, None], heads, offset[:, None]] = k.to(k_pool.dtype)
+    v_pool[phys[:, None], heads, offset[:, None]] = v.to(v_pool.dtype)
+
+    o = ops.decode_attention(q, k_pool, v_pool, position, paged=True,
+                             block_table=block_table, window=window)
+    return torch.matmul(o.reshape(B, H * hd), p["wo"])
+
+
+def decode_step_paged(params, cfg, cache, batch):
+    """batch {"token": (B,), "position": (B,), "block_table": (B, NB)};
+    ``cache`` a ``serving.paged_cache.PagedKVCache`` (only its pools are
+    touched, and they are updated in place). Returns (logits (B, V_pad)
+    fp32, cache)."""
+    _check_family(cfg)
+    position, block_table = batch["position"], batch["block_table"]
+    h = params["embed"][batch["token"].long()]
+    cos, sin = _rope(cfg, position)
+    for i in range(cfg.num_layers):
+        p = _layer(params, i)
+        n = L.rms_norm(h, p["attn_norm"], cfg.norm_eps)
+        a = attention_decode_paged(
+            p, cfg, n, cos, sin, cache.k_pool[i], cache.v_pool[i],
+            block_table, position, window=cfg.sliding_window,
+        )
+        if cfg.parallel_block:
+            h = h + a + _mlp(p, cfg, n)
+        else:
+            h = h + a
+            h = h + _mlp(p, cfg, L.rms_norm(h, p["mlp_norm"], cfg.norm_eps))
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    # fp32 logits, as the reference's einsum with an fp32 result
+    return torch.matmul(h.float(), _head(params).float()), cache

@@ -1,0 +1,283 @@
+"""Continuous-batching serving engine (port of ``repro.serving.engine``).
+
+Wires the host-side scheduler (``serving/scheduler.py``) to the paged model
+step (``models/transformer.decode_step_paged`` over a ``PagedKVCache``).
+One ``step()`` is one unit of virtual time, in the reference's order:
+
+  1. admit arrived requests (FCFS within priority class) while a decode
+     slot and enough cache blocks exist; each admission runs a prefill
+     (per length bucket) and scatters the prompt KV into its pages —
+     resumed requests restore their saved pages instead (the preemption
+     round-trip is bitwise);
+  2. grow each running sequence's block list for the token this step
+     writes, preempting victims on exhaustion (their pages are copied to
+     the host before the blocks free);
+  3. one decode over ALL slots — inactive rows point at the shared scratch
+     page and their outputs are dropped;
+  4. record tokens, retire on EOS / max-new-tokens, free blocks.
+
+The model half sits behind a small protocol (``prefill``/``decode``/
+``save_blocks``/``restore_blocks``), so the scheduler runs against the
+host-only ``StubModel`` too. ``PagedModel`` serves the dense transformer
+on ``device`` (``cuda`` unless the caller passes another); fp8 pools and
+ring decode over several cards are not ported yet.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.serving import scheduler as sched
+from repro_torch.serving.scheduler import NULL_BLOCK, Request
+
+__all__ = ["ServingEngine", "PagedModel", "StubModel", "Request"]
+
+
+class StubModel:
+    """Deterministic host-only model stub for scheduler tests.
+
+    Token streams follow a per-sequence integer recurrence seeded by the
+    last prompt token, so any slot/cache mix-up between sequences derails
+    the stream. ``save/restore`` round-trip a small payload so preemption
+    bookkeeping is exercised too.
+    """
+
+    def __init__(self, vocab: int = 251):
+        self.vocab = vocab
+
+    def _next(self, token: int, position: int) -> int:
+        return (token * 31 + position * 7 + 13) % self.vocab
+
+    def prefill(self, seq, block_ids):
+        prompt = seq.req.prompt
+        return self._next(prompt[-1], len(prompt) - 1)
+
+    def decode(self, slot_tokens, slot_positions, slot_tables, active):
+        out = np.zeros(len(slot_tokens), np.int64)
+        for i in range(len(slot_tokens)):
+            out[i] = self._next(int(slot_tokens[i]), int(slot_positions[i]))
+        return out
+
+    def save_blocks(self, seq, block_ids):
+        return ("payload", seq.rid, len(block_ids))
+
+    def restore_blocks(self, seq, block_ids, payload):
+        tag, rid, n = payload
+        if tag != "payload" or rid != seq.rid or n > len(block_ids):
+            raise RuntimeError(f"stub payload {payload} does not fit rid {seq.rid}")
+
+
+class PagedModel:
+    """The real model half: bucketed paged prefill + all-slot paged decode
+    of the dense transformer over a ``PagedKVCache`` on ``device``."""
+
+    def __init__(self, cfg, params, *, num_blocks, block_size, max_slots,
+                 max_blocks_per_seq, device=None):
+        from repro_torch.models import transformer
+        from repro_torch.serving import paged_cache
+
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"PagedModel serves the dense transformer family, got {cfg.family!r}"
+            )
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(
+                f"params live on {params['embed'].device}, the engine on {self.device}"
+            )
+        self._transformer = transformer
+        self.cfg, self.params = cfg, params
+        self.block_size = block_size
+        self.vocab = cfg.vocab_size
+        self.cache = paged_cache.init_paged_cache(
+            cfg, num_blocks=num_blocks, block_size=block_size, device=self.device,
+        )
+        self.tables = np.full(
+            (max_slots, max_blocks_per_seq), NULL_BLOCK, np.int32
+        )
+
+    def _tensor(self, x, dtype=torch.long):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+    # -- prefill ------------------------------------------------------------
+
+    def _bucket(self, s0: int) -> int:
+        return self.block_size * math.ceil(s0 / self.block_size)
+
+    def prefill(self, seq, block_ids):
+        prompt = seq.req.prompt
+        sb = self._bucket(len(prompt))
+        nbp = sb // self.block_size
+        tokens = np.zeros((1, sb), np.int64)
+        tokens[0, : len(prompt)] = prompt
+        ids = np.full(nbp, NULL_BLOCK, np.int64)
+        ids[: len(block_ids)] = block_ids  # prompt pages (the grant covers them)
+        # tokens padded to the bucket: causal attention keeps every real
+        # row independent of the padded tail
+        logits, kv = self._transformer.prefill_step(
+            self.params, self.cfg, {"tokens": self._tensor(tokens)}, max_len=sb,
+        )
+        nl, _, K, _, hd = kv["k"].shape
+
+        def rows(x):  # (nl, 1, K, sb, hd) -> (nl, nbp, K, bs, hd)
+            return x[:, 0].reshape(nl, K, nbp, self.block_size, hd).transpose(1, 2)
+
+        self.cache.write_prompt(ids, rows(kv["k"]), rows(kv["v"]))
+        first = int(torch.argmax(logits[0, len(prompt) - 1, : self.vocab]))
+        self.tables[seq.slot, :] = NULL_BLOCK
+        self.tables[seq.slot, : len(block_ids)] = block_ids
+        return first
+
+    # -- decode -------------------------------------------------------------
+
+    def sync_table(self, seq) -> None:
+        """Mirror the scheduler's block list into the slot's table row."""
+        self.tables[seq.slot, :] = NULL_BLOCK
+        self.tables[seq.slot, : len(seq.blocks)] = seq.blocks
+
+    def decode(self, slot_tokens, slot_positions, slot_tables, active):
+        batch = {
+            "token": self._tensor(slot_tokens),
+            "position": self._tensor(slot_positions),
+            "block_table": self._tensor(slot_tables, torch.int32),
+        }
+        logits, self.cache = self._transformer.decode_step_paged(
+            self.params, self.cfg, self.cache, batch
+        )
+        return torch.argmax(logits[:, : self.vocab], dim=-1).cpu().numpy()
+
+    # -- preemption payloads -------------------------------------------------
+
+    def save_blocks(self, seq, block_ids):
+        return self.cache.gather_blocks(np.asarray(block_ids, np.int64))
+
+    def restore_blocks(self, seq, block_ids, payload):
+        n = payload["k"].shape[1]
+        self.cache.restore_blocks(np.asarray(block_ids[:n], np.int64), payload)
+
+
+class ServingEngine:
+    """Open-loop continuous-batching engine over a paged KV cache."""
+
+    def __init__(self, model, *, num_blocks, block_size, max_slots,
+                 max_blocks_per_seq, eos_id: int | None = None):
+        self.model = model
+        self.scheduler = sched.ContinuousBatchingScheduler(
+            num_blocks=num_blocks, block_size=block_size,
+            max_slots=max_slots, max_blocks_per_seq=max_blocks_per_seq,
+        )
+        self.max_slots = max_slots
+        # decode-table width: with no per-sequence cap, a sequence can at
+        # most hold the whole non-null pool
+        self.table_width = max_blocks_per_seq or (num_blocks - 1)
+        self.eos_id = eos_id
+        self.step_count = 0
+        self.completed: dict[int, tuple] = {}  # rid -> generated tokens
+        self.latency_steps: dict[int, int] = {}  # rid -> retire - arrival
+        # snapshot a victim's pages to the host BEFORE the scheduler frees
+        # the ledger entries (the resume half restores them bitwise)
+        orig_preempt = self.scheduler.preempt
+
+        def _preempt(seq, step):
+            seq.saved_payload = self.model.save_blocks(seq, list(seq.blocks))
+            orig_preempt(seq, step)
+
+        self.scheduler.preempt = _preempt
+
+    @classmethod
+    def with_model(cls, cfg, params, *, num_blocks=64, block_size=16,
+                   max_slots=8, max_blocks_per_seq=16, device=None,
+                   eos_id=None):
+        """An engine over a ``PagedModel`` of ``cfg``/``params`` on
+        ``device`` (default ``cuda``; raises without CUDA unless a device
+        is given)."""
+        model = PagedModel(
+            cfg, params, num_blocks=num_blocks, block_size=block_size,
+            max_slots=max_slots, max_blocks_per_seq=max_blocks_per_seq,
+            device=device,
+        )
+        return cls(model, num_blocks=num_blocks, block_size=block_size,
+                   max_slots=max_slots, max_blocks_per_seq=max_blocks_per_seq,
+                   eos_id=eos_id)
+
+    def submit(self, req: Request) -> None:
+        self.scheduler.submit(req)
+
+    # -- one step of virtual time -------------------------------------------
+
+    def step(self) -> int:
+        """Admissions + one decode over all slots. Returns the number of
+        live tokens produced this step."""
+        s = self.step_count
+        sc = self.scheduler
+
+        for seq in sc.admit(s):
+            if seq.saved_payload is not None:  # resume: restore pages
+                self.model.restore_blocks(seq, seq.blocks, seq.saved_payload)
+                seq.saved_payload = None
+                if hasattr(self.model, "sync_table"):
+                    self.model.sync_table(seq)
+            else:
+                first = self.model.prefill(seq, seq.blocks)
+                sc.record_token(seq, first)
+                if sc.should_retire(seq, self.eos_id):
+                    self._retire(seq, s)
+
+        # grow blocks (preempting on exhaustion) for this step's writes
+        for slot in sorted(self.scheduler.running):
+            seq = self.scheduler.running.get(slot)
+            if seq is None:  # already preempted as someone's victim
+                continue
+            before = len(seq.blocks)
+            if not sc.ensure_block(seq, s):
+                continue  # preempted itself; decode next round
+            if len(seq.blocks) != before and hasattr(self.model, "sync_table"):
+                self.model.sync_table(seq)
+
+        produced = 0
+        if self.scheduler.running:
+            tokens = np.zeros(self.max_slots, np.int64)
+            positions = np.zeros(self.max_slots, np.int64)
+            tables = np.full(
+                (self.max_slots, self.table_width), NULL_BLOCK, np.int32,
+            )
+            if hasattr(self.model, "tables"):
+                tables = self.model.tables
+                tables[:] = NULL_BLOCK
+            active = np.zeros(self.max_slots, bool)
+            live = dict(self.scheduler.running)
+            for slot, seq in live.items():
+                active[slot] = True
+                tokens[slot] = seq.generated[-1]
+                positions[slot] = seq.next_position()
+                tables[slot, : len(seq.blocks)] = seq.blocks
+            next_tokens = self.model.decode(tokens, positions, tables, active)
+            for slot, seq in live.items():
+                sc.record_token(seq, int(next_tokens[slot]))
+                produced += 1
+                if sc.should_retire(seq, self.eos_id):
+                    self._retire(seq, s)
+
+        self.step_count += 1
+        return produced
+
+    def _retire(self, seq, step: int) -> None:
+        self.scheduler.retire(seq, step)
+        self.completed[seq.rid] = tuple(seq.generated)
+        self.latency_steps[seq.rid] = step - seq.req.arrival + 1
+
+    def run(self, max_steps: int = 10_000) -> dict:
+        while not self.scheduler.idle():
+            if self.step_count >= max_steps:
+                raise RuntimeError(
+                    f"engine did not drain in {max_steps} steps "
+                    f"(running={sorted(s.rid for s in self.scheduler.running.values())})"
+                )
+            self.step()
+        return dict(self.completed)
+
+    def leaked_blocks(self) -> int:
+        return self.scheduler.leaked_blocks()

@@ -7,18 +7,25 @@ Phases, in order; any failure exits non-zero:
 
   1. build every Hopper kernel from ``src/repro_torch/csrc`` (one ``nvcc``
      per source, started together);
-  2. hold each kernel against its plain version on the card, at the shapes
-     the serving path gives it (bf16, full width) and at small fp32 shapes
-     covering GQA, window, q_offset, ragged Sk and return_lse;
-  3. build ``occamy-gptj`` (GPT-J-6B) at full width with random weights
+  2. hold each kernel against its plain version on the card: the FA kernel
+     at the shapes the serving path gives it (bf16, full width) and at
+     small fp32 shapes covering GQA, window, q_offset, ragged Sk and
+     return_lse; the GEMM at the GCN shapes and at ragged fp32/bf16 ones;
+     the ELL SpMM at the GCN adjacencies and at wider random ELL matrices;
+  3. run the GCN path (``repro_torch.launch.gcn_inference.run``): two
+     144-wide layers over the paper's three graphs and one graph of
+     ogbn-arxiv's size, with the launch counts zeroed just before and read
+     just after; each output is held to the plain path and, on the three
+     small graphs, to the dense oracle;
+  4. build ``occamy-gptj`` (GPT-J-6B) at full width with random weights
      from a seeded ``torch.Generator``, on the card;
-  4. serve a few requests through ``ServingEngine.with_model`` over the
+  5. serve a few requests through ``ServingEngine.with_model`` over the
      paged KV cache, with a pool tight enough to preempt; the kernels'
      launch counts are zeroed just before and read just after;
-  5. check the run (all requests complete, no leaked blocks, one FA launch
+  6. check the run (all requests complete, no leaked blocks, one FA launch
      per layer per prefill, a prefill's logits with the kernel vs with the
-     plain version) and time the kernels against their plain versions and
-     the library call.
+     plain version) and time every kernel against its plain version, the
+     library call and its bound.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Imports
@@ -50,6 +57,15 @@ NUM_BLOCKS = 56  # tight: this workload preempts twice (checked below)
 
 FA_REPLACES = "src/repro/kernels/flash_attention.py:57"
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+GEMM_REPLACES = "src/repro/kernels/gemm.py:23"
+GEMM_SOURCE = "src/repro_torch/csrc/gemm.cu"
+SPMM_REPLACES = "src/repro/kernels/spmm.py:38"
+SPMM_SOURCE = "src/repro_torch/csrc/spmm.cu"
+
+# A graph of ogbn-arxiv's public size (Open Graph Benchmark: 169,343 nodes,
+# 1,166,243 edges, mean undirected degree ~13.7, so 15 ELL slots with the
+# self loop), built like the paper's graphs; nothing is downloaded.
+OGBN_ARXIV = ("ogbn-arxiv-size", 169343, 13.7)
 
 
 class SmokeFailure(RuntimeError):
@@ -84,6 +100,14 @@ def time_ms(fn, iters=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _in_turns(kernel, plain, plain_iters):
+    """plain, kernel, kernel, plain: two turns of each, in one call."""
+    p = [time_ms(plain, plain_iters)]
+    k = [time_ms(kernel), time_ms(kernel)]
+    p.append(time_ms(plain, plain_iters))
+    return k, p
 
 
 def fa_bound_ms(B, H, K, Sq, Sk, D, dtype_name, *, causal, window=0,
@@ -201,11 +225,8 @@ def time_kernels(report):
         label, B, H, K, Sq, Sk, D, dt, causal, window, q_offset, _ = case
         q, k, v = _fa_inputs(case, gen, transposed=True)
         kw = dict(causal=causal, window=window, q_offset=q_offset)
-        # plain, kernel, kernel, plain: compare within one call, in turns
-        plain = [time_ms(lambda: ops.flash_attention(q, k, v, impl="torch", **kw))]
-        kern = [time_ms(lambda: ops.flash_attention(q, k, v, impl="cuda", **kw))]
-        kern.append(time_ms(lambda: ops.flash_attention(q, k, v, impl="cuda", **kw)))
-        plain.append(time_ms(lambda: ops.flash_attention(q, k, v, impl="torch", **kw)))
+        kern, plain = _in_turns(lambda: ops.flash_attention(q, k, v, impl="cuda", **kw),
+                                lambda: ops.flash_attention(q, k, v, impl="torch", **kw), 20)
         lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
         bound, by = fa_bound_ms(B, H, K, Sq, Sk, D, dt, causal=causal)
         row = dict(shape=f"B={B} H={H} K={K} S={Sq} D={D} {dt} causal",
@@ -217,7 +238,260 @@ def time_kernels(report):
 
 
 # ---------------------------------------------------------------------------
-# phases 3-5: full-width occamy-gptj through the serving engine
+# phases 2-3: the GCN path's kernels (GEMM, ELL SpMM), then the GCN path
+# ---------------------------------------------------------------------------
+
+# (label, M, K, N, input dtype, output dtype); the GCN shapes are added
+# from the graphs in check_gcn_kernels
+GEMM_CASES = [
+    ("ragged f32", 100, 70, 130, "float32", "float32"),
+    ("ragged odd f32", 257, 129, 65, "float32", "float32"),
+    ("ragged bf16", 100, 70, 130, "bfloat16", "bfloat16"),
+    ("ragged odd bf16 -> f32", 257, 129, 65, "bfloat16", "float32"),
+    ("gcn width bf16 -> f32", 3327, 144, 144, "bfloat16", "float32"),
+    ("gcn width bf16 -> bf16", 2708, 144, 144, "bfloat16", "bfloat16"),
+    ("f32 -> bf16", 300, 64, 96, "float32", "bfloat16"),
+]
+# |kernel - plain| <= ATOL + RTOL * |plain|, by output dtype. fp32 out: both
+# sum exact fp32 (or bf16) products in fp32, in different K orders (the
+# reference suite's 1e-4). bf16 out: both round an fp32 sum to bf16, so
+# they may differ by one bf16 step.
+GEMM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
+
+# (label, rows, cols, density, F, values dtype, dense dtype); the GCN
+# adjacencies are added from the graphs in check_gcn_kernels
+SPMM_CASES = [
+    ("random L=41 f32", 4096, 4096, 0.01, 144, "float32", "float32"),
+    ("random L=41 bf16", 4096, 4096, 0.01, 144, "bfloat16", "bfloat16"),
+    ("random L=41 f32 values bf16 dense", 4096, 4096, 0.01, 144, "float32", "bfloat16"),
+    ("random L=25 F=300", 1000, 500, 0.05, 300, "float32", "float32"),
+    ("random L=64 F=40", 333, 1280, 0.05, 40, "float32", "float32"),
+]
+# by output (dense) dtype. fp32: kernel and plain version add the slots in
+# the same order with the same roundings (the reference suite's 1e-5 is
+# stated; they agree bitwise). bf16: one bf16 step of the rounded sum.
+SPMM_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
+
+# GCN outputs against the plain path and the dense oracle: max |diff| over
+# max |reference|; only the summation order differs, in fp32
+GCN_REL_TOL = 1e-4
+DENSE_ORACLE_MAX_NODES = 5000  # the (n, n) dense adjacency of the small graphs
+
+
+def _hold(name, label, got, want, tol):
+    """Kernel output against the plain version's, elementwise, within
+    ``tol`` = (atol, rtol); returns the largest absolute difference."""
+    import torch
+
+    atol, rtol = tol
+    g, w = got.float(), want.float()
+    need(bool(torch.isfinite(g).all()), f"{name} [{label}]: non-finite kernel output")
+    need(g.shape == w.shape, f"{name} [{label}]: shape {tuple(g.shape)} != {tuple(w.shape)}")
+    err = (g - w).abs()
+    max_abs = float(err.max()) if err.numel() else 0.0
+    ok = bool((err <= atol + rtol * w.abs()).all())
+    print(f"kernel {name} [{label}]: max_abs={max_abs:.3e} tol=atol {atol:g} + rtol {rtol:g}"
+          f" {'ok' if ok else 'FAIL'}")
+    need(ok, f"{name} kernel disagrees with plain version: {label}")
+    return max_abs
+
+
+def _gcn_graphs():
+    from repro_torch.launch import gcn_inference as gi
+
+    return (*gi.GRAPHS, OGBN_ARXIV)
+
+
+def check_gcn_kernels(report):
+    """Phase 2 for the GCN path: GEMM and ELL SpMM through the kernel and
+    the plain version on the same inputs, at the GCN path's shapes and at
+    ragged and wider ones."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import sparse
+    from repro_torch.hopper import ops
+    from repro_torch.launch import gcn_inference as gi
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    F = gi.FEATURES
+    gemm_cases = [(f"gcn {name}", n, F, F, "float32", "float32")
+                  for name, n, _ in _gcn_graphs()] + GEMM_CASES
+    errs = []
+    for label, M, K, N, dt, odt in gemm_cases:
+        a = torch.randn((M, K), generator=gen, device="cuda").to(getattr(torch, dt))
+        b = torch.randn((K, N), generator=gen, device="cuda").to(getattr(torch, dt))
+        kw = dict(out_dtype=getattr(torch, odt))
+        got = ops.gemm(a, b, impl="cuda", **kw)
+        want = ops.gemm(a, b, impl="torch", **kw)
+        torch.cuda.synchronize()
+        errs.append(_hold("gemm", f"{label} ({M},{K})x({K},{N})", got, want, GEMM_TOL[odt]))
+    # a row slice of a wider matrix: row stride != K, no copy
+    wide = torch.randn((500, 200), generator=gen, device="cuda")
+    a, b = wide[:, 30:174], torch.randn((F, F), generator=gen, device="cuda")
+    errs.append(_hold("gemm", "strided rows f32", ops.gemm(a, b, impl="cuda"),
+                      ops.gemm(a, b, impl="torch"), GEMM_TOL["float32"]))
+    report["gemm_err"] = max(errs)
+
+    rng = np.random.default_rng(SEED + 2)
+    errs = []
+    for name, n, deg in _gcn_graphs():
+        adj = gi.adjacency(rng, n, deg).to("cuda")
+        dense = torch.randn((n, F), generator=gen, device="cuda")
+        got = ops.spmm(adj, dense, impl="cuda")
+        want = ops.spmm(adj, dense, impl="torch")
+        torch.cuda.synchronize()
+        label = f"gcn {name} ({n},{adj.values.shape[1]})x({n},{F})"
+        errs.append(_hold("spmm", label, got, want, SPMM_TOL["float32"]))
+    for label, R, C, density, Fd, vdt, ddt in SPMM_CASES:
+        A = sparse.random_ell(rng, R, C, density)
+        values = A.values.to("cuda", getattr(torch, vdt))
+        cols = A.cols.to("cuda")
+        dense = torch.randn((C, Fd), generator=gen, device="cuda").to(getattr(torch, ddt))
+        got = ops.spmm(values, cols, dense, impl="cuda")
+        want = ops.spmm(values, cols, dense, impl="torch")
+        torch.cuda.synchronize()
+        errs.append(_hold("spmm", f"{label} ({R},{values.shape[1]})x({C},{Fd})", got, want,
+                          SPMM_TOL[ddt]))
+    report["spmm_err"] = max(errs)
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def gcn_phase(report):
+    """Phase 3: the GCN path through its entry point, on the card; launch
+    counts zeroed just before and read just after; outputs held to the
+    plain path and (small graphs) the dense oracle."""
+    import torch
+
+    from repro_torch.hopper import dispatch
+    from repro_torch.launch import gcn_inference as gi
+    from repro_torch.models import gcn
+
+    graphs = _gcn_graphs()
+    params = gcn.init_params([gi.FEATURES] * (gi.LAYERS + 1), seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    runs = gi.run(device="cuda", seed=SEED, graphs=graphs, params=params)
+    torch.cuda.synchronize()
+    launches = dict(dispatch.LAUNCHES)
+    expected = gi.LAYERS * len(runs)
+    print(f"gcn: {len(runs)} forwards x {gi.LAYERS} layers, {gi.FEATURES} features; kernel "
+          f"launches during the run: {launches}; expected gemm = spmm = {expected}")
+    need(launches == {"gemm": expected, "spmm": expected},
+         "GCN launch counts != layers x forwards for each of gemm and spmm")
+
+    for r in runs:
+        n = r.adj.shape[0]
+        need(tuple(r.out.shape) == (n, gi.FEATURES), f"gcn {r.name}: shape {tuple(r.out.shape)}")
+        need(bool(torch.isfinite(r.out).all()), f"gcn {r.name}: non-finite output")
+        with torch.no_grad(), dispatch.default_impl("torch"):
+            plain = gcn.forward(params, r.adj, r.feats)
+        rel_plain = _rel(r.out, plain)
+        need(rel_plain <= GCN_REL_TOL, f"gcn {r.name}: kernel path vs plain path rel {rel_plain:.3e}")
+        oracle = "dense oracle not run (n > %d)" % DENSE_ORACLE_MAX_NODES
+        if n <= DENSE_ORACLE_MAX_NODES:
+            a, h = r.adj.todense(), r.feats
+            for i, w in enumerate(params):
+                h = a @ (h @ w)
+                if i < len(params) - 1:
+                    h = torch.relu(h)
+            rel_dense = _rel(r.out, h)
+            need(rel_dense <= GCN_REL_TOL, f"gcn {r.name}: kernel path vs dense oracle rel {rel_dense:.3e}")
+            oracle = f"vs dense oracle rel {rel_dense:.3e}"
+        print(f"gcn {r.name}: n={n} L={r.adj.values.shape[1]} nnz={r.adj.nnz} out "
+              f"{tuple(r.out.shape)} finite; vs plain path rel {rel_plain:.3e}, {oracle} "
+              f"(tol rel {GCN_REL_TOL:g}); forward wall {r.forward_ms:.3f} ms in the run")
+
+        def forward(r=r):
+            with torch.no_grad():
+                gcn.forward(params, r.adj, r.feats)
+
+        profile_fn(f"gcn forward {r.name}", forward, report)
+    report["gcn_launches"] = launches
+
+
+def gemm_bound_ms(M, K, N, dt, odt):
+    """Least time for C (M, N) = A (M, K) . B (K, N) on an H100: the larger
+    of A and B read once and C written once over HBM bandwidth, and 2MNK
+    operations over the input type's peak."""
+    esize = {"float32": 4, "bfloat16": 2}
+    nbytes = (M * K + K * N) * esize[dt] + M * N * esize[odt]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * N * K / PEAK_OPS[dt] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def spmm_bound_ms(adj, dense):
+    """Least time for the ELL product on an H100: the larger of values and
+    cols read once, dense read once and out written once over HBM
+    bandwidth, and 2 * nnz * F operations (this matrix's nonzeros) over the
+    fp32 peak."""
+    R, L = adj.values.shape
+    C, F = dense.shape
+    nbytes = (R * L * (adj.values.element_size() + adj.cols.element_size())
+              + (C + R) * F * dense.element_size())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * adj.nnz * F / PEAK_OPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_gcn_kernels(report):
+    """GEMM and ELL SpMM at the GCN path's shapes on cora and on the graph of
+    ogbn-arxiv's size (fp32, 144 features): kernel, plain version, the
+    library call (``torch.matmul``; ``torch.sparse.mm`` on a CSR tensor
+    built outside the timed window) and the bound."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import sparse
+    from repro_torch.hopper import ops
+    from repro_torch.launch import gcn_inference as gi
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rng = np.random.default_rng(SEED + 3)
+    F = gi.FEATURES
+    cora = next(g for g in gi.GRAPHS if g[0] == "cora")
+    for name, n, deg in (cora, OGBN_ARXIV):
+        plain_iters = 2 if n > 10000 else 10  # the plain SpMM is a Python loop of small ops
+        a = torch.randn((n, F), generator=gen, device="cuda")
+        w = torch.randn((F, F), generator=gen, device="cuda") / math.sqrt(F)
+        kern, plain = _in_turns(lambda: ops.gemm(a, w, impl="cuda"),
+                                lambda: ops.gemm(a, w, impl="torch"), 20)
+        lib = time_ms(lambda: torch.matmul(a, w))
+        bound, by = gemm_bound_ms(n, F, F, "float32", "float32")
+        report.setdefault("gemm_time", {})[name] = dict(
+            shape=f"({n},{F})x({F},{F}) float32", ms=min(kern), plain_ms=min(plain),
+            library_ms=lib, bound_ms=bound, bound_by=by)
+        print(f"time gemm [{name} ({n},{F})x({F},{F}) f32]: kernel {kern} ms, plain {plain} ms, "
+              f"torch.matmul {lib:.4f} ms, bound {bound:.5f} ms ({by})")
+
+        adj = gi.adjacency(rng, n, deg).to("cuda")
+        dense = torch.randn((n, F), generator=gen, device="cuda")
+        csr = sparse.ell_to_csr(adj)
+        lib_a = torch.sparse_csr_tensor(
+            csr.indptr.long().cuda(), csr.indices.long().cuda(), csr.data.cuda(),
+            size=adj.shape)
+        kern, plain = _in_turns(lambda: ops.spmm(adj, dense, impl="cuda"),
+                                lambda: ops.spmm(adj, dense, impl="torch"), plain_iters)
+        lib = time_ms(lambda: torch.sparse.mm(lib_a, dense))
+        lib_err = float((torch.sparse.mm(lib_a, dense) - ops.spmm(adj, dense)).abs().max())
+        bound, by = spmm_bound_ms(adj, dense)
+        L = adj.values.shape[1]
+        report.setdefault("spmm_time", {})[name] = dict(
+            shape=f"ELL ({n},{L}) nnz={adj.nnz} x ({n},{F}) float32", ms=min(kern),
+            plain_ms=min(plain), library_ms=lib, bound_ms=bound, bound_by=by)
+        print(f"time spmm [{name} ELL ({n},{L}) x ({n},{F}) f32]: kernel {kern} ms, plain "
+              f"{plain} ms, torch.sparse.mm (CSR) {lib:.4f} ms (max |diff| vs kernel "
+              f"{lib_err:.2e}), bound {bound:.5f} ms ({by})")
+
+
+# ---------------------------------------------------------------------------
+# phases 4-6: full-width occamy-gptj through the serving engine
 # ---------------------------------------------------------------------------
 
 
@@ -394,7 +668,6 @@ def profile_steps(engine, reqs, report):
     512 bucket and one all-slot decode step (torch.profiler)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     model = engine.model
     cfg, params = model.cfg, model.params
@@ -418,31 +691,41 @@ def profile_steps(engine, reqs, report):
         model.decode(last, positions, tables, active)
 
     for name, fn in (("prefill S=%d" % sb, prefill), ("decode %d slots" % SLOTS, decode)):
+        profile_fn(name, fn, report)
+
+
+def profile_fn(name, fn, report):
+    """Warm wall time of ``fn`` (min of 3, host clock ended by a sync) and
+    a device-time breakdown of one more call (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        walls = []
-        for _ in range(3):
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        walls.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
 
-        def dev(e):
-            return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+    def dev(e):
+        t = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if t is None else t
 
-        busy_ms = sum(dev(e) for e in events) / 1e3
-        top = sorted(events, key=dev, reverse=True)[:6]
-        launches = sum(e.count for e in events)
-        print(f"profile {name}: wall {min(walls):.2f} ms (min of {walls}), device busy "
-              f"{busy_ms:.2f} ms, idle share {1 - busy_ms / min(walls):.3f}, "
-              f"{launches} kernel launches")
-        for e in top:
-            print(f"profile {name}:   {dev(e) / 1e3:8.3f} ms x{e.count:5d}  {e.key[:90]}")
-        report.setdefault("profile", {})[name] = dict(wall_ms=min(walls), busy_ms=busy_ms)
+    busy_ms = sum(dev(e) for e in events) / 1e3
+    top = sorted(events, key=dev, reverse=True)[:6]
+    launches = sum(e.count for e in events)
+    print(f"profile {name}: wall {min(walls):.3f} ms (min of {walls}), device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / min(walls):.3f}, "
+          f"{launches} kernel launches")
+    for e in top:
+        print(f"profile {name}:   {dev(e) / 1e3:8.3f} ms x{e.count:5d}  {e.key[:90]}")
+    report.setdefault("profile", {})[name] = dict(wall_ms=min(walls), busy_ms=busy_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -477,8 +760,11 @@ def main() -> int:
             regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
             print(f"build {name}: " + " | ".join(regs[:4]))
         check_kernels(report)
+        check_gcn_kernels(report)
+        gcn_phase(report)
         serve(report)
         time_kernels(report)
+        time_gcn_kernels(report)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -492,6 +778,16 @@ def main() -> int:
         "bound_ms": t512["bound_ms"], "bound_by": t512["bound_by"],
         "library_ms": t512["library_ms"], "shape": t512["shape"],
     }]
+    for name, source, replaces in (("gemm", GEMM_SOURCE, GEMM_REPLACES),
+                                   ("spmm", SPMM_SOURCE, SPMM_REPLACES)):
+        t = report[f"{name}_time"][OGBN_ARXIV[0]]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": report["gcn_launches"][name],
+            "max_abs_err": report[f"{name}_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+        })
     print(f"card: {card}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,18 @@
-"""Plain blocked forms of the attention ops (the reference's ``xla`` impls).
+"""Plain forms of the ops (the reference's ``xla`` impls).
 
-Each runs the same online-softmax algorithm as the kernel it stands beside,
-in plain tensor code, so it runs on any device: the CPU tests use it, and
-on the card it is the kernel's plain version. Numerics follow the
-reference: fp32 scores with ``q`` scaled before the dot, ``NEG = -1e30``
-for masked scores, masked probabilities set to exactly 0 (so a
-fully-masked row yields 0), and ``l`` clamped at 1e-30.
+Each runs the algorithm of the kernel it stands beside in plain tensor
+code, so it runs on any device: the CPU tests use it, and on the card it
+is the kernel's plain version.
+
+- Attention: the same online-softmax loop as the kernel. Numerics follow
+  the reference: fp32 scores with ``q`` scaled before the dot,
+  ``NEG = -1e30`` for masked scores, masked probabilities set to exactly
+  0 (so a fully-masked row yields 0), and ``l`` clamped at 1e-30.
+- ``gemm_blocked``: the reference's ``xla`` gemm is ``gemm_ref`` itself,
+  an fp32-accumulated matmul cast to ``out_dtype``.
+- ``spmm_blocked``: row blocks of ``bm``, slot by slot in fp32, in the
+  Pallas body's order (the kernel sums in the same order, so in fp32 the
+  two agree bitwise).
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.hopper.dispatch import resolve_blocks
+from repro_torch.hopper.ref import gemm_ref
 
 NEG = -1e30
 
@@ -140,3 +148,31 @@ def decode_attention_blocked(q, k, v, position, *, window=0, scale=None,
         return o
     lse = (m + torch.log(denom.clamp_min(1e-30))).reshape(B, H)
     return o, lse
+
+
+def gemm_blocked(a, b, *, out_dtype=None, accum_dtype=torch.float32,
+                 bm=None, bk=None, bn=None):
+    """C = A @ B, operands in ``accum_dtype`` (fp32 by default), cast to
+    ``out_dtype`` (default ``a.dtype``). As the reference's ``xla`` gemm
+    is its ``gemm_ref``, this form is ``ref.gemm_ref``: one matmul;
+    ``bm``/``bk``/``bn`` are accepted for the common signature."""
+    return gemm_ref(a, b, out_dtype=out_dtype, accum_dtype=accum_dtype)
+
+
+def spmm_blocked(values, cols, dense, *, bm=None):
+    """ELL sparse-dense product over row blocks of ``bm`` rows
+    (``dispatch.resolve_blocks``): for each block, ``acc += vals[:, j] *
+    dense[cols[:, j]]`` for j = 0..L-1 in fp32, then one cast to
+    ``dense.dtype``. values/cols (R, L), dense (C, F); returns (R, F)."""
+    R, L = values.shape
+    F_ = dense.shape[1]
+    out = torch.empty((R, F_), dtype=dense.dtype, device=dense.device)
+    bm = max(min(resolve_blocks("spmm", bm=bm)["bm"], R), 1)
+    for r0 in range(0, R, bm):
+        vals = values[r0:r0 + bm].float()
+        idx = cols[r0:r0 + bm].long()
+        acc = torch.zeros((vals.shape[0], F_), dtype=torch.float32, device=dense.device)
+        for j in range(L):
+            acc += vals[:, j:j + 1] * dense[idx[:, j]].float()
+        out[r0:r0 + bm] = acc.to(dense.dtype)
+    return out

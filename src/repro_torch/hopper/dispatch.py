@@ -6,9 +6,9 @@ Each op registers up to three implementations:
                kernel for CUDA tensors and raises if the kernel does not
                build or launch; for CPU tensors, and only for them, it runs
                the op's plain version instead.
-  - ``torch``: the plain blocked form (the counterpart of the reference's
-               ``xla`` impl): the same online-softmax algorithm in plain
-               tensor code, on any device.
+  - ``torch``: the plain form (the counterpart of the reference's ``xla``
+               impl): the kernel's algorithm in plain tensor code, on
+               any device.
   - ``ref``:   the naive oracle.
 
 Selection: explicit ``impl=`` > ``set_default_impl()`` / ``default_impl()``
@@ -101,7 +101,9 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 _BLOCK_DEFAULTS: dict[str, dict[str, int]] = {
+    "gemm": {"bm": 256, "bk": 256, "bn": 256},
     "flash_attention": {"bq": 128, "bk": 128},
+    "spmm": {"bm": 128},
     "decode_attention": {"bs": 512},
 }
 _block_overrides: dict[str, dict[str, int]] = {}

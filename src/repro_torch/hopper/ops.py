@@ -1,11 +1,13 @@
-"""The port's attention entry points, dispatched through ``hopper.dispatch``.
+"""The port's op entry points, dispatched through ``hopper.dispatch``.
 
 Public signatures and argument checks follow ``repro.kernels.ops``'s
-``flash_attention`` and ``decode_attention``. The implementations:
+``gemm``, ``flash_attention``, ``decode_attention`` and ``spmm``. The
+implementations:
 
-  - ``cuda``:  ``hopper/flash_attention.py`` (the Hopper FA-2 kernel;
-               decode attention has no kernel, as in the reference)
-  - ``torch``: ``hopper/blocked.py``, the plain blocked forms
+  - ``cuda``:  the Hopper kernels' wrappers, ``hopper/gemm.py``,
+               ``hopper/flash_attention.py`` and ``hopper/spmm.py``
+               (decode attention has no kernel, as in the reference)
+  - ``torch``: ``hopper/blocked.py``, the plain forms
   - ``ref``:   ``hopper/ref.py``, the naive oracles
 
 ``precision=`` (narrow operands) and ``mesh=`` (sharded execution) raise
@@ -14,10 +16,15 @@ land.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.core.sparse import EllMatrix
 from repro_torch.hopper import blocked as _blocked
 from repro_torch.hopper import dispatch
 from repro_torch.hopper import flash_attention as _fa
+from repro_torch.hopper import gemm as _gemm
 from repro_torch.hopper import ref as _ref
+from repro_torch.hopper import spmm as _spmm
 from repro_torch.hopper.dispatch import kernel_call, resolve_blocks
 
 
@@ -26,6 +33,37 @@ def _not_yet(precision, mesh):
         raise NotImplementedError("precision= is not ported yet")
     if mesh is not None:
         raise NotImplementedError("mesh= is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Dense GEMM
+# ---------------------------------------------------------------------------
+
+
+def gemm(a, b, *, out_dtype=None, accum_dtype=torch.float32, precision=None,
+         impl=None, mesh=None, bm=None, bk=None, bn=None):
+    """C = A @ B with widening accumulation: a (M, K), b (K, N); the
+    output is ``out_dtype`` (default ``a.dtype``). ``bm``/``bk``/``bn``
+    shape the plain form only."""
+    _not_yet(precision, mesh)
+    blocks = resolve_blocks("gemm", bm=bm, bk=bk, bn=bn)
+    return kernel_call("gemm", a, b, out_dtype=out_dtype,
+                       accum_dtype=accum_dtype, impl=impl, **blocks)
+
+
+dispatch.register_kernel("gemm", impl="cuda")(_gemm.gemm_cuda)
+dispatch.register_kernel("gemm", impl="torch")(_blocked.gemm_blocked)
+
+
+@dispatch.register_kernel("gemm", impl="ref")
+def _gemm_ref(a, b, *, out_dtype=None, accum_dtype=torch.float32,
+              bm=None, bk=None, bn=None):
+    return _ref.gemm_ref(a, b, out_dtype=out_dtype, accum_dtype=accum_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
@@ -118,3 +156,36 @@ def _decode_ref(q, k, v, position, *, window, scale, block_table=None,
     return _ref.decode_attention_ref(q, k, v, position, window=window,
                                      scale=scale, pos_offset=pos_offset,
                                      return_lse=return_lse)
+
+
+# ---------------------------------------------------------------------------
+# SpMM (sparse-dense, ELL value/index rows)
+# ---------------------------------------------------------------------------
+
+
+def spmm(values, cols=None, dense=None, *, impl=None, mesh=None, bm=None):
+    """ELL sparse-dense matmul. Either ``spmm(A, dense)`` with A an
+    EllMatrix, or the unpacked ``spmm(values, cols, dense)``. ``bm``
+    shapes the plain form only."""
+    if isinstance(values, EllMatrix):
+        if cols is not None and dense is not None:
+            raise TypeError(
+                "spmm(A, dense): extra operand alongside the EllMatrix form"
+            )
+        if dense is None:  # positional form: spmm(A, dense)
+            dense = cols
+        values, cols = values.values, values.cols
+    if cols is None or dense is None:
+        raise TypeError("spmm: cols and dense operands are required")
+    _not_yet(None, mesh)
+    blocks = resolve_blocks("spmm", bm=bm)
+    return kernel_call("spmm", values, cols, dense, impl=impl, **blocks)
+
+
+dispatch.register_kernel("spmm", impl="cuda")(_spmm.spmm_cuda)
+dispatch.register_kernel("spmm", impl="torch")(_blocked.spmm_blocked)
+
+
+@dispatch.register_kernel("spmm", impl="ref")
+def _spmm_ref(values, cols, dense, *, bm=None):
+    return _ref.spmm_ref(values, cols, dense)

@@ -1,6 +1,6 @@
-"""Naive attention oracles: the obviously-correct forms the tests hold the
-blocked forms and the kernels to (counterparts of ``repro.kernels.ref``'s
-non-scaled attention oracles)."""
+"""Naive oracles: the obviously-correct forms the tests hold the plain
+forms and the kernels to (counterparts of ``repro.kernels.ref``'s
+non-scaled attention oracles, ``gemm_ref`` and ``spmm_ref``)."""
 from __future__ import annotations
 
 import math
@@ -78,3 +78,21 @@ def decode_attention_paged_ref(q, k, v, block_table, position, *, window=0,
         q, gather(k), gather(v), position, window=window, scale=scale,
         pos_offset=pos_offset, return_lse=return_lse,
     )
+
+
+def gemm_ref(a, b, out_dtype=None, accum_dtype=torch.float32):
+    """C = A @ B with widening accumulation: both operands in
+    ``accum_dtype`` (bf16 products are exact in fp32), one rounding to
+    ``out_dtype`` (default ``a.dtype``) at the end."""
+    out_dtype = out_dtype or a.dtype
+    return torch.matmul(a.to(accum_dtype), b.to(accum_dtype)).to(out_dtype)
+
+
+def spmm_ref(values, cols, dense):
+    """values/cols: (R, L) ELL rows (padding: value 0, col 0); dense: (C, F).
+    Gathers every slot's row, then sums in fp32; the output is
+    ``dense.dtype``."""
+    gathered = dense[cols.long()]  # (R, L, F)
+    return torch.einsum(
+        "rl,rlf->rf", values.float(), gathered.float()
+    ).to(dense.dtype)

@@ -17,12 +17,19 @@ Phases, in order; any failure exits non-zero:
      ogbn-arxiv's size, with the launch counts zeroed just before and read
      just after; each output is held to the plain path and, on the three
      small graphs, to the dense oracle;
-  4. build ``occamy-gptj`` (GPT-J-6B) at full width with random weights
+  4. run the sparse-LA path (``repro_torch.launch.sparse_la.run``, the
+     paper's Fig. 9b-d at card size): BSR SpMM, SpMSpM and stencil first
+     held against their plain versions on the card (small ragged shapes and
+     every card-size case), then the entry point once with the launch
+     counts zeroed just before and read just after (stencil 5, ELL SpMM 3,
+     BSR SpMM 3, SpMSpM 3), each output held to the plain path, each case
+     profiled warm;
+  5. build ``occamy-gptj`` (GPT-J-6B) at full width with random weights
      from a seeded ``torch.Generator``, on the card;
-  5. serve a few requests through ``ServingEngine.with_model`` over the
+  6. serve a few requests through ``ServingEngine.with_model`` over the
      paged KV cache, with a pool tight enough to preempt; the kernels'
      launch counts are zeroed just before and read just after;
-  6. check the run (all requests complete, no leaked blocks, one FA launch
+  7. check the run (all requests complete, no leaked blocks, one FA launch
      per layer per prefill, a prefill's logits with the kernel vs with the
      plain version) and time every kernel against its plain version, the
      library call and its bound.
@@ -491,6 +498,285 @@ def time_gcn_kernels(report):
 
 
 # ---------------------------------------------------------------------------
+# the sparse-LA path (paper Fig. 9b-d): BSR SpMM, SpMSpM, stencil
+# ---------------------------------------------------------------------------
+
+# |kernel - plain| <= ATOL + RTOL * |plain|. BSR and SpMSpM: both sum fp32
+# products in fp32 in different orders (the reference suite's 1e-4,
+# tests/test_kernels.py). Stencil: kernel and plain version add the points
+# in the same order with the same roundings, so they must agree bitwise.
+SPARSE_TOL = (1e-4, 1e-4)
+STENCIL_TOL = (0.0, 0.0)
+SPARSE_LA_REL_TOL = 1e-4  # each sparse_la output vs the plain path, max|diff| / max|plain|
+# per run: each case's op once warm-up and once timed
+SPARSE_LA_LAUNCHES = {"stencil": 2 * 5, "spmm": 2 * 3, "bsr_spmm": 2 * 3, "spmspm": 2 * 3}
+
+
+def _sparse_la_cases():
+    """The entry point's card-size cases, built on the host and moved to
+    the card once (outside every timed window)."""
+    from repro_torch.launch import sparse_la as sl
+
+    t = time.perf_counter()
+    cases = sl.make_cases(SEED, sl.CARD)
+    t_host = time.perf_counter() - t
+    cases = sl.cases_to(cases, "cuda")
+    print(f"sparse_la: {len(cases)} card-size cases built in {t_host:.1f} s on the host, "
+          f"moved to the card in {time.perf_counter() - t - t_host:.1f} s")
+    return cases
+
+
+def _call(case, impl):
+    from repro_torch.hopper import ops
+
+    return getattr(ops, case.op)(*case.args, impl=impl)
+
+
+def _random_ell_dups(rng, rows, width, slots):
+    """ELL rows with indices drawn with replacement (duplicates in a row)."""
+    import torch
+
+    from repro_torch.core import sparse
+
+    cols = rng.integers(0, width, (rows, slots)).astype("int32")
+    vals = rng.standard_normal((rows, slots)).astype("float32")
+    vals[:, -1] = 0  # an ELL padding slot: value 0 at column 0
+    cols[:, -1] = 0
+    return sparse.EllMatrix(torch.from_numpy(vals), torch.from_numpy(cols), (rows, width))
+
+
+def check_sparse_la_kernels(report, cases):
+    """Phase 2 for the sparse-LA path: each new kernel against its plain
+    version on the card, at small ragged shapes (an F not a multiple of
+    the kernel's 256-column slice, a hand-built row-block with no tiles,
+    duplicate indices and padding in SpMSpM, K beyond one shared-memory
+    pass, offsets of 2 and more that wrap every face, bf16) and at every
+    card-size case of the entry point. The plain outputs of the card-size
+    cases are kept for the path's check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.hopper import ops
+    from repro_torch.launch import sparse_la as sl
+
+    rng = np.random.default_rng(SEED + 4)
+    errs = {"bsr_spmm": [], "spmspm": [], "stencil": []}
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+    # BSR: hand-built tiles, block row 2 of 5 left without tiles
+    for bm, bk, F, dt in ((8, 128, 300, "float32"), (16, 64, 96, "float32"),
+                          (8, 128, 520, "bfloat16"), (4, 32, 17, "float32")):
+        rows = np.array([0, 0, 1, 3, 4, 4, 4], np.int32)
+        cols = np.array([0, 1, 1, 0, 0, 1, 2], np.int32)
+        tiles = rng.standard_normal((len(rows), bm, bk)).astype(np.float32)
+        tiles[rng.random(tiles.shape) < 0.9] = 0
+        wide = dev(rng.standard_normal((3 * bk, F + 7)).astype(np.float32))
+        dense = wide[:, 3:3 + F].to(getattr(torch, dt))  # row stride F + 7 for fp32
+        tv = dev(tiles).to(getattr(torch, dt))
+        args = (tv, dev(rows), dev(cols), dense, 5 * bm)
+        got = ops.bsr_spmm(*args, impl="cuda")
+        want = ops.bsr_spmm(*args, impl="torch")
+        torch.cuda.synchronize()
+        label = f"hand-built bm={bm} bk={bk} F={F} {dt}, empty block row"
+        errs["bsr_spmm"].append(_hold("bsr_spmm", label, got, want, SPARSE_TOL))
+        need(bool((got[2 * bm:3 * bm] == 0).all()), "bsr_spmm: the empty block row is not 0")
+    # SpMSpM: duplicate indices and padding slots; K past one pass (16384)
+    for R, C, K, La, Lb, dt in ((13, 130, 64, 9, 11, "float32"), (7, 50, 40000, 300, 200, "float32"),
+                                (33, 65, 1000, 40, 3, "bfloat16")):
+        A = _random_ell_dups(rng, R, K, La)
+        B = _random_ell_dups(rng, C, K, Lb)
+        a = (A.values.cuda().to(getattr(torch, dt)), A.cols.cuda())
+        b = (B.values.cuda().to(getattr(torch, dt)), B.cols.cuda())
+        got = ops.spmspm(*a, *b, K, impl="cuda")
+        want = ops.spmspm(*a, *b, K, impl="torch")
+        torch.cuda.synchronize()
+        label = f"dups+padding R={R} C={C} K={K} La={La} Lb={Lb} {dt}"
+        errs["spmspm"].append(_hold("spmspm", label, got, want, SPARSE_TOL))
+    # stencil: |d| = 2 on every axis (wrapping every face), box on tiny
+    # dims, offsets past the grid's extent in y/z, a 2-D grid, bf16, and y
+    # offsets of 40 whose halo outgrows the tiled kernel's shared memory
+    # (the direct kernel's path)
+    far = np.array([[0, 0, 0], [2, -7, 3], [-2, 5, -9], [1, 1, 1]])
+    wide = np.array([[0, 0, 0], [1, 40, 0], [-1, -40, 3], [0, 1, -1]])
+    for shape, offs, dt in (((16, 12, 10), sl.star(2, 3), "float32"),
+                            ((8, 5, 3), sl.BOX27, "float32"), ((8, 5, 2), far, "float32"),
+                            ((64, 48, 1), sl.star(2, 2), "float32"),
+                            ((16, 40, 24), sl.BOX27, "bfloat16"),
+                            ((40, 96, 40), wide, "float32"), ((40, 96, 40), wide, "bfloat16")):
+        g = dev(rng.standard_normal(shape).astype(np.float32)).to(getattr(torch, dt))
+        w = rng.standard_normal(len(offs)).astype(np.float32)
+        got = ops.stencil(g, offs, w, impl="cuda")
+        want = ops.stencil(g, offs, w, impl="torch")
+        torch.cuda.synchronize()
+        label = f"{shape} {len(offs)}pt {dt}"
+        errs["stencil"].append(_hold("stencil", label, got, want, STENCIL_TOL))
+
+    plain = {}
+    for case in cases:
+        got = _call(case, "cuda")
+        want = _call(case, "torch")
+        torch.cuda.synchronize()
+        tol = STENCIL_TOL if case.op == "stencil" else SPARSE_TOL
+        err = _hold(case.op, f"card {case.name} ({case.note})", got, want, tol)
+        if case.op in errs:
+            errs[case.op].append(err)
+        plain[case.name] = want
+    report["sparse_la_err"] = {op: max(e) for op, e in errs.items()}
+    report["sparse_la_plain"] = plain
+
+
+def sparse_la_phase(report, cases):
+    """The sparse-LA path through its entry point on the card: launch
+    counts zeroed just before and read just after; every output held to
+    the plain path's; one warm call of each case profiled."""
+    import torch
+
+    from repro_torch.hopper import dispatch
+    from repro_torch.launch import sparse_la as sl
+
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    runs = sl.run(device="cuda", seed=SEED, cases=cases)
+    torch.cuda.synchronize()
+    launches = dict(dispatch.LAUNCHES)
+    print(f"sparse_la: {len(runs)} cases; kernel launches during the run: {launches}; "
+          f"expected {SPARSE_LA_LAUNCHES} (a warm-up and a timed call per case)")
+    need(launches == SPARSE_LA_LAUNCHES, "sparse_la launch counts != the case counts")
+
+    plain = report.pop("sparse_la_plain")
+    for r in runs:
+        want = plain[r.name]
+        need(tuple(r.out.shape) == tuple(want.shape), f"sparse_la {r.name}: shape {tuple(r.out.shape)}")
+        need(bool(torch.isfinite(r.out).all()), f"sparse_la {r.name}: non-finite output")
+        rel = _rel(r.out, want)
+        need(rel <= SPARSE_LA_REL_TOL, f"sparse_la {r.name}: kernel path vs plain path rel {rel:.3e}")
+        print(f"sparse_la {r.name}: {r.wall_ms:.3f} ms wall (warm call in the run), "
+              f"{r.merit:.2f} {r.unit}; {r.note}; out {tuple(r.out.shape)} finite; "
+              f"vs plain path rel {rel:.3e} (tol rel {SPARSE_LA_REL_TOL:g})")
+    del plain
+    for case in cases:
+        profile_fn(f"sparse_la {case.name}", lambda case=case: _call(case, "cuda"), report)
+    report["sparse_la_launches"] = launches
+    report["sparse_la_runs"] = {r.name: dict(wall_ms=r.wall_ms, merit=r.merit, unit=r.unit)
+                                for r in runs}
+
+
+def _bound(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bsr_bound_ms(A, dense):
+    """Least time for the BSR product on an H100: tiles, tile coordinates
+    and dense read once and the fp32 out written once, over HBM bandwidth;
+    or 2 * nnz * F operations (the nonzero tile values in this run's data:
+    a zero slot of a tile needs no work), over the fp32 peak."""
+    tv = A.tile_values
+    nnz = int((tv != 0).sum())
+    nbytes = (tv.numel() * tv.element_size() + 8 * tv.shape[0]
+              + dense.numel() * dense.element_size() + 4 * A.shape[0] * dense.shape[1])
+    return _bound(nbytes, 2 * nnz * dense.shape[1])
+
+
+def spmspm_bound_ms(A, B):
+    """Least time for the intersection product on an H100: both ELL
+    operands read once and the fp32 (R, C) out written once, over HBM
+    bandwidth; or 2 operations per index pair that matches in this run's
+    data (sum over k of A's and B's nonzero counts at k), over the fp32
+    peak."""
+    import torch
+
+    K = A.shape[1]
+    ca = torch.bincount(A.cols[A.values != 0].long(), minlength=K)
+    cb = torch.bincount(B.cols[B.values != 0].long(), minlength=K)
+    matches = int((ca * cb).sum())
+    nbytes = sum(x.numel() * x.element_size() for x in (A.values, A.cols, B.values, B.cols))
+    nbytes += 4 * A.shape[0] * B.shape[0]
+    return _bound(nbytes, 2 * matches)
+
+
+def stencil_bound_ms(grid, points):
+    """Least time for the stencil on an H100: the grid read once and out
+    written once over HBM bandwidth, or 2 operations per point per output
+    over the fp32 peak."""
+    return _bound(2 * grid.numel() * grid.element_size(), 2 * grid.numel() * points)
+
+
+def _library(case):
+    """One PyTorch call computing the case's function, built outside the
+    timed window: cuSPARSE SpMM on the matrix as CSR, cuSPARSE SpGEMM on
+    both operands as CSR (densified), or a circular pad and a cuDNN conv3d
+    with the weights laid at their offsets (TF32 off)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    if case.op == "bsr_spmm":
+        A, dense = case.args
+        a_csr = A.todense().to_sparse_csr()
+        return lambda: torch.sparse.mm(a_csr, dense)
+    if case.op == "spmspm":
+        A, B, _ = case.args
+        a_csr = A.todense().float().to_sparse_csr()
+        bt_csr = B.todense().float().t().contiguous().to_sparse_csr()  # (K, C)
+        return lambda: torch.sparse.mm(a_csr, bt_csr).to_dense()
+    grid, offs, w = case.args
+    r = np.abs(offs).max(axis=0)
+    kernel = torch.zeros(tuple(int(2 * x + 1) for x in r), dtype=torch.float32)
+    for (dx, dy, dz), wp in zip(offs.tolist(), w.tolist()):
+        kernel[dx + r[0], dy + r[1], dz + r[2]] += wp
+    kernel = kernel.cuda()[None, None]
+    pad = (int(r[2]), int(r[2]), int(r[1]), int(r[1]), int(r[0]), int(r[0]))
+    x = grid[None, None]
+    return lambda: F.conv3d(F.pad(x, pad, mode="circular"), kernel)[0, 0]
+
+
+def time_sparse_la_kernels(report, cases):
+    """Every card-size BSR, SpMSpM and stencil case: kernel and plain
+    version in turns (plain, kernel, kernel, plain), the library call and
+    the bound; the densest BSR and SpMSpM cases and the 27-point stencil
+    go into the kernels line."""
+    import torch
+
+    for case in cases:
+        if case.op == "spmm":
+            continue  # the ELL kernel is timed on the GCN path
+        plain_iters = 3
+        kern, plain = _in_turns(lambda: _call(case, "cuda"), lambda: _call(case, "torch"),
+                                plain_iters)
+        lib_fn = _library(case)
+        lib = time_ms(lib_fn)
+        lib_err = float((lib_fn().float() - _call(case, "cuda").float()).abs().max())
+        if case.op == "bsr_spmm":
+            bound, by = bsr_bound_ms(*case.args)
+        elif case.op == "spmspm":
+            bound, by = spmspm_bound_ms(*case.args[:2])
+        else:
+            bound, by = stencil_bound_ms(case.args[0], len(case.args[1]))
+        row = dict(shape=f"{case.name} ({case.note})", ms=min(kern), plain_ms=min(plain),
+                   library_ms=lib, bound_ms=bound, bound_by=by)
+        print(f"time {case.op} [{case.name} {case.note}]: kernel {kern} ms, plain {plain} ms, "
+              f"library {lib:.4f} ms (max |diff| vs kernel {lib_err:.2e}), "
+              f"bound {bound:.5f} ms ({by}); {case.work / min(kern) / 1e6:.2f} {case.unit} "
+              f"at the kernel's time")
+        report.setdefault(f"{case.op}_time", {})[case.name] = row
+    torch.cuda.synchronize()
+
+
+SPARSE_LA_JSON = (  # (kernel, source, replaces, the case that goes into the kernels line)
+    ("bsr_spmm", "src/repro_torch/csrc/bsr_spmm.cu", "src/repro/kernels/spmm.py:87",
+     "fig9c_spmm_bsr_d2.80pct"),
+    ("spmspm", "src/repro_torch/csrc/spmspm.cu", "src/repro/kernels/spmspm.py:19",
+     "fig9d_spmspm_d2.80pct"),
+    ("stencil", "src/repro_torch/csrc/stencil.cu", "src/repro/kernels/stencil.py:23",
+     "fig9b_j3d27pt_512c"),
+)
+
+
+# ---------------------------------------------------------------------------
 # phases 4-6: full-width occamy-gptj through the serving engine
 # ---------------------------------------------------------------------------
 
@@ -695,8 +981,13 @@ def profile_steps(engine, reqs, report):
 
 
 def profile_fn(name, fn, report):
-    """Warm wall time of ``fn`` (min of 3, host clock ended by a sync) and
-    a device-time breakdown of one more call (torch.profiler)."""
+    """Warm wall time of ``fn`` (min of 3, host clock ended by a sync), the
+    span of one more call on the device (CUDA events, no profiler), and a
+    device-time breakdown of another (torch.profiler). The idle share is
+    1 - device busy / wall, from the profiler's trace; where the trace
+    holds no device time it is None. The span share (span / wall) is
+    reported on its own: it comes from another call and counts the gaps
+    between kernels as busy, so it is not an idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -708,6 +999,13 @@ def profile_fn(name, fn, report):
         fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) * 1e3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    span_ms = start.elapsed_time(end)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -720,12 +1018,16 @@ def profile_fn(name, fn, report):
     busy_ms = sum(dev(e) for e in events) / 1e3
     top = sorted(events, key=dev, reverse=True)[:6]
     launches = sum(e.count for e in events)
-    print(f"profile {name}: wall {min(walls):.3f} ms (min of {walls}), device busy "
-          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / min(walls):.3f}, "
-          f"{launches} kernel launches")
+    wall = min(walls)
+    idle = 1 - busy_ms / wall if busy_ms else None
+    idle_text = f"{idle:.3f}" if busy_ms else "None (the trace holds no device time)"
+    print(f"profile {name}: wall {wall:.3f} ms (min of {walls}), device busy "
+          f"{busy_ms:.3f} ms, idle share {idle_text}, {launches} kernel launches in the trace; "
+          f"span by CUDA events {span_ms:.3f} ms, span share {span_ms / wall:.3f}")
     for e in top:
         print(f"profile {name}:   {dev(e) / 1e3:8.3f} ms x{e.count:5d}  {e.key[:90]}")
-    report.setdefault("profile", {})[name] = dict(wall_ms=min(walls), busy_ms=busy_ms)
+    report.setdefault("profile", {})[name] = dict(wall_ms=wall, busy_ms=busy_ms, idle_share=idle,
+                                                  span_ms=span_ms, span_share=span_ms / wall)
 
 
 # ---------------------------------------------------------------------------
@@ -762,9 +1064,13 @@ def main() -> int:
         check_kernels(report)
         check_gcn_kernels(report)
         gcn_phase(report)
+        cases = _sparse_la_cases()
+        check_sparse_la_kernels(report, cases)
+        sparse_la_phase(report, cases)
         serve(report)
         time_kernels(report)
         time_gcn_kernels(report)
+        time_sparse_la_kernels(report, cases)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -785,6 +1091,15 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": report["gcn_launches"][name],
             "max_abs_err": report[f"{name}_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+        })
+    for name, source, replaces, case in SPARSE_LA_JSON:
+        t = report[f"{name}_time"][case]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": report["sparse_la_launches"][name],
+            "max_abs_err": report["sparse_la_err"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
         })

@@ -13,11 +13,20 @@ is the kernel's plain version.
 - ``spmm_blocked``: row blocks of ``bm``, slot by slot in fp32, in the
   Pallas body's order (the kernel sums in the same order, so in fp32 the
   two agree bitwise).
+- ``bsr_spmm_blocked`` (the reference's ``xla.bsr_spmm_xla``): gather each
+  tile's dense slab, batched tile products, scatter-add into the output,
+  in chunks of tiles so the gathered slabs stay within ``CHUNK_BYTES``.
+- ``spmspm_blocked`` (``xla.spmspm_xla``): densify A's rows, gather them
+  at B's indices and contract, in row chunks of the same budget.
+- ``stencil_blocked``: the Pallas body's order, point by point, ``acc =
+  acc + float32(w_p) * roll(grid)`` in fp32 (product and sum rounded
+  separately), then one cast to the grid's dtype.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -25,6 +34,7 @@ from repro_torch.hopper.dispatch import resolve_blocks
 from repro_torch.hopper.ref import gemm_ref
 
 NEG = -1e30
+CHUNK_BYTES = 256 << 20  # largest gathered intermediate of the sparse plain forms
 
 
 def _online_softmax_step(m, denom, acc, s, mask, vblk, pv_eq):
@@ -176,3 +186,71 @@ def spmm_blocked(values, cols, dense, *, bm=None):
             acc += vals[:, j:j + 1] * dense[idx[:, j]].float()
         out[r0:r0 + bm] = acc.to(dense.dtype)
     return out
+
+
+def bsr_spmm_blocked(tile_values, tile_rows, tile_cols, dense, num_rows, *, bf=None):
+    """BSR tiles (T, bm, bk) times dense (K, F) -> fp32 (num_rows, F).
+
+    For each chunk of tiles: gather ``dense[cols[t]*bk : +bk]``, batched
+    fp32 products ``tile @ slab``, then scatter-add them at ``rows[t]``.
+    Row-blocks without tiles stay 0. The chunk holds at most
+    ``CHUNK_BYTES`` of gathered fp32 slabs (about 2048 tiles at bk=128,
+    F=256). ``bf`` (the kernel grid's F block) is accepted for the common
+    signature; it does not change the sums."""
+    T, bm, bk = tile_values.shape
+    F_ = dense.shape[1]
+    dev = dense.device
+    out = torch.zeros((num_rows // bm, bm, F_), dtype=torch.float32, device=dev)
+    step = max(1, CHUNK_BYTES // max(1, bk * F_ * 4))
+    k_off = torch.arange(bk, device=dev)
+    for t0 in range(0, T, step):
+        rows = tile_rows[t0:t0 + step].long()
+        cols = tile_cols[t0:t0 + step].long()
+        slabs = dense[cols[:, None] * bk + k_off].float()  # (t, bk, F)
+        prods = torch.bmm(tile_values[t0:t0 + step].float(), slabs)
+        out.index_add_(0, rows, prods)
+    return out.reshape(num_rows, F_)
+
+
+def spmspm_blocked(a_values, a_cols, b_values, b_rows, contraction_dim, *,
+                   bm=None, bn=None):
+    """Sparse x sparse by one-side densified intersection: A's rows (ELL
+    (R, La)) densified to (rows, K) fp32, gathered at B's indices (ELL
+    columns (C, Lb)), contracted with B's values: ``out[r, c] = sum_j
+    b[c, j] * a_dense[r, b_rows[c, j]]`` -> fp32 (R, C).
+
+    Rows go in chunks of a multiple of ``bm`` whose gathered (rows, C, Lb)
+    block stays within ``CHUNK_BYTES``; ``bn`` is accepted for the common
+    signature (all columns go in each chunk)."""
+    R = a_values.shape[0]
+    C, Lb = b_values.shape
+    bm = max(1, resolve_blocks("spmspm", bm=bm, bn=bn)["bm"])
+    step = bm * max(1, CHUNK_BYTES // max(1, bm * C * Lb * 4))
+    bv = b_values.float()
+    bidx = b_rows.long()
+    out = torch.empty((R, C), dtype=torch.float32, device=a_values.device)
+    for r0 in range(0, R, step):
+        vals = a_values[r0:r0 + step]
+        n = vals.shape[0]
+        a_dense = torch.zeros((n, contraction_dim), dtype=torch.float32, device=vals.device)
+        rows = torch.arange(n, device=vals.device)[:, None].expand(vals.shape)
+        a_dense.index_put_((rows, a_cols[r0:r0 + step].long()), vals.float(),
+                           accumulate=True)
+        out[r0:r0 + n] = torch.einsum("cj,rcj->rc", bv, a_dense[:, bidx])
+    return out
+
+
+def stencil_blocked(grid, offsets, weights, *, bx=None):
+    """Periodic stencil on grid (X, Y, Z): for each point p in order,
+    ``acc = acc + float32(w_p) * roll(grid, -(dx, dy, dz))`` in fp32, the
+    product and the sum each rounded to fp32, as the Pallas body and the
+    Hopper kernel add them (so in fp32 all three agree bitwise); one cast
+    to the grid's dtype at the end. offsets (P, 3) ints, weights (P,).
+    The Pallas body's x-blocks of ``bx`` do not change an elementwise sum,
+    so the whole grid goes at once."""
+    w = torch.as_tensor(weights, dtype=torch.float32).cpu()
+    acc = torch.zeros(grid.shape, dtype=torch.float32, device=grid.device)
+    for p, (dx, dy, dz) in enumerate(np.asarray(offsets).tolist()):
+        shifted = torch.roll(grid, (-dx, -dy, -dz), dims=(0, 1, 2)).float()
+        acc = acc + float(w[p]) * shifted
+    return acc.to(grid.dtype)

@@ -104,6 +104,9 @@ _BLOCK_DEFAULTS: dict[str, dict[str, int]] = {
     "gemm": {"bm": 256, "bk": 256, "bn": 256},
     "flash_attention": {"bq": 128, "bk": 128},
     "spmm": {"bm": 128},
+    "bsr_spmm": {"bf": 512},
+    "spmspm": {"bm": 8, "bn": 128},
+    "stencil": {"bx": 8},
     "decode_attention": {"bs": 512},
 }
 _block_overrides: dict[str, dict[str, int]] = {}

@@ -1,12 +1,14 @@
 """The port's op entry points, dispatched through ``hopper.dispatch``.
 
 Public signatures and argument checks follow ``repro.kernels.ops``'s
-``gemm``, ``flash_attention``, ``decode_attention`` and ``spmm``. The
-implementations:
+``gemm``, ``flash_attention``, ``decode_attention``, ``spmm``,
+``bsr_spmm``, ``spmspm`` and ``stencil``. The implementations:
 
   - ``cuda``:  the Hopper kernels' wrappers, ``hopper/gemm.py``,
-               ``hopper/flash_attention.py`` and ``hopper/spmm.py``
-               (decode attention has no kernel, as in the reference)
+               ``hopper/flash_attention.py``, ``hopper/spmm.py``,
+               ``hopper/bsr_spmm.py``, ``hopper/spmspm.py`` and
+               ``hopper/stencil.py`` (decode attention has no kernel, as in
+               the reference)
   - ``torch``: ``hopper/blocked.py``, the plain forms
   - ``ref``:   ``hopper/ref.py``, the naive oracles
 
@@ -18,13 +20,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.sparse import EllMatrix
+from repro_torch.core.sparse import BsrMatrix, EllMatrix
 from repro_torch.hopper import blocked as _blocked
+from repro_torch.hopper import bsr_spmm as _bsr
 from repro_torch.hopper import dispatch
 from repro_torch.hopper import flash_attention as _fa
 from repro_torch.hopper import gemm as _gemm
 from repro_torch.hopper import ref as _ref
 from repro_torch.hopper import spmm as _spmm
+from repro_torch.hopper import spmspm as _spmspm
+from repro_torch.hopper import stencil as _stencil
 from repro_torch.hopper.dispatch import kernel_call, resolve_blocks
 
 
@@ -159,7 +164,7 @@ def _decode_ref(q, k, v, position, *, window, scale, block_table=None,
 
 
 # ---------------------------------------------------------------------------
-# SpMM (sparse-dense, ELL value/index rows)
+# SpMM (sparse-dense: ELL value/index rows, BSR tiles)
 # ---------------------------------------------------------------------------
 
 
@@ -189,3 +194,112 @@ dispatch.register_kernel("spmm", impl="torch")(_blocked.spmm_blocked)
 @dispatch.register_kernel("spmm", impl="ref")
 def _spmm_ref(values, cols, dense, *, bm=None):
     return _ref.spmm_ref(values, cols, dense)
+
+
+def bsr_spmm(tile_values, tile_rows=None, tile_cols=None, dense=None,
+             num_rows=None, *, impl=None, mesh=None, bf=None):
+    """Block-sparse rows x dense, fp32 out (num_rows, F). Either
+    ``bsr_spmm(A, dense)`` with A a BsrMatrix, or the unpacked
+    ``bsr_spmm(tile_values, tile_rows, tile_cols, dense, num_rows)``.
+    ``bf`` is the reference grid's F block; no form here changes its sums
+    with it."""
+    if isinstance(tile_values, BsrMatrix):
+        A = tile_values
+        if (tile_cols is not None or num_rows is not None
+                or (tile_rows is not None and dense is not None)):
+            raise TypeError(
+                "bsr_spmm(A, dense): extra operands alongside the BsrMatrix form"
+            )
+        if dense is None:  # positional form: bsr_spmm(A, dense)
+            dense = tile_rows
+        tile_values, tile_rows, tile_cols = A.tile_values, A.tile_rows, A.tile_cols
+        num_rows = A.shape[0]
+    if tile_rows is None or tile_cols is None or dense is None or num_rows is None:
+        raise TypeError(
+            "bsr_spmm: tile coordinates, dense operand and num_rows are required"
+        )
+    _not_yet(None, mesh)
+    blocks = resolve_blocks("bsr_spmm", bf=bf)
+    return kernel_call("bsr_spmm", tile_values, tile_rows, tile_cols, dense,
+                       num_rows=num_rows, impl=impl, **blocks)
+
+
+dispatch.register_kernel("bsr_spmm", impl="cuda")(_bsr.bsr_spmm_cuda)
+dispatch.register_kernel("bsr_spmm", impl="torch")(_blocked.bsr_spmm_blocked)
+
+
+@dispatch.register_kernel("bsr_spmm", impl="ref")
+def _bsr_ref(tile_values, tile_rows, tile_cols, dense, num_rows, *, bf=None):
+    return _ref.bsr_spmm_ref(tile_values, tile_rows, tile_cols, dense, num_rows)
+
+
+# ---------------------------------------------------------------------------
+# SpMSpM (sparse-sparse, index intersection)
+# ---------------------------------------------------------------------------
+
+
+def spmspm(a_values, a_cols, b_values=None, b_rows=None, contraction_dim=None,
+           *, impl=None, mesh=None, bm=None, bn=None):
+    """Sparse x sparse by index intersection, fp32 out (R, C). Either
+    ``spmspm(A, B, k)`` with ELL operands (B holding the right matrix's
+    columns), or unpacked arrays. ``bm``/``bn`` shape the plain form
+    only."""
+    if isinstance(a_values, EllMatrix):
+        A, B = a_values, a_cols
+        if not isinstance(B, EllMatrix):
+            raise TypeError("spmspm(A, B, k): B must also be an EllMatrix")
+        if b_rows is not None or (b_values is not None
+                                  and contraction_dim is not None):
+            raise TypeError(
+                "spmspm(A, B, k): extra operands alongside the EllMatrix form"
+            )
+        if b_values is not None:  # positional form: spmspm(A, B, k)
+            contraction_dim = b_values
+        a_values, a_cols = A.values, A.cols
+        b_values, b_rows = B.values, B.cols
+    if b_values is None or b_rows is None or contraction_dim is None:
+        raise TypeError(
+            "spmspm: b_values, b_rows and contraction_dim are required"
+        )
+    _not_yet(None, mesh)
+    blocks = resolve_blocks("spmspm", bm=bm, bn=bn)
+    return kernel_call("spmspm", a_values, a_cols, b_values, b_rows,
+                       contraction_dim=contraction_dim, impl=impl, **blocks)
+
+
+dispatch.register_kernel("spmspm", impl="cuda")(_spmspm.spmspm_cuda)
+dispatch.register_kernel("spmspm", impl="torch")(_blocked.spmspm_blocked)
+
+
+@dispatch.register_kernel("spmspm", impl="ref")
+def _spmspm_ref(a_values, a_cols, b_values, b_rows, contraction_dim, *,
+                bm=None, bn=None):
+    return _ref.spmspm_ref(a_values, a_cols, b_values, b_rows, contraction_dim)
+
+
+# ---------------------------------------------------------------------------
+# Stencil (offset streams, periodic boundary)
+# ---------------------------------------------------------------------------
+
+
+def stencil(grid, offsets, weights, *, impl=None, mesh=None, bx=None,
+            overlap=True):
+    """Periodic stencil: grid (X, Y, Z), static offsets (P, 3), weights
+    (P,); the output has the grid's dtype. ``overlap`` schedules the
+    sharded halo exchange in the reference and is a no-op on one device,
+    so it is accepted and ignored here. ``bx`` is the reference kernel's
+    x-block: the ``cuda`` impl keeps its limits (X % bx == 0, |dx| <= bx)."""
+    del overlap  # one device: no halo exchange to schedule
+    _not_yet(None, mesh)
+    blocks = resolve_blocks("stencil", bx=bx)
+    return kernel_call("stencil", grid, offsets=offsets, weights=weights,
+                       impl=impl, **blocks)
+
+
+dispatch.register_kernel("stencil", impl="cuda")(_stencil.stencil_cuda)
+dispatch.register_kernel("stencil", impl="torch")(_blocked.stencil_blocked)
+
+
+@dispatch.register_kernel("stencil", impl="ref")
+def _stencil_ref(grid, offsets, weights, *, bx=None):
+    return _ref.stencil_ref(grid, offsets, weights)

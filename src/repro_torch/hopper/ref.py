@@ -1,10 +1,13 @@
 """Naive oracles: the obviously-correct forms the tests hold the plain
 forms and the kernels to (counterparts of ``repro.kernels.ref``'s
-non-scaled attention oracles, ``gemm_ref`` and ``spmm_ref``)."""
+non-scaled attention oracles, ``gemm_ref``, ``spmm_ref``, ``spmspm_ref``,
+``spmspm_comparisons`` and ``stencil_ref``; ``bsr_spmm_ref`` densifies the
+tiles, where the reference reuses its blocked form)."""
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -96,3 +99,64 @@ def spmm_ref(values, cols, dense):
     return torch.einsum(
         "rl,rlf->rf", values.float(), gathered.float()
     ).to(dense.dtype)
+
+
+def bsr_spmm_ref(tile_values, tile_rows, tile_cols, dense, num_rows):
+    """BSR tiles (T, bm, bk) at block coordinates (tile_rows, tile_cols)
+    times dense (K, F): densify the tiles into a (num_rows, K) fp32 matrix,
+    then one fp32 matmul. Returns fp32 (num_rows, F)."""
+    T, bm, bk = tile_values.shape
+    K = dense.shape[0]
+    blocked = torch.zeros((num_rows // bm, K // bk, bm, bk), dtype=torch.float32,
+                          device=dense.device)
+    blocked.index_put_((tile_rows.long(), tile_cols.long()), tile_values.float(),
+                       accumulate=True)
+    a = blocked.transpose(1, 2).reshape(num_rows, (K // bk) * bk)
+    return a @ dense[: a.shape[1]].float()
+
+
+# ---------------------------------------------------------------------------
+# Sparse-sparse matmul (paper Fig. 9d): index intersection
+# ---------------------------------------------------------------------------
+
+
+def _ell_densify(values, idx, width):
+    """(N, L) ELL rows -> (N, width) fp32, duplicate slots summed."""
+    n = values.shape[0]
+    out = torch.zeros((n, width), dtype=torch.float32, device=values.device)
+    rows = torch.arange(n, device=values.device)[:, None].expand_as(idx)
+    return out.index_put_((rows, idx.long()), values.float(), accumulate=True)
+
+
+def spmspm_ref(a_values, a_cols, b_values, b_rows, contraction_dim):
+    """out[r, c] = sum over the index intersection of A.row(r) (ELL rows
+    (R, La)) and B.col(c) (ELL columns (C, Lb)). Oracle: densify both
+    operands and matmul, in fp32. Padding entries carry value 0."""
+    a_dense = _ell_densify(a_values, a_cols, contraction_dim)
+    b_dense = _ell_densify(b_values, b_rows, contraction_dim)
+    return a_dense @ b_dense.T
+
+
+def spmspm_comparisons(a_cols, b_rows) -> int:
+    """Paper figure of merit: index comparisons an all-pairs intersection
+    performs (GCOMP), R * C * La * Lb."""
+    R, La = a_cols.shape
+    C, Lb = b_rows.shape
+    return int(R) * int(C) * int(La) * int(Lb)
+
+
+# ---------------------------------------------------------------------------
+# Stencil (paper Fig. 9b): offset streams over a 3D grid, periodic boundary
+# ---------------------------------------------------------------------------
+
+
+def stencil_ref(grid, offsets, weights):
+    """out[x, y, z] = sum_p w_p * grid[x+dx_p, y+dy_p, z+dz_p], periodic in
+    every axis, summed in fp32 in point order; the output has the grid's
+    dtype. offsets (P, 3) ints, weights (P,)."""
+    w = torch.as_tensor(weights, dtype=torch.float32)
+    out = torch.zeros(grid.shape, dtype=torch.float32, device=grid.device)
+    for p, (dx, dy, dz) in enumerate(np.asarray(offsets).tolist()):
+        out = out + float(w[p]) * torch.roll(
+            grid, (-dx, -dy, -dz), dims=(0, 1, 2)).float()
+    return out.to(grid.dtype)

@@ -108,3 +108,95 @@ def test_ell_checks_shapes_dtypes_and_moves_between_devices():
     B = A.to("cpu")
     assert torch.equal(B.values, A.values) and torch.equal(B.cols, A.cols)
     assert B.shape == (4, 5) and B.nnz == 12
+
+
+# ---------------------------------------------------------------------------
+# BSR: the port's constructors against the reference's, bitwise
+# ---------------------------------------------------------------------------
+
+
+def _same_bsr(got, want):
+    _same(got.tile_values, want.tile_values)
+    _same(got.tile_rows, want.tile_rows)
+    _same(got.tile_cols, want.tile_cols)
+    assert got.shape == tuple(want.shape)
+    assert got.block_shape == tuple(want.block_shape)
+    assert got.density == want.density
+
+
+def _blocky(rng, r, c, density, bm):
+    """Sparse dense matrix whose second row-block is all zeros."""
+    dense = _sparse_dense(rng, r, c, density)
+    dense[bm:2 * bm] = 0
+    return dense
+
+
+@pytest.mark.parametrize("density", [0.05, 0.3])
+@pytest.mark.parametrize("bm,bk", [(8, 128), (16, 64)])
+def test_dense_to_bsr_matches_jax(rng, bm, bk, density):
+    dense = _blocky(rng, 64, 256, density, bm)
+    got = tsp.dense_to_bsr(dense, bm=bm, bk=bk)
+    want = jsp.dense_to_bsr(dense, bm=bm, bk=bk)
+    _same_bsr(got, want)
+    _same(got.todense(), want.todense())
+    np.testing.assert_array_equal(got.todense().numpy(), dense)
+    # the empty row-block owns one zero tile at column 0
+    assert (got.tile_rows == 1).sum() == 1 and int(got.tile_cols[got.tile_rows == 1][0]) == 0
+    _same_bsr(tsp.dense_to_bsr(torch.from_numpy(dense), bm=bm, bk=bk), want)
+
+
+@pytest.mark.parametrize("bm,bk", [(8, 128), (16, 64), (4, 32)])
+def test_csr_to_bsr_inserts_empty_tiles_like_jax(rng, bm, bk):
+    dense = _blocky(rng, 48, 256, 0.03, bm)
+    dense[-bm:] = 0  # the last row-block is empty too
+    got = tsp.csr_to_bsr(tsp.dense_to_csr(dense), bm=bm, bk=bk)
+    want = jsp.csr_to_bsr(jsp.dense_to_csr(dense), bm=bm, bk=bk)
+    _same_bsr(got, want)
+    _same(got.todense(), want.todense())
+    nr = 48 // bm
+    assert sorted(set(got.tile_rows.tolist())) == list(range(nr))
+
+
+@pytest.mark.parametrize("max_nnz", [None, 40])
+@pytest.mark.parametrize("r,c,density", [(64, 256, 0.05), (32, 512, 0.01)])
+def test_bsr_csr_ell_round_trips_match_jax(r, c, density, max_nnz):
+    got_ell = tsp.random_ell(np.random.default_rng(5), r, c, density)
+    want_ell = jsp.random_ell(np.random.default_rng(5), r, c, density)
+    for bm, bk in ((8, 128), (16, 64)):
+        got = tsp.ell_to_bsr(got_ell, bm=bm, bk=bk)
+        want = jsp.ell_to_bsr(want_ell, bm=bm, bk=bk)
+        _same_bsr(got, want)
+        _same_csr(tsp.bsr_to_csr(got), jsp.bsr_to_csr(want))
+        _same_ell(tsp.bsr_to_ell(got, max_nnz), jsp.bsr_to_ell(want, max_nnz))
+        _same(got.todense(), want_ell.todense())
+
+
+def test_bsr_checks_at_construction():
+    tv = torch.zeros((3, 8, 128))
+    rows = torch.tensor([0, 1, 1], dtype=torch.int32)
+    cols = torch.tensor([0, 0, 1], dtype=torch.int32)
+    A = tsp.BsrMatrix(tv, rows, cols, (16, 256))
+    assert A.block_shape == (8, 128) and A.density == 0.75
+    with pytest.raises(ValueError, match="sorted"):
+        tsp.BsrMatrix(tv, torch.tensor([1, 0, 1], dtype=torch.int32), cols, (16, 256))
+    with pytest.raises(ValueError, match=r"tile_cols span \[0, 2\], outside \[0, 2\)"):
+        tsp.BsrMatrix(tv, rows, torch.tensor([0, 0, 2], dtype=torch.int32), (16, 256))
+    with pytest.raises(ValueError, match=r"tile_rows span \[0, 2\], outside \[0, 2\)"):
+        tsp.BsrMatrix(tv, torch.tensor([0, 1, 2], dtype=torch.int32), cols, (16, 256))
+    with pytest.raises(ValueError, match="tile_cols span"):
+        tsp.BsrMatrix(tv, rows, torch.tensor([0, -1, 1], dtype=torch.int32), (16, 256))
+    with pytest.raises(TypeError, match="int32"):
+        tsp.BsrMatrix(tv, rows.long(), cols, (16, 256))
+    with pytest.raises(ValueError, match="grid of 8x128"):
+        tsp.BsrMatrix(tv, rows, cols, (12, 256))
+    with pytest.raises(ValueError, match=r"\(T,\)"):
+        tsp.BsrMatrix(tv, rows[:2], cols, (16, 256))
+    # the reference asserts where the port's constructors raise
+    with pytest.raises(AssertionError):
+        jsp.dense_to_bsr(np.zeros((12, 256), np.float32))
+    with pytest.raises(ValueError, match="grid of 8x128"):
+        tsp.dense_to_bsr(np.zeros((12, 256), np.float32))
+    with pytest.raises(ValueError, match="grid of 8x128"):
+        tsp.csr_to_bsr(tsp.dense_to_csr(np.zeros((16, 200), np.float32)))
+    B = A.to("cpu")
+    assert torch.equal(B.tile_values, A.tile_values) and B.shape == A.shape

@@ -12,6 +12,7 @@ Phases, in order; any failure exits non-zero:
      small fp32 shapes covering GQA, window, q_offset, ragged Sk and
      return_lse; the GEMM at the GCN shapes and at ragged fp32/bf16 ones;
      the ELL SpMM at the GCN adjacencies and at wider random ELL matrices;
+     the scaled GEMM and scaled FA-2 (phase 5's kernels) at their shapes;
   3. run the GCN path (``repro_torch.launch.gcn_inference.run``): two
      144-wide layers over the paper's three graphs and one graph of
      ogbn-arxiv's size, with the launch counts zeroed just before and read
@@ -24,14 +25,25 @@ Phases, in order; any failure exits non-zero:
      counts zeroed just before and read just after (stencil 5, ELL SpMM 3,
      BSR SpMM 3, SpMSpM 3), each output held to the plain path, each case
      profiled warm;
-  5. build ``occamy-gptj`` (GPT-J-6B) at full width with random weights
+  5. run the precision ladder (``repro_torch.launch.precision_ladder.run``,
+     the paper's Fig. 10, at occamy-gptj's full width): the scaled GEMM and
+     scaled FA-2 kernels first held against their plain versions on the
+     same quantized operands for every policy (fp32, bf16, fp8 e4m3, fp8
+     e5m2) at ragged shapes, and the ops against the fp32 oracle; then the
+     entry point once with the launch counts zeroed just before and read
+     just after (gemm_scaled 8, flash_attention_scaled 8), each row within
+     the reference's tolerance of the fp32 oracle and the errors ordered
+     as the ladder;
+  6. build ``occamy-gptj`` (GPT-J-6B) at full width with random weights
      from a seeded ``torch.Generator``, on the card;
-  6. serve a few requests through ``ServingEngine.with_model`` over the
+  7. serve a few requests through ``ServingEngine.with_model`` over the
      paged KV cache, with a pool tight enough to preempt; the kernels'
-     launch counts are zeroed just before and read just after;
-  7. check the run (all requests complete, no leaked blocks, one FA launch
+     launch counts are zeroed just before and read just after; then serve
+     the same requests again with fp8 KV pools (``precision="fp8"``);
+  8. check the runs (all requests complete, no leaked blocks, one FA launch
      per layer per prefill, a prefill's logits with the kernel vs with the
-     plain version) and time every kernel against its plain version, the
+     plain version; the fp8 run's preemptions and first tokens equal the
+     bf16 run's) and time every kernel against its plain version, the
      library call and its bound.
 
 Prints the card's name and power limit, one JSON line of per-kernel
@@ -50,7 +62,8 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "float8_e4m3fn": 1979e12,
+            "float8_e5m2": 1979e12}
 
 # the serving run: requests, pool and slots (full-width occamy-gptj)
 SEED = 0
@@ -777,6 +790,302 @@ SPARSE_LA_JSON = (  # (kernel, source, replaces, the case that goes into the ker
 
 
 # ---------------------------------------------------------------------------
+# the precision ladder (paper Fig. 10): scaled GEMM, scaled FA-2
+# ---------------------------------------------------------------------------
+
+POLICIES = ("fp32", "bf16", "fp8", "fp8_e5m2")
+# kernel vs its plain version on the same quantized operands: Frobenius
+# relative error, the reference suite's cross-impl bound
+# (tests/test_precision.py:125-126, 142-143)
+SCALED_REL_TOL = 1e-4
+# against the fp32 oracle on the unquantized operands: the reference's
+# tolerances (_GEMM_TOL, tests/test_precision.py:108; FA :129, with fp32 at
+# the GEMM's 1e-5 and e5m2 at 0.2, which the reference does not test)
+ORACLE_TOL = {"gemm": {"fp32": 1e-5, "bf16": 0.02, "fp8": 0.1, "fp8_e5m2": 0.2},
+              "flash_attention": {"fp32": 1e-5, "bf16": 0.02, "fp8": 0.1, "fp8_e5m2": 0.2},
+              "decode_attention": {"fp32": 1e-5, "bf16": 0.02, "fp8": 0.1, "fp8_e5m2": 0.2}}
+# per ladder run: four policies, a warm-up and a timed call each; decode
+# has no kernel
+LADDER_LAUNCHES = {"gemm_scaled": 2 * len(POLICIES), "flash_attention_scaled": 2 * len(POLICIES)}
+GEMM_SCALED_REPLACES = "src/repro/kernels/gemm.py:96"
+GEMM_SCALED_SOURCE = "src/repro_torch/csrc/gemm_scaled.cu"
+FA_SCALED_REPLACES = "src/repro/kernels/flash_attention.py:57"
+FA_SCALED_SOURCE = "src/repro_torch/csrc/flash_attention_scaled.cu"
+
+# (label, M, K, N, bk); every case runs under every policy. Rows of K or N
+# elements not a multiple of 8, and K-blocks that start off a multiple of 8,
+# take the kernel's single-load path; the others its chunk loads.
+GEMM_SCALED_CASES = [
+    ("ragged bk=64", 100, 70, 130, 64),
+    ("ragged last block bk=64", 257, 300, 65, 64),
+    ("ragged bk=256", 130, 600, 200, 256),
+    ("K < bk=256", 64, 160, 96, 256),
+    ("odd bk=48", 96, 200, 72, 48),
+    ("bk=20, blocks off the 8-value chunks", 64, 200, 40, 20),
+    ("wide bk=256", 512, 1024, 768, 256),
+]
+# (label, B, H, K, Sq, Sk, D, causal, window, q_offset, return_lse)
+FA_SCALED_CASES = [
+    ("gqa causal lse D=64", 2, 8, 2, 100, 100, 64, True, 0, 0, True),
+    ("window non-causal D=128", 1, 4, 4, 130, 130, 128, False, 17, 0, True),
+    ("window+q_offset ragged Sk D=256", 1, 4, 2, 70, 150, 256, True, 40, 80, True),
+    ("non-causal ragged D=256", 1, 2, 2, 45, 77, 256, False, 0, 0, False),
+    ("q_offset gqa D=64", 2, 4, 1, 37, 101, 64, True, 0, 64, True),
+    ("causal S=512 D=256", 1, 16, 16, 512, 512, 256, True, 0, 0, False),
+]
+
+
+def _frob(got, want):
+    import torch
+
+    diff = got.float() - want.float()
+    return float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(want.float()).clamp_min(1e-30))
+
+
+def _hold_scaled(name, label, got, want):
+    """Kernel output against the plain version's on the same quantized
+    operands: Frobenius relative error within ``SCALED_REL_TOL``; returns
+    the largest absolute difference."""
+    import torch
+
+    need(bool(torch.isfinite(got).all()), f"{name} [{label}]: non-finite kernel output")
+    need(got.shape == want.shape, f"{name} [{label}]: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    need(got.dtype == torch.float32, f"{name} [{label}]: output {got.dtype}, not float32")
+    rel = _frob(got, want)
+    max_abs = float((got.float() - want.float()).abs().max())
+    ok = rel <= SCALED_REL_TOL
+    print(f"kernel {name} [{label}]: vs plain rel {rel:.3e} max_abs={max_abs:.3e} "
+          f"tol rel {SCALED_REL_TOL:g} {'ok' if ok else 'FAIL'}")
+    need(ok, f"{name} kernel disagrees with plain version: {label}")
+    return max_abs
+
+
+def _hold_oracle(op, label, pol, got, oracle):
+    rel = _frob(got, oracle)
+    tol = ORACLE_TOL[op][pol]
+    print(f"op {op} [{label}] {pol}: vs fp32 oracle rel {rel:.3e} tol {tol:g} "
+          f"{'ok' if rel <= tol else 'FAIL'}")
+    need(rel <= tol, f"{op} {pol}: beyond the reference's tolerance vs the fp32 oracle: {label}")
+    return rel
+
+
+def check_precision_kernels(report):
+    """Phase 2 for the precision slice: the scaled GEMM and scaled FA-2
+    kernels against their plain versions on the same quantized operands,
+    for every policy, at ragged shapes (bk 64, 256 and an odd 48; GQA,
+    causal, window, q_offset, return_lse; D 64, 128, 256); and the op
+    through the kernel against the fp32 oracle at the reference's
+    tolerances."""
+    import torch
+
+    from repro_torch.core import precision as prec
+    from repro_torch.hopper import blocked, ops, ref
+    from repro_torch.hopper.flash_attention_scaled import flash_attention_scaled_kernel
+    from repro_torch.hopper.gemm_scaled import gemm_scaled_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    errs = {"gemm_scaled": [], "flash_attention_scaled": []}
+    for label, M, K, N, bk in GEMM_SCALED_CASES:
+        a = torch.randn((M, K), generator=gen, device="cuda")
+        b = torch.randn((K, N), generator=gen, device="cuda")
+        oracle = ref.gemm_ref(a, b, torch.float32)
+        for pol in POLICIES:
+            aq, a_s = prec.quantize_blockwise(a, pol, axis=1, block=bk)
+            bq, b_s = prec.quantize_blockwise(b, pol, axis=0, block=bk)
+            got = gemm_scaled_kernel(aq, bq, a_s, b_s, bk=bk)
+            want = blocked.gemm_scaled_values_blocked(aq, bq, a_s, b_s, bk=bk)
+            torch.cuda.synchronize()
+            tag = f"{label} ({M},{K})x({K},{N}) {pol}"
+            errs["gemm_scaled"].append(_hold_scaled("gemm_scaled", tag, got, want))
+            _hold_oracle("gemm", tag, pol, ops.gemm(a, b, precision=pol, bk=bk, impl="cuda"), oracle)
+    # bf16 output from the kernel: one rounding of the fp32 sum
+    aq, a_s = prec.quantize_blockwise(a, "fp8", axis=1, block=256)
+    bq, b_s = prec.quantize_blockwise(b, "fp8", axis=0, block=256)
+    got = gemm_scaled_kernel(aq, bq, a_s, b_s, bk=256, out_dtype=torch.bfloat16)
+    want = blocked.gemm_scaled_values_blocked(aq, bq, a_s, b_s, bk=256)
+    _hold("gemm_scaled", "wide bk=256 fp8 -> bf16 out", got, want, GEMM_TOL["bfloat16"])
+
+    for case in FA_SCALED_CASES:
+        label, B, H, K, Sq, Sk, D, causal, window, q_offset, lse = case
+        q = torch.randn((B, H, Sq, D), generator=gen, device="cuda")
+        k = torch.randn((B, K, Sk, D), generator=gen, device="cuda")
+        v = torch.randn((B, K, Sk, D), generator=gen, device="cuda")
+        kw = dict(causal=causal, window=window, q_offset=q_offset, return_lse=lse)
+        oracle = ref.mha_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        for pol in POLICIES:
+            (qq, qs), (kq, ks), (vq, vs) = (
+                prec.quantize_blockwise(x, pol, axis=-1, block=D) for x in (q, k, v))
+            got = flash_attention_scaled_kernel(qq, kq, vq, qs, ks, vs, **kw)
+            want = blocked.flash_attention_scaled_values_blocked(qq, kq, vq, qs, ks, vs, **kw)
+            torch.cuda.synchronize()
+            if not lse:
+                got, want = (got,), (want,)
+            tag = f"{label} {pol}"
+            errs["flash_attention_scaled"].append(
+                _hold_scaled("flash_attention_scaled", tag, got[0], want[0]))
+            if lse:
+                _hold("flash_attention_scaled", f"{tag} lse", got[1], want[1], LSE_TOL)
+            out = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                      precision=pol, impl="cuda")
+            _hold_oracle("flash_attention", tag, pol, out, oracle)
+    report["scaled_err"] = {name: max(e) for name, e in errs.items()}
+
+
+def precision_ladder_phase(report):
+    """The precision ladder through its entry point on the card, at
+    occamy-gptj's full width (``precision_ladder.CARD``): launch counts
+    zeroed just before and read just after (gemm_scaled 8,
+    flash_attention_scaled 8, nothing else); each row's output finite and of
+    the oracle's shape, within the reference's tolerance of the fp32
+    oracle, and the error ordering of the ladder (fp32 < bf16 < fp8 <=
+    fp8_e5m2) for each op."""
+    import torch
+
+    from repro_torch.hopper import dispatch
+    from repro_torch.launch import precision_ladder as pl
+
+    t = time.perf_counter()
+    cases = pl.make_cases(pl.CARD, SEED)
+    print(f"precision_ladder: card-size operands drawn in {time.perf_counter() - t:.1f} s on the host")
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    rows = pl.run(device="cuda", seed=SEED, cases=cases, impl="cuda")
+    torch.cuda.synchronize()
+    launches = dict(dispatch.LAUNCHES)
+    print(f"precision_ladder: {len(rows)} rows; kernel launches during the run: {launches}; "
+          f"expected {LADDER_LAUNCHES} (four policies, a warm-up and a timed call each; "
+          f"decode has no kernel)")
+    need(launches == LADDER_LAUNCHES, "precision_ladder launch counts != the path's counts")
+    shapes = {"gemm": (cases[0].operands[0].shape[0], cases[0].operands[1].shape[1]),
+              "flash_attention": tuple(cases[1].operands[0].shape),
+              "decode_attention": tuple(cases[2].operands[0].shape)}
+    by_op = {}
+    for r in rows:
+        need(tuple(r.out.shape) == shapes[r.op], f"ladder {r.op} {r.policy}: shape {tuple(r.out.shape)}")
+        need(bool(torch.isfinite(r.out).all()), f"ladder {r.op} {r.policy}: non-finite output")
+        tol = ORACLE_TOL[r.op][r.policy]
+        print(f"ladder {r.op} {r.policy}: {r.wall_ms:.3f} ms wall (warm call), {r.gflops:.1f} GFLOP/s, "
+              f"bound {r.bound_ms:.5f} ms ({r.bound_by}); vs fp32 oracle max_err {r.max_err:.3e} "
+              f"rel_err {r.rel_err:.3e} (tol {tol:g})")
+        need(r.rel_err <= tol, f"ladder {r.op} {r.policy}: rel_err {r.rel_err:.3e} beyond {tol:g}")
+        by_op.setdefault(r.op, {})[r.policy] = r.rel_err
+    for op, rel in by_op.items():
+        ordered = rel["fp32"] < rel["bf16"] < rel["fp8"] <= rel["fp8_e5m2"]
+        print(f"ladder {op}: rel_err fp32 {rel['fp32']:.3e} < bf16 {rel['bf16']:.3e} < fp8 "
+              f"{rel['fp8']:.3e} <= fp8_e5m2 {rel['fp8_e5m2']:.3e}: {'ok' if ordered else 'FAIL'}")
+        need(ordered, f"ladder {op}: rel_err does not follow the precision ladder")
+    report["ladder_launches"] = launches
+    report["ladder"] = [dict(op=r.op, policy=r.policy, wall_ms=r.wall_ms, gflops=r.gflops,
+                             bound_ms=r.bound_ms, max_err=r.max_err, rel_err=r.rel_err) for r in rows]
+
+
+def _narrow_bound(nbytes, ops, dtype):
+    """The larger of ``nbytes`` over HBM bandwidth and ``ops`` over the
+    compute dtype's peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[str(dtype).replace("torch.", "")] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _nbytes(*xs):
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def time_precision_kernels(report):
+    """Both scaled kernels at the ladder's card shapes, each policy: the
+    kernel on the quantized operands against its plain version on the same
+    operands (held to SCALED_REL_TOL first), the library call and the bound
+    (values and scales read once, the fp32 output written once; the
+    operations over the compute dtype's peak)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import precision as prec
+    from repro_torch.hopper import blocked
+    from repro_torch.hopper.flash_attention_scaled import flash_attention_scaled_kernel
+    from repro_torch.hopper.gemm_scaled import gemm_scaled_kernel
+    from repro_torch.launch import precision_ladder as pl
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    m, k, n = pl.CARD.gemm
+    bk = 256  # resolve_blocks("gemm")'s default, as the ladder's ops.gemm takes it
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    b = torch.randn((k, n), generator=gen, device="cuda")
+    for pol in POLICIES:
+        dt = prec.resolve(pol).compute_dtype
+        aq, a_s = prec.quantize_blockwise(a, pol, axis=1, block=bk)
+        bq, b_s = prec.quantize_blockwise(b, pol, axis=0, block=bk)
+        label = f"({m},{k})x({k},{n}) bk={bk} {pol}"
+        got = gemm_scaled_kernel(aq, bq, a_s, b_s, bk=bk)
+        want = blocked.gemm_scaled_values_blocked(aq, bq, a_s, b_s, bk=bk)
+        err = _hold_scaled("gemm_scaled", f"card {label}", got, want)
+        del got, want
+        kern, plain = _in_turns(lambda: gemm_scaled_kernel(aq, bq, a_s, b_s, bk=bk),
+                                lambda: blocked.gemm_scaled_values_blocked(aq, bq, a_s, b_s, bk=bk), 3)
+        bound, by = _narrow_bound(_nbytes(aq, bq, a_s, b_s) + 4 * m * n, 2 * m * n * k, dt)
+        lib, lib_text = None, "none (no single call scales per K-block)"
+        if dt in (torch.float32, torch.bfloat16):  # unit scales: the same function
+            lib = time_ms(lambda: torch.matmul(aq, bq))
+            lib_text = f"torch.matmul on the {pol} values {lib:.4f} ms"
+        elif dt == torch.float8_e4m3fn:
+            lib_text += "; " + _scaled_mm_reference(aq, bq)
+        report.setdefault("gemm_scaled_time", {})[pol] = dict(
+            shape=label, ms=min(kern), plain_ms=min(plain), library_ms=lib, bound_ms=bound,
+            bound_by=by, max_abs_err=err)
+        print(f"time gemm_scaled [{label}]: kernel {kern} ms, plain {plain} ms, library "
+              f"{lib_text}, bound {bound:.5f} ms ({by}); {2 * m * n * k / min(kern) / 1e9:.1f} "
+              f"TFLOP/s at the kernel's time")
+        del aq, bq, a_s, b_s
+    del a, b
+
+    B, H, K, S, D = pl.CARD.fa
+    q = torch.randn((B, H, S, D), generator=gen, device="cuda")
+    kk = torch.randn((B, K, S, D), generator=gen, device="cuda")
+    v = torch.randn((B, K, S, D), generator=gen, device="cuda")
+    for pol in POLICIES:
+        dt = prec.resolve(pol).compute_dtype
+        (qq, qs), (kq, ks), (vq, vs) = (
+            prec.quantize_blockwise(x, pol, axis=-1, block=D) for x in (q, kk, v))
+        ops_ = (qq, kq, vq, qs, ks, vs)
+        label = f"B={B} H={H} K={K} S={S} D={D} causal {pol}"
+        got = flash_attention_scaled_kernel(*ops_, causal=True)
+        want = blocked.flash_attention_scaled_values_blocked(*ops_, causal=True)
+        err = _hold_scaled("flash_attention_scaled", f"card {label}", got, want)
+        del got, want
+        kern, plain = _in_turns(lambda: flash_attention_scaled_kernel(*ops_, causal=True),
+                                lambda: blocked.flash_attention_scaled_values_blocked(*ops_, causal=True), 3)
+        deq = [prec.dequantize_blockwise(x, s_, axis=-1) for x, s_ in ((qq, qs), (kq, ks), (vq, vs))]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(*deq, is_causal=True))
+        del deq
+        bound, by = _narrow_bound(_nbytes(*ops_) + 4 * B * H * S * D,
+                                  4 * B * H * D * S * (S + 1) // 2, dt)
+        report.setdefault("fa_scaled_time", {})[pol] = dict(
+            shape=label, ms=min(kern), plain_ms=min(plain), library_ms=lib, bound_ms=bound,
+            bound_by=by, max_abs_err=err)
+        print(f"time flash_attention_scaled [{label}]: kernel {kern} ms, plain {plain} ms, "
+              f"sdpa on the fp32 dequantized operands (dequantize not timed) {lib:.4f} ms, "
+              f"bound {bound:.5f} ms ({by})")
+    torch.cuda.synchronize()
+
+
+def _scaled_mm_reference(aq, bq):
+    """``torch._scaled_mm`` on the e4m3 values with unit row-wise scales, a
+    reference point only (it scales per row and column, not per K-block,
+    so it computes another function); its absence is printed, not failed."""
+    import torch
+
+    try:
+        bt = bq.t().contiguous().t()  # column-major B, as the call requires
+        sa = torch.ones((aq.shape[0], 1), device="cuda")
+        sb = torch.ones((1, bq.shape[1]), device="cuda")
+        ms = time_ms(lambda: torch._scaled_mm(aq, bt, scale_a=sa, scale_b=sb,
+                                              out_dtype=torch.bfloat16))
+        return f"reference point: torch._scaled_mm (row-wise scales, bf16 out) {ms:.4f} ms"
+    except (RuntimeError, TypeError) as e:  # not a gate: a library's reference point
+        return f"reference point: torch._scaled_mm not available here ({str(e).splitlines()[0][:100]})"
+
+
+# ---------------------------------------------------------------------------
 # phases 4-6: full-width occamy-gptj through the serving engine
 # ---------------------------------------------------------------------------
 
@@ -803,7 +1112,6 @@ def serve(report):
     import torch
 
     from repro_torch.configs.base import get_config
-    from repro_torch.hopper import dispatch
     from repro_torch.models import transformer
     from repro_torch.serving.engine import ServingEngine
 
@@ -824,10 +1132,44 @@ def serve(report):
         cfg, params, num_blocks=NUM_BLOCKS, block_size=BLOCK_SIZE,
         max_slots=SLOTS, max_blocks_per_seq=MAX_BLOCKS_PER_SEQ, device="cuda",
     )
+    run = _drive(engine, reqs)
+    out, launches = run["out"], run["launches"]
+    fa = launches.get("flash_attention", 0)
+    print(f"serve: completed={len(out)}/{len(reqs)} steps={engine.step_count} "
+          f"preemptions={run['preempts']} prefills={run['prefills']} resumes={run['resumes']} "
+          f"leaked={engine.leaked_blocks()} wall={run['wall']:.3f} s")
+    print(f"serve: kernel launches during the run: {launches}; expected "
+          f"flash_attention = {cfg.num_layers} layers x {run['prefills']} prefills "
+          f"= {cfg.num_layers * run['prefills']}")
+    need(len(out) == len(reqs), "not every request completed")
+    need(all(len(out[r.rid]) == r.max_new_tokens for r in reqs), "short token stream")
+    need(engine.leaked_blocks() == 0, "leaked cache blocks")
+    need(run["preempts"] >= 1, "the pool never preempted")
+    need(fa == cfg.num_layers * run["prefills"], "flash_attention launch count != layers x prefills")
+
+    for n, ms in run["prefill_ms"]:
+        print(f"time prefill: prompt {n} tokens -> {ms:.2f} ms")
+    decode_step_ms, tok_s = _decode_rate(run)
+    print(f"time decode: {len(run['decode_ms'])} steps, mean {decode_step_ms:.2f} ms/step "
+          f"over {SLOTS} slots, {tok_s:.1f} tok/s (first step excluded)")
+    report["fa_launches"] = fa
+    report["serve"] = dict(prefill_ms=run["prefill_ms"], decode_tok_s=tok_s)
+
+    check_prefill_logits(cfg, params, reqs, out)
+    profile_steps(engine, reqs, report)
+    serve_fp8(report, cfg, params, engine, run)
+
+
+def _drive(engine, reqs):
+    """Submit ``reqs`` and run the engine to the end, with a host clock
+    around each model call (both end in a device->host copy) and the
+    kernels' launch counts zeroed just before and read just after."""
+    import torch
+
+    from repro_torch.hopper import dispatch
+
     for r in reqs:
         engine.submit(r)
-
-    # host clock around each model call; both end in a device->host copy
     model = engine.model
     prefill_ms, decode_ms, decode_tokens = [], [], []
     real_prefill, real_decode = model.prefill, model.decode
@@ -846,7 +1188,6 @@ def serve(report):
         return out
 
     model.prefill, model.decode = timed_prefill, timed_decode
-
     torch.cuda.synchronize()
     dispatch.reset_launches()
     t = time.perf_counter()
@@ -854,35 +1195,76 @@ def serve(report):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = dict(dispatch.LAUNCHES)
-
+    model.prefill, model.decode = real_prefill, real_decode
     events = engine.scheduler.events
-    preempts = sum(1 for e in events if e[0] == "preempt")
-    prefills = sum(1 for e in events if e[0] == "admit" and e[5] == 0)
-    resumes = sum(1 for e in events if e[0] == "admit" and e[5] > 0)
-    fa = launches.get("flash_attention", 0)
-    print(f"serve: completed={len(out)}/{len(reqs)} steps={engine.step_count} "
-          f"preemptions={preempts} prefills={prefills} resumes={resumes} "
-          f"leaked={engine.leaked_blocks()} wall={wall:.3f} s")
-    print(f"serve: kernel launches during the run: {launches}; expected "
-          f"flash_attention = {cfg.num_layers} layers x {prefills} prefills "
-          f"= {cfg.num_layers * prefills}")
-    need(len(out) == len(reqs), "not every request completed")
-    need(all(len(out[r.rid]) == r.max_new_tokens for r in reqs), "short token stream")
-    need(engine.leaked_blocks() == 0, "leaked cache blocks")
-    need(preempts >= 1, "the pool never preempted")
-    need(fa == cfg.num_layers * prefills, "flash_attention launch count != layers x prefills")
+    return dict(
+        out=out, wall=wall, launches=launches, prefill_ms=prefill_ms, decode_ms=decode_ms,
+        decode_tokens=decode_tokens,
+        preempts=sum(1 for e in events if e[0] == "preempt"),
+        prefills=sum(1 for e in events if e[0] == "admit" and e[5] == 0),
+        resumes=sum(1 for e in events if e[0] == "admit" and e[5] > 0),
+    )
 
-    for n, ms in prefill_ms:
-        print(f"time prefill: prompt {n} tokens -> {ms:.2f} ms")
-    steady = decode_ms[1:] or decode_ms
-    tok_s = sum(decode_tokens[1:] or decode_tokens) / (sum(steady) / 1e3)
-    print(f"time decode: {len(decode_ms)} steps, mean {sum(steady) / len(steady):.2f} ms/step "
-          f"over {SLOTS} slots, {tok_s:.1f} tok/s (first step excluded)")
-    report["fa_launches"] = fa
-    report["serve"] = dict(prefill_ms=prefill_ms, decode_tok_s=tok_s)
 
-    check_prefill_logits(cfg, params, reqs, out)
-    profile_steps(engine, reqs, report)
+def _decode_rate(run):
+    """Mean decode ms per step and tokens/s, the first step excluded."""
+    steady = run["decode_ms"][1:] or run["decode_ms"]
+    tokens = run["decode_tokens"][1:] or run["decode_tokens"]
+    return sum(steady) / len(steady), sum(tokens) / (sum(steady) / 1e3)
+
+
+def _pool_bytes(cache):
+    pools = [cache.k_pool, cache.v_pool]
+    if cache.quantized:
+        pools += [cache.k_scale, cache.v_scale]
+    return sum(x.numel() * x.element_size() for x in pools)
+
+
+def serve_fp8(report, cfg, params, bf16_engine, bf16_run):
+    """The same requests and pool served with fp8 (e4m3) KV pools: all
+    complete, none leak, the preemptions equal the bf16 run's (the
+    scheduler sees lengths only), every first token equals the bf16 run's
+    (prefill attention is unquantized; only the pages are fp8), one FA
+    launch per layer per prefill and no other launch (decode is the plain
+    paged form, dequantizing each page at use)."""
+    import torch
+
+    from repro_torch.serving.engine import ServingEngine
+
+    reqs = make_requests(cfg.vocab_size)
+    engine = ServingEngine.with_model(
+        cfg, params, num_blocks=NUM_BLOCKS, block_size=BLOCK_SIZE, max_slots=SLOTS,
+        max_blocks_per_seq=MAX_BLOCKS_PER_SEQ, precision="fp8", device="cuda",
+    )
+    cache = engine.model.cache
+    need(cache.quantized and cache.k_pool.dtype == torch.float8_e4m3fn,
+         "the fp8 engine's pools are not float8_e4m3fn with scales")
+    run = _drive(engine, reqs)
+    out, launches, want = run["out"], run["launches"], bf16_run["out"]
+    same_first = sum(out[r.rid][0] == want[r.rid][0] for r in reqs)
+    same_stream = sum(out[r.rid] == want[r.rid] for r in reqs)
+    expected = {"flash_attention": cfg.num_layers * run["prefills"]}
+    print(f"serve fp8: completed={len(out)}/{len(reqs)} steps={engine.step_count} "
+          f"preemptions={run['preempts']} (bf16 {bf16_run['preempts']}) prefills={run['prefills']} "
+          f"resumes={run['resumes']} leaked={engine.leaked_blocks()} wall={run['wall']:.3f} s")
+    print(f"serve fp8: first token equal to the bf16 run's for {same_first}/{len(reqs)} requests; "
+          f"whole stream equal for {same_stream}/{len(reqs)} (printed, not a gate)")
+    print(f"serve fp8: kernel launches during the run: {launches}; expected {expected}")
+    need(len(out) == len(reqs), "fp8: not every request completed")
+    need(all(len(out[r.rid]) == r.max_new_tokens for r in reqs), "fp8: short token stream")
+    need(engine.leaked_blocks() == 0, "fp8: leaked cache blocks")
+    need(run["preempts"] == bf16_run["preempts"], "fp8: preemptions differ from the bf16 run's")
+    need(same_first == len(reqs), "fp8: a first token differs from the bf16 run's")
+    need(launches == expected, "fp8: launch counts != one FA launch per layer per prefill")
+    step_ms, tok_s = _decode_rate(run)
+    bf16_step_ms, _ = _decode_rate(bf16_run)
+    fp8_bytes, bf16_bytes = _pool_bytes(cache), _pool_bytes(bf16_engine.model.cache)
+    print(f"time decode fp8 pools: {len(run['decode_ms'])} steps, mean {step_ms:.2f} ms/step "
+          f"({tok_s:.1f} tok/s, first step excluded); bf16 pools {bf16_step_ms:.2f} ms/step")
+    print(f"serve fp8: resident pool bytes fp8 {fp8_bytes} (values + fp32 scales) vs bf16 "
+          f"{bf16_bytes}: {fp8_bytes / bf16_bytes:.4f}")
+    report["serve_fp8"] = dict(decode_ms_per_step=step_ms, bf16_decode_ms_per_step=bf16_step_ms,
+                               pool_bytes=fp8_bytes, bf16_pool_bytes=bf16_bytes)
 
 
 # A random-weight GPT-J amplifies rounding differences layer by layer: at
@@ -1063,14 +1445,17 @@ def main() -> int:
             print(f"build {name}: " + " | ".join(regs[:4]))
         check_kernels(report)
         check_gcn_kernels(report)
+        check_precision_kernels(report)
         gcn_phase(report)
         cases = _sparse_la_cases()
         check_sparse_la_kernels(report, cases)
         sparse_la_phase(report, cases)
+        precision_ladder_phase(report)
         serve(report)
         time_kernels(report)
         time_gcn_kernels(report)
         time_sparse_la_kernels(report, cases)
+        time_precision_kernels(report)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1102,6 +1487,19 @@ def main() -> int:
             "max_abs_err": report["sparse_la_err"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+        })
+    for name, source, replaces, key in (
+            ("gemm_scaled", GEMM_SCALED_SOURCE, GEMM_SCALED_REPLACES, "gemm_scaled_time"),
+            ("flash_attention_scaled", FA_SCALED_SOURCE, FA_SCALED_REPLACES, "fa_scaled_time")):
+        t = report[key]["fp8"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": report["ladder_launches"][name],
+            "max_abs_err": max(report["scaled_err"][name],
+                               *(r["max_abs_err"] for r in report[key].values())),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+            "policy": "fp8",
         })
     print(f"card: {card}")
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -8,8 +8,15 @@ is the kernel's plain version.
   the reference: fp32 scores with ``q`` scaled before the dot,
   ``NEG = -1e30`` for masked scores, masked probabilities set to exactly
   0 (so a fully-masked row yields 0), and ``l`` clamped at 1e-30.
+- Scaled attention (``precision=``): q/k/v quantized per row over D,
+  dequantized, then the same loop, fp32 out; decode dequantizes each
+  streamed cache block inside the fp32 online softmax (``k_scale``/
+  ``v_scale`` are the scales of a cache already held narrow).
 - ``gemm_blocked``: the reference's ``xla`` gemm is ``gemm_ref`` itself,
   an fp32-accumulated matmul cast to ``out_dtype``.
+- ``gemm_scaled_blocked``: a loop over K blocks of ``bk`` narrow values,
+  each block's fp32 product rescaled by the outer product of its scales
+  into the fp32 accumulator.
 - ``spmm_blocked``: row blocks of ``bm``, slot by slot in fp32, in the
   Pallas body's order (the kernel sums in the same order, so in fp32 the
   two agree bitwise).
@@ -30,11 +37,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import precision as prec
 from repro_torch.hopper.dispatch import resolve_blocks
 from repro_torch.hopper.ref import gemm_ref
 
 NEG = -1e30
 CHUNK_BYTES = 256 << 20  # largest gathered intermediate of the sparse plain forms
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def as_bytes(x):
+    """fp8 tensors as a uint8 view, others as they are: gathers, pads and
+    copies of fp8 values go through their bytes, which every device
+    supports."""
+    return x.view(torch.uint8) if x.dtype in FP8_DTYPES else x
 
 
 def _online_softmax_step(m, denom, acc, s, mask, vblk, pv_eq):
@@ -98,8 +114,30 @@ def flash_attention_blocked(q, k, v, *, causal=True, window=0, q_offset=0,
     return o, lse
 
 
+def flash_attention_scaled_values_blocked(qq, kq, vq, q_scale, k_scale, v_scale,
+                                          **kwargs):
+    """Scaled FA-2 on quantized operands: values (B, H|K, S, D) in a compute
+    dtype and fp32 per-row scales (B, H|K, S, 1), dequantized to fp32, then
+    ``flash_attention_blocked`` (fp32 out). The kernel's plain version."""
+    deq = (prec.dequantize_blockwise(x, s, axis=-1)
+           for x, s in ((qq, q_scale), (kq, k_scale), (vq, v_scale)))
+    return flash_attention_blocked(*deq, **kwargs)
+
+
+def flash_attention_scaled_blocked(q, k, v, precision, **kwargs):
+    """The reference's ``xla.flash_attention_scaled_xla``: q/k/v quantized
+    per row over D to ``precision``'s compute dtype, dequantized, then the
+    unchanged blocked loop; the output is fp32."""
+    p = prec.resolve(precision)
+    quantized = [prec.quantize_blockwise(x, p, axis=-1, block=x.shape[-1])
+                 for x in (q, k, v)]
+    (qq, qs), (kq, ks), (vq, vs) = quantized
+    return flash_attention_scaled_values_blocked(qq, kq, vq, qs, ks, vs, **kwargs)
+
+
 def decode_attention_blocked(q, k, v, position, *, window=0, scale=None,
-                             bs=None, block_table=None, pos_offset=0,
+                             bs=None, precision=None, block_table=None,
+                             k_scale=None, v_scale=None, pos_offset=0,
                              return_lse=False):
     """Single-token attention as a loop over cache blocks.
 
@@ -111,46 +149,57 @@ def decode_attention_blocked(q, k, v, position, *, window=0, scale=None,
     decode when the contiguous length is ``NB * bs``. ``position`` (B,) is
     each token's absolute position; ``pos_offset`` the absolute position of
     logical block 0; ``return_lse`` adds the (B, H) fp32 log-sum-exp.
+
+    ``precision`` holds the cache quantized per row (values plus one fp32
+    scale per cached row, ``precision.quantize_kv_cache``) and dequantizes
+    each streamed block at use; ``k_scale``/``v_scale`` ((P|B, K, bs|S, 1)
+    fp32) are the scales of a cache already held narrow.
     """
     B, H, D = q.shape
     K = k.shape[1]
     G = H // K
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     dev = q.device
+    if precision is not None and k_scale is None:
+        k, k_scale, v, v_scale = prec.quantize_kv_cache(k, v, precision)
     if block_table is not None:
         bs = k.shape[2]
         nb = block_table.shape[1]
         S = nb * bs
+        table = block_table.long()
 
-        def blk(x):  # (P, K, bs, D)[table] -> (nb, B, K, bs, D)
-            return x[block_table.long()].transpose(0, 1).contiguous()
+        def blk(x):  # (P, K, bs, d)[table] -> (nb, B, K, bs, d)
+            return as_bytes(x)[table].transpose(0, 1).contiguous().view(x.dtype)
     else:
         S = k.shape[2]
         bs = min(resolve_blocks("decode_attention", bs=bs)["bs"], S)
         pad = (-S) % bs
-        if pad:
-            k = F.pad(k, (0, 0, 0, pad))
-            v = F.pad(v, (0, 0, 0, pad))
         nb = (S + pad) // bs
 
-        def blk(x):  # (B, K, nb*bs, D) -> (nb, B, K, bs, D)
-            return x.reshape(B, K, nb, bs, D).permute(2, 0, 1, 3, 4).contiguous()
+        def blk(x):  # (B, K, S, d) -> (nb, B, K, bs, d), zero rows past S
+            xb = F.pad(as_bytes(x), (0, 0, 0, pad)) if pad else as_bytes(x)
+            d = x.shape[-1]
+            xb = xb.reshape(B, K, nb, bs, d).permute(2, 0, 1, 3, 4).contiguous()
+            return xb.view(x.dtype)
 
     kb, vb = blk(k), blk(v)
+    ksb, vsb = (blk(k_scale), blk(v_scale)) if k_scale is not None else (None, None)
     qf = (q.float() * scale).reshape(B, K, G, D)
     position = position.to(dev)
     m = torch.full((B, K, G), NEG, device=dev)
     denom = torch.zeros((B, K, G), device=dev)
     acc = torch.zeros((B, K, G, D), device=dev)
     for i in range(nb):
-        s = torch.einsum("bkgd,bksd->bkgs", qf, kb[i].float())
+        kf, vf = kb[i].float(), vb[i].float()
+        if ksb is not None:  # dequantize the cache block at use
+            kf, vf = kf * ksb[i], vf * vsb[i]
+        s = torch.einsum("bkgd,bksd->bkgs", qf, kf)
         idx = pos_offset + i * bs + torch.arange(bs, device=dev)[None, :]
         mask = (idx < pos_offset + S) & (idx <= position[:, None])
         if window:
             mask = mask & (idx > position[:, None] - window)
         m, denom, acc = _online_softmax_step(
-            m, denom, acc, s, mask[:, None, None, :], vb[i].float(),
-            "bkgs,bksd->bkgd",
+            m, denom, acc, s, mask[:, None, None, :], vf, "bkgs,bksd->bkgd",
         )
     o = acc / denom.clamp_min(1e-30)[..., None]
     o = o.reshape(B, H, D).to(q.dtype)
@@ -167,6 +216,42 @@ def gemm_blocked(a, b, *, out_dtype=None, accum_dtype=torch.float32,
     is its ``gemm_ref``, this form is ``ref.gemm_ref``: one matmul;
     ``bm``/``bk``/``bn`` are accepted for the common signature."""
     return gemm_ref(a, b, out_dtype=out_dtype, accum_dtype=accum_dtype)
+
+
+def gemm_scaled_values_blocked(aq, bq, a_scale, b_scale, *, bk,
+                               out_dtype=torch.float32):
+    """Scaled GEMM on quantized operands: aq (M, K), bq (K, N) in a compute
+    dtype, a_scale (M, nk), b_scale (nk, N) fp32 with nk = ceil(K / bk).
+    For each K block: its fp32 product, times the outer product of its
+    scales, added to the fp32 accumulator. The kernel's plain version."""
+    M, K = aq.shape
+    N = bq.shape[1]
+    acc = torch.zeros((M, N), dtype=torch.float32, device=aq.device)
+    for kb in range(a_scale.shape[1]):
+        sl = slice(kb * bk, (kb + 1) * bk)
+        part = aq[:, sl].float() @ bq[sl].float()
+        acc = acc + part * (a_scale[:, kb, None] * b_scale[None, kb, :])
+    return acc.to(out_dtype)
+
+
+def gemm_scaled_blocked(a, b, precision, *, out_dtype=None,
+                        accum_dtype=torch.float32, bm=None, bk=None, bn=None):
+    """The reference's ``xla.gemm_scaled_xla``: a (M, K) quantized per
+    K-block of ``bk`` (``resolve_blocks("gemm")``, at most K) along its
+    rows, b (K, N) along its columns, then ``gemm_scaled_values_blocked``;
+    the output defaults to fp32. Quantizing the unpadded operands gives the
+    reference's values and scales bitwise: its K padding is zeros, which
+    change no block's amax."""
+    if accum_dtype != torch.float32:
+        raise NotImplementedError(
+            f"gemm: accum_dtype={accum_dtype} is not ported; the scaled forms sum in float32"
+        )
+    p = prec.resolve(precision)
+    bk = min(resolve_blocks("gemm", bm=bm, bk=bk, bn=bn)["bk"], a.shape[1])
+    aq, a_scale = prec.quantize_blockwise(a, p, axis=1, block=bk)
+    bq, b_scale = prec.quantize_blockwise(b, p, axis=0, block=bk)
+    return gemm_scaled_values_blocked(aq, bq, a_scale, b_scale, bk=bk,
+                                      out_dtype=out_dtype or torch.float32)
 
 
 def spmm_blocked(values, cols, dense, *, bm=None):

@@ -19,8 +19,10 @@ Block sizes (``resolve_blocks``: explicit > ``set_block_override`` > the
 static table) are the **plain** forms' tiles. A CUDA kernel's tiles are
 compile-time constants of its source.
 
-``LAUNCHES`` counts kernel launches per op: a wrapper adds one where it
-launches its kernel, and nowhere else.
+``LAUNCHES`` counts kernel launches per kernel: a wrapper adds one where it
+launches its kernel, and nowhere else. The scaled kernels count under
+their own keys (``gemm_scaled``, ``flash_attention_scaled``), apart from
+the unscaled ``gemm`` and ``flash_attention``.
 """
 from __future__ import annotations
 

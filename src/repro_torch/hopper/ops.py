@@ -5,27 +5,35 @@ Public signatures and argument checks follow ``repro.kernels.ops``'s
 ``bsr_spmm``, ``spmspm`` and ``stencil``. The implementations:
 
   - ``cuda``:  the Hopper kernels' wrappers, ``hopper/gemm.py``,
-               ``hopper/flash_attention.py``, ``hopper/spmm.py``,
+               ``hopper/gemm_scaled.py``, ``hopper/flash_attention.py``,
+               ``hopper/flash_attention_scaled.py``, ``hopper/spmm.py``,
                ``hopper/bsr_spmm.py``, ``hopper/spmspm.py`` and
                ``hopper/stencil.py`` (decode attention has no kernel, as in
                the reference)
   - ``torch``: ``hopper/blocked.py``, the plain forms
   - ``ref``:   ``hopper/ref.py``, the naive oracles
 
-``precision=`` (narrow operands) and ``mesh=`` (sharded execution) raise
-``NotImplementedError`` until the port's precision and multi-GPU slices
-land.
+``precision=`` on ``gemm``, ``flash_attention`` and ``decode_attention``
+selects a ``core.precision`` policy (fp32, bf16, fp8 = e4m3, fp8_e5m2):
+operands are quantized (per K-block for the GEMM, per row over the head
+dim for attention) and rescaled inside fp32 accumulation; it rides
+dispatch only when set, so ``precision=None`` is the legacy path, bitwise.
+``mesh=`` (sharded execution) raises ``NotImplementedError`` until the
+port's multi-GPU slice lands.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import precision as prec
 from repro_torch.core.sparse import BsrMatrix, EllMatrix
 from repro_torch.hopper import blocked as _blocked
 from repro_torch.hopper import bsr_spmm as _bsr
 from repro_torch.hopper import dispatch
 from repro_torch.hopper import flash_attention as _fa
+from repro_torch.hopper import flash_attention_scaled as _fa_scaled
 from repro_torch.hopper import gemm as _gemm
+from repro_torch.hopper import gemm_scaled as _gemm_scaled
 from repro_torch.hopper import ref as _ref
 from repro_torch.hopper import spmm as _spmm
 from repro_torch.hopper import spmspm as _spmspm
@@ -33,11 +41,16 @@ from repro_torch.hopper import stencil as _stencil
 from repro_torch.hopper.dispatch import kernel_call, resolve_blocks
 
 
-def _not_yet(precision, mesh):
-    if precision is not None:
-        raise NotImplementedError("precision= is not ported yet")
+def _no_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError("mesh= is not ported yet")
+
+
+def _precision_kwargs(precision):
+    # precision rides dispatch only when set, so the None path calls every
+    # impl exactly as before the precision slice
+    precision = prec.resolve(precision)
+    return {} if precision is None else {"precision": precision}
 
 
 # ---------------------------------------------------------------------------
@@ -49,20 +62,39 @@ def gemm(a, b, *, out_dtype=None, accum_dtype=torch.float32, precision=None,
          impl=None, mesh=None, bm=None, bk=None, bn=None):
     """C = A @ B with widening accumulation: a (M, K), b (K, N); the
     output is ``out_dtype`` (default ``a.dtype``). ``bm``/``bk``/``bn``
-    shape the plain form only."""
-    _not_yet(precision, mesh)
+    shape the plain form only.
+
+    ``precision`` quantizes both operands per K-block of ``bk`` (the
+    quantization block, so it reaches the kernel too) to the policy's
+    compute dtype; each block's narrow product is rescaled by its fp32
+    scales inside the fp32 accumulator, and the output defaults to fp32."""
+    _no_mesh(mesh)
     blocks = resolve_blocks("gemm", bm=bm, bk=bk, bn=bn)
     return kernel_call("gemm", a, b, out_dtype=out_dtype,
-                       accum_dtype=accum_dtype, impl=impl, **blocks)
+                       accum_dtype=accum_dtype, impl=impl,
+                       **_precision_kwargs(precision), **blocks)
 
 
-dispatch.register_kernel("gemm", impl="cuda")(_gemm.gemm_cuda)
-dispatch.register_kernel("gemm", impl="torch")(_blocked.gemm_blocked)
+@dispatch.register_kernel("gemm", impl="cuda")
+def _gemm_cuda(a, b, *, precision=None, **kwargs):
+    if precision is not None:
+        return _gemm_scaled.gemm_scaled_cuda(a, b, precision, **kwargs)
+    return _gemm.gemm_cuda(a, b, **kwargs)
+
+
+@dispatch.register_kernel("gemm", impl="torch")
+def _gemm_torch(a, b, *, precision=None, **kwargs):
+    if precision is not None:
+        return _blocked.gemm_scaled_blocked(a, b, precision, **kwargs)
+    return _blocked.gemm_blocked(a, b, **kwargs)
 
 
 @dispatch.register_kernel("gemm", impl="ref")
 def _gemm_ref(a, b, *, out_dtype=None, accum_dtype=torch.float32,
-              bm=None, bk=None, bn=None):
+              precision=None, bm=None, bk=None, bn=None):
+    if precision is not None:
+        return _ref.gemm_scaled_ref(a, b, precision, out_dtype=out_dtype,
+                                    accum_dtype=accum_dtype, bk=bk)
     return _ref.gemm_ref(a, b, out_dtype=out_dtype, accum_dtype=accum_dtype)
 
 
@@ -81,6 +113,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     with ``causal=False``. ``return_lse=True`` also returns the per-row
     log-sum-exp, (B,H,Sq) fp32. ``block_k`` is the historical spelling of
     ``bk``; ``bq``/``bk`` shape the plain form only.
+
+    ``precision`` quantizes q/k/v per row over D (values plus one fp32
+    scale per row); the scaled kernel rescales inside its fp32 block
+    compute. Scaled attention always returns fp32.
     """
     if block_k is not None:
         if bk is not None and bk != block_k:
@@ -88,26 +124,37 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                 f"flash_attention: bk={bk} and its alias block_k={block_k} disagree"
             )
         bk = block_k
-    _not_yet(precision, mesh)
+    _no_mesh(mesh)
     blocks = resolve_blocks("flash_attention", bq=bq, bk=bk)
     return kernel_call(
         "flash_attention", q, k, v, causal=causal, window=window,
         q_offset=q_offset, scale=scale, return_lse=return_lse, impl=impl,
-        **blocks,
+        **_precision_kwargs(precision), **blocks,
     )
 
 
-dispatch.register_kernel("flash_attention", impl="cuda")(_fa.flash_attention_cuda)
-dispatch.register_kernel("flash_attention", impl="torch")(
-    _blocked.flash_attention_blocked
-)
+@dispatch.register_kernel("flash_attention", impl="cuda")
+def _fa_cuda(q, k, v, *, precision=None, **kwargs):
+    if precision is not None:
+        return _fa_scaled.flash_attention_scaled_cuda(q, k, v, precision, **kwargs)
+    return _fa.flash_attention_cuda(q, k, v, **kwargs)
+
+
+@dispatch.register_kernel("flash_attention", impl="torch")
+def _fa_torch(q, k, v, *, precision=None, **kwargs):
+    if precision is not None:
+        return _blocked.flash_attention_scaled_blocked(q, k, v, precision, **kwargs)
+    return _blocked.flash_attention_blocked(q, k, v, **kwargs)
 
 
 @dispatch.register_kernel("flash_attention", impl="ref")
-def _fa_ref(q, k, v, *, causal, window, q_offset, scale, bq=None, bk=None,
-            return_lse=False):
-    return _ref.mha_ref(q, k, v, causal=causal, window=window,
-                        q_offset=q_offset, scale=scale, return_lse=return_lse)
+def _fa_ref(q, k, v, *, causal, window, q_offset, scale, precision=None,
+            bq=None, bk=None, return_lse=False):
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale,
+              return_lse=return_lse)
+    if precision is not None:
+        return _ref.mha_scaled_ref(q, k, v, precision, **kw)
+    return _ref.mha_ref(q, k, v, **kw)
 
 
 def decode_attention(q, k, v, position, *, window=0, scale=None,
@@ -120,28 +167,39 @@ def decode_attention(q, k, v, position, *, window=0, scale=None,
     cache blocks to pool pages; the two layouts are bitwise equal at a
     matching block partition. ``pos_offset`` is the absolute position of
     logical block 0; ``return_lse=True`` adds the (B, H) fp32 log-sum-exp.
-    ``k_scale``/``v_scale`` (quantized pools) belong to the precision
-    slice and raise for now."""
-    _not_yet(precision, mesh)
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("k_scale/v_scale (quantized pools) are not ported yet")
+
+    ``precision`` holds the cache quantized (values plus one fp32 scale per
+    cached row) and dequantizes each streamed block at use.
+    ``k_scale``/``v_scale`` ((P, K, bs, 1) fp32) are the scales of paged
+    pools already held narrow; the contiguous path takes ``precision=``
+    instead and raises ``TypeError`` on them."""
+    _no_mesh(mesh)
     if paged and block_table is None:
         raise TypeError("decode_attention: paged=True requires block_table")
     if block_table is not None and not paged:
         raise TypeError("decode_attention: block_table requires paged=True")
+    scales = {}
     if paged:
         if k.dim() != 4 or k.shape[:3] != v.shape[:3]:
             raise ValueError(
                 f"decode_attention(paged): pools must be (P, K, bs, D), got "
                 f"k={tuple(k.shape)} v={tuple(v.shape)}"
             )
+        if k_scale is not None:
+            scales = dict(k_scale=k_scale, v_scale=v_scale)
         blocks = {}  # the pool's page extent pins bs
     else:
+        if k_scale is not None or v_scale is not None:
+            raise TypeError(
+                "decode_attention: k_scale/v_scale are pool scales for the "
+                "paged path; the contiguous path quantizes via precision="
+            )
         blocks = resolve_blocks("decode_attention", bs=bs)
     return kernel_call(
         "decode_attention", q, k, v, position, window=window, scale=scale,
         block_table=block_table, pos_offset=pos_offset,
-        return_lse=return_lse, impl=impl, **blocks,
+        return_lse=return_lse, impl=impl, **_precision_kwargs(precision),
+        **scales, **blocks,
     )
 
 
@@ -151,16 +209,20 @@ dispatch.register_kernel("decode_attention", impl="torch")(
 
 
 @dispatch.register_kernel("decode_attention", impl="ref")
-def _decode_ref(q, k, v, position, *, window, scale, block_table=None,
-                pos_offset=0, return_lse=False, bs=None):
+def _decode_ref(q, k, v, position, *, window, scale, precision=None,
+                block_table=None, k_scale=None, v_scale=None, pos_offset=0,
+                return_lse=False, bs=None):
+    kw = dict(window=window, scale=scale, pos_offset=pos_offset,
+              return_lse=return_lse)
     if block_table is not None:
         return _ref.decode_attention_paged_ref(
-            q, k, v, block_table, position, window=window, scale=scale,
-            pos_offset=pos_offset, return_lse=return_lse,
+            q, k, v, block_table, position, precision=precision,
+            k_scale=k_scale, v_scale=v_scale, **kw,
         )
-    return _ref.decode_attention_ref(q, k, v, position, window=window,
-                                     scale=scale, pos_offset=pos_offset,
-                                     return_lse=return_lse)
+    if precision is not None:
+        return _ref.decode_attention_scaled_ref(q, k, v, position,
+                                                precision=precision, **kw)
+    return _ref.decode_attention_ref(q, k, v, position, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +244,7 @@ def spmm(values, cols=None, dense=None, *, impl=None, mesh=None, bm=None):
         values, cols = values.values, values.cols
     if cols is None or dense is None:
         raise TypeError("spmm: cols and dense operands are required")
-    _not_yet(None, mesh)
+    _no_mesh(mesh)
     blocks = resolve_blocks("spmm", bm=bm)
     return kernel_call("spmm", values, cols, dense, impl=impl, **blocks)
 
@@ -218,7 +280,7 @@ def bsr_spmm(tile_values, tile_rows=None, tile_cols=None, dense=None,
         raise TypeError(
             "bsr_spmm: tile coordinates, dense operand and num_rows are required"
         )
-    _not_yet(None, mesh)
+    _no_mesh(mesh)
     blocks = resolve_blocks("bsr_spmm", bf=bf)
     return kernel_call("bsr_spmm", tile_values, tile_rows, tile_cols, dense,
                        num_rows=num_rows, impl=impl, **blocks)
@@ -261,7 +323,7 @@ def spmspm(a_values, a_cols, b_values=None, b_rows=None, contraction_dim=None,
         raise TypeError(
             "spmspm: b_values, b_rows and contraction_dim are required"
         )
-    _not_yet(None, mesh)
+    _no_mesh(mesh)
     blocks = resolve_blocks("spmspm", bm=bm, bn=bn)
     return kernel_call("spmspm", a_values, a_cols, b_values, b_rows,
                        contraction_dim=contraction_dim, impl=impl, **blocks)
@@ -290,7 +352,7 @@ def stencil(grid, offsets, weights, *, impl=None, mesh=None, bx=None,
     so it is accepted and ignored here. ``bx`` is the reference kernel's
     x-block: the ``cuda`` impl keeps its limits (X % bx == 0, |dx| <= bx)."""
     del overlap  # one device: no halo exchange to schedule
-    _not_yet(None, mesh)
+    _no_mesh(mesh)
     blocks = resolve_blocks("stencil", bx=bx)
     return kernel_call("stencil", grid, offsets=offsets, weights=weights,
                        impl=impl, **blocks)

@@ -1,14 +1,18 @@
 """Naive oracles: the obviously-correct forms the tests hold the plain
 forms and the kernels to (counterparts of ``repro.kernels.ref``'s
-non-scaled attention oracles, ``gemm_ref``, ``spmm_ref``, ``spmspm_ref``,
-``spmspm_comparisons`` and ``stencil_ref``; ``bsr_spmm_ref`` densifies the
-tiles, where the reference reuses its blocked form)."""
+attention oracles, plain and scaled, ``gemm_ref``, ``gemm_scaled_ref``,
+``spmm_ref``, ``spmspm_ref``, ``spmspm_comparisons`` and ``stencil_ref``;
+``bsr_spmm_ref`` densifies the tiles, where the reference reuses its
+blocked form)."""
 from __future__ import annotations
 
 import math
 
 import numpy as np
 import torch
+
+from repro_torch.core import precision as prec
+from repro_torch.hopper.dispatch import resolve_blocks
 
 
 def mha_ref(q, k, v, *, causal=True, window=0, q_offset=0, scale=None,
@@ -41,6 +45,19 @@ def mha_ref(q, k, v, *, causal=True, window=0, q_offset=0, scale=None,
     return o, lse
 
 
+def _dequantized_rows(x, policy):
+    """``x`` quantized per row over its last axis and reconstructed in fp32."""
+    vals, scales = prec.quantize_blockwise(x, policy, axis=-1, block=x.shape[-1])
+    return prec.dequantize_blockwise(vals, scales, axis=-1)
+
+
+def mha_scaled_ref(q, k, v, precision, **kwargs):
+    """Scaled-attention oracle: q/k/v quantized and dequantized per row over
+    the head dim, then the exact oracle ``mha_ref`` (fp32 out)."""
+    p = prec.resolve(precision)
+    return mha_ref(*(_dequantized_rows(x, p) for x in (q, k, v)), **kwargs)
+
+
 def decode_attention_ref(q, k, v, position, *, window=0, scale=None,
                          pos_offset=0, return_lse=False):
     """One new token per sequence against a contiguous cache: q (B, H, D),
@@ -66,16 +83,33 @@ def decode_attention_ref(q, k, v, position, *, window=0, scale=None,
     return o, lse
 
 
+def decode_attention_scaled_ref(q, k, v, position, *, precision, **kwargs):
+    """Quantized-cache decode oracle: the cache quantized per row as the
+    serving path holds it, dequantized, then the exact oracle."""
+    kq, ks, vq, vs = prec.quantize_kv_cache(k, v, precision)
+    return decode_attention_ref(q, prec.dequantize_blockwise(kq, ks, axis=-1),
+                                prec.dequantize_blockwise(vq, vs, axis=-1),
+                                position, **kwargs)
+
+
 def decode_attention_paged_ref(q, k, v, block_table, position, *, window=0,
-                               scale=None, pos_offset=0, return_lse=False):
+                               scale=None, precision=None, k_scale=None,
+                               v_scale=None, pos_offset=0, return_lse=False):
     """Paged-cache oracle: gather each sequence's pages (k/v pools
     (P, K, bs, D), ``block_table`` (B, NB)) back into the contiguous
-    (B, K, NB*bs, D) layout and run ``decode_attention_ref``."""
+    (B, K, NB*bs, D) layout and run ``decode_attention_ref``. ``precision``
+    quantizes the pools per row first; ``k_scale``/``v_scale`` (P, K, bs,
+    1) are the scales of pools already held narrow."""
+    if precision is not None and k_scale is None:
+        k, k_scale, v, v_scale = prec.quantize_kv_cache(k, v, precision)
+    if k_scale is not None:
+        k = prec.dequantize_blockwise(k, k_scale, axis=-1)
+        v = prec.dequantize_blockwise(v, v_scale, axis=-1)
     B, nb = block_table.shape
     K, bs, D = k.shape[1], k.shape[2], k.shape[3]
 
     def gather(pool):
-        return pool[block_table].transpose(1, 2).reshape(B, K, nb * bs, D)
+        return pool[block_table.long()].transpose(1, 2).reshape(B, K, nb * bs, D)
 
     return decode_attention_ref(
         q, gather(k), gather(v), position, window=window, scale=scale,
@@ -89,6 +123,20 @@ def gemm_ref(a, b, out_dtype=None, accum_dtype=torch.float32):
     ``out_dtype`` (default ``a.dtype``) at the end."""
     out_dtype = out_dtype or a.dtype
     return torch.matmul(a.to(accum_dtype), b.to(accum_dtype)).to(out_dtype)
+
+
+def gemm_scaled_ref(a, b, precision, *, out_dtype=None,
+                    accum_dtype=torch.float32, bk=None):
+    """Scaled-GEMM oracle: both operands quantized per K-block of ``bk``
+    (``resolve_blocks("gemm")``, at most K) as the kernels take them,
+    dequantized to fp32, one matmul; the output defaults to fp32."""
+    p = prec.resolve(precision)
+    bk = min(resolve_blocks("gemm", bk=bk)["bk"], a.shape[1])
+    af = prec.dequantize_blockwise(*prec.quantize_blockwise(a, p, axis=1, block=bk),
+                                   axis=1, block=bk)
+    bf = prec.dequantize_blockwise(*prec.quantize_blockwise(b, p, axis=0, block=bk),
+                                   axis=0, block=bk)
+    return gemm_ref(af, bf, out_dtype or torch.float32, accum_dtype)
 
 
 def spmm_ref(values, cols, dense):

@@ -17,8 +17,10 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core import precision as prec
 from repro_torch.device import resolve_device
 from repro_torch.hopper import ops
+from repro_torch.hopper.blocked import as_bytes
 from repro_torch.models import layers as L
 
 
@@ -223,12 +225,18 @@ def prefill_step(params, cfg, batch, max_len: int):
 
 
 def attention_decode_paged(p, cfg, x, cos, sin, k_pool, v_pool, block_table,
-                           position, *, window=0):
+                           position, *, window=0, k_scale=None, v_scale=None,
+                           policy=None):
     """One layer's decode against paged pools ``k_pool``/``v_pool``
     (P, K, bs, hd). The new token's k/v is written **in place** into page
     ``block_table[b, pos // bs]`` at row ``pos % bs``, then attention runs
     through the paged ``ops.decode_attention``. Inactive slots point at the
-    shared scratch page, which live prefixes never reference."""
+    shared scratch page, which live prefixes never reference.
+
+    Under ``policy`` the pools hold the cache narrow: the new k/v row is
+    quantized per row (``precision.quantize_kv_cache``) and written with
+    its scales into ``k_scale``/``v_scale`` (P, K, bs, 1), and the pools'
+    scales go to ``ops.decode_attention``, which dequantizes at use."""
     B, _ = x.shape
     hd = cfg.resolved_head_dim()
     H, K = cfg.num_heads, cfg.num_kv_heads
@@ -249,19 +257,25 @@ def attention_decode_paged(p, cfg, x, cos, sin, k_pool, v_pool, block_table,
     phys = torch.gather(block_table, 1, (position // bs).long()[:, None])[:, 0].long()
     offset = (position % bs).long()
     heads = torch.arange(K, device=x.device)[None, :]
-    k_pool[phys[:, None], heads, offset[:, None]] = k.to(k_pool.dtype)
-    v_pool[phys[:, None], heads, offset[:, None]] = v.to(v_pool.dtype)
+    rows = {"k": (k_pool, k), "v": (v_pool, v)}
+    if policy is not None:
+        kq, ks, vq, vs = prec.quantize_kv_cache(k, v, policy)
+        rows = {"k": (k_pool, kq), "v": (v_pool, vq),
+                "k_scale": (k_scale, ks), "v_scale": (v_scale, vs)}
+    for pool, row in rows.values():
+        as_bytes(pool)[phys[:, None], heads, offset[:, None]] = as_bytes(row.to(pool.dtype))
 
     o = ops.decode_attention(q, k_pool, v_pool, position, paged=True,
-                             block_table=block_table, window=window)
+                             block_table=block_table, window=window,
+                             k_scale=k_scale, v_scale=v_scale)
     return torch.matmul(o.reshape(B, H * hd), p["wo"])
 
 
 def decode_step_paged(params, cfg, cache, batch):
     """batch {"token": (B,), "position": (B,), "block_table": (B, NB)};
-    ``cache`` a ``serving.paged_cache.PagedKVCache`` (only its pools are
-    touched, and they are updated in place). Returns (logits (B, V_pad)
-    fp32, cache)."""
+    ``cache`` a ``serving.paged_cache.PagedKVCache`` (only its pools, their
+    scales and its policy are touched, and the pools are updated in place).
+    Returns (logits (B, V_pad) fp32, cache)."""
     _check_family(cfg)
     position, block_table = batch["position"], batch["block_table"]
     h = params["embed"][batch["token"].long()]
@@ -269,9 +283,12 @@ def decode_step_paged(params, cfg, cache, batch):
     for i in range(cfg.num_layers):
         p = _layer(params, i)
         n = L.rms_norm(h, p["attn_norm"], cfg.norm_eps)
+        scales = ({} if cache.k_scale is None else
+                  dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i]))
         a = attention_decode_paged(
             p, cfg, n, cos, sin, cache.k_pool[i], cache.v_pool[i],
             block_table, position, window=cfg.sliding_window,
+            policy=cache.policy, **scales,
         )
         if cfg.parallel_block:
             h = h + a + _mlp(p, cfg, n)

@@ -19,8 +19,10 @@ One ``step()`` is one unit of virtual time, in the reference's order:
 The model half sits behind a small protocol (``prefill``/``decode``/
 ``save_blocks``/``restore_blocks``), so the scheduler runs against the
 host-only ``StubModel`` too. ``PagedModel`` serves the dense transformer
-on ``device`` (``cuda`` unless the caller passes another); fp8 pools and
-ring decode over several cards are not ported yet.
+on ``device`` (``cuda`` unless the caller passes another); with
+``precision=`` its KV pools hold the cache narrow (values plus per-row fp32
+scales, dequantized at use in decode). Ring decode over several cards is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -72,10 +74,11 @@ class StubModel:
 
 class PagedModel:
     """The real model half: bucketed paged prefill + all-slot paged decode
-    of the dense transformer over a ``PagedKVCache`` on ``device``."""
+    of the dense transformer over a ``PagedKVCache`` on ``device``; with a
+    ``precision`` policy the pools hold the cache quantized per row."""
 
     def __init__(self, cfg, params, *, num_blocks, block_size, max_slots,
-                 max_blocks_per_seq, device=None):
+                 max_blocks_per_seq, precision=None, device=None):
         from repro_torch.models import transformer
         from repro_torch.serving import paged_cache
 
@@ -94,6 +97,7 @@ class PagedModel:
         self.vocab = cfg.vocab_size
         self.cache = paged_cache.init_paged_cache(
             cfg, num_blocks=num_blocks, block_size=block_size, device=self.device,
+            policy=None if precision is None else getattr(precision, "name", precision),
         )
         self.tables = np.full(
             (max_slots, max_blocks_per_seq), NULL_BLOCK, np.int32
@@ -189,15 +193,15 @@ class ServingEngine:
 
     @classmethod
     def with_model(cls, cfg, params, *, num_blocks=64, block_size=16,
-                   max_slots=8, max_blocks_per_seq=16, device=None,
-                   eos_id=None):
+                   max_slots=8, max_blocks_per_seq=16, precision=None,
+                   device=None, eos_id=None):
         """An engine over a ``PagedModel`` of ``cfg``/``params`` on
         ``device`` (default ``cuda``; raises without CUDA unless a device
-        is given)."""
+        is given); ``precision`` holds its KV pools narrow."""
         model = PagedModel(
             cfg, params, num_blocks=num_blocks, block_size=block_size,
             max_slots=max_slots, max_blocks_per_seq=max_blocks_per_seq,
-            device=device,
+            precision=precision, device=device,
         )
         return cls(model, num_blocks=num_blocks, block_size=block_size,
                    max_slots=max_slots, max_blocks_per_seq=max_blocks_per_seq,

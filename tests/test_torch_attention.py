@@ -161,8 +161,10 @@ def test_decode_attention_argument_checks(rng):
         ops.decode_attention(q, k, v, pos, block_table=table)
     with pytest.raises(ValueError, match="pools must be"):
         ops.decode_attention(q, k[..., 0], v[..., 0], pos, paged=True, block_table=table)
-    with pytest.raises(NotImplementedError):
-        ops.decode_attention(q, k, v, pos, precision="fp8")
+    out = ops.decode_attention(q, k, v, pos, precision="fp8")  # the precision slice runs
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ops.decode_attention(q, k, v, pos, precision="fp8", mesh=object())
     with pytest.raises(NotImplementedError):
         ops.flash_attention(q[:, :, None], k, v, mesh=object())
     with pytest.raises(TypeError, match="disagree"):

@@ -74,8 +74,10 @@ def test_gemm_argument_checks(rng):
     a = torch.from_numpy(rng.standard_normal((8, 4)).astype(np.float32))
     with pytest.raises(NotImplementedError, match="accum_dtype"):
         ops.gemm(a, a.T, accum_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="precision"):
-        ops.gemm(a, a.T, precision="fp8")
+    out = ops.gemm(a, a.T, precision="fp8")  # the precision slice runs, fp32 out
+    assert out.dtype == torch.float32 and tuple(out.shape) == (8, 8)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ops.gemm(a, a.T, precision="fp8", mesh=object())
     with pytest.raises(NotImplementedError, match="mesh"):
         ops.gemm(a, a.T, mesh=object())
     meta = torch.empty((8, 4), device="meta")

@@ -7,7 +7,8 @@
   (``BENCH_serve.json``): the trace is scheduler arithmetic only.
 - The port's engine and the JAX engine, on REDUCED ``occamy-gptj`` with the
   same carried-over weights and requests, give identical token streams,
-  with and without preemption; preempt/resume round-trips bitwise.
+  with and without preemption, with full-precision and with fp8 KV pools;
+  preempt/resume round-trips bitwise.
 - With no CUDA and no ``device=``, the engine raises instead of moving to
   the CPU.
 """
@@ -126,6 +127,30 @@ def test_engine_preempt_resume_is_bitwise(gptj):
         cfg, params, num_blocks=6, device="cpu", **GEOMETRY), _requests(teng))
     roomy, none = _serve(teng.ServingEngine.with_model(
         cfg, params, num_blocks=40, device="cpu", **GEOMETRY), _requests(teng))
+    assert pre > 0 and none == 0
+    assert tight == roomy
+
+
+@pytest.mark.parametrize("num_blocks", [7, 40], ids=["tight", "roomy"])
+def test_fp8_engine_token_streams_match_jax_engine(gptj, num_blocks):
+    jcfg, cfg, np_params, params = gptj
+    want, jpre = _serve(jeng.ServingEngine.with_model(
+        jcfg, jax.tree.map(jax.numpy.asarray, np_params), num_blocks=num_blocks,
+        precision="fp8", **GEOMETRY), _requests(jeng))
+    eng = teng.ServingEngine.with_model(cfg, params, num_blocks=num_blocks, precision="fp8",
+                                        device="cpu", **GEOMETRY)
+    assert eng.model.cache.quantized and eng.model.cache.k_pool.dtype == torch.float8_e4m3fn
+    got, tpre = _serve(eng, _requests(teng))
+    assert (tpre > 0) == (num_blocks == 7) and tpre == jpre
+    assert got == want
+
+
+def test_fp8_engine_preempt_resume_is_bitwise(gptj):
+    _, cfg, _, params = gptj
+    tight, pre = _serve(teng.ServingEngine.with_model(
+        cfg, params, num_blocks=6, precision="fp8", device="cpu", **GEOMETRY), _requests(teng))
+    roomy, none = _serve(teng.ServingEngine.with_model(
+        cfg, params, num_blocks=40, precision="fp8", device="cpu", **GEOMETRY), _requests(teng))
     assert pre > 0 and none == 0
     assert tight == roomy
 

@@ -43,8 +43,20 @@ Phases, in order; any failure exits non-zero:
   8. check the runs (all requests complete, no leaked blocks, one FA launch
      per layer per prefill, a prefill's logits with the kernel vs with the
      plain version; the fp8 run's preemptions and first tokens equal the
-     bf16 run's) and time every kernel against its plain version, the
-     library call and its bound.
+     bf16 run's);
+  9. with GPT-J's weights freed, the recurrent families: the chunked
+     linear-attention kernel first held against its plain version (the
+     reference suite's fp32 cases, both read-outs, chunk 16 and 32; both
+     models' card shapes in bf16, with a ragged T and hymba's broadcast
+     inputs), then ``rwkv6-3b`` and ``hymba-1.5b`` at full width and depth
+     with random weights: ``registry.forward`` and ``loss_fn`` on
+     B x 2048 tokens (launch counts zeroed just before and read just
+     after: linear_attention 32, and flash_attention 32 for hymba),
+     ``launch.serve.generate`` (no linear_attention launch: decode runs the
+     step), for rwkv6 layer 0's scan against 2048 decode steps, and a
+     profile of a warm forward;
+  10. time every kernel against its plain version, the library call and
+     its bound.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Imports
@@ -52,6 +64,7 @@ nothing of JAX or of the reference package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -1398,7 +1411,7 @@ def profile_fn(name, fn, report):
         return e.self_cuda_time_total if t is None else t
 
     busy_ms = sum(dev(e) for e in events) / 1e3
-    top = sorted(events, key=dev, reverse=True)[:6]
+    top = sorted(events, key=dev, reverse=True)[:10]
     launches = sum(e.count for e in events)
     wall = min(walls)
     idle = 1 - busy_ms / wall if busy_ms else None
@@ -1410,6 +1423,383 @@ def profile_fn(name, fn, report):
         print(f"profile {name}:   {dev(e) / 1e3:8.3f} ms x{e.count:5d}  {e.key[:90]}")
     report.setdefault("profile", {})[name] = dict(wall_ms=wall, busy_ms=busy_ms, idle_share=idle,
                                                   span_ms=span_ms, span_share=span_ms / wall)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the recurrent families (rwkv6-3b, hymba-1.5b) and their chunked
+# linear-attention scan
+# ---------------------------------------------------------------------------
+
+LA_REPLACES = "src/repro/kernels/rwkv6.py:24"
+LA_SOURCE = "src/repro_torch/csrc/linear_attention.cu"
+# the reference suite's (t, n, m) cases (tests/test_kernels.py
+# test_linear_attention), B=2 H=3, fp32 with s0, both read-outs, chunk 16
+# and 32: elementwise |kernel - plain| <= 1e-4 + 1e-4 |plain|, the
+# reference's tolerance (both sum fp32 in other orders)
+LA_CASES = [(40, 8, 12), (64, 16, 16), (33, 8, 8)]
+LA_TOL = (1e-4, 1e-4)
+# card shapes, bf16 r/k/v: the fp32 state to max|diff| <= 1e-4 max|plain|
+# (relative to the largest entry: the state's entries span decades, and
+# near-zero ones cancel); o, rounded to bf16 by both, to max|diff| <= one
+# bf16 step at max|plain|: an entry far smaller than the terms it sums
+# carries their fp32 rounding, which can exceed its own bf16 step, so the
+# step is taken at the output's scale (the elementwise worst is printed);
+# and the same inputs in fp32, o to 1e-4 of max|plain|
+LA_REL_TOL = 1e-4
+# on a slice of rwkv6's card shape (b = 0, the first LA_ORACLE_HEADS heads)
+# the kernel and the plain version both stand against the exact per-token
+# recurrence in fp64: the kernel's max|o - oracle| may exceed the plain
+# version's by at most one bf16 step at max|oracle| (bf16 o) or by
+# LA_REL_TOL max|oracle| (o from fp32 inputs); each one's elementwise worst,
+# in bf16 steps of the entry's own magnitude, is printed beside it
+LA_ORACLE_HEADS = 8
+# the cross-route check: the kernel against a loop of the decode step over
+# the same tokens (exact per-token recurrence vs the chunked form): the
+# state to LA_REL_TOL, o (bf16) to max|diff| <= 1e-2 max|step|, two bf16
+# steps of the largest output
+LA_STEP_O_REL_TOL = 1e-2
+RECURRENT = (("rwkv6-3b", 4), ("hymba-1.5b", 2))  # (arch, batch)
+RECURRENT_T = 2048
+GEN_PROMPT, GEN_NEW = 64, 16
+
+
+def _bf16_step(x):
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    import torch
+
+    mag = x.abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.ldexp(torch.ones_like(mag), torch.floor(torch.log2(mag)).int() - 7)
+
+
+def _hold_bf16(name, label, got, want):
+    """max|got - want| <= one bf16 step at max|want| (both round an fp32
+    result to bf16); the elementwise worst, in steps at each entry's own
+    magnitude, is printed beside it."""
+    import torch
+
+    g, w = got.float(), want.float()
+    need(bool(torch.isfinite(g).all()), f"{name} [{label}]: non-finite kernel output")
+    err = (g - w).abs()
+    max_abs = float(err.max()) if err.numel() else 0.0
+    step = float(_bf16_step(w.abs().max()))
+    worst = float((err / _bf16_step(torch.maximum(g.abs(), w.abs()))).max()) if err.numel() else 0.0
+    ok = max_abs <= step
+    print(f"kernel {name} [{label}] o (bf16): max_abs={max_abs:.3e}, one bf16 step at "
+          f"max|plain| {float(w.abs().max()):.3e} is {step:g} {'ok' if ok else 'FAIL'} "
+          f"(elementwise worst {worst:.0f} steps of the entry's own magnitude)")
+    need(ok, f"{name} kernel disagrees with plain version by more than one bf16 step: {label}")
+    return max_abs
+
+
+def _hold_rel(name, label, got, want, tol):
+    """max|got - want| <= tol * max|want|."""
+    import torch
+
+    need(bool(torch.isfinite(got).all()), f"{name} [{label}]: non-finite output")
+    max_abs = float((got.float() - want.float()).abs().max())
+    rel = _rel(got, want)
+    print(f"kernel {name} [{label}]: max_abs={max_abs:.3e} rel={rel:.3e} (tol {tol:g} of max) "
+          f"{'ok' if rel <= tol else 'FAIL'}")
+    need(rel <= tol, f"{name} disagrees: {label} rel {rel:.3e} > {tol:g}")
+    return max_abs
+
+
+def _la_card_inputs(arch, T, gen):
+    """The scan's inputs at ``arch``'s card shape, built the way the
+    model builds them from random activations: rwkv6's transposed
+    (B, S, H, N) views (bf16 r/k/v, fp32 Finch decay ``-exp(w0 + small)``,
+    fp32 u); hymba's ``hybrid._ssd_inputs`` on random weights (broadcast
+    r/k/w). Returns (r, k, v, w_log, u, label)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import hybrid, layers as L, ssm
+
+    cfg = get_config(arch)
+    B = dict(RECURRENT)[arch]
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        N, H = cfg.resolved_head_dim(), ssm._num_heads(cfg)
+        r, k, v = (ssm._heads(torch.randn((B, T, d), generator=gen, device="cuda").bfloat16(), H, N)
+                   for _ in range(3))
+        w0 = torch.linspace(-5.0, -0.5, d, device="cuda")
+        w = ssm._heads(-torch.exp(w0 + 0.5 * torch.randn((B, T, d), generator=gen, device="cuda")),
+                       H, N)
+        u = 0.5 * torch.randn((H, N), generator=gen, device="cuda")
+        return r, k, v, w, u, f"{arch} B={B} H={H} T={T} N=M={N} bf16 r/k/v, fp32 w"
+    di, N = cfg.resolved_d_inner(), cfg.ssm_state
+    nh = hybrid.ssm_heads(cfg)
+    p = {name: L.dense_init(gen, shape, dtype=torch.bfloat16, device="cuda")
+         for name, shape in (("ssm_in", (d, 2 * di)), ("ssm_dt", (d, nh)), ("ssm_bc", (d, 2 * N)))}
+    p["dt_bias"] = torch.zeros(nh, device="cuda")
+    x = torch.randn((B, T, d), generator=gen, device="cuda").bfloat16()
+    r, k, v, w, _, _ = hybrid._ssd_inputs(p, cfg, x)
+    need(r.stride(1) == 0 and k.stride(1) == 0 and w.stride(3) == 0,
+         f"hymba's SSD inputs are not the broadcast views: {r.stride()} {w.stride()}")
+    return r, k, v, w, None, (f"{arch} B={B} nh={nh} T={T} N={N} M={cfg.ssm_head_dim} "
+                              f"bf16 broadcast r/k, fp32 broadcast w")
+
+
+def _la_oracle(label, inputs, outs):
+    """``inputs`` (r, k, v, w, u) at rwkv6's card shape and ``outs`` the
+    (kernel, plain) o from bf16 inputs and from the same inputs in fp32:
+    on the slice b = 0, heads < LA_ORACLE_HEADS, both forms against the
+    per-token recurrence (``impl="ref"``) in fp64. Returns the kernel's
+    largest |o - oracle| from fp32 inputs."""
+    import torch
+
+    from repro_torch.hopper import ops
+
+    r, k, v, w, u = inputs
+    h = LA_ORACLE_HEADS
+    sl = (slice(0, 1), slice(0, h))
+    oracle, _ = ops.linear_attention(*(x[sl].double() for x in (r, k, v, w)), u[:h].double(),
+                                     impl="ref")
+    torch.cuda.synchronize()
+    scale = float(oracle.abs().max())
+    step = float(_bf16_step(oracle.abs().max()))
+    own_step = _bf16_step(oracle)
+    errs = {}
+    for kind, (kern, plain) in outs.items():
+        err = {}
+        for form, o in (("kernel", kern), ("plain", plain)):
+            d = (o[sl].double() - oracle).abs()
+            err[form] = float(d.max())
+            print(f"kernel linear_attention [{label} b=0 heads<{h}, o from {kind} inputs] {form} "
+                  f"vs fp64 per-token oracle: max_abs={err[form]:.3e} (max|oracle| {scale:.3e}), "
+                  f"elementwise worst {float((d / own_step).max()):.0f} bf16 steps of the "
+                  f"entry's own magnitude")
+        slack = step if kind == "bf16" else LA_REL_TOL * scale
+        ok = err["kernel"] <= err["plain"] + slack
+        print(f"kernel linear_attention [{label}, {kind} inputs]: kernel's error vs the oracle "
+              f"within the plain version's + {slack:.3e} {'ok' if ok else 'FAIL'}")
+        need(ok, f"linear_attention kernel further from the fp64 oracle than the plain version "
+                 f"({kind} inputs): {err['kernel']:.3e} > {err['plain']:.3e} + {slack:.3e}")
+        errs[kind] = err["kernel"]
+    return errs["fp32"]
+
+
+def check_la_kernels(report):
+    """The linear-attention kernel against its plain version on the card:
+    the reference suite's cases (fp32, s0, both read-outs, chunk 16 and
+    32), then both models' card shapes (T and a ragged T - 1), and a slice
+    of rwkv6's card shape against the fp64 per-token oracle. Records the
+    largest |kernel - plain| from fp32 inputs and from bf16 inputs apart."""
+    import torch
+
+    from repro_torch.hopper import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    errs = {"fp32": [], "bf16": []}
+    for mode in ("rwkv", "ssd"):
+        for t, n, m in LA_CASES:
+            r, k = (torch.randn((2, 3, t, n), generator=gen, device="cuda") for _ in range(2))
+            v = torch.randn((2, 3, t, m), generator=gen, device="cuda")
+            w = -(0.001 + 1.999 * torch.rand((2, 3, t, n), generator=gen, device="cuda"))
+            u = torch.randn((3, n), generator=gen, device="cuda") if mode == "rwkv" else None
+            s0 = torch.randn((2, 3, n, m), generator=gen, device="cuda")
+            for chunk in (16, 32):
+                got = ops.linear_attention(r, k, v, w, u, s0, impl="cuda", chunk=chunk)
+                want = ops.linear_attention(r, k, v, w, u, s0, impl="torch", chunk=chunk)
+                torch.cuda.synchronize()
+                label = f"{mode} t={t} n={n} m={m} chunk={chunk} fp32 s0"
+                errs["fp32"].append(_hold("linear_attention", label + " o", got[0], want[0], LA_TOL))
+                errs["fp32"].append(_hold("linear_attention", label + " S", got[1], want[1], LA_TOL))
+    for arch, _ in RECURRENT:
+        for T in (RECURRENT_T, RECURRENT_T - 1):
+            r, k, v, w, u, label = _la_card_inputs(arch, T, gen)
+            got = ops.linear_attention(r, k, v, w, u, impl="cuda")
+            want = ops.linear_attention(r, k, v, w, u, impl="torch")
+            torch.cuda.synchronize()
+            errs["bf16"].append(_hold_bf16("linear_attention", label, got[0], want[0]))
+            errs["bf16"].append(_hold_rel("linear_attention", label + " S (fp32)", got[1], want[1],
+                                          LA_REL_TOL))
+            r32, k32, v32 = (x.float() for x in (r, k, v))
+            got32 = ops.linear_attention(r32, k32, v32, w, u, impl="cuda")
+            want32 = ops.linear_attention(r32, k32, v32, w, u, impl="torch")
+            torch.cuda.synchronize()
+            errs["fp32"].append(_hold_rel("linear_attention", label + ", in fp32: o", got32[0],
+                                          want32[0], LA_REL_TOL))
+            if arch == RECURRENT[0][0] and T == RECURRENT_T:
+                report["la_err_oracle_fp32"] = _la_oracle(
+                    label, (r, k, v, w, u),
+                    {"bf16": (got[0], want[0]), "fp32": (got32[0], want32[0])})
+            del r, k, v, w, r32, k32, v32, got, want, got32, want32
+    report["la_err"] = {kind: max(e) for kind, e in errs.items()}
+
+
+def _stored_bytes(x):
+    """Bytes a tensor's distinct elements take: broadcast (stride-0) dims
+    count once."""
+    n = 1
+    for size, stride in zip(x.shape, x.stride()):
+        n *= size if stride else 1
+    return n * x.element_size()
+
+
+def la_bound_ms(r, k, v, w, u, chunk=32):
+    """Least time for one scan on an H100: the larger of its bytes (each
+    input's distinct elements read once, o and the fp32 state written
+    once) over HBM bandwidth and its fp32 operations over the CUDA-core
+    peak: per (b, h) and chunk of c steps, 2 N for each unmasked score
+    pair, 2 M for each pair's share of the read-out, 2 c N M each for
+    the read-out against the state and the state update (c(c-1)/2 pairs
+    for the RWKV mask t > s plus its c-term bonus, c(c+1)/2 for SSD)."""
+    B, H, T, N = r.shape
+    M = v.shape[3]
+    out_bytes = B * H * T * M * v.element_size() + 4 * B * H * N * M
+    nbytes = sum(_stored_bytes(x) for x in (r, k, v, w)) + out_bytes
+    if u is not None:
+        nbytes += _stored_bytes(u)
+    ops_ = 0
+    for c0 in range(0, T, chunk):
+        c = min(chunk, T - c0)
+        pairs = c * (c + 1) // 2 if u is None else c * (c - 1) // 2
+        bonus = 0 if u is None else c * (3 * N + 2 * M)
+        ops_ += 2 * pairs * (N + M) + 4 * c * N * M + bonus
+    ops_ *= B * H
+    return _bound(nbytes, ops_)
+
+
+def time_la_kernels(report):
+    """Kernel and plain version at both card shapes (in turns), against
+    the bound; no single PyTorch call computes a chunked decay scan, so
+    there is no library time."""
+    import torch
+
+    from repro_torch.hopper import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    for arch, _ in RECURRENT:
+        r, k, v, w, u, label = _la_card_inputs(arch, RECURRENT_T, gen)
+        kern, plain = _in_turns(lambda: ops.linear_attention(r, k, v, w, u, impl="cuda"),
+                                lambda: ops.linear_attention(r, k, v, w, u, impl="torch"), 3)
+        bound, by = la_bound_ms(r, k, v, w, u)
+        report.setdefault("la_time", {})[arch] = dict(
+            shape=label, ms=min(kern), plain_ms=min(plain), library_ms=None, bound_ms=bound,
+            bound_by=by)
+        print(f"time linear_attention [{label}]: kernel {kern} ms, plain {plain} ms, library none "
+              f"(no single PyTorch call computes a chunked decay scan), bound {bound:.5f} ms ({by})")
+        del r, k, v, w
+
+
+def cross_route_check(cfg, params, tokens):
+    """Layer 0's scan inputs from the forward (rwkv6): the kernel's o and
+    S_final against a loop of ``ops.linear_attention_step`` over every
+    token (the exact per-token recurrence the decode path runs)."""
+    import torch
+
+    from repro_torch.hopper import ops
+    from repro_torch.models import layers as L, ssm
+
+    lp = ssm._layer(params, 0)
+    x = L.rms_norm(params["embed"][tokens.long()], lp["tm_norm"], cfg.norm_eps)
+    r, k, v, w, _ = ssm.time_mix_inputs(lp, cfg, x, ssm._shift(x))
+    o, S = ops.linear_attention(r, k, v, w, lp["u"], impl="cuda")
+    B, H, T, N = r.shape
+    S_step = torch.zeros((B, H, N, v.shape[3]), device="cuda")
+    o_step = []
+    for t in range(T):
+        o_t, S_step = ops.linear_attention_step(r[:, :, t], k[:, :, t], v[:, :, t], w[:, :, t],
+                                                lp["u"], S_step)
+        o_step.append(o_t)
+    o_step = torch.stack(o_step, 2)
+    torch.cuda.synchronize()
+    label = f"{cfg.name} layer 0, kernel vs {T} decode steps"
+    _hold_rel("linear_attention", label + " S (fp32)", S, S_step, LA_REL_TOL)
+    _hold_rel("linear_attention", label + " o (bf16)", o, o_step, LA_STEP_O_REL_TOL)
+
+
+def recurrent_phase(report, arch, batch):
+    """``arch`` at full width and depth with random weights from seed
+    ``SEED`` on the card: ``registry.forward`` and ``loss_fn`` on
+    batch x RECURRENT_T tokens (launch counts zeroed just before each and
+    read just after: linear_attention once per layer, and for hymba
+    flash_attention once per layer; finite logits of the padded-vocab
+    shape, a finite loss near ln(vocab)), ``serve.generate`` from a
+    GEN_PROMPT-token prompt (no linear_attention launch: decode runs the
+    step), the cross-route check for rwkv6, and a profile of a warm
+    forward."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.hopper import dispatch
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L, registry
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = registry.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    leaves = [x for x in params.values() if torch.is_tensor(x)] + list(params["layers"].values())
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"model {arch} full width: family={cfg.family} layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} heads={cfg.num_heads}x{cfg.resolved_head_dim()} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size} {cfg.dtype} params={nbytes / 1e9:.2f} GB, init "
+          f"{time.perf_counter() - t0:.2f} s (depth not cut)")
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, RECURRENT_T))).cuda()
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, RECURRENT_T))).cuda()
+    want = {"linear_attention": cfg.num_layers}
+    if cfg.family == "hybrid":
+        want["flash_attention"] = cfg.num_layers
+        need(RECURRENT_T > cfg.sliding_window, "the forward must be longer than the window")
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t = time.perf_counter()
+        logits, _ = registry.forward(params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t) * 1e3
+        launches = dict(dispatch.LAUNCHES)
+        print(f"{arch} forward B={batch} T={RECURRENT_T}: {fwd_ms:.1f} ms (first call), kernel "
+              f"launches {launches}, expected {want}")
+        need(launches == want, f"{arch} forward launch counts != {want}")
+        need(tuple(logits.shape) == (batch, RECURRENT_T, L.padded_vocab(cfg.vocab_size)),
+             f"{arch} logits shape {tuple(logits.shape)}")
+        need(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+        del logits
+        dispatch.reset_launches()
+        loss = float(registry.loss_fn(params, cfg, {"tokens": tokens, "labels": labels}))
+        torch.cuda.synchronize()
+        launches_loss = dict(dispatch.LAUNCHES)
+        print(f"{arch} loss_fn: {loss:.4f} (ln vocab = {math.log(cfg.vocab_size):.4f}), "
+              f"launches {launches_loss}")
+        need(math.isfinite(loss), f"{arch}: non-finite loss")
+        need(launches_loss == want, f"{arch} loss_fn launch counts != {want}")
+
+        prompt = tokens[:, :GEN_PROMPT]
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t = time.perf_counter()
+        out = serve.generate(cfg, params, prompt, GEN_NEW, GEN_PROMPT + GEN_NEW + 1)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t
+        gen_launches = dict(dispatch.LAUNCHES)
+        steps = GEN_PROMPT + GEN_NEW - 1
+        print(f"{arch} generate B={batch} prompt {GEN_PROMPT} + {GEN_NEW} new: {gen_s:.3f} s, "
+              f"{steps} decode steps ({gen_s / steps * 1e3:.2f} ms/step), "
+              f"{batch * GEN_NEW / gen_s:.1f} new tok/s (prompt included in the time); "
+              f"kernel launches {gen_launches}")
+        need(tuple(out.shape) == (batch, GEN_PROMPT + GEN_NEW), f"{arch} generate shape")
+        need(bool((out[:, :GEN_PROMPT] == prompt).all()), f"{arch} generate changed the prompt")
+        new = out[:, GEN_PROMPT:]
+        need(bool(((new >= 0) & (new < cfg.vocab_size)).all()), f"{arch}: token outside the vocab")
+        need(gen_launches.get("linear_attention", 0) == 0,
+             f"{arch} generate launched the chunked scan: decode runs the step")
+        print(f"{arch} generate sample: {new[0].tolist()}")
+
+        if cfg.family == "ssm":
+            cross_route_check(cfg, params, tokens)
+        profile_fn(f"{arch} forward B={batch} T={RECURRENT_T}",
+                   lambda: registry.forward(params, cfg, {"tokens": tokens}), report)
+    report.setdefault("recurrent", {})[arch] = dict(
+        forward_ms=fwd_ms, launches=launches, loss=loss, gen_s=gen_s,
+        gen_tok_s=batch * GEN_NEW / gen_s, gen_ms_per_step=gen_s / steps * 1e3)
 
 
 # ---------------------------------------------------------------------------
@@ -1452,10 +1842,19 @@ def main() -> int:
         sparse_la_phase(report, cases)
         precision_ladder_phase(report)
         serve(report)
+        gc.collect()  # occamy-gptj's weights went with serve()
+        torch.cuda.empty_cache()
+        print(f"after serving: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated on the card")
+        check_la_kernels(report)
+        for arch, batch in RECURRENT:
+            recurrent_phase(report, arch, batch)
+            gc.collect()
+            torch.cuda.empty_cache()
         time_kernels(report)
         time_gcn_kernels(report)
         time_sparse_la_kernels(report, cases)
         time_precision_kernels(report)
+        time_la_kernels(report)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1501,6 +1900,23 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
             "policy": "fp8",
         })
+    t = report["la_time"]["rwkv6-3b"]
+    kernels.append({
+        "name": "linear_attention", "route": "cuda", "source": LA_SOURCE,
+        "replaces": LA_REPLACES,
+        # one launch per layer in each model's forward (the slice's main path)
+        "launches": sum(report["recurrent"][a]["launches"]["linear_attention"] for a, _ in RECURRENT),
+        # the largest |kernel - plain| over every check; from fp32 inputs
+        # (the kernel's own fp32 accuracy) and from bf16 inputs (the bf16
+        # rounding of o at |o| ~ 1e2) apart, and the kernel's error against
+        # the fp64 per-token oracle on a slice of this shape, fp32 inputs
+        "max_abs_err": max(report["la_err"].values()),
+        "max_abs_err_fp32_inputs": report["la_err"]["fp32"],
+        "max_abs_err_bf16_inputs": report["la_err"]["bf16"],
+        "max_abs_err_vs_fp64_oracle": report["la_err_oracle_fp32"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+    })
     print(f"card: {card}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -28,6 +28,9 @@ is the kernel's plain version.
 - ``stencil_blocked``: the Pallas body's order, point by point, ``acc =
   acc + float32(w_p) * roll(grid)`` in fp32 (product and sum rounded
   separately), then one cast to the grid's dtype.
+- ``linear_attention_blocked`` (``xla.linear_attention_xla``): T padded to
+  the chunk, a loop over chunks carrying the fp32 state, batched products
+  inside a chunk.
 """
 from __future__ import annotations
 
@@ -339,3 +342,52 @@ def stencil_blocked(grid, offsets, weights, *, bx=None):
         shifted = torch.roll(grid, (-dx, -dy, -dz), dims=(0, 1, 2)).float()
         acc = acc + float(w[p]) * shifted
     return acc.to(grid.dtype)
+
+
+def linear_attention_blocked(r, k, v, w_log, u=None, s0=None, *, chunk=None):
+    """Chunked decay scan (the reference's ``xla.linear_attention_xla``), the
+    plain version of ``csrc/linear_attention.cu``: T padded with zeros to a
+    multiple of ``chunk`` (a padded step decays by exp(0) = 1 and adds
+    k v^T = 0), then a loop over chunks carrying the fp32 state, with
+    batched products inside a chunk, all in fp32:
+
+      inc = cumsum(w) (inclusive), exc = inc - w, e = inc (ssd) | exc (rwkv)
+      o   = (r exp(e)) . S + mask((r exp(e)) (k exp(-inc))^T) . v
+            [+ sum_n(r u k) v, rwkv]
+      S   = exp(inc_last) S + (k exp(inc_last - inc))^T v
+
+    with the mask t >= s (ssd) or t > s (rwkv). r, k, w_log (B, H, T, N);
+    v (B, H, T, M); u (H, N) or None (ssd); s0 (B, H, N, M) or None.
+    Returns (o (B, H, T, M) in v's dtype, S_final (B, H, N, M) fp32)."""
+    chunk = resolve_blocks("linear_attention", chunk=chunk)["chunk"]
+    B, H, T, N = r.shape
+    M = v.shape[-1]
+    pad = (-T) % chunk
+    rf, kf, vf, wf = (F.pad(x.float(), (0, 0, 0, pad)) for x in (r, k, v, w_log))
+    nc = (T + pad) // chunk
+    ssd = u is None
+    idx = torch.arange(chunk, device=v.device)
+    mask = idx[:, None] >= idx[None, :] if ssd else idx[:, None] > idx[None, :]
+    S = (torch.zeros((B, H, N, M), dtype=torch.float32, device=v.device)
+         if s0 is None else s0.float())
+    outs = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        rc, kc, vc, wc = rf[:, :, sl], kf[:, :, sl], vf[:, :, sl], wf[:, :, sl]
+        inc = torch.cumsum(wc, dim=2)
+        e = inc if ssd else inc - wc
+        total = inc[:, :, -1:, :]
+        r_dec = rc * torch.exp(e)
+        o = torch.einsum("bhcn,bhnm->bhcm", r_dec, S)
+        scores = torch.einsum("bhtn,bhsn->bhts", r_dec, kc * torch.exp(-inc))
+        scores = torch.where(mask, scores, 0.0)
+        o = o + torch.einsum("bhts,bhsm->bhtm", scores, vc)
+        if not ssd:
+            o = o + (rc * u[None, :, None].float() * kc).sum(-1, keepdim=True) * vc
+        k_tail = kc * torch.exp(total - inc)
+        S = (torch.exp(total)[:, :, 0, :, None] * S
+             + torch.einsum("bhsn,bhsm->bhnm", k_tail, vc))
+        outs.append(o)
+    o = (torch.cat(outs, 2)[:, :, :T] if outs
+         else torch.zeros((B, H, 0, M), dtype=torch.float32, device=v.device))
+    return o.to(v.dtype), S

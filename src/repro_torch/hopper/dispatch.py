@@ -17,12 +17,15 @@ otherwise. Nothing here retreats from one implementation to another.
 
 Block sizes (``resolve_blocks``: explicit > ``set_block_override`` > the
 static table) are the **plain** forms' tiles. A CUDA kernel's tiles are
-compile-time constants of its source.
+compile-time constants of its source, with one exception: the linear
+attention kernel takes ``chunk`` at run time, since the chunk bounds the
+span one fp32 ``exp`` covers (``ops.linear_attention``'s overflow guard).
 
 ``LAUNCHES`` counts kernel launches per kernel: a wrapper adds one where it
 launches its kernel, and nowhere else. The scaled kernels count under
 their own keys (``gemm_scaled``, ``flash_attention_scaled``), apart from
-the unscaled ``gemm`` and ``flash_attention``.
+the unscaled ``gemm`` and ``flash_attention``; the chunked scan counts
+under ``linear_attention`` (its single-token step has no kernel).
 """
 from __future__ import annotations
 
@@ -105,6 +108,7 @@ def reset_launches() -> None:
 _BLOCK_DEFAULTS: dict[str, dict[str, int]] = {
     "gemm": {"bm": 256, "bk": 256, "bn": 256},
     "flash_attention": {"bq": 128, "bk": 128},
+    "linear_attention": {"chunk": 32},
     "spmm": {"bm": 128},
     "bsr_spmm": {"bf": 512},
     "spmspm": {"bm": 8, "bn": 128},

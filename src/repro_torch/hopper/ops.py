@@ -1,15 +1,17 @@
 """The port's op entry points, dispatched through ``hopper.dispatch``.
 
 Public signatures and argument checks follow ``repro.kernels.ops``'s
-``gemm``, ``flash_attention``, ``decode_attention``, ``spmm``,
-``bsr_spmm``, ``spmspm`` and ``stencil``. The implementations:
+``gemm``, ``flash_attention``, ``decode_attention``, ``linear_attention``
+(and its single-token ``linear_attention_step``), ``spmm``, ``bsr_spmm``,
+``spmspm`` and ``stencil``. The implementations:
 
   - ``cuda``:  the Hopper kernels' wrappers, ``hopper/gemm.py``,
                ``hopper/gemm_scaled.py``, ``hopper/flash_attention.py``,
-               ``hopper/flash_attention_scaled.py``, ``hopper/spmm.py``,
+               ``hopper/flash_attention_scaled.py``,
+               ``hopper/linear_attention.py``, ``hopper/spmm.py``,
                ``hopper/bsr_spmm.py``, ``hopper/spmspm.py`` and
-               ``hopper/stencil.py`` (decode attention has no kernel, as in
-               the reference)
+               ``hopper/stencil.py`` (decode attention and the linear
+               attention step have no kernel, as in the reference)
   - ``torch``: ``hopper/blocked.py``, the plain forms
   - ``ref``:   ``hopper/ref.py``, the naive oracles
 
@@ -34,6 +36,7 @@ from repro_torch.hopper import flash_attention as _fa
 from repro_torch.hopper import flash_attention_scaled as _fa_scaled
 from repro_torch.hopper import gemm as _gemm
 from repro_torch.hopper import gemm_scaled as _gemm_scaled
+from repro_torch.hopper import linear_attention as _la
 from repro_torch.hopper import ref as _ref
 from repro_torch.hopper import spmm as _spmm
 from repro_torch.hopper import spmspm as _spmspm
@@ -223,6 +226,72 @@ def _decode_ref(q, k, v, position, *, window, scale, precision=None,
         return _ref.decode_attention_scaled_ref(q, k, v, position,
                                                 precision=precision, **kw)
     return _ref.decode_attention_ref(q, k, v, position, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Chunked linear attention with data-dependent decay (RWKV6 / SSD)
+# ---------------------------------------------------------------------------
+
+# per-token decay floor; the chunked forms exponentiate at most
+# chunk * |W_LOG_FLOOR| in one fp32 exp, so chunk is bounded by _MAX_CHUNK_EXP
+# (log(f32max) ~= 88.7, kept with margin), as in the reference
+W_LOG_FLOOR = -2.5
+_MAX_CHUNK_EXP = 85.0
+
+
+def _floor_decay(w_log):
+    """max(w_log, W_LOG_FLOOR), computed once per stored value: dims that
+    ``w_log`` broadcasts with stride 0 stay broadcast."""
+    stored = tuple(slice(0, 1) if st == 0 else slice(None) for st in w_log.stride())
+    return torch.clamp_min(w_log[stored], W_LOG_FLOOR).expand(w_log.shape)
+
+
+def linear_attention(r, k, v, w_log, u=None, s0=None, *, impl=None, mesh=None,
+                     chunk=None):
+    """Chunked scan: S_t = diag(exp(w_t)) S_{t-1} + k_t v_t^T.
+
+    u given  => RWKV6 read-out (o_t from S_{t-1} plus u-bonus for token t)
+    u None   => SSD/Mamba read-out (o_t from S_t)
+    r, k, w_log (B, H, T, N); v (B, H, T, M); u (H, N); s0 (B, H, N, M).
+    Returns (o (B, H, T, M) in v's dtype, S_final (B, H, N, M) fp32).
+    ``w_log`` is floored at ``W_LOG_FLOOR`` first; a ``chunk`` whose span
+    could overflow one fp32 exp raises ``ValueError`` (not for ``ref``,
+    the exact per-token scan)."""
+    _no_mesh(mesh)
+    chunk = resolve_blocks("linear_attention", chunk=chunk)["chunk"]
+    if (dispatch.resolve_impl("linear_attention", impl) != "ref"
+            and chunk * -W_LOG_FLOOR > _MAX_CHUNK_EXP):
+        raise ValueError(
+            f"chunk={chunk} overflows fp32: chunk * |W_LOG_FLOOR| = "
+            f"{chunk * -W_LOG_FLOOR} must stay <= {_MAX_CHUNK_EXP} "
+            f"(max chunk {int(_MAX_CHUNK_EXP / -W_LOG_FLOOR)})"
+        )
+    return kernel_call("linear_attention", r, k, v, _floor_decay(w_log), u, s0,
+                       chunk=chunk, impl=impl)
+
+
+dispatch.register_kernel("linear_attention", impl="cuda")(_la.linear_attention_cuda)
+dispatch.register_kernel("linear_attention", impl="torch")(_blocked.linear_attention_blocked)
+
+
+@dispatch.register_kernel("linear_attention", impl="ref")
+def _la_ref(r, k, v, w_log, u, s0, *, chunk=None):
+    return _ref.linear_attention_scan_ref(r, k, v, w_log, u, s0)
+
+
+def linear_attention_step(r, k, v, w_log, u, S):
+    """Single-token decode step: r, k, w_log (B, H, N); v (B, H, M);
+    S (B, H, N, M) fp32. Returns (o (B, H, M) in v's dtype, S_new). Plain
+    tensor code on any device: the reference has no kernel for it."""
+    w_log = torch.clamp_min(w_log, W_LOG_FLOOR)
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w_log))
+    S_new = torch.exp(wf)[..., None] * S + kf[..., :, None] * vf[..., None, :]
+    if u is None:
+        o = torch.einsum("bhn,bhnm->bhm", rf, S_new)
+    else:
+        o = (torch.einsum("bhn,bhnm->bhm", rf, S)
+             + (rf * (u[None].float() * kf)).sum(-1, keepdim=True) * vf)
+    return o.to(v.dtype), S_new
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Naive oracles: the obviously-correct forms the tests hold the plain
 forms and the kernels to (counterparts of ``repro.kernels.ref``'s
 attention oracles, plain and scaled, ``gemm_ref``, ``gemm_scaled_ref``,
-``spmm_ref``, ``spmspm_ref``, ``spmspm_comparisons`` and ``stencil_ref``;
-``bsr_spmm_ref`` densifies the tiles, where the reference reuses its
-blocked form)."""
+``spmm_ref``, ``spmspm_ref``, ``spmspm_comparisons``, ``stencil_ref`` and
+``linear_attention_scan_ref``; ``bsr_spmm_ref`` densifies the tiles, where
+the reference reuses its blocked form)."""
 from __future__ import annotations
 
 import math
@@ -208,3 +208,40 @@ def stencil_ref(grid, offsets, weights):
         out = out + float(w[p]) * torch.roll(
             grid, (-dx, -dy, -dz), dims=(0, 1, 2)).float()
     return out.to(grid.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Chunked linear attention with data-dependent decay (RWKV6 / SSD)
+# ---------------------------------------------------------------------------
+
+
+def linear_attention_scan_ref(r, k, v, w_log, u, s0=None):
+    """Exact per-token recurrence (the oracle). r, k, w_log (B, H, T, N);
+    v (B, H, T, M); u (H, N) or None; s0 (B, H, N, M) or None.
+
+    rwkv (u given):  o_t = r_t . S_{t-1} + (r_t * u * k_t) v_t
+    ssd  (u None):   o_t = r_t . S_t
+    both:            S_t = diag(exp(w_t)) S_{t-1} + k_t v_t^T
+
+    Computes in fp32, or in fp64 where v is fp64. Returns (o (B, H, T, M)
+    in v's dtype, S_final (B, H, N, M) fp32, or fp64 where v is)."""
+    B, H, T, N = r.shape
+    M = v.shape[-1]
+    acc = torch.float64 if v.dtype == torch.float64 else torch.float32
+    S = (torch.zeros((B, H, N, M), dtype=acc, device=v.device)
+         if s0 is None else s0.to(acc))
+    rf, kf, vf, wf = (x.to(acc) for x in (r, k, v, w_log))
+    outs = []
+    for t in range(T):
+        rt, kt, vt, wt = rf[:, :, t], kf[:, :, t], vf[:, :, t], wf[:, :, t]
+        S_new = torch.exp(wt)[..., None] * S + kt[..., :, None] * vt[..., None, :]
+        if u is None:
+            o = torch.einsum("bhn,bhnm->bhm", rt, S_new)
+        else:
+            o = (torch.einsum("bhn,bhnm->bhm", rt, S)
+                 + (rt * u[None].to(acc) * kt).sum(-1, keepdim=True) * vt)
+        S = S_new
+        outs.append(o)
+    o = (torch.stack(outs, 2) if outs
+         else torch.zeros((B, H, 0, M), dtype=acc, device=v.device))
+    return o.to(v.dtype), S

@@ -1,0 +1,101 @@
+"""Batched generation for the recurrent families (port of
+``repro.launch.serve``): feed the prompt through ``registry.decode_step``
+token by token, then decode greedily.
+
+On the card (full width, random weights from seed 0):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
+
+``--reduced`` takes the family's REDUCED config; ``--device cpu`` runs on
+the CPU (the default is ``cuda``, which raises without a card). The dense
+family's generation needs the contiguous-cache ``transformer.decode_step``,
+which is not ported yet (the serving engine serves that family).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.device import resolve_device
+from repro_torch.models import registry
+
+RECURRENT = ("ssm", "hybrid")
+
+
+def _check_family(cfg):
+    if cfg.family not in RECURRENT:
+        raise NotImplementedError(
+            f"generate runs the recurrent families {RECURRENT}; {cfg.family!r} "
+            f"needs the contiguous-cache decode_step, not ported yet"
+        )
+
+
+def _positions(B, t, device):
+    return torch.full((B,), t, dtype=torch.int32, device=device)
+
+
+@torch.no_grad()
+def scan_prefill(params, cfg, cache, tokens):
+    """Prompt prefill for the recurrent families: ``registry.decode_step``
+    over the prompt, one token at a time. tokens (B, S0). Returns
+    (last-token logits (B, V_pad) fp32, cache after the full prompt)."""
+    _check_family(cfg)
+    B, S0 = tokens.shape
+    logits = None
+    for t in range(S0):
+        logits, cache = registry.decode_step(
+            params, cfg, cache, {"token": tokens[:, t], "position": _positions(B, t, tokens.device)})
+    return logits, cache
+
+
+@torch.no_grad()
+def generate(cfg, params, tokens, gen_len: int, max_len: int):
+    """tokens (B, S0) prompt on the params' device; returns (B, S0 + gen_len),
+    greedy."""
+    _check_family(cfg)
+    B, S0 = tokens.shape
+    cache = registry.init_cache(cfg, B, max_len, device=tokens.device)
+    logits, cache = scan_prefill(params, cfg, cache, tokens)
+    last = logits[:, : cfg.vocab_size].argmax(-1)
+    out = [last]
+    for i in range(gen_len - 1):
+        logits, cache = registry.decode_step(
+            params, cfg, cache, {"token": last, "position": _positions(B, S0 + i, tokens.device)})
+        last = logits[:, : cfg.vocab_size].argmax(-1)
+        out.append(last)
+    return torch.cat([tokens, torch.stack(out, 1).to(tokens.dtype)], dim=1)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="rwkv6-3b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default=None)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=16)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch, reduced=args.reduced)
+    device = resolve_device(args.device)
+    params = registry.init_params(cfg, seed=0, device=device)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))).to(device)
+    t0 = time.perf_counter()
+    out = generate(cfg, params, tokens, args.gen, args.prompt_len + args.gen + 1)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"{cfg.name} on {where}: generated {tuple(out.shape)} in {dt:.2f} s = "
+          f"{args.batch * args.gen / dt:.1f} new tok/s (prompt fed token by token)")
+    print("sample:", out[0, -args.gen:].tolist())
+
+
+if __name__ == "__main__":
+    main()

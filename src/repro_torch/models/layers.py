@@ -87,3 +87,20 @@ def dense_init(gen, shape, scale=None, dtype=torch.bfloat16, device=None):
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return (x.mul_(scale)).to(dtype)
+
+
+def cross_entropy_loss(logits, labels, vocab_size: int):
+    """Mean next-token NLL over labels >= 0 (negative labels are ignored),
+    in fp32; the padded vocab tail (ids >= ``vocab_size``) is masked out of
+    the partition function. logits (B, S, V_pad); labels (B, S) ints."""
+    lf = logits.float()
+    v_pad = lf.shape[-1]
+    if v_pad > vocab_size:
+        tail = torch.arange(v_pad, device=lf.device) >= vocab_size
+        lf = lf.masked_fill(tail, -1e30)
+    logz = torch.logsumexp(lf, dim=-1)
+    labels = labels.long()
+    valid = labels >= 0
+    gold = torch.gather(lf, -1, labels.clamp_min(0)[..., None])[..., 0]
+    nll = torch.where(valid, logz - gold, 0.0)
+    return nll.sum() / valid.sum().clamp_min(1)

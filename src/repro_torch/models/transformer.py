@@ -5,8 +5,9 @@ Parameters are a plain dict of tensors with the reference's layout: the
 per-layer leaves stacked on a leading ``num_layers`` axis (layer ``i`` is
 the view ``leaf[i]``). Covers GQA/MQA, qk-norm, QKV biases, gated/plain
 MLPs and the GPT-J parallel-residual block. Prefill attention goes through
-``ops.flash_attention`` (the Hopper FA-2 kernel on the card); paged decode
-through ``ops.decode_attention``. Projections are ``torch.matmul``, as the
+``ops.flash_attention`` (the Hopper FA-2 kernel on the card); paged decode,
+and the contiguous-cache ``attention_decode`` the hybrid family's decode
+calls, through ``ops.decode_attention``. Projections are ``torch.matmul``, as the
 reference leaves them to XLA einsums. Prefill logits are cast to the
 activation dtype; decode logits stay fp32, as in the reference.
 """
@@ -217,6 +218,40 @@ def prefill_step(params, cfg, batch, max_len: int):
         k_all = torch.nn.functional.pad(k_all, (0, 0, 0, pad))
         v_all = torch.nn.functional.pad(v_all, (0, 0, 0, pad))
     return _logits(params, cfg, h), {"k": k_all, "v": v_all}
+
+
+# ---------------------------------------------------------------------------
+# contiguous-cache decode attention (hybrid family)
+# ---------------------------------------------------------------------------
+
+
+def attention_decode(p, cfg, x, cos, sin, k_cache, v_cache, position, *, window=0):
+    """One layer's decode against a contiguous cache: x (B, d); caches
+    (B, K, Smax, hd); position (B,) absolute index. The new token's k/v is
+    written **in place** at ``position``, then attention runs through the
+    contiguous ``ops.decode_attention``. Returns (o (B, d), k_cache, v_cache)."""
+    B, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    q = torch.matmul(x, p["wq"])
+    k = torch.matmul(x, p["wk"])
+    v = torch.matmul(x, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, H, hd)
+    k = k.reshape(B, K, hd)
+    v = v.reshape(B, K, hd)
+    if "q_norm" in p:
+        q = L.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = L.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cos is not None:  # cos/sin (B, hd / 2) from per-row positions
+        q = L.apply_rope(q[:, None], cos[:, None], sin[:, None])[:, 0]
+        k = L.apply_rope(k[:, None], cos[:, None], sin[:, None])[:, 0]
+    rows, pos = torch.arange(B, device=x.device), position.long()
+    k_cache[rows, :, pos] = k.to(k_cache.dtype)
+    v_cache[rows, :, pos] = v.to(v_cache.dtype)
+    o = ops.decode_attention(q, k_cache, v_cache, position, window=window)
+    return torch.matmul(o.reshape(B, H * hd), p["wo"]), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------

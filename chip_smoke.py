@@ -54,8 +54,28 @@ Phases, in order; any failure exits non-zero:
      after: linear_attention 32, and flash_attention 32 for hymba),
      ``launch.serve.generate`` (no linear_attention launch: decode runs the
      step), for rwkv6 layer 0's scan against 2048 decode steps, and a
-     profile of a warm forward;
-  10. time every kernel against its plain version, the library call and
+     profile of a warm forward; rwkv6's card-shape o is held against the
+     fp64 per-token oracle on b = 0, heads 0-7, and on the (b, head) of
+     the tensor's worst bf16 entry, with that entry's values printed;
+  10. the sequence-parallel ring at occamy-gptj's attention width on a
+     ``RingMesh`` of 4 ranks (one stream each, on one card or one card
+     each): the ring-hop kernel (``remote_ring_hop``'s port) held bitwise
+     to ``copy_`` at byte-odd sizes and offsets, and the flash ring in fp32
+     to the unsharded FA kernel at S=2048 and 16384; then
+     ``repro_torch.launch.ring_attention.run`` once with the launch counts
+     zeroed just before and read just after (the Fig. 13b hop sweep,
+     timed cold and warm; ``ops.flash_attention(mesh=, remote_copy=)`` at
+     S=2048 and 16384, zigzag, contiguous and window 512, overlap on and
+     off, remote_copy on and off, and a B=4 batch split, then timed; ring
+     decode with bf16 and fp8 pools): each call's launches equal its
+     plan's (zigzag 24 ring_hop + 28 FA, contiguous 24 + 16, window
+     8 + 8) and the run's totals the per-call launches times the calls
+     made, the outputs bitwise invariant to overlap and remote_copy and
+     within 1e-2 (Frobenius) and four bf16 steps (elementwise) of the
+     unsharded kernel, the ring with its last hop left out beyond 1e-2,
+     ring decode bitwise ``ring_decode_reference``; then profiles of a
+     warm ring call;
+  11. time every kernel against its plain version, the library call and
      its bound.
 
 Prints the card's name and power limit, one JSON line of per-kernel
@@ -75,6 +95,7 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s by type
 HBM_BYTES_PER_S = 3.35e12
+NVLINK_BYTES_PER_S = 450e9  # one way, card to card
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "float8_e4m3fn": 1979e12,
             "float8_e5m2": 1979e12}
 
@@ -1375,14 +1396,34 @@ def profile_steps(engine, reqs, report):
         profile_fn(name, fn, report)
 
 
+def _union_ms(prof):
+    """The time the device was busy in a trace: the union of its device
+    records' intervals (kernels on several streams overlap, so their sum
+    can exceed the wall); None where the trace holds no device record."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type.name == "CUDA")
+    if not spans:
+        return None
+    total, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            total += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    return (total + hi - lo) / 1e3
+
+
 def profile_fn(name, fn, report):
     """Warm wall time of ``fn`` (min of 3, host clock ended by a sync), the
     span of one more call on the device (CUDA events, no profiler), and a
     device-time breakdown of another (torch.profiler). The idle share is
-    1 - device busy / wall, from the profiler's trace; where the trace
-    holds no device time it is None. The span share (span / wall) is
-    reported on its own: it comes from another call and counts the gaps
-    between kernels as busy, so it is not an idle share."""
+    1 - device busy / wall, device busy being the union of the trace's
+    device records (kernels of concurrent streams counted once); where the
+    trace holds no device time it is None. The kernels' summed time is
+    printed beside it. The span share (span / wall) is reported on its
+    own: it comes from another call and counts the gaps between kernels as
+    busy, so it is not an idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1410,14 +1451,17 @@ def profile_fn(name, fn, report):
         t = getattr(e, "self_device_time_total", None)
         return e.self_cuda_time_total if t is None else t
 
-    busy_ms = sum(dev(e) for e in events) / 1e3
+    sum_ms = sum(dev(e) for e in events) / 1e3
+    union_ms = _union_ms(prof)
+    busy_ms = sum_ms if union_ms is None else union_ms  # records without intervals: their sum
     top = sorted(events, key=dev, reverse=True)[:10]
     launches = sum(e.count for e in events)
     wall = min(walls)
     idle = 1 - busy_ms / wall if busy_ms else None
     idle_text = f"{idle:.3f}" if busy_ms else "None (the trace holds no device time)"
     print(f"profile {name}: wall {wall:.3f} ms (min of {walls}), device busy "
-          f"{busy_ms:.3f} ms, idle share {idle_text}, {launches} kernel launches in the trace; "
+          f"{busy_ms:.3f} ms (kernel times summed {sum_ms:.3f} ms), idle share {idle_text}, "
+          f"{launches} kernel launches in the trace; "
           f"span by CUDA events {span_ms:.3f} ms, span share {span_ms / wall:.3f}")
     for e in top:
         print(f"profile {name}:   {dev(e) / 1e3:8.3f} ms x{e.count:5d}  {e.key[:90]}")
@@ -1446,12 +1490,15 @@ LA_TOL = (1e-4, 1e-4)
 # step is taken at the output's scale (the elementwise worst is printed);
 # and the same inputs in fp32, o to 1e-4 of max|plain|
 LA_REL_TOL = 1e-4
-# on a slice of rwkv6's card shape (b = 0, the first LA_ORACLE_HEADS heads)
-# the kernel and the plain version both stand against the exact per-token
-# recurrence in fp64: the kernel's max|o - oracle| may exceed the plain
-# version's by at most one bf16 step at max|oracle| (bf16 o) or by
-# LA_REL_TOL max|oracle| (o from fp32 inputs); each one's elementwise worst,
-# in bf16 steps of the entry's own magnitude, is printed beside it
+# on two slices of rwkv6's card shape (b = 0 with the first LA_ORACLE_HEADS
+# heads, and the (b, head) that holds the whole tensor's worst bf16 o entry,
+# counted in bf16 steps of the entry's own magnitude) the kernel and the
+# plain version both stand against the exact per-token recurrence in fp64:
+# the kernel's max|o - oracle| may exceed the plain version's by at most one
+# bf16 step at max|oracle| (bf16 o) or by LA_REL_TOL max|oracle| (o from
+# fp32 inputs); each one's elementwise worst, in bf16 steps of the entry's
+# own magnitude, is printed beside it, and at the worst entry itself both
+# forms' values beside the oracle's
 LA_ORACLE_HEADS = 8
 # the cross-route check: the kernel against a loop of the decode step over
 # the same tokens (exact per-token recurrence vs the chunked form): the
@@ -1540,20 +1587,33 @@ def _la_card_inputs(arch, T, gen):
                               f"bf16 broadcast r/k, fp32 broadcast w")
 
 
-def _la_oracle(label, inputs, outs):
+def _worst_entry(got, want):
+    """The index (b, h, t, m) of the largest |got - want| counted in bf16
+    steps of the entry's own magnitude (``_hold_bf16``'s elementwise
+    worst), and that count."""
+    import numpy as np
+    import torch
+
+    g, w = got.float(), want.float()
+    steps = (g - w).abs() / _bf16_step(torch.maximum(g.abs(), w.abs()))
+    idx = np.unravel_index(int(steps.argmax()), tuple(steps.shape))
+    return tuple(int(i) for i in idx), float(steps.max())
+
+
+def _la_oracle(label, inputs, outs, b, heads):
     """``inputs`` (r, k, v, w, u) at rwkv6's card shape and ``outs`` the
     (kernel, plain) o from bf16 inputs and from the same inputs in fp32:
-    on the slice b = 0, heads < LA_ORACLE_HEADS, both forms against the
-    per-token recurrence (``impl="ref"``) in fp64. Returns the kernel's
-    largest |o - oracle| from fp32 inputs."""
+    on the slice (b, heads), both forms against the per-token recurrence
+    (``impl="ref"``) in fp64. Returns the kernel's largest |o - oracle|
+    from fp32 inputs, and the fp64 oracle of the slice."""
     import torch
 
     from repro_torch.hopper import ops
 
     r, k, v, w, u = inputs
-    h = LA_ORACLE_HEADS
-    sl = (slice(0, 1), slice(0, h))
-    oracle, _ = ops.linear_attention(*(x[sl].double() for x in (r, k, v, w)), u[:h].double(),
+    sl = (slice(b, b + 1), heads)
+    where = f"b={b} heads {heads.start}..{heads.stop - 1}"
+    oracle, _ = ops.linear_attention(*(x[sl].double() for x in (r, k, v, w)), u[heads].double(),
                                      impl="ref")
     torch.cuda.synchronize()
     scale = float(oracle.abs().max())
@@ -1565,18 +1625,47 @@ def _la_oracle(label, inputs, outs):
         for form, o in (("kernel", kern), ("plain", plain)):
             d = (o[sl].double() - oracle).abs()
             err[form] = float(d.max())
-            print(f"kernel linear_attention [{label} b=0 heads<{h}, o from {kind} inputs] {form} "
+            print(f"kernel linear_attention [{label} {where}, o from {kind} inputs] {form} "
                   f"vs fp64 per-token oracle: max_abs={err[form]:.3e} (max|oracle| {scale:.3e}), "
                   f"elementwise worst {float((d / own_step).max()):.0f} bf16 steps of the "
                   f"entry's own magnitude")
         slack = step if kind == "bf16" else LA_REL_TOL * scale
         ok = err["kernel"] <= err["plain"] + slack
-        print(f"kernel linear_attention [{label}, {kind} inputs]: kernel's error vs the oracle "
-              f"within the plain version's + {slack:.3e} {'ok' if ok else 'FAIL'}")
+        print(f"kernel linear_attention [{label} {where}, {kind} inputs]: kernel's error vs the "
+              f"oracle within the plain version's + {slack:.3e} {'ok' if ok else 'FAIL'}")
         need(ok, f"linear_attention kernel further from the fp64 oracle than the plain version "
-                 f"({kind} inputs): {err['kernel']:.3e} > {err['plain']:.3e} + {slack:.3e}")
+                 f"({where}, {kind} inputs): {err['kernel']:.3e} > {err['plain']:.3e} + {slack:.3e}")
         errs[kind] = err["kernel"]
-    return errs["fp32"]
+    return errs["fp32"], oracle
+
+
+def _la_worst_entry_oracle(label, inputs, outs, report):
+    """The fp64 oracle on the (b, head) of the whole tensor's worst bf16 o
+    entry (kernel vs plain, in the entry's own bf16 steps): both forms held
+    against it on that slice (``_la_oracle``), and at the entry itself the
+    kernel's, the plain version's and the oracle's values, each form's
+    distance from the oracle in bf16 steps of the oracle's magnitude and
+    as a share of max|oracle| on the slice."""
+    kern, plain = outs["bf16"]
+    (b, h, t, m), steps = _worst_entry(kern, plain)
+    print(f"kernel linear_attention [{label}] worst bf16 o entry (b={b}, h={h}, t={t}, m={m}): "
+          f"{steps:.0f} bf16 steps of its own magnitude between kernel and plain")
+    err32, oracle = _la_oracle(label, inputs, outs, b, slice(h, h + 1))
+    want = float(oracle[0, 0, t, m])
+    scale = float(oracle.abs().max())
+    own = float(_bf16_step(oracle[0, 0, t, m].abs()))
+    entry = dict(b=b, h=h, t=t, m=m, steps_kernel_vs_plain=steps, oracle=want,
+                 max_abs_oracle_slice=scale)
+    for form, o in (("kernel", kern), ("plain", plain)):
+        got = float(o[b, h, t, m])
+        entry[form] = got
+        entry[f"{form}_steps_vs_oracle"] = abs(got - want) / own
+        entry[f"{form}_err_share_of_max"] = abs(got - want) / scale
+        print(f"kernel linear_attention [{label}] at the worst entry: {form} {got:.6e}, fp64 oracle "
+              f"{want:.6e}: {abs(got - want) / own:.1f} bf16 steps of the oracle's magnitude, "
+              f"{abs(got - want) / scale:.3e} of max|oracle| on the slice")
+    report["la_worst_entry"] = entry
+    return err32
 
 
 def check_la_kernels(report):
@@ -1621,9 +1710,12 @@ def check_la_kernels(report):
             errs["fp32"].append(_hold_rel("linear_attention", label + ", in fp32: o", got32[0],
                                           want32[0], LA_REL_TOL))
             if arch == RECURRENT[0][0] and T == RECURRENT_T:
-                report["la_err_oracle_fp32"] = _la_oracle(
-                    label, (r, k, v, w, u),
-                    {"bf16": (got[0], want[0]), "fp32": (got32[0], want32[0])})
+                inputs = (r, k, v, w, u)
+                outs = {"bf16": (got[0], want[0]), "fp32": (got32[0], want32[0])}
+                err_heads, _ = _la_oracle(label, inputs, outs, 0, slice(0, LA_ORACLE_HEADS))
+                err_worst = _la_worst_entry_oracle(label, inputs, outs, report)
+                report["la_err_oracle_fp32"] = max(err_heads, err_worst)
+                del inputs, outs
             del r, k, v, w, r32, k32, v32, got, want, got32, want32
     report["la_err"] = {kind: max(e) for kind, e in errs.items()}
 
@@ -1803,6 +1895,233 @@ def recurrent_phase(report, arch, batch):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the sequence-parallel ring (remote_ring_hop's kernel, the flash
+# KV ring, cache-sharded ring decode) at occamy-gptj's attention width
+# ---------------------------------------------------------------------------
+
+RING_HOP_REPLACES = "src/repro/core/streams.py:256"
+RING_HOP_SOURCE = "src/repro_torch/csrc/ring_hop.cu"
+RING_N = 4
+# (bytes, src byte offset, dst byte offset): odd sizes, a common offset
+# (the kernel's head, body and tail) and offsets that differ mod 16 (its
+# byte loop); held bitwise to copy_
+RING_HOP_CASES = [(1, 0, 0), (15, 0, 0), (16, 0, 0), (17, 3, 3), (33, 1, 2), (4099, 5, 0),
+                  (65543, 7, 7), (1 << 20, 0, 0), (3000001, 13, 13), (4 << 20, 0, 8)]
+# the flash ring's output against the unsharded FA kernel on the same card:
+# fp32 elementwise to 1e-4 + 1e-4 |full| (both sum in fp32, in other
+# orders). bf16 in the Frobenius norm, ||ring - full|| <= RING_BF16_REL
+# ||full||: each hop's partial is rounded to bf16 before the fp32 merge and
+# the merged output once more; one bf16 rounding leaves at most 2^-9 of
+# each entry, about 2^-9/sqrt(3) ~ 1.1e-3 in the norm, so the ring's
+# roundings and the unsharded kernel's come to about 2-3e-3 together, and
+# RING_BF16_REL is four times that. The same ring with its last hop left
+# out (a planted fault, read in the phase) must lie above it. On an H100
+# the sound rings read 0.8e-3 to 1.7e-3 and the rings without their last
+# hop 0.12 to 1.24, at the CARD cases' seeds. Elementwise,
+# max|ring - full| <= RING_BF16_STEPS bf16 steps at max|full| (a partial
+# over fewer keys can reach max|v|, about twice max|o|)
+RING_F32_TOL = (1e-4, 1e-4)
+RING_BF16_REL = 1e-2
+RING_BF16_STEPS = 4
+# fp32 cases of the hold (label, B, H, S, D, causal, window, zigzag), at
+# the head dim the fp32 kernel is held at in phase 2, at GPT-J's context
+# and at the long-context length of the bf16 ring
+RING_F32_CASES = [("fp32 S=2048 D=128 causal zigzag", 1, 16, 2048, 128, True, 0, True),
+                  ("fp32 S=2048 D=128 causal contiguous", 1, 16, 2048, 128, True, 0, False),
+                  ("fp32 S=2048 D=128 window 512", 1, 16, 2048, 128, True, 512, True),
+                  ("fp32 S=16384 D=128 causal zigzag", 1, 16, 16384, 128, True, 0, True),
+                  ("fp32 S=16384 D=128 causal contiguous", 1, 16, 16384, 128, True, 0, False)]
+
+
+def _ring_devices():
+    """One card per rank when the machine has RING_N cards, else None (all
+    ranks on cuda:0)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", r) for r in range(RING_N)] if n >= RING_N else None
+
+
+def _ring_expected(row, n=RING_N):
+    """The launches one ring call of ``row`` makes: per rank, one ring_hop
+    per leaf (k and v) per send and one FA call per hop (zigzag: one at
+    hop 0, two at every later hop); the batch split one FA call per rank."""
+    hops = row["hops"]
+    if not hops:
+        return {"flash_attention": n}
+    fa = n * (1 + 2 * (hops - 1)) if "zigzag" in row["note"] else n * hops
+    return {"ring_hop": 2 * (hops - 1) * n, "flash_attention": fa}
+
+
+def check_ring_kernels(report):
+    """The ring-hop kernel against copy_ (bitwise) at byte-odd sizes and
+    offsets, and the flash ring in fp32 against the unsharded FA kernel at
+    RING_F32_TOL, with remote_copy on the ring's every send."""
+    import torch
+
+    from repro_torch.hopper import ops, ring_hop
+    from repro_torch.parallel.mesh import RingMesh
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    devices = _ring_devices() or [torch.device("cuda", 0)] * 2
+    worst = 0
+    for nbytes, a, b in RING_HOP_CASES:
+        src = torch.randint(0, 256, (nbytes + a,), dtype=torch.uint8, generator=gen,
+                            device=devices[0])[a:]
+        dst = torch.zeros(nbytes + b, dtype=torch.uint8, device=devices[1])[b:]
+        ref = torch.zeros_like(dst)
+        torch.cuda.synchronize()
+        ring_hop.ring_hop_cuda(src, dst)
+        ring_hop.ring_hop_plain(src, ref)
+        torch.cuda.synchronize()
+        err = int((dst.int() - ref.int()).abs().max())
+        worst = max(worst, err)
+        print(f"kernel ring_hop [{nbytes} B, src offset {a}, dst offset {b}]: max_abs={err} "
+              f"{'ok' if err == 0 else 'FAIL'} (bitwise vs copy_)")
+        need(err == 0, f"ring_hop kernel differs from copy_ at {nbytes} B offsets {a}/{b}")
+    report["ring_hop_err"] = float(worst)
+    mesh = RingMesh(RING_N, devices=_ring_devices())
+    for label, B, H, S, D, causal, window, zigzag in RING_F32_CASES:
+        q, k, v = (torch.randn((B, H, S, D), generator=gen, device="cuda") for _ in range(3))
+        full = ops.flash_attention(q, k, v, causal=causal, window=window)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window, zigzag=zigzag,
+                                  mesh=mesh, remote_copy=True)
+        torch.cuda.synchronize()
+        _hold("flash ring", label, got, full, RING_F32_TOL)
+        del q, k, v, full, got
+
+
+def _ring_without_last_hop(q, k, v, mesh, **kw):
+    """The ring with its last hop left out: a planted fault, to show that
+    the bf16 hold sees one."""
+    from repro_torch.hopper import ops, partition
+
+    ring_scan = partition.ring_scan
+    partition.ring_scan = lambda *a, hops, **k_: ring_scan(*a, hops=hops - 1, **k_)
+    try:
+        return ops.flash_attention(q, k, v, mesh=mesh, remote_copy=True, **kw)
+    finally:
+        partition.ring_scan = ring_scan
+
+
+def ring_phase(report):
+    """The ring's entry point (``repro_torch.launch.ring_attention.run``)
+    once, with the launch counts zeroed just before and read just after:
+    the hop sweep (bitwise, then timed cold and warm), the flash ring at
+    S=2048 and 16384 (zigzag, contiguous, window 512; overlap on and off,
+    remote_copy on and off; then timed) and a batch split, and ring decode
+    with bf16 and fp8 pools. Each ring call's launches equal the plan's
+    (``_ring_expected``; 0 ring_hop launches with remote_copy off and in
+    ring decode), and the run's totals equal the per-call launches times
+    the calls the run made; overlap and remote_copy leave the output
+    bitwise unchanged; the bf16 ring within RING_BF16_REL (Frobenius) and
+    RING_BF16_STEPS (elementwise) of the unsharded kernel, and the ring
+    with its last hop left out beyond RING_BF16_REL; ring decode bitwise
+    ``ring_decode_reference`` and within ORACLE_TOL of contiguous decode.
+    Then a profile of a warm zigzag ring call at each S."""
+    import torch
+
+    from repro_torch.hopper import dispatch, ops
+    from repro_torch.launch import ring_attention as ra
+    from repro_torch.parallel.mesh import RingMesh
+
+    devices = _ring_devices()
+    cards = len(set(devices)) if devices else 1
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    out = ra.run(n=RING_N, cases=ra.CARD, devices=devices)
+    torch.cuda.synchronize()
+    launches = dict(dispatch.LAUNCHES)
+    want = {"ring_hop": sum(r["calls"] for r in out["hops"])}
+    for row in out["flash"]:
+        exp = _ring_expected(row)
+        exp_copy = {k: v for k, v in exp.items() if k != "ring_hop"}
+        print(f"ring {row['name']}: {row['note']}; launches per call {row['launches']}, "
+              f"expected {exp} (copy route {exp_copy}); calls {row['calls']}; "
+              f"||ring - full|| / ||full|| {row['rel_err']:.4e}; max|ring - full| "
+              f"{row['max_abs_err']:.4e} at max|full| {row['max_abs_full']:.4e}; bitwise "
+              f"overlap on/off {row['bitwise_overlap']}, remote_copy on/off "
+              f"{row['bitwise_remote_copy']}")
+        need(row["launches"]["overlap"] == exp and row["launches"]["sync"] == exp,
+             f"{row['name']}: launches {row['launches']} != {exp}")
+        need(row["launches"]["copy"] == exp_copy,
+             f"{row['name']}: remote_copy=False launched {row['launches']['copy']}")
+        need(row["bitwise_overlap"] and row["bitwise_remote_copy"],
+             f"{row['name']}: overlap or remote_copy changed the output")
+        need(row["rel_err"] <= RING_BF16_REL,
+             f"{row['name']}: ||ring - full|| / ||full|| {row['rel_err']:.4e} > {RING_BF16_REL}")
+        step = float(_bf16_step(torch.tensor(row["max_abs_full"])))
+        need(row["max_abs_err"] <= RING_BF16_STEPS * step,
+             f"{row['name']}: max|ring - full| {row['max_abs_err']:.4e} > {RING_BF16_STEPS} "
+             f"bf16 steps ({step:g}) at max|full|")
+        for key in ("overlap", "sync", "copy"):
+            for name, count in row["launches"][key].items():
+                want[name] = want.get(name, 0) + count * row["calls"][key]
+        want["flash_attention"] = want.get("flash_attention", 0) + row["calls"]["full"]
+    for row in out["decode"]:
+        tol = ORACLE_TOL["decode_attention"]["fp8" if row["pools"] == "fp8" else "bf16"]
+        print(f"ring {row['name']}: bitwise ring_decode_reference {row['bitwise_reference']}, "
+              f"overlap invariant {row['bitwise_overlap']}, Frobenius rel to contiguous decode "
+              f"{row['rel_err_contiguous']:.3e} (tol {tol}), launches {row['launches']}")
+        need(row["bitwise_reference"] and row["bitwise_overlap"],
+             f"{row['name']}: not bitwise ring_decode_reference / overlap invariant")
+        need(row["rel_err_contiguous"] <= tol, f"{row['name']}: far from contiguous decode")
+        need("ring_hop" not in row["launches"], f"{row['name']}: ring decode launched ring_hop")
+    need(all(r["bitwise"] for r in out["hops"]), "hop sweep: the hop differs from copy_")
+    print(f"ring phase ({RING_N} ranks on {cards} card(s)): launches {launches}, expected {want}")
+    need(launches == want, f"ring phase launch counts {launches} != {want}")
+    report["ring_launches"] = launches
+    report["ring_cards"] = cards
+
+    for row in out["flash"]:
+        print(f"time ring {row['name']}: ring {row['ring_ms']:.4f} ms (overlap), "
+              f"{row['ring_sync_ms']:.4f} ms (sync); unsharded kernel {row['full_ms']:.4f} ms; "
+              f"ring / unsharded {row['ring_ms'] / row['full_ms']:.2f}")
+    for row in out["decode"]:
+        print(f"time ring {row['name']}: ring {row['ring_ms']:.4f} ms, one-card reference "
+              f"{row['reference_ms']:.4f} ms")
+    report["ring_time"] = {r["name"]: r for r in out["flash"] + out["decode"]}
+
+    report["ring_hop_time"] = {}
+    for row in out["hops"]:
+        nbytes = row["bytes"]
+        if cards == 1:  # read and written once in HBM
+            bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        else:  # one way over NVLink
+            bound = nbytes / NVLINK_BYTES_PER_S * 1e3
+        report["ring_hop_time"][nbytes] = dict(
+            ms=row["hop_ms"], plain_ms=row["copy_ms"], bound_ms=bound,
+            warm_ms=row["hop_warm_ms"], warm_plain_ms=row["copy_warm_ms"])
+        print(f"time ring_hop [{nbytes} B, {cards} card(s)]: cold (L2 flushed before each "
+              f"call, events around the one call) kernel {row['hop_turns_ms']} ms, copy_ "
+              f"{row['copy_turns_ms']} ms (the plain version and the library call); bound "
+              f"{bound:.5f} ms (bytes); kernel / bound {row['hop_ms'] / bound:.2f}, "
+              f"{(1 if cards > 1 else 2) * nbytes / row['hop_ms'] / 1e6:.1f} GB/s; warm (back "
+              f"to back on the same buffers, L2-resident below 50 MB, host launch cost "
+              f"included) kernel {row['hop_warm_ms']:.5f} ms, copy_ {row['copy_warm_ms']:.5f} ms")
+
+    mesh = RingMesh(RING_N, devices=devices)
+    for case, row in zip(ra.CARD.flash, out["flash"]):
+        label, _, S, causal, window, zigzag = case
+        if row["hops"] < 2:
+            continue
+        kw = dict(causal=causal, window=window, zigzag=zigzag)
+        q, k, v = ra.flash_inputs(case, ra.CARD, "cuda")
+        full = ops.flash_attention(q, k, v, causal=causal, window=window).float()
+        fault = _ring_without_last_hop(q, k, v, mesh, **kw).float()
+        rel = float((fault - full).norm() / full.norm())
+        print(f"ring planted fault [{label}, last hop left out]: ||ring - full|| / ||full|| "
+              f"{rel:.4e} (hold {RING_BF16_REL}; the sound ring "
+              f"{row['rel_err']:.4e})")
+        need(rel > RING_BF16_REL, f"ring [{label}]: the bf16 hold misses a left-out hop")
+        if zigzag and causal and not window:
+            profile_fn(f"flash ring S={S} zigzag, {RING_N} ranks",
+                       lambda: ops.flash_attention(q, k, v, mesh=mesh, remote_copy=True), report)
+            profile_fn(f"flash unsharded S={S}", lambda: ops.flash_attention(q, k, v), report)
+        del q, k, v, full, fault
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1850,6 +2169,8 @@ def main() -> int:
             recurrent_phase(report, arch, batch)
             gc.collect()
             torch.cuda.empty_cache()
+        check_ring_kernels(report)
+        ring_phase(report)
         time_kernels(report)
         time_gcn_kernels(report)
         time_sparse_la_kernels(report, cases)
@@ -1916,6 +2237,24 @@ def main() -> int:
         "max_abs_err_vs_fp64_oracle": report["la_err_oracle_fp32"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+    })
+    t = report["ring_hop_time"][4 << 20]
+    kernels.append({
+        "name": "ring_hop", "route": "cuda", "source": RING_HOP_SOURCE,
+        "replaces": RING_HOP_REPLACES,
+        # the ring entry point's run: one launch per leaf (k, v) per send of
+        # each flash ring call (checked and timed), and the hop sweep's
+        # calls; ring decode sends none
+        "launches": report["ring_launches"]["ring_hop"],
+        "max_abs_err": report["ring_hop_err"],
+        # 4 MiB, the K chunk of the S=2048 ring, cold (the L2 flushed before
+        # each call); plain and library are copy_
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": "bytes", "library_ms": t["plain_ms"], "shape": "4 MiB per hop",
+        # the same two calls back to back on the same buffers: L2-resident,
+        # so below the HBM bound
+        "warm_ms": t["warm_ms"], "warm_plain_ms": t["warm_plain_ms"],
+        "ranks": RING_N, "cards": report["ring_cards"],
     })
     print(f"card: {card}")
     print(f"total {time.perf_counter() - t_start:.1f} s")

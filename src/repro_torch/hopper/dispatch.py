@@ -25,7 +25,9 @@ span one fp32 ``exp`` covers (``ops.linear_attention``'s overflow guard).
 launches its kernel, and nowhere else. The scaled kernels count under
 their own keys (``gemm_scaled``, ``flash_attention_scaled``), apart from
 the unscaled ``gemm`` and ``flash_attention``; the chunked scan counts
-under ``linear_attention`` (its single-token step has no kernel).
+under ``linear_attention`` (its single-token step has no kernel); the ring
+hop (``hopper/ring_hop.py``, no op of its own) under ``ring_hop``, once per
+leaf pushed.
 """
 from __future__ import annotations
 

@@ -11,12 +11,17 @@ The kernel takes element strides, so the transformer's (B, S, H, D) ->
 (B, H, S, D) transposed views go in without a copy; the head dim must be
 unit-stride. Inputs it does not take raise; nothing is copied to make
 them fit. The output has q's strides.
+
+``zigzag_indices`` / ``zigzag_inverse`` are the port's copies of the
+reference's sequence permutation for the causal KV ring
+(``kernels/flash_attention.py``), pure numpy.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.hopper import blocked, build
@@ -26,6 +31,28 @@ HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's compiled head dims
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _fn = None
+
+
+def zigzag_indices(S: int, d: int) -> np.ndarray:
+    """The zigzag (head + tail) sequence permutation of a ``d``-rank causal
+    KV ring: ``S`` rows split into ``2d`` half-chunks, rank ``r`` owning
+    half-chunks ``r`` and ``2d-1-r``, so every rank does the same score
+    work per hop. Returns the gather index: natural row ``idx[i]`` lands at
+    zigzag position ``i``; each rank's two halves keep natural order, head
+    first, so a rank's concatenated block is order-isomorphic to its global
+    rows. Requires ``S % (2 * d) == 0``."""
+    c2 = S // (2 * d)
+    parts = []
+    for r in range(d):
+        parts.append(np.arange(r * c2, (r + 1) * c2))
+        parts.append(np.arange((2 * d - 1 - r) * c2, (2 * d - r) * c2))
+    return np.concatenate(parts)
+
+
+def zigzag_inverse(S: int, d: int) -> np.ndarray:
+    """Inverse of ``zigzag_indices``: gathering with it restores natural
+    sequence order."""
+    return np.argsort(zigzag_indices(S, d), kind="stable")
 
 
 def _kernel():

@@ -20,8 +20,11 @@ selects a ``core.precision`` policy (fp32, bf16, fp8 = e4m3, fp8_e5m2):
 operands are quantized (per K-block for the GEMM, per row over the head
 dim for attention) and rescaled inside fp32 accumulation; it rides
 dispatch only when set, so ``precision=None`` is the legacy path, bitwise.
-``mesh=`` (sharded execution) raises ``NotImplementedError`` until the
-port's multi-GPU slice lands.
+``flash_attention(..., mesh=RingMesh(n))`` runs sharded over a ring of
+ranks (``hopper/partition.py``: the batch split or the sequence-parallel
+KV ring, whose hops go through the ring-hop kernel with
+``remote_copy=True``); ``mesh=`` on every other op raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,11 +40,13 @@ from repro_torch.hopper import flash_attention_scaled as _fa_scaled
 from repro_torch.hopper import gemm as _gemm
 from repro_torch.hopper import gemm_scaled as _gemm_scaled
 from repro_torch.hopper import linear_attention as _la
+from repro_torch.hopper import partition as _partition
 from repro_torch.hopper import ref as _ref
 from repro_torch.hopper import spmm as _spmm
 from repro_torch.hopper import spmspm as _spmspm
 from repro_torch.hopper import stencil as _stencil
 from repro_torch.hopper.dispatch import kernel_call, resolve_blocks
+from repro_torch.parallel.mesh import RingMesh
 
 
 def _no_mesh(mesh):
@@ -108,7 +113,8 @@ def _gemm_ref(a, b, *, out_dtype=None, accum_dtype=torch.float32,
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                     scale=None, precision=None, impl=None, mesh=None,
-                    bq=None, bk=None, block_k=None, return_lse=False):
+                    bq=None, bk=None, block_k=None, return_lse=False,
+                    overlap=True, zigzag=True, remote_copy=False):
     """q: (B,H,Sq,D); k,v: (B,K,Sk,D). Returns (B,H,Sq,D).
 
     ``window > 0`` is a lookback window: each query attends to keys in
@@ -120,6 +126,13 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     ``precision`` quantizes q/k/v per row over D (values plus one fp32
     scale per row); the scaled kernel rescales inside its fp32 block
     compute. Scaled attention always returns fp32.
+
+    ``mesh`` (a ``RingMesh``) shards the call over its ranks; ``overlap``,
+    ``zigzag`` and ``remote_copy`` are the ring's schedule knobs (no-ops
+    without a mesh): ``overlap`` issues hop t+1's transfer before hop t's
+    fold, ``zigzag`` balances causal Q ownership over head and tail
+    half-chunks, ``remote_copy`` sends each hop through the ring-hop
+    kernel instead of ``copy_``. Numerics are the same either way.
     """
     if block_k is not None:
         if bk is not None and bk != block_k:
@@ -127,12 +140,19 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                 f"flash_attention: bk={bk} and its alias block_k={block_k} disagree"
             )
         bk = block_k
-    _no_mesh(mesh)
     blocks = resolve_blocks("flash_attention", bq=bq, bk=bk)
-    return kernel_call(
-        "flash_attention", q, k, v, causal=causal, window=window,
-        q_offset=q_offset, scale=scale, return_lse=return_lse, impl=impl,
-        **_precision_kwargs(precision), **blocks,
+    kwargs = dict(causal=causal, window=window, q_offset=q_offset, scale=scale,
+                  return_lse=return_lse, **_precision_kwargs(precision), **blocks)
+    if mesh is None:
+        return kernel_call("flash_attention", q, k, v, impl=impl, **kwargs)
+    if not isinstance(mesh, RingMesh):
+        raise NotImplementedError(
+            f"flash_attention: mesh= of type {type(mesh).__name__} is not ported; "
+            f"the port shards over a RingMesh"
+        )
+    return _partition.sharded_flash_attention(
+        mesh, q, k, v, impl=impl, overlap=overlap,
+        zigzag=zigzag, remote_copy=remote_copy, **kwargs,
     )
 
 

@@ -1,0 +1,200 @@
+"""The ring primitives behind sequence parallelism, single-controller.
+
+A port of the reference's ``repro/parallel/collectives.py`` ring family:
+``ring_schedule`` (the hop schedule as data), ``ring_scan`` (rotate a
+block through an n-rank ring, folding it into a carry at every hop) and
+``online_softmax_merge`` (fold one attention partial into a running
+accumulator). The reference runs them inside a ``shard_map``, one traced
+program for every rank; here one process drives every rank of a
+``parallel.mesh.RingMesh`` in turn, each on its own stream, so the rank
+index ``me`` is a Python int and the reference's traced ``axis_index``
+branches become static.
+
+A hop pushes each rank's resident block into a landing buffer owned by its
+right neighbour ``(me + 1) % n``. Two CUDA events stand in for the DMA
+semaphores of the reference's ``remote_ring_hop``: "landing buffer free",
+recorded on the receiver's stream where the buffer is allocated and waited
+on by the sender's stream before it writes; "landed", recorded on the
+sender's stream after the push and waited on by the receiver's stream
+before it first reads the block. The controller records each event before
+any stream waits on it, so no wait can see an older generation of it.
+
+``ring_scan_carry``, ``hierarchical_psum`` and ``ep_expert_ffn`` are not
+ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.diagnostics import warn_degrade
+from repro_torch.hopper import ring_hop
+
+# the flash kernels' masked-score floor: fully-masked softmax rows carry
+# lse ~= NEG, which the online merge weights to exp(NEG - NEG) ~ 1 against a
+# zero accumulator instead of producing -inf - -inf NaNs
+NEG_LSE = -1e30
+
+
+def _ring_fwd(n: int):
+    """The forward ring's (sender, receiver) pairs."""
+    return [(i, (i + 1) % n) for i in range(n)]
+
+
+def _hop_send(mesh, remote_copy: bool):
+    """The transport of one leaf of a hop, ``send(src, dst)``: the Hopper
+    ring-hop kernel (``hopper/ring_hop.py``, the counterpart of
+    ``remote_ring_hop``) when ``remote_copy`` is set on a CUDA mesh, and it
+    launches or raises; otherwise the plain transport ``dst.copy_(src)``,
+    the counterpart of ``ppermute``. ``remote_copy=True`` on a CPU mesh
+    takes the plain transport with one ``ReproDegradeWarning``, as the
+    reference does off-TPU."""
+    if remote_copy:
+        if mesh.is_cuda:
+            return ring_hop.ring_hop_cuda
+        warn_degrade(
+            "remote_copy=True requested on CPU tensors: the ring-hop kernel "
+            "runs on the card only, falling back to the plain transport "
+            "(identical bytes)",
+            key=("remote_copy_fallback", "cpu"),
+        )
+    return ring_hop.ring_hop_plain
+
+
+@dataclasses.dataclass(frozen=True)
+class HopEvent:
+    """One event of a ring hop schedule, in issue order.
+
+    Fields: ``kind`` — ``"send"``, ``"dma_start"`` / ``"dma_wait"`` (the
+    remote-copy form of a send) or ``"fold"``; ``hop`` — the hop index the
+    event serves; ``src`` — the buffer id the event reads; ``dst`` — the
+    buffer id a transfer lands in (None for folds).
+    """
+
+    kind: str
+    hop: int
+    src: int | None = None
+    dst: int | None = None
+
+
+def ring_schedule(hops: int, *, overlap: bool = True,
+                  remote_copy: bool = False) -> tuple:
+    """The ring hop schedule as data, event for event the reference's:
+    ``overlap`` issues hop t+1's transfer before hop t's fold (else after
+    it); ``remote_copy`` expands each send into its ``dma_start`` /
+    ``dma_wait`` pair. Blocks alternate between buffers ``t % 2``.
+    Returns a tuple of ``HopEvent``."""
+    events = []
+
+    def send(t):
+        src, dst = (t - 1) % 2, t % 2
+        if remote_copy:
+            events.append(HopEvent("dma_start", t, src, dst))
+            events.append(HopEvent("dma_wait", t, None, dst))
+        else:
+            events.append(HopEvent("send", t, src, dst))
+
+    for t in range(hops):
+        if overlap and t + 1 < hops:
+            send(t + 1)
+        events.append(HopEvent("fold", t, t % 2))
+        if not overlap and t + 1 < hops:
+            send(t + 1)
+    return tuple(events)
+
+
+class _Resident:
+    """A block resident at one rank, and the "landed" event its rank's
+    stream has to wait on before the first read (None once waited)."""
+
+    __slots__ = ("block", "landed")
+
+    def __init__(self, block, landed=None):
+        self.block, self.landed = block, landed
+
+    def ready(self, mesh, me):
+        if self.landed is not None:
+            mesh.streams[me].wait_event(self.landed)
+            self.landed = None
+        return self.block
+
+
+def _push(mesh, send, block, me: int, to: int) -> _Resident:
+    """Push rank ``me``'s ``block`` (every leaf) into new landing buffers of
+    rank ``to``: allocated under ``to``'s stream, written on ``me``'s."""
+    if not mesh.is_cuda:
+        landing = tuple(torch.empty_like(x) for x in block)
+        for x, y in zip(block, landing):
+            send(x, y)
+        return _Resident(landing)
+    with mesh.on(to):
+        landing = tuple(torch.empty_like(x, device=mesh.devices[to]) for x in block)
+        free = torch.cuda.Event()
+        free.record(mesh.streams[to])
+    sender = mesh.streams[me]
+    sender.wait_event(free)
+    with mesh.on(me):
+        for x, y in zip(block, landing):
+            send(x, y)
+            if y.device == mesh.devices[me]:
+                y.record_stream(sender)
+        landed = torch.cuda.Event()
+        landed.record(sender)
+    return _Resident(landing, landed)
+
+
+def ring_scan(step_fn, carries, blocks, mesh, *, hops: int | None = None,
+              overlap: bool = True, remote_copy: bool = False) -> list:
+    """Rotate every rank's block through the ring of ``mesh``, folding it
+    into that rank's carry at every hop.
+
+    Args: ``step_fn(me, carry, block, t) -> carry`` — called once per rank
+    and hop, under rank ``me``'s device and stream; at hop ``t`` the
+    resident block is the one rank ``(me - t) % n`` started with;
+    ``carries`` / ``blocks`` — per-rank lists (a block is a tuple of
+    tensors; every leaf hops); ``mesh`` — the ``RingMesh``;
+    ``hops`` — fold count (default ``n``); ``overlap`` — issue hop t+1's
+    transfers before hop t's folds (else after); ``remote_copy`` — the
+    transport of each send (``_hop_send``).
+
+    Replays ``ring_schedule(hops, overlap=overlap)`` event by event, as the
+    reference does; each event is applied to every rank in turn. Fires
+    ``hops - 1`` sends per rank, one transport call per leaf. Returns the
+    per-rank list of folded carries.
+    """
+    n = mesh.n
+    if len(carries) != n or len(blocks) != n:
+        raise ValueError(f"ring_scan: {len(carries)} carries, {len(blocks)} blocks "
+                         f"for {n} ranks")
+    hops = n if hops is None else hops
+    send = _hop_send(mesh, remote_copy)
+    carries = list(carries)
+    buffers = [{0: _Resident(b)} for b in blocks]
+    for ev in ring_schedule(hops, overlap=overlap):
+        if ev.kind == "send":
+            landed = [None] * n
+            for me, to in _ring_fwd(n):
+                block = buffers[me][ev.src].ready(mesh, me)
+                landed[to] = _push(mesh, send, block, me, to)
+            for me in range(n):
+                buffers[me][ev.dst] = landed[me]
+        else:  # fold
+            for me in range(n):
+                block = buffers[me][ev.src].ready(mesh, me)
+                with mesh.on(me):
+                    carries[me] = step_fn(me, carries[me], block, ev.hop)
+    return carries
+
+
+def online_softmax_merge(o_acc, lse_acc, o, lse):
+    """Merge one attention partial into a running online-softmax
+    accumulator: ``o_acc`` / ``lse_acc`` the running output and
+    log-sum-exp (init 0 and ``NEG_LSE``), ``o`` / ``lse`` a new partial
+    (softmax-normalised output and its lse over the same rows). Returns the
+    merged ``(o, lse)`` in fp32, each side reweighted by
+    ``exp(lse_side - lse_merged)``."""
+    lse_new = torch.logaddexp(lse_acc, lse)
+    w_acc = torch.exp(lse_acc - lse_new)[..., None]
+    w = torch.exp(lse - lse_new)[..., None]
+    return o_acc.float() * w_acc + o.float() * w, lse_new

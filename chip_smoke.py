@@ -6,11 +6,14 @@
 Phases, in order; any failure exits non-zero:
 
   1. build every Hopper kernel from ``src/repro_torch/csrc`` (one ``nvcc``
-     per source, started together);
+     per source, started together) and print ptxas's registers, shared
+     memory and spills (every instantiation of the FA, BSR and scan
+     kernels);
   2. hold each kernel against its plain version on the card: the FA kernel
-     at the shapes the serving path gives it (bf16, full width) and at
-     small fp32 shapes covering GQA, window, q_offset, ragged Sk and
-     return_lse; the GEMM at the GCN shapes and at ragged fp32/bf16 ones;
+     at the shapes the serving path gives it (bf16, full width), at every
+     bf16 head dim with GQA, window, q_offset, ragged Sk and return_lse,
+     on zigzag half views, at grids of more 64-row tiles than SMs (its
+     two-warpgroup CTAs), and at small fp32 shapes; the GEMM at the GCN shapes and at ragged fp32/bf16 ones;
      the ELL SpMM at the GCN adjacencies and at wider random ELL matrices;
      the scaled GEMM and scaled FA-2 (phase 5's kernels) at their shapes;
   3. run the GCN path (``repro_torch.launch.gcn_inference.run``): two
@@ -20,8 +23,10 @@ Phases, in order; any failure exits non-zero:
      small graphs, to the dense oracle;
   4. run the sparse-LA path (``repro_torch.launch.sparse_la.run``, the
      paper's Fig. 9b-d at card size): BSR SpMM, SpMSpM and stencil first
-     held against their plain versions on the card (small ragged shapes and
-     every card-size case), then the entry point once with the launch
+     held against their plain versions on the card (small ragged shapes;
+     BSR at bm 8 / 16 / 3, bk 128 / 20, F 256 / 300 with every pair of
+     tile and dense types and unsorted, repeated tiles; every card-size
+     case, BSR also with bf16 tiles and dense), then the entry point once with the launch
      counts zeroed just before and read just after (stencil 5, ELL SpMM 3,
      BSR SpMM 3, SpMSpM 3), each output held to the plain path, each case
      profiled warm;
@@ -56,7 +61,8 @@ Phases, in order; any failure exits non-zero:
      step), for rwkv6 layer 0's scan against 2048 decode steps, and a
      profile of a warm forward; rwkv6's card-shape o is held against the
      fp64 per-token oracle on b = 0, heads 0-7, and on the (b, head) of
-     the tensor's worst bf16 entry, with that entry's values printed;
+     the tensor's worst bf16 entry, with that entry's values, its fp64
+     terms and each form's miss in fp32 spacings of the largest printed;
   10. the sequence-parallel ring at occamy-gptj's attention width on a
      ``RingMesh`` of 4 ranks (one stream each, on one card or one card
      each): the ring-hop kernel (``remote_ring_hop``'s port) held bitwise
@@ -76,7 +82,10 @@ Phases, in order; any failure exits non-zero:
      ring decode bitwise ``ring_decode_reference``; then profiles of a
      warm ring call;
   11. time every kernel against its plain version, the library call and
-     its bound.
+     its bound (CUDA events over back-to-back calls); the FA, BSR, SpMSpM,
+     stencil and scan kernels and their library calls also by device time
+     (events around a CUDA graph's replay of 20 calls, which the host's
+     issue does not set), and the FA wrapper's host time per call.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Imports
@@ -109,6 +118,9 @@ BLOCK_SIZE = 16
 MAX_BLOCKS_PER_SEQ = 33  # ceil((500 + 16) / 16)
 NUM_BLOCKS = 56  # tight: this workload preempts twice (checked below)
 
+# the sources whose every ptxas line (registers, shared memory, spills)
+# the build step prints
+REDESIGNED = ("flash_attention", "bsr_spmm", "linear_attention")
 FA_REPLACES = "src/repro/kernels/flash_attention.py:57"
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 GEMM_REPLACES = "src/repro/kernels/gemm.py:23"
@@ -156,6 +168,44 @@ def time_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20):
+    """Device time of one call of ``fn``, which the host's issue does not
+    set: CUDA events around one replay of a CUDA graph of ``iters`` calls
+    (captured after a warm-up call, replayed once untimed), divided by
+    ``iters``. Every kernel the call launches counts, with the device's
+    own gaps between them. None (printed "not measured") where the call
+    cannot be captured."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print(f"device time: the call could not be captured in a CUDA graph ({str(e)[:200]})")
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.5f} ms"
+
+
 def _in_turns(kernel, plain, plain_iters):
     """plain, kernel, kernel, plain: two turns of each, in one call."""
     p = [time_ms(plain, plain_iters)]
@@ -190,19 +240,38 @@ def fa_bound_ms(B, H, K, Sq, Sk, D, dtype_name, *, causal, window=0,
 # phase 2: kernels vs plain versions
 # ---------------------------------------------------------------------------
 
-# (label, B, H, K, Sq, Sk, D, dtype, causal, window, q_offset, return_lse)
+# (label, B, H, K, Sq, Sk, D, dtype, causal, window, q_offset, return_lse,
+# half): `half` takes q, k, v as the second half of tensors twice as long
+# along S, as the zigzag ring hands the kernel its halves
 FA_CASES = [
-    ("prefill S=208 bf16", 1, 16, 16, 208, 208, 256, "bfloat16", True, 0, 0, False),
-    ("prefill S=512 bf16", 1, 16, 16, 512, 512, 256, "bfloat16", True, 0, 0, False),
-    ("gqa causal lse f32", 2, 8, 2, 100, 100, 64, "float32", True, 0, 0, True),
-    ("window non-causal f32", 1, 4, 4, 130, 130, 32, "float32", False, 17, 0, True),
-    ("q_offset ragged Sk f32", 2, 4, 1, 37, 101, 16, "float32", True, 0, 64, True),
-    ("non-causal ragged f32", 1, 2, 2, 45, 77, 128, "float32", False, 0, 0, True),
-    ("window+q_offset bf16 lse", 1, 4, 2, 70, 150, 256, "bfloat16", True, 40, 80, True),
-    ("gqa ragged bf16 D=64", 2, 8, 2, 100, 130, 64, "bfloat16", True, 0, 0, True),
-    ("window non-causal bf16 D=128", 1, 4, 4, 77, 77, 128, "bfloat16", False, 20, 0, True),
-    ("q_offset bf16 D=16", 1, 2, 1, 37, 101, 16, "bfloat16", True, 0, 64, True),
-    ("non-causal bf16 D=32", 2, 2, 2, 45, 70, 32, "bfloat16", False, 0, 0, True),
+    ("prefill S=208 bf16", 1, 16, 16, 208, 208, 256, "bfloat16", True, 0, 0, False, False),
+    ("prefill S=512 bf16", 1, 16, 16, 512, 512, 256, "bfloat16", True, 0, 0, False, False),
+    ("gqa causal lse f32", 2, 8, 2, 100, 100, 64, "float32", True, 0, 0, True, False),
+    ("window non-causal f32", 1, 4, 4, 130, 130, 32, "float32", False, 17, 0, True, False),
+    ("q_offset ragged Sk f32", 2, 4, 1, 37, 101, 16, "float32", True, 0, 64, True, False),
+    ("non-causal ragged f32", 1, 2, 2, 45, 77, 128, "float32", False, 0, 0, True, False),
+    ("window+q_offset bf16 lse", 1, 4, 2, 70, 150, 256, "bfloat16", True, 40, 80, True, False),
+    ("gqa ragged bf16 D=64", 2, 8, 2, 100, 130, 64, "bfloat16", True, 0, 0, True, False),
+    ("window non-causal bf16 D=128", 1, 4, 4, 77, 77, 128, "bfloat16", False, 20, 0, True, False),
+    ("q_offset bf16 D=16", 1, 2, 1, 37, 101, 16, "bfloat16", True, 0, 64, True, False),
+    ("non-causal bf16 D=32", 2, 2, 2, 45, 70, 32, "bfloat16", False, 0, 0, True, False),
+    # every bf16 head dim with GQA, a window, q_offset, ragged Sk and lse
+    ("gqa window q_offset bf16 D=16", 2, 4, 2, 90, 150, 16, "bfloat16", True, 33, 60, True, False),
+    ("gqa window q_offset bf16 D=32", 1, 8, 2, 129, 190, 32, "bfloat16", True, 50, 61, True, False),
+    ("gqa window q_offset bf16 D=64", 1, 4, 2, 100, 164, 64, "bfloat16", True, 70, 64, True, False),
+    ("gqa q_offset ragged bf16 D=128", 2, 8, 4, 75, 203, 128, "bfloat16", True, 0, 128, True, False),
+    ("gqa non-causal ragged bf16 D=256", 1, 8, 2, 33, 97, 256, "bfloat16", False, 0, 0, True, False),
+    # zigzag halves: the diagonal block and a block wholly in the past
+    ("zigzag half diagonal bf16 D=256", 1, 4, 4, 320, 320, 256, "bfloat16", True, 0, 0, True, True),
+    ("zigzag half past bf16 D=128", 1, 4, 2, 192, 256, 128, "bfloat16", True, 0, 256, True, True),
+    # grids of more 64-row tiles than the card has SMs: two warpgroups a CTA
+    ("ring block S=2048 bf16 D=256", 1, 16, 16, 2048, 2048, 256, "bfloat16", True, 0, 0, True, False),
+    ("long gqa window q_offset ragged bf16 D=128", 2, 8, 2, 600, 777, 128, "bfloat16", True, 300, 150,
+     True, False),
+    ("long causal bf16 D=16", 2, 8, 8, 700, 700, 16, "bfloat16", True, 0, 0, True, False),
+    ("long non-causal gqa ragged bf16 D=32", 1, 16, 4, 555, 800, 32, "bfloat16", False, 0, 0, True,
+     False),
+    ("long window gqa bf16 D=64", 2, 8, 2, 640, 640, 64, "bfloat16", True, 100, 0, True, False),
 ]
 # |kernel - plain| <= ATOL + RTOL * |plain|. fp32: both sum in fp32 in
 # different orders (the reference suite's 1e-4). bf16: both round an fp32
@@ -214,14 +283,16 @@ LSE_TOL = (1e-4, 1e-4)
 def _fa_inputs(case, gen, *, transposed):
     import torch
 
-    _, B, H, K, Sq, Sk, D, dt, *_ = case
+    _, B, H, K, Sq, Sk, D, dt, *_, half = case
     dtype = getattr(torch, dt)
 
     def make(heads, S):
         # the transformer hands the kernel (B, S, H, D) -> (B, H, S, D) views
-        shape = (B, S, heads, D) if transposed else (B, heads, S, D)
+        n = 2 * S if half else S
+        shape = (B, n, heads, D) if transposed else (B, heads, n, D)
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        return x.transpose(1, 2) if transposed else x
+        x = x.transpose(1, 2) if transposed else x
+        return x[:, :, S:] if half else x
 
     return make(H, Sq), make(K, Sk), make(K, Sk)
 
@@ -235,7 +306,7 @@ def check_kernels(report):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for case in FA_CASES:
-        label, B, H, K, Sq, Sk, D, dt, causal, window, q_offset, lse = case
+        label, B, H, K, Sq, Sk, D, dt, causal, window, q_offset, lse, _ = case
         for transposed in (False, True):
             q, k, v = _fa_inputs(case, gen, transposed=transposed)
             kw = dict(causal=causal, window=window, q_offset=q_offset,
@@ -268,7 +339,11 @@ def check_kernels(report):
 
 def time_kernels(report):
     """Kernel, plain version and library call at the main path's largest
-    prefill shape (S=512 bucket, bf16); the other shapes are printed."""
+    prefill shape (S=512 bucket, bf16); the other shapes are printed.
+    Beside the CUDA events' time of back-to-back calls (which the host's
+    issue sets when a call's device time is below the wrapper's host
+    cost), the device time of the kernel and of the library call
+    (``device_ms``), and the wrapper's host time per call."""
     import torch
     import torch.nn.functional as F
 
@@ -276,18 +351,29 @@ def time_kernels(report):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     for case in FA_CASES[:2]:
-        label, B, H, K, Sq, Sk, D, dt, causal, window, q_offset, _ = case
+        label, B, H, K, Sq, Sk, D, dt, causal, window, q_offset, *_ = case
         q, k, v = _fa_inputs(case, gen, transposed=True)
         kw = dict(causal=causal, window=window, q_offset=q_offset)
-        kern, plain = _in_turns(lambda: ops.flash_attention(q, k, v, impl="cuda", **kw),
-                                lambda: ops.flash_attention(q, k, v, impl="torch", **kw), 20)
-        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        kern_fn = lambda: ops.flash_attention(q, k, v, impl="cuda", **kw)
+        lib_fn = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        kern, plain = _in_turns(kern_fn, lambda: ops.flash_attention(q, k, v, impl="torch", **kw), 20)
+        lib = time_ms(lib_fn)
+        dev, lib_dev = device_ms(kern_fn), device_ms(lib_fn)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(50):
+            kern_fn()
+        host = (time.perf_counter() - t) / 50 * 1e3
+        torch.cuda.synchronize()
         bound, by = fa_bound_ms(B, H, K, Sq, Sk, D, dt, causal=causal)
         row = dict(shape=f"B={B} H={H} K={K} S={Sq} D={D} {dt} causal",
                    ms=min(kern), plain_ms=min(plain), library_ms=lib,
-                   bound_ms=bound, bound_by=by)
+                   bound_ms=bound, bound_by=by, device_ms=dev, library_device_ms=lib_dev,
+                   host_ms=host)
         print(f"time flash_attention [{label}]: kernel {kern} ms, plain {plain} ms, "
-              f"sdpa {lib:.4f} ms, bound {bound:.5f} ms ({by})")
+              f"sdpa {lib:.4f} ms (events, back to back); device time kernel {_ms(dev)}, "
+              f"sdpa {_ms(lib_dev)}; the wrapper's host time per call {host:.5f} ms "
+              f"(ops.flash_attention, 50 calls); bound {bound:.5f} ms ({by})")
         report.setdefault("fa_time", {})[label] = row
 
 
@@ -612,21 +698,31 @@ def check_sparse_la_kernels(report, cases):
     def dev(x):
         return torch.from_numpy(np.ascontiguousarray(x)).cuda()
 
-    # BSR: hand-built tiles, block row 2 of 5 left without tiles
-    for bm, bk, F, dt in ((8, 128, 300, "float32"), (16, 64, 96, "float32"),
-                          (8, 128, 520, "bfloat16"), (4, 32, 17, "float32")):
-        rows = np.array([0, 0, 1, 3, 4, 4, 4], np.int32)
-        cols = np.array([0, 1, 1, 0, 0, 1, 2], np.int32)
+    # BSR: hand-built tiles, block row 2 of 5 left without tiles; the edge
+    # shapes (bm 8 / 16 / 3 against the kernel's 8-row groups, bk 128 / 20
+    # against its 128-column chunks and 16-byte granules, F 256 / 300
+    # against its 256-column slices) with every pair of tile and dense
+    # types; then unsorted columns with a repeated tile (summed)
+    bsr_cases = [(8, 128, 300, "float32", "float32"), (16, 64, 96, "float32", "float32"),
+                 (8, 128, 520, "bfloat16", "bfloat16"), (4, 32, 17, "float32", "float32")]
+    bsr_cases += [(bm, bk, F, vt, dt) for bm in (8, 16, 3) for bk in (128, 20) for F in (256, 300)
+                  for vt in ("float32", "bfloat16") for dt in ("float32", "bfloat16")]
+    layouts = [(np.array([0, 0, 1, 3, 4, 4, 4], np.int32), np.array([0, 1, 1, 0, 0, 1, 2], np.int32),
+                "empty block row")] * len(bsr_cases)
+    bsr_cases.append((8, 128, 256, "float32", "float32"))
+    layouts.append((np.array([0, 0, 1, 4, 4, 4, 4], np.int32), np.array([2, 0, 1, 1, 2, 0, 2], np.int32),
+                    "empty block rows 2-3, unsorted columns, tile (4, 2) twice"))
+    for (bm, bk, F, vt, dt), (rows, cols, what) in zip(bsr_cases, layouts):
         tiles = rng.standard_normal((len(rows), bm, bk)).astype(np.float32)
         tiles[rng.random(tiles.shape) < 0.9] = 0
         wide = dev(rng.standard_normal((3 * bk, F + 7)).astype(np.float32))
         dense = wide[:, 3:3 + F].to(getattr(torch, dt))  # row stride F + 7 for fp32
-        tv = dev(tiles).to(getattr(torch, dt))
+        tv = dev(tiles).to(getattr(torch, vt))
         args = (tv, dev(rows), dev(cols), dense, 5 * bm)
         got = ops.bsr_spmm(*args, impl="cuda")
         want = ops.bsr_spmm(*args, impl="torch")
         torch.cuda.synchronize()
-        label = f"hand-built bm={bm} bk={bk} F={F} {dt}, empty block row"
+        label = f"hand-built bm={bm} bk={bk} F={F} tiles {vt} dense {dt}, {what}"
         errs["bsr_spmm"].append(_hold("bsr_spmm", label, got, want, SPARSE_TOL))
         need(bool((got[2 * bm:3 * bm] == 0).all()), "bsr_spmm: the empty block row is not 0")
     # SpMSpM: duplicate indices and padding slots; K past one pass (16384)
@@ -670,6 +766,15 @@ def check_sparse_la_kernels(report, cases):
         if case.op in errs:
             errs[case.op].append(err)
         plain[case.name] = want
+        if case.op == "bsr_spmm":  # the same case with bf16 tiles and dense
+            A, D = case.args
+            args = (A.tile_values.bfloat16(), A.tile_rows, A.tile_cols, D.bfloat16(), A.shape[0])
+            got = ops.bsr_spmm(*args, impl="cuda")
+            want = ops.bsr_spmm(*args, impl="torch")
+            torch.cuda.synchronize()
+            errs["bsr_spmm"].append(_hold("bsr_spmm", f"card {case.name} ({case.note}), bf16 tiles "
+                                          f"and dense", got, want, SPARSE_TOL))
+            del args, got, want
     report["sparse_la_err"] = {op: max(e) for op, e in errs.items()}
     report["sparse_la_plain"] = plain
 
@@ -796,6 +901,10 @@ def time_sparse_la_kernels(report, cases):
                                 plain_iters)
         lib_fn = _library(case)
         lib = time_ms(lib_fn)
+        dev = device_ms(lambda: _call(case, "cuda"))
+        # cuSPARSE's SpGEMM sizes its output on the host while it is being
+        # captured, so a graph would hold only part of the call: not measured
+        lib_dev = None if case.op == "spmspm" else device_ms(lib_fn)
         lib_err = float((lib_fn().float() - _call(case, "cuda").float()).abs().max())
         if case.op == "bsr_spmm":
             bound, by = bsr_bound_ms(*case.args)
@@ -804,9 +913,11 @@ def time_sparse_la_kernels(report, cases):
         else:
             bound, by = stencil_bound_ms(case.args[0], len(case.args[1]))
         row = dict(shape=f"{case.name} ({case.note})", ms=min(kern), plain_ms=min(plain),
-                   library_ms=lib, bound_ms=bound, bound_by=by)
+                   library_ms=lib, bound_ms=bound, bound_by=by, device_ms=dev,
+                   library_device_ms=lib_dev)
         print(f"time {case.op} [{case.name} {case.note}]: kernel {kern} ms, plain {plain} ms, "
-              f"library {lib:.4f} ms (max |diff| vs kernel {lib_err:.2e}), "
+              f"library {lib:.4f} ms (events; max |diff| vs kernel {lib_err:.2e}); device time "
+              f"kernel {_ms(dev)}, library {_ms(lib_dev)}; "
               f"bound {bound:.5f} ms ({by}); {case.work / min(kern) / 1e6:.2f} {case.unit} "
               f"at the kernel's time")
         report.setdefault(f"{case.op}_time", {})[case.name] = row
@@ -1664,8 +1775,70 @@ def _la_worst_entry_oracle(label, inputs, outs, report):
         print(f"kernel linear_attention [{label}] at the worst entry: {form} {got:.6e}, fp64 oracle "
               f"{want:.6e}: {abs(got - want) / own:.1f} bf16 steps of the oracle's magnitude, "
               f"{abs(got - want) / scale:.3e} of max|oracle| on the slice")
+    miss = {form: abs(entry[form] - want) for form in ("kernel", "plain")}
+    entry["kernel_within_2x_plain"] = miss["kernel"] <= 2 * miss["plain"]
+    print(f"kernel linear_attention [{label}] at the worst entry: kernel's miss {miss['kernel']:.3e}, "
+          f"plain's {miss['plain']:.3e}: within 2x {'yes' if entry['kernel_within_2x_plain'] else 'no'}")
+    entry["terms"] = _la_entry_terms(inputs, b, h, t, m, miss)
     report["la_worst_entry"] = entry
     return err32
+
+
+def _la_entry_terms(inputs, b, h, t, m, miss, chunk=32):
+    """The fp64 terms of rwkv6's o at (b, h, t, m) as the chunked scan
+    forms them (chunk 32): the read-out of the state entering t's chunk
+    (the per-token recurrence up to the chunk's first step), the
+    intra-chunk scores times v, and the bonus sum_n r u k v. Printed
+    beside the fp32 spacing at the largest term's magnitude, the scale
+    at which an fp32 sum of these terms rounds, and each form's miss
+    (``miss``) in units of it and in fp32 roundings (2^-24) of the sum of
+    the terms' magnitudes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.hopper import ops
+
+    r, k, v, w, u = inputs
+    w = w.clamp_min(ops.W_LOG_FLOOR)
+    c0 = (t // chunk) * chunk
+    sl = (slice(b, b + 1), slice(h, h + 1), slice(0, c0))
+    N, M = r.shape[3], v.shape[3]
+    if c0:
+        _, S = ops.linear_attention(*(x[sl].double() for x in (r, k, v, w)), u[h:h + 1].double(),
+                                    impl="ref")
+        S = S[0, 0]
+    else:
+        S = torch.zeros((N, M), dtype=torch.float64, device=r.device)
+    rc, kc, vc, wc = (x[b, h, c0:t + 1].double() for x in (r, k, v, w))
+    inc = torch.cumsum(wc, 0)
+    te = t - c0
+    r_dec = rc[te] * torch.exp(inc[te] - wc[te])  # RWKV: the exclusive decay
+    inter = float(r_dec @ S[:, m])
+    scores = (r_dec[None, :] * torch.exp(-inc[:te]) * kc[:te]).sum(1)  # steps c0 .. t - 1
+    intra_terms = scores * vc[:te, m]
+    intra = float(intra_terms.sum())
+    bonus = float((rc[te] * u[h].double() * kc[te]).sum() * vc[te, m])
+    largest = max(abs(inter), abs(intra), abs(bonus), float(intra_terms.abs().max()) if te else 0.0)
+    ulp = float(np.spacing(np.float32(largest)))
+    # the sum of the magnitudes of all the per-token terms: the recurrence on |r|, |k|, |v|, |u|
+    sl_t = (slice(b, b + 1), slice(h, h + 1), slice(0, t + 1))
+    mag, _ = ops.linear_attention(*(x[sl_t].double().abs() for x in (r, k, v)), w[sl_t].double(),
+                                  u[h:h + 1].double().abs(), impl="ref")
+    mag = float(mag[0, 0, t, m])
+    terms = dict(inter=inter, intra=intra, bonus=bonus, total=inter + intra + bonus,
+                 largest=largest, fp32_spacing=ulp, magnitude_sum=mag,
+                 kernel_miss_in_spacings=miss["kernel"] / ulp, plain_miss_in_spacings=miss["plain"] / ulp,
+                 kernel_miss_in_roundings_of_sum=miss["kernel"] / mag / 2.0 ** -24,
+                 plain_miss_in_roundings_of_sum=miss["plain"] / mag / 2.0 ** -24)
+    print(f"kernel linear_attention at the worst entry, fp64 terms of o (chunk {chunk}, step {te} "
+          f"of its chunk): state read-out {inter:.6e}, intra-chunk {intra:.6e} (largest of its "
+          f"{te} terms {float(intra_terms.abs().max()) if te else 0.0:.6e}), bonus {bonus:.6e}, sum "
+          f"{inter + intra + bonus:.6e}; fp32 spacing at the largest term {ulp:.3e}: the kernel "
+          f"misses by {miss['kernel'] / ulp:.2f} of it, the plain form by "
+          f"{miss['plain'] / ulp:.2f}; the terms' magnitudes sum to {mag:.3e}, of which the "
+          f"kernel misses by {terms['kernel_miss_in_roundings_of_sum']:.2f} fp32 roundings "
+          f"(2^-24), the plain form by {terms['plain_miss_in_roundings_of_sum']:.2f}")
+    return terms
 
 
 def check_la_kernels(report):
@@ -1764,13 +1937,15 @@ def time_la_kernels(report):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     for arch, _ in RECURRENT:
         r, k, v, w, u, label = _la_card_inputs(arch, RECURRENT_T, gen)
-        kern, plain = _in_turns(lambda: ops.linear_attention(r, k, v, w, u, impl="cuda"),
-                                lambda: ops.linear_attention(r, k, v, w, u, impl="torch"), 3)
+        kern_fn = lambda: ops.linear_attention(r, k, v, w, u, impl="cuda")
+        kern, plain = _in_turns(kern_fn, lambda: ops.linear_attention(r, k, v, w, u, impl="torch"), 3)
+        dev = device_ms(kern_fn)
         bound, by = la_bound_ms(r, k, v, w, u)
         report.setdefault("la_time", {})[arch] = dict(
             shape=label, ms=min(kern), plain_ms=min(plain), library_ms=None, bound_ms=bound,
-            bound_by=by)
-        print(f"time linear_attention [{label}]: kernel {kern} ms, plain {plain} ms, library none "
+            bound_by=by, device_ms=dev, library_device_ms=None)
+        print(f"time linear_attention [{label}]: kernel {kern} ms (device time {_ms(dev)}), "
+              f"plain {plain} ms, library none "
               f"(no single PyTorch call computes a chunked decay scan), bound {bound:.5f} ms ({by})")
         del r, k, v, w
 
@@ -2151,7 +2326,9 @@ def main() -> int:
         print(f"build: {sorted(paths)} in {time.perf_counter() - t:.2f} s")
         for name, log in build.build_logs.items():
             regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-            print(f"build {name}: " + " | ".join(regs[:4]))
+            # the kernels this slice redesigned or repaired: every instantiation
+            shown = regs if name in REDESIGNED else regs[:4]
+            print(f"build {name}: " + " | ".join(shown))
         check_kernels(report)
         check_gcn_kernels(report)
         check_precision_kernels(report)
@@ -2188,6 +2365,9 @@ def main() -> int:
         "ms": t512["ms"], "plain_ms": t512["plain_ms"],
         "bound_ms": t512["bound_ms"], "bound_by": t512["bound_by"],
         "library_ms": t512["library_ms"], "shape": t512["shape"],
+        # device times (torch.profiler) beside the events' back-to-back ms
+        "device_ms": t512["device_ms"], "library_device_ms": t512["library_device_ms"],
+        "host_ms": t512["host_ms"],
     }]
     for name, source, replaces in (("gemm", GEMM_SOURCE, GEMM_REPLACES),
                                    ("spmm", SPMM_SOURCE, SPMM_REPLACES)):
@@ -2207,6 +2387,7 @@ def main() -> int:
             "max_abs_err": report["sparse_la_err"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+            "device_ms": t["device_ms"], "library_device_ms": t["library_device_ms"],
         })
     for name, source, replaces, key in (
             ("gemm_scaled", GEMM_SCALED_SOURCE, GEMM_SCALED_REPLACES, "gemm_scaled_time"),
@@ -2237,6 +2418,7 @@ def main() -> int:
         "max_abs_err_vs_fp64_oracle": report["la_err_oracle_fp32"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+        "device_ms": t["device_ms"],
     })
     t = report["ring_hop_time"][4 << 20]
     kernels.append({

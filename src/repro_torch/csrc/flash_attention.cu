@@ -18,18 +18,22 @@
 // kernel's pl.when skip). The (m, l, acc) state the TPU kernel keeps in VMEM
 // scratch stays on chip for the whole loop.
 //
-//  - bf16 (the serving path): tensor cores through mma.sync m16n8k16 with
-//    fp32 accumulation. 4 warps, each owning 16 q rows of a 64-row tile.
-//    The q tile, one K tile and the transposed V tile sit in shared memory
-//    as bf16 (rows padded by 8 elements, so each fragment load of a warp
-//    hits 32 distinct banks); scores, probabilities and the (16, D) fp32
-//    accumulator of each warp live in registers (FA-2's layout: the score
-//    tile's accumulator fragments are the A fragments of P.V). Head dim 256
-//    takes 32-key tiles (71 KB of shared memory; 128 accumulator floats per
-//    thread), smaller head dims 64-key tiles. For the P.V product P is
-//    split into two bf16 terms (hi + lo, two MMAs): rounding P to one bf16
-//    flips output roundings often enough that a deep model amplifies them,
-//    while q, k and v are exact bf16 and their products exact in fp32.
+//  - bf16 (the serving path, the ring, hymba): one warpgroup per 64-row q
+//    tile; S = Q K^T and O += P V both as wgmma with fp32 accumulators
+//    (`fa_fwd_wgmma_kernel`, wrappers in wgmma.cuh); each warpgroup's Q
+//    and a two-stage ring of 64-key K and V tiles in shared memory in the
+//    swizzled layout wgmma reads (V in its natural layout, read MN-major:
+//    no transpose), filled by 16-byte cp.async with the next tile's copies
+//    in flight during the current tile's products; q tiles in reverse
+//    order, so the causal mask's heaviest tiles start first. A CTA holds
+//    one warpgroup while the grid of 64-row tiles fits in one wave (the
+//    S = 512 prefill: the most SMs at work) and two, sharing each K/V
+//    tile, once it does not (the ring's blocks, long prompts): each SM
+//    scheduler then holds two warps, one's softmax hiding behind the
+//    other's products, and a tile's loads serve twice the rows. At
+//    D = 256 the shared memory is (1 or 2) x Q 32 KB + 2 x (K 32 KB +
+//    V 32 KB) = 160 or 192 KB (one CTA an SM) and a thread holds 128 O
+//    accumulators and 32 of S.
 //  - fp32 (the REDUCED configs and tests): fp32 FMA on the CUDA cores, 256
 //    threads, q tile and K/V tiles in shared memory as fp32, (64, D)
 //    accumulator in registers: exact to fp32 rounding.
@@ -38,10 +42,18 @@
 // causal, bf16) the function moves 4*S*H*D*2 bytes and does 4*H*D*S(S+1)/2
 // operations; over 3.35 TB/s and 989 TFLOP/s the bytes take the longer
 // time at every S the engine buckets to (chip_smoke.py prints the bound as
-// bound_ms), so the function is bound by bytes. Both kernels stage every
-// tile through registers with synchronous loads, so each KV step waits on
-// its loads: they run far above that bound. TMA loads into a ring of tiles
-// and wgmma are the next step.
+// bound_ms), so the function is bound by bytes. P.V runs twice (hi + lo),
+// and one warpgroup an SM waits on its own products and softmax in turn,
+// so the tensor cores are far from busy; at S = 512 the grid is 8 x 16 =
+// 128 CTAs, one wave, set by the 8 KV tiles of the last q tile.
+//
+// What the card showed (NVIDIA H100 80GB HBM3, 700 W; PERF.md): in the
+// first wgmma version the softmax was the largest share of the time (one
+// warp a scheduler, so its dependent chains go unhidden), then the tile
+// loads' address arithmetic; so the softmax's exp is one ex2.approx (e^x as
+// 2^(x log2 e), relative error ~2^-22, far below the bf16 output's 2^-8),
+// the mask is computed only for tiles that some row cannot wholly see, and
+// a thread's chunks share one column and most of their swizzled offset.
 //
 // Tile sizes are compile-time constants of this file (the plain forms'
 // bq/bk in repro_torch.hopper.dispatch do not apply here).
@@ -49,6 +61,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -90,32 +106,87 @@ __device__ __forceinline__ bool visible(const Params& p, int q_pos, int k_pos) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, fp32 accumulation)
+// bf16: warpgroup MMA (wgmma) with fp32 accumulators
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_BQ = 64;
-constexpr int MMA_THREADS = 128;
+constexpr int WG_BQ = 64;        // q rows of a warpgroup: its m64 tile
+constexpr int WG_BK = 64;        // keys of a KV tile
+constexpr int WG_THREADS = 128;  // a warpgroup
 
+// A 64-row tile of D bf16 columns in shared memory, as wgmma reads it:
+// column blocks of CB = Z / 2 columns, each 64 rows of Z bytes (Z = 128,
+// or the whole row, 64 or 32 bytes, at D = 32 and 16), the 16-byte chunks
+// of every 8 rows swizzled (wgmma::swizzle). Q and K are read K-major
+// (their D columns are the products' depth), V MN-major (its D columns
+// are P.V's N), so all three share the layout and no tile is transposed.
 template <int D>
-__host__ __device__ constexpr int mma_bk() { return D >= 256 ? 32 : 64; }
+struct WgTile {
+  static constexpr int Z = D * 2 >= 128 ? 128 : D * 2;
+  static constexpr int CB = Z / 2;
+  static constexpr int BYTES = 64 * D * 2;
+  static constexpr uint64_t MODE = Z == 128 ? wgmma::SWIZZLE_128B
+                                   : Z == 64 ? wgmma::SWIZZLE_64B
+                                             : wgmma::SWIZZLE_32B;
+  // byte offset of the 16-byte chunk holding columns d0 .. d0 + 7 of `row`
+  static __device__ __forceinline__ uint32_t chunk(int row, int d0) {
+    return (d0 / CB) * 64 * Z + wgmma::swizzle(row * Z + (d0 % CB) * 2, Z);
+  }
+  // Q or K as a K-major operand, depth columns 16 ks .. 16 ks + 15: 8-row
+  // groups Z * 8 bytes apart (SBO); LBO unused within a swizzle row
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ks) {
+    const int d0 = 16 * ks;
+    return wgmma::smem_desc(tile + (d0 / CB) * 64 * Z + (d0 % CB) * 2, 16, 8 * Z, MODE);
+  }
+  // V as an MN-major operand, keys 16 kk .. 16 kk + 15: column blocks
+  // 64 * Z bytes apart (LBO), 8-key groups Z * 8 bytes apart (SBO)
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+    return wgmma::smem_desc(tile + 16 * kk * Z, 64 * Z, 8 * Z, MODE);
+  }
+};
 
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) *
-         (size_t(MMA_BQ) * (D + 8) + size_t(mma_bk<D>()) * (D + 8) + size_t(D) * (mma_bk<D>() + 8));
+template <int D, int NWG>
+constexpr size_t wg_smem_bytes() {  // Q of each warpgroup, two stages of K and V, 1024-byte alignment
+  return size_t(NWG + 4) * WgTile<D>::BYTES + 1024;
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// Rows s0 .. s0 + 63 of a (S, D) bf16 matrix with row stride `ld` into a
+// tile at shared address `tile`, by the CTA's NT threads; rows past S are
+// zero-filled. Thread i copies the 16-byte chunk i % CH of rows i / CH,
+// i / CH + NT / CH, ..., so its column, and with it most of the swizzled
+// offset, is fixed.
+template <int D, int NT>
+__device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* src, long long ld, int s0, int S) {
+  using L = WgTile<D>;
+  constexpr int CH = D / 8;      // 16-byte chunks a row
+  constexpr int STEP = NT / CH;  // rows between a thread's chunks
+  const int r0 = threadIdx.x / CH, d0 = (threadIdx.x % CH) * 8;
+  const uint32_t base = tile + (d0 / L::CB) * 64 * L::Z;
+  const uint32_t col = (d0 % L::CB) * 2;
+  if constexpr (STEP > 64) {  // more threads than the tile has chunks (D = 16, two warpgroups)
+    if (r0 >= 64) return;
+  }
+  const __nv_bfloat16* g = src + static_cast<long long>(s0 + r0) * ld + d0;
+#pragma unroll
+  for (int j = 0; j < (STEP > 64 ? 1 : 64 / STEP); ++j) {
+    const int r = r0 + STEP * j;
+    const bool in = s0 + r < S;
+    cp_async16(base + wgmma::swizzle(r * L::Z + col, L::Z), in ? g + static_cast<long long>(STEP * j) * ld : src,
+               in);
+  }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
+// e^x as one ex2.approx (relative error ~2^-22), for the softmax
+__device__ __forceinline__ float fast_exp(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) { return *reinterpret_cast<uint32_t*>(&v); }
@@ -128,94 +199,116 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
-// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 * g + t.
-// A (16 x 16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
-// a3 (g+8, 2t+8..). B (16 x 8, k-major pairs): b0 (k 2t..2t+1, n g), b1
-// (k 2t+8.., n g). C (16 x 8): c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..).
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS) fa_fwd_mma_kernel(const Params p) {
-  constexpr int BK = mma_bk<D>();
-  constexpr int QS = D + 8;   // padded row stride (elements) of the q and k tiles
-  constexpr int VS = BK + 8;  // padded row stride of the transposed v tile
-  constexpr int CH = D / 8;   // 16-byte chunks per row
-  constexpr int NT = BK / 8;  // score n-tiles per warp
-  constexpr int OT = D / 8;   // output n-tiles per warp
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // (BQ, QS)
-  __nv_bfloat16* sK = sQ + MMA_BQ * QS;                               // (BK, QS)
-  __nv_bfloat16* sVt = sK + BK * QS;                                  // (D, VS): v transposed
+// One CTA of NWG warpgroups per (NWG 64-row q tiles, head, batch); q tiles
+// in reverse order, so under a causal mask the tiles with the most KV tiles
+// start first. Each warpgroup's Q and a ring of two K/V stages in shared
+// memory, filled by all the CTA's threads with 16-byte cp.async
+// (zero-filled past Sq / Sk): the next KV tile's copies are in flight
+// while the current one is used. Per KV tile a warpgroup's rows see: S = Q K^T
+// (D / 16 wgmma m64n64k16 from shared memory), the online softmax on S's
+// accumulators (rows g and g + 8 of each warp's 16 span a lane quad), then
+// O += P V as wgmma m64nDk16 with P in registers (S's accumulators are P's
+// A fragments) and V read MN-major; P is split into hi + lo bf16 terms,
+// two products for each 16 keys: rounding P to one bf16 flips output
+// roundings often enough that a deep model amplifies them, while q, k and
+// v are exact bf16 and their products exact in fp32.
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * WG_THREADS) fa_fwd_wgmma_kernel(const Params p) {
+  using L = WgTile<D>;
+  constexpr int NT = NWG * WG_THREADS;
+  constexpr int OD = D / 2;  // accumulator floats a thread of O (64 x D)
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023) & ~1023u;
+  // warpgroup w's Q at base + w * BYTES; stage i: K at base + (NWG + 2 i) *
+  // BYTES, V right after it
+  auto sK = [&](int i) { return base + (NWG + 2 * i) * L::BYTES; };
+  auto sV = [&](int i) { return base + (NWG + 1 + 2 * i) * L::BYTES; };
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+  const int wg = tid / WG_THREADS, warp = (tid % WG_THREADS) / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * MMA_BQ;
+  const int q_cta = (gridDim.x - 1 - blockIdx.x) * NWG * WG_BQ;
+  const int q0 = q_cta + wg * WG_BQ;  // this warpgroup's first row
+  const uint32_t sQ = base + wg * L::BYTES;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / p.G;
-  const int row0 = warp * 16;  // this warp's first row in the q tile
+  const int row0 = warp * 16 + g;  // this thread's rows of its warpgroup's tile: row0 and row0 + 8
 
   const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(p.q) + b * p.qs[0] + h * p.qs[1];
   const __nv_bfloat16* Kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.ks[0] + kh * p.ks[1];
   const __nv_bfloat16* Vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.vs[0] + kh * p.vs[1];
-  const uint4 zero = make_uint4(0, 0, 0, 0);
 
-  for (int i = tid; i < MMA_BQ * CH; i += MMA_THREADS) {
-    const int r = i / CH, c = (i % CH) * 8, s = q0 + r;
-    *reinterpret_cast<uint4*>(sQ + r * QS + c) =
-        s < p.Sq ? *reinterpret_cast<const uint4*>(Q + s * p.qs[2] + c) : zero;
-  }
-
-  float o[OT][4];
+  // the CTA walks the KV tiles some of its rows see; a warpgroup computes
+  // on those its own rows see
+  int t_begin, t_end, my_begin, my_end;
+  kv_tiles(p, q_cta, NWG * WG_BQ, WG_BK, &t_begin, &t_end);
+  kv_tiles(p, q0, WG_BQ, WG_BK, &my_begin, &my_end);
+  if (q0 >= p.Sq) my_end = my_begin;
 #pragma unroll
-  for (int j = 0; j < OT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m_r[2] = {NEG, NEG};  // rows g and g + 8
+  for (int w = 0; w < NWG; ++w) load_tile<D, NT>(base + w * L::BYTES, Q, p.qs[2], q_cta + w * WG_BQ, p.Sq);
+  if (t_begin < t_end) {
+    load_tile<D, NT>(sK(0), Kg, p.ks[2], t_begin * WG_BK, p.Sk);
+    load_tile<D, NT>(sV(0), Vg, p.vs[2], t_begin * WG_BK, p.Sk);
+  }
+  cp_async_commit();
+
+  float o[OD];
+#pragma unroll
+  for (int j = 0; j < OD; ++j) o[j] = 0.f;
+  float m_r[2] = {NEG, NEG};
   float l_r[2] = {0.f, 0.f};
 
-  int t_begin, t_end;
-  kv_tiles(p, q0, MMA_BQ, BK, &t_begin, &t_end);
-  for (int kt = t_begin; kt < t_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * CH; i += MMA_THREADS) {  // K: coalesced rows
-      const int r = i / CH, c = (i % CH) * 8, s = k0 + r;
-      *reinterpret_cast<uint4*>(sK + r * QS + c) =
-          s < p.Sk ? *reinterpret_cast<const uint4*>(Kg + s * p.ks[2] + c) : zero;
+  for (int kt = t_begin, it = 0; kt < t_end; ++kt, ++it) {
+    const int st = it & 1;
+    if (kt + 1 < t_end) {  // stage st ^ 1 was released by the barrier ending the last step
+      load_tile<D, NT>(sK(st ^ 1), Kg, p.ks[2], (kt + 1) * WG_BK, p.Sk);
+      load_tile<D, NT>(sV(st ^ 1), Vg, p.vs[2], (kt + 1) * WG_BK, p.Sk);
     }
-    for (int i = tid; i < BK * CH; i += MMA_THREADS) {  // V: lanes walk keys, so the
-      const int r = i % BK, c = (i / BK) * 8, s = k0 + r;  // transposed stores spread
-      const uint4 raw = s < p.Sk ? *reinterpret_cast<const uint4*>(Vg + s * p.vs[2] + c) : zero;
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sVt[(c + j) * VS + r] = e[j];
-    }
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and this step's K, V have landed
+    wgmma::fence_proxy_async();
     __syncthreads();
-
-    // scores for this warp's 16 rows x BK keys
-    float sc[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const __nv_bfloat16* qa = sQ + (row0 + g) * QS + ks * 16 + 2 * t;
-      const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * QS), a2 = ld32(qa + 8), a3 = ld32(qa + 8 * QS + 8);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* kb = sK + (n * 8 + g) * QS + ks * 16 + 2 * t;
-        mma_bf16(sc[n], a0, a1, a2, a3, ld32(kb), ld32(kb + 8));
+    if constexpr (NWG > 1) {
+      if (kt < my_begin || kt >= my_end) {  // no row of this warpgroup sees the tile
+        __syncthreads();
+        continue;
       }
     }
 
-    // online softmax over the rows g and g + 8 (a row spans the 4 lanes of a quad)
+    float sc[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = 0.f;
+    wgmma::fence_operands(sc);
+    wgmma::fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) wgmma::mma_ss_n64(sc, L::kmajor(sQ, ks), L::kmajor(sK(st), ks), 1);
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operands(sc);
+
+    // online softmax over the rows row0 and row0 + 8 (a row spans the 4
+    // lanes of a quad); the mask is computed only where some key of the
+    // tile is hidden from some row of the q tile
+    const int k0 = kt * WG_BK;
+    const int q_first = p.q_offset + q0;
+    const bool whole = k0 + WG_BK <= p.Sk && (!p.bounded || k0 + WG_BK - 1 <= q_first) &&
+                       (p.window <= 0 || k0 > q_first + WG_BQ - 1 - p.window);
+    unsigned vis = 0xffffffffu;  // bit j: accumulator j is visible
+    if (!whole) {
+      vis = 0;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int q_pos = q_first + row0 + ((j & 2) ? 8 : 0);
+        const int k_pos = k0 + (j / 4) * 8 + 2 * t + (j & 1);
+        vis |= static_cast<unsigned>(visible(p, q_pos, k_pos)) << j;
+      }
+    }
     float mx[2] = {NEG, NEG};
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q_pos = p.q_offset + q0 + row0 + g + (e >= 2 ? 8 : 0);
-        const int k_pos = k0 + n * 8 + 2 * t + (e & 1);
-        sc[n][e] = visible(p, q_pos, k_pos) ? sc[n][e] * p.scale : NEG;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
-      }
+    for (int j = 0; j < 32; ++j) {
+      sc[j] = ((vis >> j) & 1) ? sc[j] * p.scale : NEG;
+      mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
     }
     float corr[2], sum[2] = {0.f, 0.f};
 #pragma unroll
@@ -223,19 +316,14 @@ __global__ void __launch_bounds__(MMA_THREADS) fa_fwd_mma_kernel(const Params p)
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
       const float m_new = fmaxf(m_r[i], mx[i]);
-      corr[i] = expf(m_r[i] - m_new);
+      corr[i] = fast_exp(m_r[i] - m_new);
       m_r[i] = m_new;
     }
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q_pos = p.q_offset + q0 + row0 + g + (e >= 2 ? 8 : 0);
-        const int k_pos = k0 + n * 8 + 2 * t + (e & 1);
-        // fully-masked rows: exp(NEG - NEG) == 1, so zero them by the mask
-        sc[n][e] = visible(p, q_pos, k_pos) ? expf(sc[n][e] - m_r[e >> 1]) : 0.f;
-        sum[e >> 1] += sc[n][e];
-      }
+    for (int j = 0; j < 32; ++j) {
+      // fully-masked rows: exp(NEG - NEG) == 1, so zero them by the mask
+      sc[j] = ((vis >> j) & 1) ? fast_exp(sc[j] - m_r[(j >> 1) & 1]) : 0.f;
+      sum[(j >> 1) & 1] += sc[j];
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -244,42 +332,41 @@ __global__ void __launch_bounds__(MMA_THREADS) fa_fwd_mma_kernel(const Params p)
       l_r[i] = l_r[i] * corr[i] + sum[i];
     }
 #pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      o[j][0] *= corr[0];
-      o[j][1] *= corr[0];
-      o[j][2] *= corr[1];
-      o[j][3] *= corr[1];
-    }
+    for (int j = 0; j < OD; ++j) o[j] *= corr[(j >> 1) & 1];
 
-    // o += P V: the score accumulators of n-tiles 2kk, 2kk+1 are P's A
-    // fragment, split into hi + lo bf16 terms so P keeps ~16 mantissa bits
+    // O += P V, keys 16 kk .. 16 kk + 15: S's accumulators 8 kk .. 8 kk + 7
+    // are P's A fragment, split into hi + lo; every fragment is formed
+    // before the products are issued, so they queue back to back
+    uint32_t ph[16], pl[16];  // kk-th fragment at 4 kk .. 4 kk + 3
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t h0, h1, h2, h3, l0, l1, l2, l3;
-      split_bf16(sc[2 * kk][0], sc[2 * kk][1], h0, l0);
-      split_bf16(sc[2 * kk][2], sc[2 * kk][3], h1, l1);
-      split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], h2, l2);
-      split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], h3, l3);
+    for (int i = 0; i < 16; ++i) split_bf16(sc[2 * i], sc[2 * i + 1], ph[i], pl[i]);
+    wgmma::fence_operands(ph);
+    wgmma::fence_operands(pl);
+    wgmma::fence_operands(o);
+    wgmma::fence();
 #pragma unroll
-      for (int j = 0; j < OT; ++j) {
-        const __nv_bfloat16* vb = sVt + (j * 8 + g) * VS + kk * 16 + 2 * t;
-        const uint32_t b0 = ld32(vb), b1 = ld32(vb + 8);
-        mma_bf16(o[j], h0, h1, h2, h3, b0, b1);
-        mma_bf16(o[j], l0, l1, l2, l3, b0, b1);
-      }
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      const uint64_t vd = L::mnmajor(sV(st), kk);
+      wgmma::RS<D>::mma(o, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3], vd);
+      wgmma::RS<D>::mma(o, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3], vd);
     }
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operands(o);
+    __syncthreads();  // every warp is done with stage st before it is refilled
   }
+  cp_async_wait<0>();
 
   __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o) + b * p.os[0] + h * p.os[1];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int s = q0 + row0 + g + 8 * i;
+    const int s = q0 + row0 + 8 * i;
     if (s >= p.Sq) continue;
     const float l = fmaxf(l_r[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < OT; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(O + s * p.os[2] + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[j][2 * i] / l, o[j][2 * i + 1] / l);
+          __floats2bfloat162_rn(o[4 * j + 2 * i] / l, o[4 * j + 2 * i + 1] / l);
     }
     if (p.lse != nullptr && t == 0) {
       p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + s] = m_r[i] + logf(l);
@@ -446,19 +533,59 @@ __global__ void __launch_bounds__(F32_THREADS) fa_fwd_f32_kernel(const Params p)
 // launch
 // ---------------------------------------------------------------------------
 
+// The dynamic shared memory above 48 KB is allowed once per device and
+// kernel, not on every launch (the call costs host time).
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, const Params& p, int B, int bq, int threads, size_t smem, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+cudaError_t smem_attribute_once(Kernel kernel, size_t bytes, std::atomic<unsigned long long>& ready) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + bq - 1) / bq, p.H, B);
-  kernel<<<grid, threads, smem, st>>>(p);
+  const unsigned long long bit = 1ULL << (dev & 63);
+  if (ready.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err == cudaSuccess) ready.fetch_or(bit);
+  return err;
+}
+
+// SMs of the current device, read once per device
+int sm_count() {
+  static std::atomic<int> counts[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  int n = counts[dev & 63].load();
+  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+    counts[dev & 63].store(n);
+  return n;
+}
+
+template <int D, int NWG>
+cudaError_t launch_wgmma(const Params& p, int B, cudaStream_t st) {
+  static std::atomic<unsigned long long> ready{0};  // devices whose attribute is set
+  cudaError_t err = smem_attribute_once(fa_fwd_wgmma_kernel<D, NWG>, wg_smem_bytes<D, NWG>(), ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + NWG * WG_BQ - 1) / (NWG * WG_BQ), p.H, B);
+  fa_fwd_wgmma_kernel<D, NWG><<<grid, NWG * WG_THREADS, wg_smem_bytes<D, NWG>(), st>>>(p);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_d(const Params& p, int B, int dtype, cudaStream_t st) {
-  if (dtype == 1) return launch(fa_fwd_mma_kernel<D>, p, B, MMA_BQ, MMA_THREADS, mma_smem_bytes<D>(), st);
-  return launch(fa_fwd_f32_kernel<D>, p, B, F32_BQ, F32_THREADS, f32_smem_bytes<D>(), st);
+  if (dtype == 1) {
+    // One warpgroup a CTA while 64-row CTAs fit in one wave (the S = 512
+    // prefill: the most SMs at work); two, sharing each K/V tile, once
+    // they do not (the ring's blocks, long prompts): each SM scheduler
+    // then holds two warps, one's softmax hiding behind the other's
+    // products, and a tile's loads serve twice the rows.
+    const long long ctas = static_cast<long long>((p.Sq + WG_BQ - 1) / WG_BQ) * p.H * B;
+    if (ctas > sm_count()) return launch_wgmma<D, 2>(p, B, st);
+    return launch_wgmma<D, 1>(p, B, st);
+  }
+  static std::atomic<unsigned long long> ready_f32{0};
+  cudaError_t err = smem_attribute_once(fa_fwd_f32_kernel<D>, f32_smem_bytes<D>(), ready_f32);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + F32_BQ - 1) / F32_BQ, p.H, B);
+  fa_fwd_f32_kernel<D><<<grid, F32_THREADS, f32_smem_bytes<D>(), st>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace

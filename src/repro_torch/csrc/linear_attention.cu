@@ -32,8 +32,8 @@
 //      parallel: the read-out o = r_dec . S_c + mask(scores) . v (+ bonus).
 // Inside a chunk kernel, in shared memory: r, k, w staged transposed
 // ([n][t], so a warp's lanes run along t) and v as [t][m]; one warp per
-// column n takes the inclusive cumsum of w by shuffles (a second half of
-// 32 lanes only for chunks 33 and 34) and scales r and k by their decays; the products run on
+// column n takes the inclusive cumsum of w by shuffles, in fp64 (a second
+// half of 32 lanes only for chunks 33 and 34) and scales r and k by their decays; the products run on
 // CUDA cores (FFMA), each thread computing a 4 x 2 tile with one float4
 // read of the shared operand per step. The scratch holds B*H*ceil(T/C)*N*M
 // fp32 states (N / C times o's element count) and the chunks' totals; the
@@ -93,10 +93,14 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
 
-__device__ __forceinline__ float warp_inclusive_scan(float x, int lane) {
+// The running sum is fp64: a chain of fp32 adds rounds at every step, and
+// each rounding of an exponent of up to ~85 scales a decayed term by
+// ~85 * 6e-8, which a near-zero output (terms of ~10-100 cancelling)
+// magnifies. Each exponent is rounded to fp32 once, where it is taken.
+__device__ __forceinline__ double warp_inclusive_scan(double x, int lane) {
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const float y = __shfl_up_sync(0xffffffffu, x, off);
+    const double y = __shfl_up_sync(0xffffffffu, x, off);
     if (lane >= off) x += y;
   }
   return x;
@@ -145,20 +149,26 @@ __device__ __forceinline__ void stage(const Params& p, const Chunk& q, float* RT
   }
 }
 
-// The inclusive cumsum of w's column n (lane holds steps lane and lane + 32;
-// the second half holds steps only for chunks 33 and 34), and the chunk's
-// total.
+// The inclusive cumsum of w's column n in fp64 (lane holds steps lane and
+// lane + 32; the second half holds steps only for chunks 33 and 34), and
+// the chunk's total.
 struct Scan {
-  float w0, w1, i0, i1, total;
+  float w0, w1;
+  double i0, i1, total;
 };
 
 __device__ __forceinline__ Scan scan_column(const Params& p, const float* wrow, int lane) {
   Scan s;
   s.w0 = lane < p.C4 ? wrow[lane] : 0.f;
   s.w1 = lane + 32 < p.C4 ? wrow[lane + 32] : 0.f;
-  s.i0 = warp_inclusive_scan(s.w0, lane);
-  s.i1 = warp_inclusive_scan(s.w1, lane) + __shfl_sync(0xffffffffu, s.i0, 31);
-  s.total = p.C <= 32 ? __shfl_sync(0xffffffffu, s.i0, p.C - 1) : __shfl_sync(0xffffffffu, s.i1, p.C - 33);
+  s.i0 = warp_inclusive_scan(static_cast<double>(s.w0), lane);
+  if (p.C <= 32) {  // the second half holds no step
+    s.i1 = 0.0;
+    s.total = __shfl_sync(0xffffffffu, s.i0, p.C - 1);
+  } else {
+    s.i1 = warp_inclusive_scan(static_cast<double>(s.w1), lane) + __shfl_sync(0xffffffffu, s.i0, 31);
+    s.total = __shfl_sync(0xffffffffu, s.i1, p.C - 33);
+  }
   return s;
 }
 
@@ -182,9 +192,9 @@ __global__ void __launch_bounds__(THREADS) la_chunk_state(const Params p) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int t = lane + 32 * half;
-      if (t < p.C4) KT[t * NP + n] = KDT[n * CP + t] * expf(s.total - (half ? s.i1 : s.i0));
+      if (t < p.C4) KT[t * NP + n] = KDT[n * CP + t] * expf(static_cast<float>(s.total - (half ? s.i1 : s.i0)));
     }
-    if (lane == 0 && n < N && blockIdx.y == 0) dtot[n] = s.total;
+    if (lane == 0 && n < N && blockIdx.y == 0) dtot[n] = static_cast<float>(s.total);
   }
   __syncthreads();
 
@@ -276,13 +286,13 @@ __global__ void __launch_bounds__(THREADS) la_output(const Params p) {
     for (int half = 0; half < 2; ++half) {
       const int t = lane + 32 * half;
       if (t < C4) {
-        const float inc = half ? s.i1 : s.i0;
-        const float ex = ssd ? inc : inc - (half ? s.w1 : s.w0);
+        const double inc = half ? s.i1 : s.i0;
+        const double ex = ssd ? inc : inc - (half ? s.w1 : s.w0);
         const float rraw = RT[n * CP + t], kraw = KDT[n * CP + t];
         if (half) bp1 += rraw * un * kraw;
         else bp0 += rraw * un * kraw;
-        RT[n * CP + t] = rraw * expf(ex);
-        KDT[n * CP + t] = kraw * expf(-inc);
+        RT[n * CP + t] = rraw * expf(static_cast<float>(ex));
+        KDT[n * CP + t] = kraw * expf(static_cast<float>(-inc));
       }
     }
   }

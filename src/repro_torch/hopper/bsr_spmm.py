@@ -15,7 +15,9 @@ stride); the output (num_rows, F) is fp32, summed in fp32. Tile
 coordinates are not checked here: ``core.sparse.BsrMatrix`` checks them
 once, at construction (``tile_cols * bk + bk <= K`` is the caller's
 obligation in the unpacked form); a launch does not synchronise to check
-them again.
+them again. A zero tile value does no work in the kernel, so a non-finite
+dense value facing one does not make the sum NaN, as the plain version's
+dense product 0 * inf does.
 """
 from __future__ import annotations
 
@@ -87,6 +89,15 @@ def _check(tile_values, tile_rows, tile_cols, dense, num_rows):
         )
 
 
+def row_pointer(tile_rows, nr):
+    """(nr + 1,) int32: the tiles of block row r are ``[ptr[r], ptr[r + 1])``
+    of the sorted ``tile_rows``. Built where ``tile_rows`` lies, without a
+    sync (the kernel's schedule: each warp walks its block row's range)."""
+    return torch.searchsorted(
+        tile_rows, torch.arange(nr + 1, dtype=torch.int32, device=tile_rows.device),
+        out_int32=True)
+
+
 def bsr_spmm_cuda(tile_values, tile_rows, tile_cols, dense, num_rows, **blocks):
     """fp32 out (num_rows, F) = sum over tiles t of tile_values[t] @
     dense[tile_cols[t]*bk : +bk] at block row tile_rows[t]. Launches the
@@ -102,10 +113,7 @@ def bsr_spmm_cuda(tile_values, tile_rows, tile_cols, dense, num_rows, **blocks):
     out = torch.empty((num_rows, F), dtype=torch.float32, device=dense.device)
     nr = num_rows // bm
     if nr and F:
-        # tiles of block row r: [rowptr[r], rowptr[r + 1]) of the sorted rows
-        rowptr = torch.searchsorted(
-            tile_rows, torch.arange(nr + 1, dtype=torch.int32, device=dense.device),
-            out_int32=True)
+        rowptr = row_pointer(tile_rows, nr)
         lib, fn = _kernel()
         with torch.cuda.device(dense.device):
             stream = torch.cuda.current_stream(dense.device).cuda_stream

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, bound with ``ctypes``. Builds
 happen at first use, never at import, into ``_build/`` beside the package
 (listed in ``.gitignore``); a library's file name carries a hash of its
-source and flags, so an unchanged source is not rebuilt. ``build`` starts
+source, the ``csrc/`` headers it includes and the flags, so an unchanged
+source is not rebuilt. ``build`` starts
 one ``nvcc`` per source, all at once, and waits for them together.
 
 A failed build raises: nothing here falls back to another implementation.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -47,11 +49,30 @@ def nvcc_path() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def local_includes(path: Path) -> list[Path]:
+    """The files of ``csrc/`` that ``path`` includes with ``#include "..."``,
+    directly or through each other, in the order first reached."""
+    seen: list[Path] = []
+    todo = [path]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_bytes()):
+            dep = CSRC_DIR / inc.decode()
+            if dep.exists() and dep not in seen:
+                seen.append(dep)
+                todo.append(dep)
+    return seen
+
+
 def library_path(name: str) -> Path:
     """Where the library for ``csrc/<name>.cu`` lands, keyed by the hash of
-    its source text and compiler flags."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    its source text, the headers of ``csrc/`` it includes, and the compiler
+    flags: an edited header rebuilds every library that includes it."""
+    src = CSRC_DIR / f"{name}.cu"
+    text = b"".join(f.read_bytes() for f in [src, *local_includes(src)])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -8,6 +8,7 @@ suite's ``rtol=atol=1e-4``. Paged decode equals contiguous decode bitwise
 inside the port. The Hopper kernel itself runs only on the card: its test
 here is marked ``cuda`` and skips without one.
 """
+import itertools
 import os
 import subprocess
 import sys
@@ -19,10 +20,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax.numpy as jnp  # noqa: E402
-
-from repro.kernels import ops as jops  # noqa: E402
-from repro_torch.hopper import dispatch, ops  # noqa: E402
+try:  # the card's machine has no JAX: only the `cuda`-marked tests run there
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+except ImportError:
+    jnp = jops = None
+from repro_torch.hopper import build, dispatch, ops  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -238,3 +241,52 @@ def test_port_imports_no_jax_and_no_reference_package():
                          text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 14
+
+
+def test_library_hash_covers_the_included_headers(tmp_path, monkeypatch):
+    """A library's file name hashes its source and the ``csrc/`` headers it
+    includes (directly or through each other), so an edited header builds
+    every library that includes it anew and leaves the others alone."""
+    for name in ("flash_attention.cu", "gemm.cu", "wgmma.cuh"):
+        (tmp_path / name).write_bytes((build.CSRC_DIR / name).read_bytes())
+    (tmp_path / "outer.cuh").write_text('#pragma once\n#include "wgmma.cuh"\n')
+    (tmp_path / "flash_attention.cu").write_text(
+        '#include "outer.cuh"\n' + (tmp_path / "flash_attention.cu").read_text())
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    assert build.local_includes(tmp_path / "flash_attention.cu") == [
+        tmp_path / "outer.cuh", tmp_path / "wgmma.cuh"]
+    assert build.local_includes(tmp_path / "gemm.cu") == []
+    fa, gemm = build.library_path("flash_attention"), build.library_path("gemm")
+    (tmp_path / "wgmma.cuh").write_text((tmp_path / "wgmma.cuh").read_text() + "// edited\n")
+    assert build.library_path("flash_attention") != fa
+    assert build.library_path("gemm") == gemm
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernel_every_head_dim():
+    """The bf16 (wgmma) kernel against its plain version at every head dim
+    it takes, with GQA, a window, q_offset, ragged Sk and lse, on
+    contiguous tensors, on (B, S, H, D) -> (B, H, S, D) views and on the
+    second half of each along S (the zigzag ring's halves); bf16 o within
+    one bf16 step, lse within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # (2, 8, 2, 600, 777): more 64-row tiles than an H100 has SMs, so two
+    # warpgroups a CTA
+    for (B, H, K, Sq, Sk), D, layout in itertools.product(
+            ((2, 8, 2, 100, 170), (2, 8, 2, 600, 777)), (16, 32, 64, 128, 256),
+            ("contiguous", "view", "half")):
+        def make(heads, S):
+            n = 2 * S if layout == "half" else S
+            x = torch.randn((B, n, heads, D), generator=gen, device="cuda").bfloat16()
+            x = x.transpose(1, 2) if layout != "contiguous" else x.transpose(1, 2).contiguous()
+            return x[:, :, S:] if layout == "half" else x
+
+        q, k, v = make(H, Sq), make(K, Sk), make(K, Sk)
+        for kw in (dict(causal=True, window=37, q_offset=70), dict(causal=False, window=0, q_offset=0),
+                   dict(causal=True, window=0, q_offset=Sk - Sq)):
+            got = ops.flash_attention(q, k, v, impl="cuda", return_lse=True, **kw)
+            want = ops.flash_attention(q, k, v, impl="torch", return_lse=True, **kw)
+            torch.testing.assert_close(got[0].float(), want[0].float(), rtol=1e-2, atol=1e-2)
+            torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)

@@ -20,13 +20,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax.numpy as jnp  # noqa: E402
-
-from repro.core import sparse as jsp  # noqa: E402
-from repro.kernels import ops as jops  # noqa: E402
-from repro.kernels import ref as jref  # noqa: E402
-from repro.kernels import registry as jregistry  # noqa: E402
+try:  # the card's machine has no JAX: only the `cuda`-marked tests run there
+    import jax.numpy as jnp
+    from repro.core import sparse as jsp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    from repro.kernels import registry as jregistry
+except ImportError:
+    jnp = jsp = jops = jref = jregistry = None
 from repro_torch.core import sparse as tsp  # noqa: E402
+from repro_torch.hopper import bsr_spmm as bsr_wrapper  # noqa: E402
 from repro_torch.hopper import dispatch, ops, ref  # noqa: E402
 from repro_torch.launch import sparse_la  # noqa: E402
 
@@ -407,3 +410,85 @@ def test_cuda_sparse_la_kernels_match_plain_versions():
         w = rng.standard_normal(len(offs)).astype(np.float32)
         assert torch.equal(ops.stencil(g, offs, w, impl="cuda"),
                            ops.stencil(g, offs, w, impl="torch"))
+
+
+# ---------------------------------------------------------------------------
+# The BSR kernel's schedule (built by its wrapper in torch, so it runs here)
+# and its edge shapes on the card
+# ---------------------------------------------------------------------------
+
+
+def _bsr_layout(name, rng):
+    """(tiles (T, bm, bk), rows, cols, num block rows, K, F) of a named
+    layout: tiles drawn ~90 % zero."""
+    if name == "ell_to_bsr ragged bm=3 bk=20 F=37":
+        A = tsp.random_ell(rng, 30, 100, 0.1)
+        B = tsp.ell_to_bsr(A, bm=3, bk=20)
+        return B.tile_values.numpy(), B.tile_rows.numpy(), B.tile_cols.numpy(), 10, 100, 37
+    rows, cols, nr = {
+        "empty block rows 1 and 3": ([0, 0, 2, 2], [0, 2, 1, 2], 4),
+        "a single tile": ([2], [1], 5),
+        "no tiles": ([], [], 3),
+        "unsorted columns, a repeated tile": ([0, 1, 1, 1, 1], [1, 2, 0, 2, 1], 2),
+    }[name]
+    bm, bk, F = 16, 24, 300
+    tiles = rng.standard_normal((len(rows), bm, bk)).astype(np.float32)
+    tiles[rng.random(tiles.shape) < 0.9] = 0
+    return tiles, np.array(rows, np.int32), np.array(cols, np.int32), nr, 3 * bk, F
+
+
+@pytest.mark.parametrize("name", ["ell_to_bsr ragged bm=3 bk=20 F=37", "empty block rows 1 and 3",
+                                  "a single tile", "no tiles", "unsorted columns, a repeated tile"])
+def test_bsr_row_pointer_and_plain_path_match_numpy(rng, name):
+    """The wrapper's row pointer (each warp's range of tiles) equals
+    numpy's from the same tile rows, and the product through the wrapper
+    (the plain version, for CPU tensors) equals a numpy construction from
+    the same tiles: every tile's product added at its block row, block
+    rows without tiles 0."""
+    tiles, rows, cols, nr, K, F = _bsr_layout(name, rng)
+    bm, bk = tiles.shape[1:] if tiles.size else (16, 24)
+    ptr = bsr_wrapper.row_pointer(torch.from_numpy(rows), nr)
+    assert ptr.dtype == torch.int32
+    np.testing.assert_array_equal(ptr.numpy(), np.searchsorted(rows, np.arange(nr + 1), side="left"))
+    dense = rng.standard_normal((K, F)).astype(np.float32)
+    want = np.zeros((nr * bm, F), np.float64)
+    for t in range(len(rows)):
+        want[rows[t] * bm:(rows[t] + 1) * bm] += (tiles[t].astype(np.float64)
+                                                 @ dense[cols[t] * bk:(cols[t] + 1) * bk])
+    tv = torch.from_numpy(tiles.reshape(len(rows), bm, bk))
+    got = bsr_wrapper.bsr_spmm_cuda(tv, torch.from_numpy(rows), torch.from_numpy(cols),
+                                    torch.from_numpy(dense), nr * bm)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    for r in set(range(nr)) - set(rows.tolist()):
+        assert not got[r * bm:(r + 1) * bm].any()
+
+
+@pytest.mark.cuda
+def test_cuda_bsr_kernel_edge_shapes():
+    """The BSR kernel against its plain version at the edge shapes of its
+    design: bm 8 / 16 / 3 against its 8-row groups, bk 128 / 20 against
+    its 128-column chunks and 16-byte granules, F 256 / 300 against its
+    256-column slices, every pair of tile and dense types, a block row
+    without tiles (0), and unsorted columns with a repeated tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper BSR kernel has no CPU mode")
+    rng = np.random.default_rng(1)
+    layouts = [([0, 0, 1, 3, 4, 4, 4], [0, 1, 1, 0, 0, 1, 2]),
+               ([0, 0, 1, 4, 4, 4, 4], [2, 0, 1, 1, 2, 0, 2])]
+    for bm in (8, 16, 3):
+        for bk in (128, 20):
+            for F in (256, 300):
+                for vt in (torch.float32, torch.bfloat16):
+                    for dt in (torch.float32, torch.bfloat16):
+                        for rows, cols in layouts:
+                            tiles = rng.standard_normal((len(rows), bm, bk)).astype(np.float32)
+                            tiles[rng.random(tiles.shape) < 0.9] = 0
+                            dense = rng.standard_normal((3 * bk, F)).astype(np.float32)
+                            args = (torch.from_numpy(tiles).cuda().to(vt),
+                                    torch.tensor(rows, dtype=torch.int32, device="cuda"),
+                                    torch.tensor(cols, dtype=torch.int32, device="cuda"),
+                                    torch.from_numpy(dense).cuda().to(dt), 5 * bm)
+                            got = ops.bsr_spmm(*args, impl="cuda")
+                            want = ops.bsr_spmm(*args, impl="torch")
+                            torch.testing.assert_close(got, want, **TOL)
+                            assert not got[2 * bm:3 * bm].any()

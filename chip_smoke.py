@@ -120,7 +120,7 @@ NUM_BLOCKS = 56  # tight: this workload preempts twice (checked below)
 
 # the sources whose every ptxas line (registers, shared memory, spills)
 # the build step prints
-REDESIGNED = ("flash_attention", "bsr_spmm", "linear_attention")
+REDESIGNED = ("flash_attention", "bsr_spmm", "linear_attention", "gemm", "ring_hop")
 FA_REPLACES = "src/repro/kernels/flash_attention.py:57"
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 GEMM_REPLACES = "src/repro/kernels/gemm.py:23"
@@ -392,6 +392,15 @@ GEMM_CASES = [
     ("gcn width bf16 -> bf16", 2708, 144, 144, "bfloat16", "bfloat16"),
     ("f32 -> bf16", 300, 64, 96, "float32", "bfloat16"),
 ]
+# Drawn with B / sqrt(K), so that C is of unit scale as the GCN's layers
+# give it: B's (2048, 1024) panel is far above the shared memory, so the
+# kernel streams it. With unit-variance B at K = 2048 the sums reach ~200,
+# and any two fp32 orders of them differ by a few 1e-4 (3.8e-4 measured,
+# kernel against torch.matmul), which GEMM_TOL's absolute 1e-4 does not
+# leave room for; at unit scale it does, at the same tolerance.
+GEMM_CASES_UNIT_SCALE = [
+    ("f32 K x N past the shared memory", 1000, 2048, 1024, "float32", "float32"),
+]
 # |kernel - plain| <= ATOL + RTOL * |plain|, by output dtype. fp32 out: both
 # sum exact fp32 (or bf16) products in fp32, in different K orders (the
 # reference suite's 1e-4). bf16 out: both round an fp32 sum to bf16, so
@@ -446,6 +455,8 @@ def check_gcn_kernels(report):
     """Phase 2 for the GCN path: GEMM and ELL SpMM through the kernel and
     the plain version on the same inputs, at the GCN path's shapes and at
     ragged and wider ones."""
+    import math
+
     import numpy as np
     import torch
 
@@ -456,11 +467,14 @@ def check_gcn_kernels(report):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     F = gi.FEATURES
     gemm_cases = [(f"gcn {name}", n, F, F, "float32", "float32")
-                  for name, n, _ in _gcn_graphs()] + GEMM_CASES
+                  for name, n, _ in _gcn_graphs()] + GEMM_CASES + GEMM_CASES_UNIT_SCALE
     errs = []
     for label, M, K, N, dt, odt in gemm_cases:
         a = torch.randn((M, K), generator=gen, device="cuda").to(getattr(torch, dt))
-        b = torch.randn((K, N), generator=gen, device="cuda").to(getattr(torch, dt))
+        b = torch.randn((K, N), generator=gen, device="cuda")
+        if (label, M, K, N, dt, odt) in GEMM_CASES_UNIT_SCALE:
+            b /= math.sqrt(K)
+        b = b.to(getattr(torch, dt))
         kw = dict(out_dtype=getattr(torch, odt))
         got = ops.gemm(a, b, impl="cuda", **kw)
         want = ops.gemm(a, b, impl="torch", **kw)
@@ -600,15 +614,20 @@ def time_gcn_kernels(report):
         plain_iters = 2 if n > 10000 else 10  # the plain SpMM is a Python loop of small ops
         a = torch.randn((n, F), generator=gen, device="cuda")
         w = torch.randn((F, F), generator=gen, device="cuda") / math.sqrt(F)
-        kern, plain = _in_turns(lambda: ops.gemm(a, w, impl="cuda"),
-                                lambda: ops.gemm(a, w, impl="torch"), 20)
-        lib = time_ms(lambda: torch.matmul(a, w))
+        kern_fn, lib_fn = lambda: ops.gemm(a, w, impl="cuda"), lambda: torch.matmul(a, w)
+        kern, plain = _in_turns(kern_fn, lambda: ops.gemm(a, w, impl="torch"), 20)
+        lib = time_ms(lib_fn)
+        dev = [device_ms(kern_fn), device_ms(lib_fn), device_ms(lib_fn), device_ms(kern_fn)]
         bound, by = gemm_bound_ms(n, F, F, "float32", "float32")
         report.setdefault("gemm_time", {})[name] = dict(
             shape=f"({n},{F})x({F},{F}) float32", ms=min(kern), plain_ms=min(plain),
-            library_ms=lib, bound_ms=bound, bound_by=by)
+            library_ms=lib, bound_ms=bound, bound_by=by, device_ms=min(dev[0], dev[3]),
+            library_device_ms=min(dev[1], dev[2]))
         print(f"time gemm [{name} ({n},{F})x({F},{F}) f32]: kernel {kern} ms, plain {plain} ms, "
-              f"torch.matmul {lib:.4f} ms, bound {bound:.5f} ms ({by})")
+              f"torch.matmul {lib:.4f} ms (events, back to back); device time in turns kernel "
+              f"{_ms(dev[0])}, {_ms(dev[3])}, torch.matmul {_ms(dev[1])}, {_ms(dev[2])}; bound "
+              f"{bound:.5f} ms ({by}); {2 * n * F * F / min(dev[0], dev[3]) / 1e9:.1f} TFLOP/s "
+              f"at the kernel's device time")
 
         adj = gi.adjacency(rng, n, deg).to("cuda")
         dense = torch.randn((n, F), generator=gen, device="cuda")
@@ -1173,10 +1192,11 @@ def time_precision_kernels(report):
             lib = time_ms(lambda: torch.matmul(aq, bq))
             lib_text = f"torch.matmul on the {pol} values {lib:.4f} ms"
         elif dt == torch.float8_e4m3fn:
+            lib, lib_text = _scaled_mm_blockwise(aq, bq, a_s, b_s, bk)
             lib_text += "; " + _scaled_mm_reference(aq, bq)
         report.setdefault("gemm_scaled_time", {})[pol] = dict(
             shape=label, ms=min(kern), plain_ms=min(plain), library_ms=lib, bound_ms=bound,
-            bound_by=by, max_abs_err=err)
+            bound_by=by, max_abs_err=err, library=lib_text)
         print(f"time gemm_scaled [{label}]: kernel {kern} ms, plain {plain} ms, library "
               f"{lib_text}, bound {bound:.5f} ms ({by}); {2 * m * n * k / min(kern) / 1e9:.1f} "
               f"TFLOP/s at the kernel's time")
@@ -1211,6 +1231,40 @@ def time_precision_kernels(report):
               f"sdpa on the fp32 dequantized operands (dequantize not timed) {lib:.4f} ms, "
               f"bound {bound:.5f} ms ({by})")
     torch.cuda.synchronize()
+
+
+def _scaled_mm_blockwise(aq, bq, a_s, b_s, bk):
+    """``torch.nn.functional.scaled_mm`` with ``BlockWise1x128`` scales on
+    both operands and an fp32 output: A's scales per (row, 128 of K), B's
+    per (128 of K, column) as the column-major (N, K / 128) the call takes;
+    the ladder's per-``bk`` scales repeated bk / 128 times along K, so it is
+    the kernel's function. Held to the plain version at SCALED_REL_TOL
+    (Frobenius). Returns (ms, text), ms None with the reason where the call
+    is refused or misses the hold: a library's yardstick, not a gate."""
+    import torch
+
+    from repro_torch.hopper import blocked
+
+    try:
+        F = torch.nn.functional
+        rep = bk // 128
+        sa = a_s.repeat_interleave(rep, dim=1).t().contiguous().t()  # (M, K/128), stride (1, M)
+        sb = b_s.repeat_interleave(rep, dim=0).t()  # (N, K/128), stride (1, N)
+        bt = bq.t().contiguous().t()  # column-major B
+        call = lambda: F.scaled_mm(aq, bt, sa, F.ScalingType.BlockWise1x128, sb,
+                                   F.ScalingType.BlockWise1x128, output_dtype=torch.float32)
+        got = call()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, AttributeError, ValueError) as e:
+        return None, (f"scaled_mm (BlockWise1x128 x BlockWise1x128, fp32 out) refused: "
+                      f"{str(e).splitlines()[0][:160]}")
+    rel = _frob(got, blocked.gemm_scaled_values_blocked(aq, bq, a_s, b_s, bk=bk))
+    if rel > SCALED_REL_TOL:
+        return None, (f"scaled_mm (BlockWise1x128 x BlockWise1x128, fp32 out) misses the hold: "
+                      f"rel {rel:.3e} > {SCALED_REL_TOL:g}")
+    ms = time_ms(call)
+    return ms, (f"scaled_mm (BlockWise1x128 x BlockWise1x128, fp32 out) {ms:.4f} ms, vs plain "
+                f"rel {rel:.3e}")
 
 
 def _scaled_mm_reference(aq, bq):
@@ -2379,6 +2433,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
         })
+        if name == "gemm":  # device times (CUDA-graph replay) beside the events' ms
+            kernels[-1].update(device_ms=t["device_ms"], library_device_ms=t["library_device_ms"])
     for name, source, replaces, case in SPARSE_LA_JSON:
         t = report[f"{name}_time"][case]
         kernels.append({
@@ -2402,6 +2458,8 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
             "policy": "fp8",
         })
+        if name == "gemm_scaled":  # which library call library_ms is, or why there is none
+            kernels[-1]["library"] = t["library"]
     t = report["la_time"]["rwkv6-3b"]
     kernels.append({
         "name": "linear_attention", "route": "cuda", "source": LA_SOURCE,
@@ -2436,6 +2494,9 @@ def main() -> int:
         # the same two calls back to back on the same buffers: L2-resident,
         # so below the HBM bound
         "warm_ms": t["warm_ms"], "warm_plain_ms": t["warm_plain_ms"],
+        # every size of the sweep, cold: [kernel ms, copy_ ms]
+        "cold_ms_by_bytes": {str(n): [r["ms"], r["plain_ms"]]
+                             for n, r in report["ring_hop_time"].items()},
         "ranks": RING_N, "cards": report["ring_cards"],
     })
     print(f"card: {card}")

@@ -8,11 +8,17 @@ Builds that checkout's kernels and times them with its own
 ``repro_torch`` and ``chip_smoke.py`` helpers: the bf16 FA-2 forward
 (B=1 H=16 D=256 causal; S = 512, and 2048-row ring blocks on and below
 the diagonal), the BSR SpMM at the sparse trio's three card densities,
-and the chunked scan at both recurrent models' card shapes, each as a
+the chunked scan at both recurrent models' card shapes, and the fp32 GEMM
+at the GCN's ogbn-arxiv and cora sizes ((n, 144) x (144, 144)), each as a
 device time (CUDA events around one replay of a CUDA graph of 20 calls);
-then a zigzag flash ring at S = 16384 on 4 ranks of one card and one
-unsharded call (host wall ended by a sync; the ring's min of 3 warm
-calls). Prints one line, ``CMP {json}``.
+the ring hop cold (L2 flushed before each call, events around the one
+call, the median of 40) at 4 MiB and 64 MiB and warm (back to back, events over 50 calls,
+the wrapper's host time included) at 4 MiB; then zigzag flash rings on
+4 ranks of one card, at S = 2048 with every K/V send through the ring-hop
+kernel (``remote_copy=True``) and at S = 16384 with ``copy_`` sends, and
+one unsharded call at 16384 (host wall ended by a sync; the rings' min of
+3 warm calls).
+Prints one line, ``CMP {json}``.
 
 To compare two versions on one card, unpack the other into a directory of
 this checkout that ``.gitignore`` lists (``git archive``) and run both in
@@ -47,6 +53,42 @@ def graph_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def cold_ms(fn, flush, iters=40):
+    """Median device time of one call of ``fn`` with the L2 flushed
+    (``flush`` written) before it, by CUDA events around the call, after a
+    warm-up (the median: a host stall that lets the flush end before the
+    call is issued lands in one pair's time)."""
+    import torch
+
+    fn()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sorted(s.elapsed_time(e) for s, e in pairs)[iters // 2]
+
+
+def warm_ms(fn, iters=50):
+    """Mean time per call of ``fn`` back to back, by CUDA events over
+    ``iters`` calls: the host's issue sets it where it exceeds the device's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def wall_ms(fn):
     import torch
 
@@ -64,11 +106,11 @@ def main(root, label):
 
     import chip_smoke as smoke
     from repro_torch.core import sparse
-    from repro_torch.hopper import build, ops
+    from repro_torch.hopper import build, ops, ring_hop
     from repro_torch.parallel.mesh import RingMesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build(("flash_attention", "bsr_spmm", "linear_attention", "ring_hop"))
+    build.build(("flash_attention", "bsr_spmm", "linear_attention", "ring_hop", "gemm"))
     out = {"label": label}
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -92,9 +134,28 @@ def main(root, label):
         r, k, v, w, u, _ = smoke._la_card_inputs(arch, smoke.RECURRENT_T, gen)
         out[f"la_{arch}"] = graph_ms(lambda: ops.linear_attention(r, k, v, w, u, impl="cuda"))
     del q, k, v, r, w, A, D
+    for name, n in (("gemm_ogbn", 169343), ("gemm_cora", 2708)):  # the GCN's (n, 144) x (144, 144)
+        a = torch.randn((n, 144), generator=gen, device="cuda")
+        w = torch.randn((144, 144), generator=gen, device="cuda") / 12
+        out[name] = graph_ms(lambda: ops.gemm(a, w, impl="cuda"))
+    del a, w
+    torch.cuda.empty_cache()
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")  # 5x the 50 MB L2
+    for nbytes in (4 << 20, 64 << 20):
+        src = torch.randint(0, 256, (nbytes,), dtype=torch.uint8, generator=gen, device="cuda")
+        dst = torch.empty_like(src)
+        out[f"hop_{nbytes >> 20}MiB_cold"] = cold_ms(lambda: ring_hop.ring_hop_cuda(src, dst), flush)
+        if nbytes == 4 << 20:
+            out["hop_4MiB_warm"] = warm_ms(lambda: ring_hop.ring_hop_cuda(src, dst))
+    del flush, src, dst
     torch.cuda.empty_cache()
 
     mesh = RingMesh(4)
+    q, k, v = qkv(2048)  # its K/V hops through the ring-hop kernel: 24 launches a call
+    walls = [wall_ms(lambda: ops.flash_attention(q, k, v, causal=True, mesh=mesh, remote_copy=True))
+             for _ in range(4)]
+    out["ring_s2048_zigzag_hop_wall"] = min(walls[1:])
     q, k, v = qkv(16384)
     walls = [wall_ms(lambda: ops.flash_attention(q, k, v, causal=True, mesh=mesh)) for _ in range(4)]
     out["ring_s16384_zigzag_wall"] = min(walls[1:])

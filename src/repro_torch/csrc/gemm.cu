@@ -11,36 +11,58 @@
 // zero-fill the tile edges on load and mask the stores, so nothing is
 // padded in memory (the TPU kernel pads the operands to its blocks).
 //
-// Design. One block per (BM x BN) output tile; a loop over K tiles inside
-// the block takes the place of the TPU grid's sequential K axis, and the
-// accumulator it keeps in VMEM scratch lives in registers.
+// fp32 (the GCN path): CUDA-core FFMA, exact fp32, not TF32 (the reference
+// computes exact fp32). Bound on this card: at the GCN shape (M = nodes,
+// K = N = 144) 2MNK operations over 67 TFLOP/s take about twice as long as
+// A and C through HBM, so the kernel is bound by operations and its design
+// aims at keeping the FFMA pipes fed:
+//  - Whole-width output tiles. A CTA's tile is BM = 8 TM wr rows by
+//    BN = 48 wc columns; the wrapper's planner (hopper/gemm.py `plan_f32`)
+//    picks wc so that BN covers N with the least waste (144 = 3 x 48: no
+//    padded column, so A leaves HBM once) and TM, wr and the grid from a
+//    model of the issue slots, calibrated on the card.
+//  - A persistent grid of col_tiles x groups CTAs. Each CTA keeps one
+//    column tile and takes an even, contiguous share of the row units (8 TM
+//    rows, a warp row's part of a tile), so the busiest CTA has at most one
+//    unit more than the least (M = 169,343 on 132 CTAs: 41 units of 32
+//    rows against 40.09). A warp row wholly
+//    past the share skips its FFMAs in the last tile. The K chunks of all
+//    of a CTA's tiles form one sequence, so the next tile's A is in flight
+//    while this tile computes and stores.
+//  - B resident: when B's (K, BN) panel fits in shared memory beside the
+//    ring (83 KB at 144 x 144) it is copied in once, during the CTA's first
+//    tile, and read from there for every later tile (each CTA keeps one
+//    column tile). Otherwise B's K chunks stream through the ring with A's.
+//  - A multistage cp.async ring of 16-k chunks, one barrier a chunk; rows
+//    stay row-major as they arrive (16-byte copies for 16-byte-aligned
+//    rows, 4-byte copies otherwise, with the zero-fill of cp.async masking
+//    the edges). A thread reads a float4 along k for each of its rows: its
+//    rows are 8 apart, so a warp's 8 row lanes read 8 consecutive rows, and
+//    the ring's row stride of 20 floats puts those 8 float4 on distinct
+//    banks; the 4 column lanes of a row read the same words (broadcast).
+//  - A 4 x 12 (TM = 4) or 2 x 12 register tile: per k a warp issues 48
+//    FFMA against 4 shared-memory loads (1 of A, 3 of B; each a single
+//    wavefront, the lanes of a row or a column reading the same words). A
+//    thread's 12 columns are three float4, one in each third of the tile,
+//    so a warp's 4 column lanes store 64 contiguous bytes per row and
+//    third. (8 x 12 was no faster at 168 registers, and spilled once the
+//    row ranges below took registers.)
+//  - The epilogue stores from registers (float4, or 4 bf16 as 8 bytes,
+//    when C's rows are aligned) while the next tile's loads are in flight.
 //
-//  - fp32 (the GCN path): CUDA-core FFMA, not TF32 (the reference computes
-//    exact fp32). 128 x 64 tiles, K tiles of 16, 128 threads, each thread
-//    an 8 x 8 register tile: 64 FMAs for every 16 floats it reads from
-//    shared memory. A is stored transposed (k-major, rows padded by 4) so
-//    each thread reads its 8 rows as two float4; a thread's rows and
-//    columns are two groups of 4, 64 rows / 32 columns apart, so the
-//    float4 reads of a quarter-warp hit distinct banks.
-//  - bf16: tensor cores through mma.sync m16n8k16 with fp32 accumulation.
-//    128 x 64 tiles, K tiles of 32, 4 warps of 32 rows x 64 columns each.
-//    A is stored row-major and B transposed (n-major), both with rows
-//    padded by 8 elements, so every fragment load of a warp hits 32
-//    distinct banks.
-//
-// Bound on this card. At the GCN shape (M = nodes, K = N = 144, fp32) the
-// product does 2MNK operations and moves (MK + KN + MN) * 4 bytes; over
-// 67 TFLOP/s fp32 and 3.35 TB/s the operations take the longer time, so
-// the fp32 kernel is bound by operations, and N = 144 fills 144 of the
-// 192 columns of its three column tiles. Loads are synchronous and
-// unvectorised from device memory, so each K step waits on them; cp.async
-// or TMA double buffering is the next step (and wgmma for bf16).
+// bf16: tensor cores through mma.sync m16n8k16 with fp32 accumulation.
+// 128 x 64 tiles, K tiles of 32, 4 warps of 32 rows x 64 columns each. A
+// is stored row-major and B transposed (n-major), both with rows padded by
+// 8 elements, so every fragment load of a warp hits 32 distinct banks.
 //
 // Offsets are 64-bit (long long) throughout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <climits>
 
 namespace {
 
@@ -60,80 +82,251 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores, 8 x 8 register tiles
+// fp32: CUDA cores, a persistent grid of whole-width tiles
 // ---------------------------------------------------------------------------
 
-constexpr int F_BM = 128, F_BN = 64, F_BK = 16, F_THREADS = 128;
-constexpr int F_AS = F_BM + 4;  // padded row stride of the transposed A tile
+constexpr int F_BK = 16;             // k values per ring stage
+constexpr int F_AS = F_BK + 4;       // A stage row stride (floats)
+constexpr int F_TN = 12;             // columns per thread: three float4
+constexpr int F_SMEM_MAX = 232448;   // 227 KB of dynamic shared memory a CTA may use
+constexpr int F_MAX_STAGES = 8;
 
-template <typename OutT>
-__global__ void __launch_bounds__(F_THREADS) gemm_f32_kernel(const Params p) {
-  __shared__ __align__(16) float sA[F_BK * F_AS];  // (BK, BM + 4): A transposed
-  __shared__ __align__(16) float sB[F_BK * F_BN];  // (BK, BN)
+// The planner's choice (hopper/gemm.py `plan_f32`), checked by repro_gemm.
+struct Plan {
+  int wr, wc;        // warps down and across: BM = 8 TM wr rows, BN = 48 wc columns
+  int stages;        // ring depth
+  int col_tiles;     // ceil(N / BN); the grid is col_tiles x (CTAs a column tile)
+  int resident;      // B's (K, BN) panel stays in shared memory
+  int vec;           // 16-byte copies of A and B rows
+  int vec_out;       // C's rows take 16-byte (fp32) / 8-byte (bf16) stores
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 8, ty = tid / 8;  // 8 column groups x 16 row groups
-  const long long m0 = static_cast<long long>(blockIdx.x) * F_BM;
-  const int n0 = blockIdx.y * F_BN;
-  const float* A = static_cast<const float*>(p.a);
-  const float* B = static_cast<const float*>(p.b);
+constexpr int F_MAX_THREADS = 512;  // a CTA's bound: at most 128 registers a thread
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+// Shared memory of a plan, in bytes: the resident B panel (nk * 16 rows of
+// BN) and `stages` ring stages of A (BM rows of F_AS) and, streamed, B
+// (16 rows of BN). hopper/gemm.py `smem_bytes` is the same formula.
+long long f_smem_bytes(int tm, int wr, int wc, int K, int stages, int resident) {
+  const long long bm = 8LL * tm * wr, bn = 48LL * wc;
+  const long long nk = K > 0 ? (K + F_BK - 1) / F_BK : 1;
+  const long long stage = bm * F_AS + (resident ? 0 : F_BK * bn);
+  return 4 * (stage * stages + (resident ? nk * F_BK * bn : 0));
+}
 
-  for (int k0 = 0; k0 < p.K; k0 += F_BK) {
-    // A tile: 16 consecutive threads read one row's 16 k values
-#pragma unroll
-    for (int i = 0; i < F_BM * F_BK / F_THREADS; ++i) {
-      const int idx = tid + i * F_THREADS;
-      const int r = idx / F_BK, c = idx % F_BK;
-      const long long m = m0 + r;
-      const int k = k0 + c;
-      sA[c * F_AS + r] = (m < p.M && k < p.K) ? A[m * p.lda + k] : 0.f;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// `bytes` of the 16 (4) are read, the rest of the destination zero-filled
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+// The oldest pending chunk has landed once at most stages - 2 younger
+// groups are pending (wait_group takes an immediate).
+__device__ __forceinline__ void cp_async_wait_ring(int stages) {
+  switch (stages) {
+    case 2: cp_async_wait<0>(); break;
+    case 3: cp_async_wait<1>(); break;
+    case 4: cp_async_wait<2>(); break;
+    case 5: cp_async_wait<3>(); break;
+    case 6: cp_async_wait<4>(); break;
+    case 7: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, float x, float y, float z, float w) {
+  *reinterpret_cast<float4*>(p) = make_float4(x, y, z, w);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float x, float y, float z, float w) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x, y), hi = __floats2bfloat162_rn(z, w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// Where a CTA's next copies go: ring stage `stage` gets K chunk `kc` of
+// the CTA's tile `it` (rows m0 = r_begin + it * BM). Advanced one chunk at
+// a time, so no division runs in the loop.
+struct Cursor {
+  int it, kc, stage;
+  __device__ __forceinline__ void next(int nk, int stages) {
+    if (++kc == nk) {
+      kc = 0;
+      ++it;
     }
-    // B tile: a warp reads 32 consecutive columns of one k row
-#pragma unroll
-    for (int i = 0; i < F_BK * F_BN / F_THREADS; ++i) {
-      const int idx = tid + i * F_THREADS;
-      const int r = idx / F_BN, c = idx % F_BN;
-      const int k = k0 + r, n = n0 + c;
-      sB[r * F_BN + c] = (k < p.K && n < p.N) ? B[static_cast<long long>(k) * p.ldb + n] : 0.f;
-    }
-    __syncthreads();
+    if (++stage == stages) stage = 0;
+  }
+};
 
-#pragma unroll
-    for (int kk = 0; kk < F_BK; ++kk) {
-      float a[8], b[8];
-      const float4 a0 = *reinterpret_cast<const float4*>(sA + kk * F_AS + ty * 4);
-      const float4 a1 = *reinterpret_cast<const float4*>(sA + kk * F_AS + 64 + ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(sB + kk * F_BN + tx * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(sB + kk * F_BN + 32 + tx * 4);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+// Issue the copies of the cursor's chunk into its ring stage and commit
+// them as one group (an empty group past the CTA's last tile, so every
+// thread counts groups alike). A's rows past the CTA's row range, and
+// every element past M, N or K, are zero-filled.
+template <int TM>
+__device__ __forceinline__ void f_issue(const Params& p, const Plan& q, float* panel, float* ring, const Cursor& u,
+                                        int my_tiles, long long r_begin, long long r_end, int n0, int stage_floats) {
+  if (u.it < my_tiles) {
+    const int BM = 8 * TM * q.wr, BN = 48 * q.wc, T = 32 * q.wr * q.wc;
+    const int tid = threadIdx.x;
+    const long long m0 = r_begin + static_cast<long long>(u.it) * BM;
+    const int k0 = u.kc * F_BK;
+    const int a_floats = BM * F_AS;
+    float* sA = ring + u.stage * stage_floats;
+    const float* A = static_cast<const float*>(p.a);
+    const float* B = static_cast<const float*>(p.b);
+    if (q.vec) {
+      for (int x = tid; x < BM * (F_BK / 4); x += T) {
+        const int r = x >> 2, kk = (x & 3) * 4, k = k0 + kk;
+        const long long m = m0 + r;
+        const int bytes = (m < r_end && k < p.K) ? (p.K - k >= 4 ? 16 : (p.K - k) * 4) : 0;
+        cp_async16(smem_u32(sA + r * F_AS + kk), bytes ? A + m * p.lda + k : A, bytes);
+      }
+    } else {
+      for (int x = tid; x < BM * F_BK; x += T) {
+        const int r = x >> 4, kk = x & 15, k = k0 + kk;
+        const long long m = m0 + r;
+        const bool in = m < r_end && k < p.K;
+        cp_async4(smem_u32(sA + r * F_AS + kk), in ? A + m * p.lda + k : A, in ? 4 : 0);
+      }
     }
-    __syncthreads();
+    if (!q.resident || u.it == 0) {  // the resident panel is filled during the first tile
+      float* sB = q.resident ? panel + k0 * BN : sA + a_floats;
+      // (row, column group) of copy x = tid + j T, stepped without division
+      const int v = q.vec ? BN / 4 : BN, w = q.vec ? 4 : 1;
+      const int dr = T / v, dc = T - dr * v;
+      int r = tid / v, cc = tid - r * v;
+      for (; r < F_BK; r += dr, cc += dc) {
+        if (cc >= v) {
+          cc -= v;
+          ++r;
+          if (r >= F_BK) break;
+        }
+        const int k = k0 + r, n = n0 + cc * w;
+        const float* src = B + static_cast<long long>(k) * p.ldb + n;
+        const uint32_t dst = smem_u32(sB + r * BN + cc * w);
+        if (q.vec) {
+          const int bytes = (k < p.K && n < p.N) ? (p.N - n >= 4 ? 16 : (p.N - n) * 4) : 0;
+          cp_async16(dst, bytes ? src : B, bytes);
+        } else {
+          const bool in = k < p.K && n < p.N;
+          cp_async4(dst, in ? src : B, in ? 4 : 0);
+        }
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+template <int TM, typename OutT>
+__global__ void __launch_bounds__(F_MAX_THREADS, 1) gemm_f32_kernel(const Params p, const Plan q) {
+  extern __shared__ __align__(16) float smem[];
+  const int BM = 8 * TM * q.wr, BN = 48 * q.wc, S = q.stages;
+  const int nk = p.K > 0 ? (p.K + F_BK - 1) / F_BK : 1;
+  const int a_floats = BM * F_AS;
+  const int stage_floats = a_floats + (q.resident ? 0 : F_BK * BN);
+  float* panel = smem;  // resident B: (nk * 16, BN), k-major
+  float* ring = smem + (q.resident ? nk * F_BK * BN : 0);
+
+  // This CTA's column tile, and its share of the row units (8 TM rows, one
+  // warp row's worth): unit ranges split evenly over the CTAs of a column
+  // tile, so the busiest CTA has at most one unit more than the least.
+  const int ct = blockIdx.x % q.col_tiles, rg = blockIdx.x / q.col_tiles;
+  const int groups = gridDim.x / q.col_tiles;
+  const long long unit = 8 * TM, units = (p.M + unit - 1) / unit;
+  const long long r_begin = rg * units / groups * unit;
+  const long long r_end = min(static_cast<long long>(p.M), (rg + 1) * units / groups * unit);
+  const int my_tiles = r_end > r_begin ? static_cast<int>((r_end - r_begin + BM - 1) / BM) : 0;
+  const int total = my_tiles * nk;
+  const int n0 = ct * BN;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wrow = (warp / q.wc) * 8 * TM;                   // this warp's first row in a tile
+  const int row0 = wrow + (lane >> 2);                        // this thread's rows: row0 + 8 i
+  const int col0 = ((warp % q.wc) * 4 + (lane & 3)) * 4;     // its columns: col0 + third j + (0..3)
+  const int third = 16 * q.wc;
+
+  Cursor issue{0, 0, 0};
+  for (int s = 0; s < S - 1; ++s) {
+    f_issue<TM>(p, q, panel, ring, issue, my_tiles, r_begin, r_end, n0, stage_floats);
+    issue.next(nk, S);
   }
 
-  OutT* C = static_cast<OutT*>(p.c);
+  float acc[TM][F_TN];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= p.M) continue;
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 32 + tx * 4 + j - 4);
-      if (n < p.N) C[m * p.ldc + n] = from_f32<OutT>(acc[i][j]);
+    for (int j = 0; j < F_TN; ++j) acc[i][j] = 0.f;
+
+  Cursor cur{0, 0, 0};
+  for (int c = 0; c < total; ++c) {
+    cp_async_wait_ring(S);
+    __syncthreads();  // chunk c is in for every thread; stage (c - 1) % S is free
+    f_issue<TM>(p, q, panel, ring, issue, my_tiles, r_begin, r_end, n0, stage_floats);
+    issue.next(nk, S);
+
+    const long long m0 = r_begin + static_cast<long long>(cur.it) * BM;
+    if (m0 + wrow < r_end) {  // a warp row wholly past the range (the last tile) skips its FFMAs
+      const float* stage = ring + cur.stage * stage_floats;
+      const float* sA = stage + row0 * F_AS;
+      const float* sB = (q.resident ? panel + cur.kc * F_BK * BN : stage + a_floats) + col0;
+#pragma unroll
+      for (int kq = 0; kq < F_BK; kq += 4) {
+        float4 a[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = *reinterpret_cast<const float4*>(sA + i * 8 * F_AS + kq);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* bp = sB + (kq + kk) * BN;
+          const float4 b0 = *reinterpret_cast<const float4*>(bp);
+          const float4 b1 = *reinterpret_cast<const float4*>(bp + third);
+          const float4 b2 = *reinterpret_cast<const float4*>(bp + 2 * third);
+          const float b[F_TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w, b2.x, b2.y, b2.z, b2.w};
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const float av = lane_of(a[i], kk);
+#pragma unroll
+            for (int j = 0; j < F_TN; ++j) acc[i][j] = fmaf(av, b[j], acc[i][j]);
+          }
+        }
+      }
+      if (cur.kc == nk - 1) {  // the tile is done: store it, start the next from zero
+        OutT* C = static_cast<OutT*>(p.c);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const long long m = m0 + row0 + 8 * i;
+          if (m < r_end) {
+            OutT* crow = C + m * p.ldc;
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+              const int n = n0 + col0 + j * third;
+              if (q.vec_out && n + 3 < p.N) {
+                store4(crow + n, acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]);
+              } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  if (n + e < p.N) crow[n + e] = from_f32<OutT>(acc[i][4 * j + e]);
+              }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < F_TN; ++j) acc[i][j] = 0.f;
+        }
+      }
     }
+    cur.next(nk, S);
   }
+  cp_async_wait<0>();  // the trailing groups are empty; leave none pending
 }
 
 // ---------------------------------------------------------------------------
@@ -240,11 +433,34 @@ __global__ void __launch_bounds__(H_THREADS) gemm_bf16_kernel(const Params p) {
   }
 }
 
+// The dynamic shared memory above 48 KB is allowed once per device and
+// kernel, not on every launch (the call costs host time).
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, const Params& p, int bm, int bn, int threads, cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>((static_cast<long long>(p.M) + bm - 1) / bm),
-                  static_cast<unsigned>((static_cast<long long>(p.N) + bn - 1) / bn));
-  kernel<<<grid, threads, 0, st>>>(p);
+cudaError_t smem_attribute_once(Kernel kernel, std::atomic<unsigned long long>& ready) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ULL << (dev & 63);
+  if (ready.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM_MAX);
+  if (err == cudaSuccess) ready.fetch_or(bit);
+  return err;
+}
+
+template <int TM, typename OutT>
+cudaError_t launch_f32(const Params& p, const Plan& q, int grid, long long smem, cudaStream_t st) {
+  static std::atomic<unsigned long long> ready{0};
+  cudaError_t err = smem_attribute_once(gemm_f32_kernel<TM, OutT>, ready);
+  if (err != cudaSuccess) return err;
+  gemm_f32_kernel<TM, OutT><<<grid, 32 * q.wr * q.wc, static_cast<size_t>(smem), st>>>(p, q);
+  return cudaGetLastError();
+}
+
+template <typename Kernel>
+cudaError_t launch_bf16(Kernel kernel, const Params& p, cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>((static_cast<long long>(p.M) + H_BM - 1) / H_BM),
+                  static_cast<unsigned>((static_cast<long long>(p.N) + H_BN - 1) / H_BN));
+  kernel<<<grid, H_THREADS, 0, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -254,12 +470,17 @@ extern "C" {
 
 // in_dtype / out_dtype: 0 = float32, 1 = bfloat16. A (M, K), B (K, N) and
 // C (M, N) with unit column stride and the given row strides (elements).
-// Returns the launch's cudaError_t.
+// fp32 inputs take the plan of hopper/gemm.py `plan_f32`: register rows tm
+// (4 or 8), warps wr down and wc across, ring stages, B resident or
+// streamed, 16-byte copies (vec) and the persistent grid; bf16 inputs
+// ignore it. A plan that does not fit these shapes or the card is refused
+// (cudaErrorInvalidValue), as is vec with a row that is not 16-byte
+// aligned. Returns the launch's cudaError_t.
 int repro_gemm(const void* a, const void* b, void* c, int in_dtype, int out_dtype, int M, int N, int K,
-               long long lda, long long ldb, long long ldc, void* stream) {
+               long long lda, long long ldb, long long ldc, int tm, int wr, int wc, int stages, int resident,
+               int vec, int grid, void* stream) {
   if (M <= 0 || N <= 0 || K < 0) return cudaErrorInvalidValue;
   if ((in_dtype != 0 && in_dtype != 1) || (out_dtype != 0 && out_dtype != 1)) return cudaErrorInvalidValue;
-  if ((static_cast<long long>(N) + F_BN - 1) / F_BN > 65535) return cudaErrorInvalidValue;  // grid.y
   Params p;
   p.a = a;
   p.b = b;
@@ -271,12 +492,42 @@ int repro_gemm(const void* a, const void* b, void* c, int in_dtype, int out_dtyp
   p.ldb = ldb;
   p.ldc = ldc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 0) {
-    if (out_dtype == 0) return launch(gemm_f32_kernel<float>, p, F_BM, F_BN, F_THREADS, st);
-    return launch(gemm_f32_kernel<__nv_bfloat16>, p, F_BM, F_BN, F_THREADS, st);
+  if (in_dtype == 1) {
+    if ((static_cast<long long>(N) + H_BN - 1) / H_BN > 65535) return cudaErrorInvalidValue;  // grid.y
+    if (out_dtype == 0) return launch_bf16(gemm_bf16_kernel<float>, p, st);
+    return launch_bf16(gemm_bf16_kernel<__nv_bfloat16>, p, st);
   }
-  if (out_dtype == 0) return launch(gemm_bf16_kernel<float>, p, H_BM, H_BN, H_THREADS, st);
-  return launch(gemm_bf16_kernel<__nv_bfloat16>, p, H_BM, H_BN, H_THREADS, st);
+
+  if (tm != 2 && tm != 4) return cudaErrorInvalidValue;
+  if (wr < 1 || wc < 1 || 32 * wr * wc > F_MAX_THREADS)
+    return cudaErrorInvalidValue;
+  if (stages < 2 || stages > F_MAX_STAGES) return cudaErrorInvalidValue;
+  Plan q;
+  q.wr = wr;
+  q.wc = wc;
+  q.stages = stages;
+  q.col_tiles = (N + 48 * wc - 1) / (48 * wc);
+  q.resident = resident ? 1 : 0;
+  q.vec = vec ? 1 : 0;
+  // grid = col_tiles x groups: each CTA one column tile and an even share of
+  // its row units (8 tm rows each)
+  const long long units = (static_cast<long long>(M) + 8 * tm - 1) / (8 * tm);
+  const long long nk = K > 0 ? (K + F_BK - 1) / F_BK : 1;
+  if (grid < 1 || grid % q.col_tiles != 0 || grid / q.col_tiles > units) return cudaErrorInvalidValue;
+  const long long most_units = (units + grid / q.col_tiles - 1) / (grid / q.col_tiles);
+  if ((most_units + wr - 1) / wr * nk > INT_MAX) return cudaErrorInvalidValue;
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(a), pb = reinterpret_cast<uintptr_t>(b);
+  if (q.vec && (pa % 16 || pb % 16 || lda % 4 || ldb % 4)) return cudaErrorInvalidValue;
+  const uintptr_t pc = reinterpret_cast<uintptr_t>(c);
+  q.vec_out = (N % 4 == 0 && ldc % 4 == 0 && pc % (out_dtype == 0 ? 16 : 8) == 0) ? 1 : 0;
+  const long long smem = f_smem_bytes(tm, wr, wc, K, stages, q.resident);
+  if (smem > F_SMEM_MAX) return cudaErrorInvalidValue;
+  if (tm == 2) {
+    if (out_dtype == 0) return launch_f32<2, float>(p, q, grid, smem, st);
+    return launch_f32<2, __nv_bfloat16>(p, q, grid, smem, st);
+  }
+  if (out_dtype == 0) return launch_f32<4, float>(p, q, grid, smem, st);
+  return launch_f32<4, __nv_bfloat16>(p, q, grid, smem, st);
 }
 
 const char* repro_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

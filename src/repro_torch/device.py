@@ -15,3 +15,15 @@ def resolve_device(device=None) -> torch.device:
             "explicitly to run on the CPU"
         )
     return torch.device("cuda")
+
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(index: int) -> int:
+    """SMs of CUDA card ``index``, read once: the kernels' planners size
+    their grids to the card by it."""
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n

@@ -13,30 +13,159 @@ A (M, K) and B (K, N) share one dtype, fp32 (CUDA-core FFMA) or bf16
 stride is taken, so row slices go in without a copy. Ragged M, N, K are
 masked in the kernel. Inputs it does not take raise; nothing is copied to
 make them fit.
+
+The fp32 kernel's tiles, ring and grid are chosen here, by ``plan_f32``
+(pure Python, so the CPU tests reach it): the kernel takes them at run
+time and refuses a plan that does not fit.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.hopper import blocked, build
 from repro_torch.hopper.dispatch import LAUNCHES
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# csrc/gemm.cu's fp32 kernel and the H100's limits the plan must fit
+BK = 16                       # k values per ring stage
+A_STRIDE = BK + 4             # floats per A row in a ring stage
+TN = 12                       # columns per thread
+MAX_THREADS = 512             # the kernel's __launch_bounds__
+REGS = 128                    # the register cap that bound gives a thread
+SMEM_PER_CTA = 232448         # 227 KB of shared memory a CTA may use
+SMEM_PER_SM = 233472          # 228 KB an SM holds, 1 KB of it reserved per CTA
+MAX_STAGES = 6
+
+# The cost model's constants, fitted to the kernel's times on an H100 for
+# plans swept at ogbn-arxiv's and cora's size
+CHUNK_SLOTS = 20              # issue slots a warp spends per K chunk on the ring's barrier
+COPY_SLOTS = 10               # and on each cp.async its threads issue
+EFF = {1: 0.6, 2: 0.85, 3: 1.0}  # issue efficiency by warps a scheduler holds
+COL_TILE_COST = 0.06          # each further column tile: A copied again (12% at 3 of 48)
+STREAMED_COST = 1.1           # B streamed through the ring past a CTA's first tile
+
+
+class F32Plan(NamedTuple):
+    tm: int          # rows of a thread's register tile (4 or 2); 12 columns
+    wr: int          # warps down the CTA: bm = 8 tm wr
+    wc: int          # warps across: bn = 48 wc
+    stages: int      # cp.async ring depth
+    resident: bool   # B's (K, bn) panel stays in shared memory
+    vec: bool        # 16-byte copies (A and B rows 16-byte aligned)
+    grid: int        # col_tiles x groups persistent CTAs
+    bm: int
+    bn: int
+    units: int       # row units of 8 tm rows (a warp row's share of a tile)
+    col_tiles: int
+    threads: int
+    smem: int        # dynamic shared memory, bytes
+    ctas_per_sm: int
+
+
+def smem_bytes(tm, wr, wc, K, stages, resident) -> int:
+    """Shared memory of a plan (csrc/gemm.cu ``f_smem_bytes``): the
+    resident B panel (nk * BK rows of bn) and ``stages`` ring stages of A
+    (bm rows of A_STRIDE) and, when B streams, B (BK rows of bn)."""
+    bm, bn = 8 * tm * wr, 48 * wc
+    nk = max(1, -(-K // BK))
+    stage = bm * A_STRIDE + (0 if resident else BK * bn)
+    return 4 * (stage * stages + (nk * BK * bn if resident else 0))
+
+
+def vec16(a, b) -> bool:
+    """Every row of the fp32 operands ``a`` and ``b`` starts on 16 bytes
+    (the base address and the row stride): the kernel's 16-byte copies
+    take them. Otherwise it copies 4 bytes at a time."""
+    return all(x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0 for x in (a, b))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_f32(M: int, N: int, K: int, sms: int, vec: bool) -> F32Plan:
+    """The fp32 kernel's tiles, ring and grid for C (M, N) = A (M, K) B (K, N)
+    on a card of ``sms`` SMs.
+
+    Candidates: tm in {4, 2}, wr, wc in 1..4 (within the kernel's thread
+    bound), B resident or streamed, and 1.. CTAs an SM (as shared memory,
+    threads and registers allow; the ring takes as many stages as then fit,
+    at most MAX_STAGES). The grid is col_tiles x groups, each group an even
+    share of the row units (8 tm rows), as many groups as the CTAs an SM
+    allow. The model: the busiest scheduler of the busiest SM runs its
+    warps with work, each for its warp row's units; a unit costs (tm x 12
+    FFMA + tm / 4 + 3 shared loads) issue slots per k, plus CHUNK_SLOTS and
+    COPY_SLOTS per cp.async a thread issues per K chunk, over EFF (by the
+    warps with work a scheduler holds), times 1 + COL_TILE_COST for each
+    column tile past the first and STREAMED_COST when B streams through
+    more than one tile. Least cost wins; ties go to less padded work, fewer
+    column tiles (A read fewer times), B resident, then the larger register
+    tile and the deeper ring."""
+    nk = max(1, -(-K // BK))
+    best = None
+    for tm in (4, 2):
+        ffma = (tm * TN + tm / 4 + 3) * BK  # FFMA and shared loads per K chunk
+        units = -(-M // (8 * tm))
+        for wc in range(1, 5):
+            bn = 48 * wc
+            col_tiles = -(-N // bn)
+            for wr in range(1, 5):
+                threads = 32 * wr * wc
+                if threads > MAX_THREADS:
+                    continue
+                bm = 8 * tm * wr
+                for resident in (True, False):
+                    top = min(2048 // threads, 65536 // (threads * REGS), 8)
+                    for ctas in range(top, 0, -1):
+                        room = min(SMEM_PER_CTA, SMEM_PER_SM // ctas - 1024)
+                        stages = max((s for s in range(2, MAX_STAGES + 1)
+                                      if smem_bytes(tm, wr, wc, K, s, resident) <= room),
+                                     default=0)
+                        groups = min(units, sms * ctas // col_tiles)
+                        if not stages or groups < 1:
+                            continue
+                        grid = groups * col_tiles
+                        most = -(-units // groups)  # units of the busiest CTA
+                        used = -(-grid // sms)  # CTAs on the busiest SM
+                        # warps with work on the busiest scheduler, each
+                        # with its warp row's units
+                        per_sched = -(-used * min(wr, most) * wc // 4)
+                        load = per_sched * max(most / wr, 1.0)
+                        # cp.async a thread issues per chunk: A's share, and
+                        # B's (resident: over the CTA's tiles)
+                        tiles = -(-most // wr)
+                        copies = tm / wc + 6 / wr / (tiles if resident else 1)
+                        slots = nk * (ffma + CHUNK_SLOTS + COPY_SLOTS * copies)
+                        cost = (load * slots / EFF[min(per_sched, 3)]
+                                * (1 + COL_TILE_COST * (col_tiles - 1))
+                                * (STREAMED_COST if not resident and most > wr else 1.0))
+                        padded = -(-most // wr) * wr * groups * bm * col_tiles * bn
+                        key = (round(cost, 3), padded, col_tiles, not resident, -tm, -stages)
+                        if best is None or key < best[0]:
+                            best = (key, F32Plan(
+                                tm, wr, wc, stages, resident, vec, grid, bm, bn, units,
+                                col_tiles, threads, smem_bytes(tm, wr, wc, K, stages, resident),
+                                ctas))
+    return best[1]
+
+
 _fn = None
+_lib = None
 
 
 def _kernel():
-    global _fn
+    global _fn, _lib
     if _fn is None:
         lib = build.load("gemm")
         fn = lib.repro_gemm
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i64, i64, i64, ptr]
+        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i64, i64, i64,
+                       i32, i32, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
-        _fn = (lib, fn)
+        _lib, _fn = lib, fn
     return _fn
 
 
@@ -81,12 +210,22 @@ def gemm_cuda(a, b, *, out_dtype=None, accum_dtype=torch.float32, **blocks):
     N = b.shape[1]
     c = torch.empty((M, N), dtype=out_dtype, device=a.device)
     if M and N:
-        lib, fn = _kernel()
-        with torch.cuda.device(a.device):
-            stream = torch.cuda.current_stream(a.device).cuda_stream
-            err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), DTYPES[a.dtype],
-                     DTYPES[out_dtype], M, N, K, a.stride(0), b.stride(0),
-                     c.stride(0), stream)
-        build.check(lib, err, "gemm kernel launch")
+        fn = _fn or _kernel()
+        dev = a.device.index
+        if a.dtype == torch.float32:
+            q = plan_f32(M, N, K, sm_count(dev), vec16(a, b))
+            plan = (q.tm, q.wr, q.wc, q.stages, int(q.resident), int(q.vec), q.grid)
+        else:
+            plan = (0,) * 7
+        args = (a.data_ptr(), b.data_ptr(), c.data_ptr(), DTYPES[a.dtype], DTYPES[out_dtype],
+                M, N, K, a.stride(0), b.stride(0), c.stride(0), *plan)
+        if torch.cuda.current_device() == dev:  # the usual case: no device switch
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+        else:
+            with torch.cuda.device(dev):
+                err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+        if err:
+            build.check(_lib, err, "gemm kernel launch")
         LAUNCHES["gemm"] += 1
     return c
+

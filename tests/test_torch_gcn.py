@@ -20,21 +20,24 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
-
-from repro.core import sparse as jsp  # noqa: E402
-from repro.kernels import ops as jops  # noqa: E402
-from repro.kernels import registry as jregistry  # noqa: E402
-from repro.models import gcn as jgcn  # noqa: E402
+try:  # the card's machine has no JAX: only the `cuda`-marked tests run there
+    import jax
+    import jax.numpy as jnp
+    from repro.core import sparse as jsp
+    from repro.kernels import ops as jops
+    from repro.kernels import registry as jregistry
+    from repro.models import gcn as jgcn
+except ImportError:
+    jax = jnp = jsp = jops = jregistry = jgcn = None
 from repro_torch.core import sparse as tsp  # noqa: E402
 from repro_torch.hopper import dispatch, ops  # noqa: E402
+from repro_torch.hopper import gemm as gemm_wrapper  # noqa: E402
 from repro_torch.launch import gcn_inference  # noqa: E402
 from repro_torch.models import gcn  # noqa: E402
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=1e-2)  # tests/test_kernels.py: RTOL, atol 1e-2
-DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+DTYPES = {name: (getattr(jnp, name, None), getattr(torch, name)) for name in ("float32", "bfloat16")}
 EXAMPLE = Path(__file__).resolve().parents[1] / "examples" / "gcn_inference.py"
 
 
@@ -221,3 +224,131 @@ def test_cuda_spmm_kernel_matches_plain_version():
         got = ops.spmm(A, dense, impl="cuda")
         want = ops.spmm(A, dense, impl="torch")
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the fp32 kernel's planner (pure Python; the kernel takes its plan)
+# ---------------------------------------------------------------------------
+
+SMS = 132  # an H100 SXM
+PLAN_SHAPES = [  # (M, N, K): the GCN graphs' and ogbn-arxiv's, ragged, wide, tiny
+    (169343, 144, 144), (2708, 144, 144), (3327, 144, 144), (19717, 144, 144),
+    (100, 130, 70), (257, 65, 129), (1, 1, 1), (5, 144, 1000), (33, 193, 144),
+    (4096, 1, 144), (1000, 1024, 2048), (300, 96, 64),
+]
+
+
+def _thread_cells(plan):
+    """The (row, column) cells of a tile that each thread of the CTA owns,
+    by csrc/gemm.cu's mapping: rows row0 + 8 i, columns col0 + 16 wc j + e."""
+    cells = []
+    for t in range(plan.threads):
+        warp, lane = divmod(t, 32)
+        row0 = (warp // plan.wc) * 8 * plan.tm + lane // 4
+        col0 = ((warp % plan.wc) * 4 + lane % 4) * 4
+        cells += [(row0 + 8 * i, col0 + 16 * plan.wc * j + e)
+                  for i in range(plan.tm) for j in range(3) for e in range(4)]
+    return cells
+
+
+def _row_range(plan, m, cta):
+    """Rows [begin, end) of CTA ``cta``, by csrc/gemm.cu's split: the CTAs
+    of a column tile take even, consecutive shares of the row units."""
+    unit, groups, g = 8 * plan.tm, plan.grid // plan.col_tiles, cta // plan.col_tiles
+    return g * plan.units // groups * unit, min(m, (g + 1) * plan.units // groups * unit)
+
+
+@pytest.mark.parametrize("m,n,k", PLAN_SHAPES)
+def test_gemm_plan_covers_every_output_once(m, n, k):
+    plan = gemm_wrapper.plan_f32(m, n, k, SMS, True)
+    # one tile: the CTA's threads own each of its bm x bn cells once
+    count = np.zeros((plan.bm, plan.bn), np.int64)
+    for r, c in _thread_cells(plan):
+        count[r, c] += 1
+    assert (count == 1).all()
+    # the grid: CTA b keeps column tile b % col_tiles; the CTAs of a column
+    # tile split [0, M) into consecutive row ranges, none empty
+    assert plan.grid % plan.col_tiles == 0
+    assert plan.col_tiles * plan.bn >= n > (plan.col_tiles - 1) * plan.bn
+    rows = np.zeros((plan.col_tiles, m), np.int64)
+    for cta in range(plan.grid):
+        begin, end = _row_range(plan, m, cta)
+        assert begin < end
+        rows[cta % plan.col_tiles, begin:end] += 1
+    assert (rows == 1).all()
+    # the busiest CTA has at most one row unit (8 tm rows) more than the least
+    sizes = [np.subtract(*_row_range(plan, m, cta)[::-1]) for cta in range(plan.grid)]
+    assert max(sizes) - min(sizes) <= 2 * 8 * plan.tm
+
+
+@pytest.mark.parametrize("m,n,k", PLAN_SHAPES)
+def test_gemm_plan_fits_the_card(m, n, k):
+    g = gemm_wrapper
+    plan = g.plan_f32(m, n, k, SMS, True)
+    assert plan.smem == g.smem_bytes(plan.tm, plan.wr, plan.wc, k, plan.stages, plan.resident)
+    assert plan.smem <= g.SMEM_PER_CTA == 227 * 1024
+    assert plan.ctas_per_sm * (plan.smem + 1024) <= g.SMEM_PER_SM
+    assert plan.threads <= g.MAX_THREADS
+    assert plan.ctas_per_sm * plan.threads * g.REGS <= 65536
+    assert 2 <= plan.stages <= g.MAX_STAGES
+    assert 1 <= plan.grid // plan.col_tiles <= plan.units
+    assert plan.grid <= SMS * plan.ctas_per_sm
+
+
+def test_gemm_plan_shapes_of_the_gcn_path():
+    """ogbn-arxiv: B resident, no padded column, the busiest CTA within 5%
+    of an even share of the rows. cora: row shares small enough that every
+    SM has a warp. A panel of B larger than shared memory streams."""
+    big = gemm_wrapper.plan_f32(169343, 144, 144, SMS, True)
+    assert big.resident and big.col_tiles * big.bn == 144
+    groups = big.grid // big.col_tiles
+    assert -(-big.units // groups) <= 1.05 * big.units / groups
+    cora = gemm_wrapper.plan_f32(2708, 144, 144, SMS, True)
+    # 128-row tiles a CTA would leave 110 of 132 SMs idle: here each warp
+    # row holds at most two row units, and the warps with work outnumber
+    # the SMs
+    rows = [np.subtract(*_row_range(cora, 2708, b)[::-1]) for b in range(cora.grid)]
+    assert max(rows) <= 2 * cora.bm
+    unit = 8 * cora.tm
+    assert sum(min(cora.wr, -(-r // unit)) * cora.wc for r in rows) >= SMS
+    wide = gemm_wrapper.plan_f32(1000, 1024, 2048, SMS, True)
+    assert not wide.resident  # 2048 x bn floats exceed the shared memory
+    assert wide.stages >= 3
+
+
+def test_gemm_takes_16_byte_copies_only_for_aligned_rows():
+    wide = torch.zeros((500, 200))
+    w = torch.zeros((144, 144))
+    assert gemm_wrapper.vec16(wide[:, :144], w)
+    assert not gemm_wrapper.vec16(wide[:, 30:174], w)  # rows start 120 bytes in
+    assert not gemm_wrapper.vec16(torch.zeros((50, 202))[:, :144], w)  # row stride 808 B
+    assert not gemm_wrapper.vec16(wide[:, :144], torch.zeros((144, 146))[:, :144])
+    assert gemm_wrapper.vec16(wide[:, 4:148], w)
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_kernel_edge_shapes():
+    """M below one tile and at ogbn-arxiv's size; N of 1, 65, 144 and 193;
+    K of 1, 144 and 1000; a K x N panel too large to stay resident; the
+    unaligned strided slice (4-byte copies): each against the plain
+    version at the smoke run's tolerances. B is drawn / sqrt(K), so that C
+    is of unit scale as the GCN's layers give it: unit-variance sums over
+    K = 2048 reach ~200, where two fp32 summation orders differ by a few
+    1e-4, beyond the absolute 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper GEMM kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shapes = [(m, k, n) for m in (5, 169343) for k in (1, 144, 1000) for n in (1, 65, 144, 193)]
+    shapes += [(1000, 2048, 1024)]
+    for m, k, n in shapes:
+        a = torch.randn((m, k), generator=gen, device="cuda")
+        b = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+        for out, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            got = ops.gemm(a, b, impl="cuda", out_dtype=out)
+            want = ops.gemm(a, b, impl="torch", out_dtype=out)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    wide = torch.randn((500, 200), generator=gen, device="cuda")
+    a, b = wide[:, 30:174], torch.randn((144, 144), generator=gen, device="cuda")
+    assert not gemm_wrapper.vec16(a, b)
+    torch.testing.assert_close(ops.gemm(a, b, impl="cuda"), ops.gemm(a, b, impl="torch"),
+                               rtol=1e-4, atol=1e-4)

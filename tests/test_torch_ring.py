@@ -27,15 +27,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
-
-from repro.core import precision as jprec  # noqa: E402
-from repro.kernels import flash_attention as jfa  # noqa: E402
-from repro.kernels import ops as jops  # noqa: E402
-from repro.kernels import partition as jpartition  # noqa: E402
-from repro.parallel import collectives as jcoll  # noqa: E402
-from repro.serving import ring_decode as jrd  # noqa: E402
+try:  # the card's machine has no JAX: only the `cuda`-marked tests run there
+    import jax
+    import jax.numpy as jnp
+    from repro.core import precision as jprec
+    from repro.kernels import flash_attention as jfa
+    from repro.kernels import ops as jops
+    from repro.kernels import partition as jpartition
+    from repro.parallel import collectives as jcoll
+    from repro.serving import ring_decode as jrd
+except ImportError:
+    jax = jnp = jprec = jfa = jops = jpartition = jcoll = jrd = None
 from repro_torch.core import precision as prec  # noqa: E402
 from repro_torch.diagnostics import ReproDegradeWarning, reset_degrade_warnings  # noqa: E402
 from repro_torch.hopper import dispatch, ops, partition, ring_hop  # noqa: E402
@@ -307,6 +309,24 @@ def test_ring_hop_wrapper_on_cpu_takes_the_plain_version():
     assert not dispatch.LAUNCHES
 
 
+@pytest.mark.parametrize("nbytes", [1, 16, 4095, 16 << 10, 256 << 10, 4 << 20, 8 << 20, 64 << 20])
+@pytest.mark.parametrize("same_card", [True, False])
+def test_hop_plan_sizes_the_grid_to_the_block_and_the_card(nbytes, same_card):
+    """The bulk kernel only on one card and from BULK_MIN_BYTES on, one CTA
+    per chunk up to the cap; the words kernel one CTA per THREADS 16-byte
+    words up to the cap, so each of its threads moves at most one word per
+    pass below the cap; never more than CTAS_PER_SM CTAs an SM."""
+    sms = 132
+    bulk, grid = ring_hop.hop_plan(nbytes, sms, same_card)
+    cap = sms * ring_hop.CTAS_PER_SM
+    assert 1 <= grid <= cap
+    assert bulk == (same_card and nbytes >= ring_hop.BULK_MIN_BYTES)
+    per_cta = ring_hop.CHUNK if bulk else 16 * ring_hop.THREADS
+    assert grid == min(-(-nbytes // per_cta), cap)
+    # every byte has a CTA: the grid's first pass, or passes of the cap
+    assert grid * per_cta >= nbytes or grid == cap
+
+
 # ---------------------------------------------------------------------------
 # ring decode
 # ---------------------------------------------------------------------------
@@ -419,6 +439,25 @@ def test_ring_attention_run_small_on_cpu():
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_ring_hop_bitwise_at_every_offset():
+    """1 B to 64 MiB + 3 B, src and dst at every offset mod 16 (the words
+    kernel's head, body and tail, its byte path for relatively misaligned
+    pairs, and the bulk kernel from BULK_MIN_BYTES on): bitwise copy_."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ring-hop kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for nbytes in (1, 2, 15, 16, 17, 31, 4095, 65541, (1 << 20) + 7, (8 << 20) + 5, (64 << 20) + 3):
+        src_buf = torch.randint(0, 256, (nbytes + 16,), dtype=torch.uint8, generator=gen, device="cuda")
+        dst_buf = torch.empty(nbytes + 16, dtype=torch.uint8, device="cuda")
+        for a in range(16):
+            for b in range(16):
+                src, dst = src_buf[a:a + nbytes], dst_buf[b:b + nbytes]
+                dst.zero_()
+                ring_hop.ring_hop_cuda(src, dst)
+                assert torch.equal(dst, src), (nbytes, a, b)
 
 
 @pytest.mark.cuda

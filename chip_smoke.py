@@ -7,15 +7,19 @@ Phases, in order; any failure exits non-zero:
 
   1. build every Hopper kernel from ``src/repro_torch/csrc`` (one ``nvcc``
      per source, started together) and print ptxas's registers, shared
-     memory and spills (every instantiation of the FA, BSR and scan
-     kernels);
+     memory and spills (every instantiation of the redesigned kernels);
+     check in the scaled libraries' disassembly that every wgmma-route
+     kernel issues the warpgroup MMA (HGMMA, QGMMA for fp8) and no other
+     kernel does;
   2. hold each kernel against its plain version on the card: the FA kernel
      at the shapes the serving path gives it (bf16, full width), at every
      bf16 head dim with GQA, window, q_offset, ragged Sk and return_lse,
      on zigzag half views, at grids of more 64-row tiles than SMs (its
      two-warpgroup CTAs), and at small fp32 shapes; the GEMM at the GCN shapes and at ragged fp32/bf16 ones;
      the ELL SpMM at the GCN adjacencies and at wider random ELL matrices;
-     the scaled GEMM and scaled FA-2 (phase 5's kernels) at their shapes;
+     the scaled GEMM and scaled FA-2 (phase 5's kernels) at their shapes,
+     the GEMM through each of its three routes (wgmma, ffma, mma) and the
+     fp8 wgmma route at both promotion intervals it offers;
   3. run the GCN path (``repro_torch.launch.gcn_inference.run``): two
      144-wide layers over the paper's three graphs and one graph of
      ogbn-arxiv's size, with the launch counts zeroed just before and read
@@ -83,9 +87,13 @@ Phases, in order; any failure exits non-zero:
      warm ring call;
   11. time every kernel against its plain version, the library call and
      its bound (CUDA events over back-to-back calls); the FA, BSR, SpMSpM,
-     stencil and scan kernels and their library calls also by device time
-     (events around a CUDA graph's replay of 20 calls, which the host's
-     issue does not set), and the FA wrapper's host time per call.
+     stencil, scan and both scaled kernels and their library calls also by
+     device time (events around a CUDA graph's replay of 20 calls, which
+     the host's issue does not set), and the FA wrapper's host time per
+     call. The scaled kernels at the ladder's card shapes under every
+     policy, each asserted to take its route (wgmma at bf16 and fp8, ffma
+     at fp32), beside ``torch.matmul`` and SDPA on the values at bf16 and
+     fp32, where unit scales make them the same function.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Imports
@@ -120,7 +128,8 @@ NUM_BLOCKS = 56  # tight: this workload preempts twice (checked below)
 
 # the sources whose every ptxas line (registers, shared memory, spills)
 # the build step prints
-REDESIGNED = ("flash_attention", "bsr_spmm", "linear_attention", "gemm", "ring_hop")
+REDESIGNED = ("flash_attention", "bsr_spmm", "linear_attention", "gemm", "ring_hop", "gemm_scaled",
+              "flash_attention_scaled")
 FA_REPLACES = "src/repro/kernels/flash_attention.py:57"
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 GEMM_REPLACES = "src/repro/kernels/gemm.py:23"
@@ -976,9 +985,12 @@ GEMM_SCALED_SOURCE = "src/repro_torch/csrc/gemm_scaled.cu"
 FA_SCALED_REPLACES = "src/repro/kernels/flash_attention.py:57"
 FA_SCALED_SOURCE = "src/repro_torch/csrc/flash_attention_scaled.cu"
 
-# (label, M, K, N, bk); every case runs under every policy. Rows of K or N
-# elements not a multiple of 8, and K-blocks that start off a multiple of 8,
-# take the kernel's single-load path; the others its chunk loads.
+# (label, M, K, N, bk); every case runs under every policy, through the
+# route hopper/gemm_scaled.py `plan` gives it (printed with each hold). fp32
+# takes the ffma route. bf16 and fp8 take wgmma where bk is a multiple of a
+# stage's k (64 / 128 values) and the rows are 16-byte aligned, mma
+# otherwise: rows of K or N elements not a multiple of 8, and K-blocks that
+# start off a multiple of 8, take its single-load path.
 GEMM_SCALED_CASES = [
     ("ragged bk=64", 100, 70, 130, 64),
     ("ragged last block bk=64", 257, 300, 65, 64),
@@ -987,7 +999,14 @@ GEMM_SCALED_CASES = [
     ("odd bk=48", 96, 200, 72, 48),
     ("bk=20, blocks off the 8-value chunks", 64, 200, 40, 20),
     ("wide bk=256", 512, 1024, 768, 256),
+    ("wgmma ragged M, N bk=128", 200, 512, 144, 128),
+    ("wgmma ragged last K-block bk=128", 192, 304, 256, 128),
+    ("wgmma bk=512", 256, 1024, 384, 512),
+    ("wgmma bf16 bk=64", 130, 256, 144, 64),
 ]
+# the routes the ladder's card shape must take, by policy
+CARD_GEMM_ROUTES = {"fp32": "ffma", "bf16": "wgmma", "fp8": "wgmma", "fp8_e5m2": "wgmma"}
+CARD_FA_ROUTES = {"fp32": "ffma", "bf16": "wgmma", "fp8": "wgmma", "fp8_e5m2": "wgmma"}
 # (label, B, H, K, Sq, Sk, D, causal, window, q_offset, return_lse)
 FA_SCALED_CASES = [
     ("gqa causal lse D=64", 2, 8, 2, 100, 100, 64, True, 0, 0, True),
@@ -1033,6 +1052,51 @@ def _hold_oracle(op, label, pol, got, oracle):
     return rel
 
 
+def _promote_sweep(cases, report):
+    """The fp8 wgmma route's promotion interval: each case held to its plain
+    version at every interval the kernel offers (half a stage, 64 values,
+    or a whole one, 128), worst Frobenius error per type and interval
+    printed and kept; ``gemm_scaled.PROMOTE`` must be the largest interval
+    within SCALED_REL_TOL for its type. The card shape's errors join in
+    ``time_precision_kernels``."""
+    import torch
+
+    from repro_torch.hopper import gemm_scaled as gs
+
+    chosen = dict(gs.PROMOTE)
+    worst = report.setdefault("promote_rel", {})
+    try:
+        for dt in gs.FP8:
+            for interval in (64, 128):
+                gs.PROMOTE[dt] = interval
+                gs.plan.cache_clear()
+                for label, aq, bq, a_s, b_s, bk, want in cases:
+                    if aq.dtype != dt:
+                        continue
+                    rel = _frob(gs.gemm_scaled_kernel(aq, bq, a_s, b_s, bk=bk), want)
+                    key = f"{str(dt).replace('torch.', '')} promote {interval}"
+                    worst[key] = max(worst.get(key, 0.0), rel)
+                    print(f"promote sweep [{label} {key}]: vs plain rel {rel:.3e}")
+    finally:
+        gs.PROMOTE.update(chosen)
+        gs.plan.cache_clear()
+    torch.cuda.synchronize()
+
+
+def _check_promote(report):
+    """PROMOTE is, for each fp8 type, the largest swept interval whose worst
+    error held SCALED_REL_TOL."""
+    from repro_torch.hopper import gemm_scaled as gs
+
+    for dt in gs.FP8:
+        name = str(dt).replace("torch.", "")
+        rel = {i: report["promote_rel"][f"{name} promote {i}"] for i in (64, 128)}
+        held = [i for i in (64, 128) if rel[i] <= SCALED_REL_TOL]
+        print(f"promote {name}: worst rel {rel}; largest within {SCALED_REL_TOL:g}: "
+              f"{max(held) if held else None}; chosen {gs.PROMOTE[dt]}")
+        need(held and gs.PROMOTE[dt] == max(held), f"gemm_scaled.PROMOTE[{name}] is not the largest that holds")
+
+
 def check_precision_kernels(report):
     """Phase 2 for the precision slice: the scaled GEMM and scaled FA-2
     kernels against their plain versions on the same quantized operands,
@@ -1043,12 +1107,15 @@ def check_precision_kernels(report):
     import torch
 
     from repro_torch.core import precision as prec
+    from repro_torch.device import sm_count
     from repro_torch.hopper import blocked, ops, ref
+    from repro_torch.hopper import gemm_scaled as gs
     from repro_torch.hopper.flash_attention_scaled import flash_attention_scaled_kernel
     from repro_torch.hopper.gemm_scaled import gemm_scaled_kernel
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     errs = {"gemm_scaled": [], "flash_attention_scaled": []}
+    routes, wgmma_cases = set(), []
     for label, M, K, N, bk in GEMM_SCALED_CASES:
         a = torch.randn((M, K), generator=gen, device="cuda")
         b = torch.randn((K, N), generator=gen, device="cuda")
@@ -1056,18 +1123,28 @@ def check_precision_kernels(report):
         for pol in POLICIES:
             aq, a_s = prec.quantize_blockwise(a, pol, axis=1, block=bk)
             bq, b_s = prec.quantize_blockwise(b, pol, axis=0, block=bk)
+            plan = gs.plan(M, N, K, bk, aq.dtype, gs.rows16(aq, bq), sm_count(0))
+            routes.add(plan.route)
             got = gemm_scaled_kernel(aq, bq, a_s, b_s, bk=bk)
             want = blocked.gemm_scaled_values_blocked(aq, bq, a_s, b_s, bk=bk)
             torch.cuda.synchronize()
-            tag = f"{label} ({M},{K})x({K},{N}) {pol}"
+            tag = f"{label} ({M},{K})x({K},{N}) {pol} [{plan.route}]"
             errs["gemm_scaled"].append(_hold_scaled("gemm_scaled", tag, got, want))
             _hold_oracle("gemm", tag, pol, ops.gemm(a, b, precision=pol, bk=bk, impl="cuda"), oracle)
-    # bf16 output from the kernel: one rounding of the fp32 sum
-    aq, a_s = prec.quantize_blockwise(a, "fp8", axis=1, block=256)
-    bq, b_s = prec.quantize_blockwise(b, "fp8", axis=0, block=256)
-    got = gemm_scaled_kernel(aq, bq, a_s, b_s, bk=256, out_dtype=torch.bfloat16)
-    want = blocked.gemm_scaled_values_blocked(aq, bq, a_s, b_s, bk=256)
-    _hold("gemm_scaled", "wide bk=256 fp8 -> bf16 out", got, want, GEMM_TOL["bfloat16"])
+            if plan.route == "wgmma" and aq.dtype in gs.FP8:
+                wgmma_cases.append((label, aq, bq, a_s, b_s, bk, want))
+    need(routes == {"mma", "wgmma", "ffma"}, f"scaled GEMM cases cover the routes {sorted(routes)}")
+    _promote_sweep(wgmma_cases, report)
+    # bf16 output from each route: one rounding of the fp32 sum (the last
+    # case's operands: wgmma at fp8 bk=256, mma at bf16 bk=48, ffma at fp32)
+    for pol, bk in (("fp8", 256), ("bf16", 48), ("fp32", 256)):
+        aq, a_s = prec.quantize_blockwise(a, pol, axis=1, block=bk)
+        bq, b_s = prec.quantize_blockwise(b, pol, axis=0, block=bk)
+        route = gs.plan(a.shape[0], b.shape[1], a.shape[1], bk, aq.dtype, gs.rows16(aq, bq), sm_count(0)).route
+        got = gemm_scaled_kernel(aq, bq, a_s, b_s, bk=bk, out_dtype=torch.bfloat16)
+        want = blocked.gemm_scaled_values_blocked(aq, bq, a_s, b_s, bk=bk)
+        _hold("gemm_scaled", f"{tuple(a.shape)}x{tuple(b.shape)} bk={bk} {pol} [{route}] -> bf16 out",
+              got, want, GEMM_TOL["bfloat16"])
 
     for case in FA_SCALED_CASES:
         label, B, H, K, Sq, Sk, D, causal, window, q_offset, lse = case
@@ -1157,17 +1234,23 @@ def _nbytes(*xs):
 
 def time_precision_kernels(report):
     """Both scaled kernels at the ladder's card shapes, each policy: the
-    kernel on the quantized operands against its plain version on the same
-    operands (held to SCALED_REL_TOL first), the library call and the bound
-    (values and scales read once, the fp32 output written once; the
-    operations over the compute dtype's peak)."""
+    route each takes (asserted: wgmma at bf16 and fp8, ffma at fp32), the
+    kernel on the quantized operands held to its plain version
+    (SCALED_REL_TOL; for the GEMM also at every fp8 promotion interval the
+    kernel offers) and timed against it in turns by events, the device
+    time (CUDA-graph replay), the library call that computes the same
+    function where one exists (unit scales at bf16 and fp32:
+    ``torch.matmul`` and SDPA on the compute-type values) by events and by
+    device time, and the bound (values and scales read once, the fp32
+    output written once; the operations over the compute dtype's peak)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.core import precision as prec
+    from repro_torch.device import sm_count
     from repro_torch.hopper import blocked
-    from repro_torch.hopper.flash_attention_scaled import flash_attention_scaled_kernel
-    from repro_torch.hopper.gemm_scaled import gemm_scaled_kernel
+    from repro_torch.hopper import flash_attention_scaled as fs
+    from repro_torch.hopper import gemm_scaled as gs
     from repro_torch.launch import precision_ladder as pl
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
@@ -1179,29 +1262,40 @@ def time_precision_kernels(report):
         dt = prec.resolve(pol).compute_dtype
         aq, a_s = prec.quantize_blockwise(a, pol, axis=1, block=bk)
         bq, b_s = prec.quantize_blockwise(b, pol, axis=0, block=bk)
+        plan = gs.plan(m, n, k, bk, dt, gs.rows16(aq, bq), sm_count(0))
         label = f"({m},{k})x({k},{n}) bk={bk} {pol}"
-        got = gemm_scaled_kernel(aq, bq, a_s, b_s, bk=bk)
+        need(plan.route == CARD_GEMM_ROUTES[pol],
+             f"gemm_scaled [{label}] takes the {plan.route} route, not {CARD_GEMM_ROUTES[pol]}")
+        got = gs.gemm_scaled_kernel(aq, bq, a_s, b_s, bk=bk)
         want = blocked.gemm_scaled_values_blocked(aq, bq, a_s, b_s, bk=bk)
-        err = _hold_scaled("gemm_scaled", f"card {label}", got, want)
+        err = _hold_scaled("gemm_scaled", f"card {label} [{plan.route}]", got, want)
+        if dt in gs.FP8:
+            _promote_sweep([(f"card {label}", aq, bq, a_s, b_s, bk, want)], report)
         del got, want
-        kern, plain = _in_turns(lambda: gemm_scaled_kernel(aq, bq, a_s, b_s, bk=bk),
-                                lambda: blocked.gemm_scaled_values_blocked(aq, bq, a_s, b_s, bk=bk), 3)
+        call = lambda: gs.gemm_scaled_kernel(aq, bq, a_s, b_s, bk=bk)  # noqa: E731
+        kern, plain = _in_turns(call, lambda: blocked.gemm_scaled_values_blocked(aq, bq, a_s, b_s, bk=bk), 3)
+        dev = device_ms(call)
         bound, by = _narrow_bound(_nbytes(aq, bq, a_s, b_s) + 4 * m * n, 2 * m * n * k, dt)
-        lib, lib_text = None, "none (no single call scales per K-block)"
+        lib = lib_dev = None
+        lib_text = "none (no single call scales per K-block)"
         if dt in (torch.float32, torch.bfloat16):  # unit scales: the same function
-            lib = time_ms(lambda: torch.matmul(aq, bq))
-            lib_text = f"torch.matmul on the {pol} values {lib:.4f} ms"
+            lib, lib_dev = time_ms(lambda: torch.matmul(aq, bq)), device_ms(lambda: torch.matmul(aq, bq))
+            lib_text = f"torch.matmul on the {pol} values {lib:.4f} ms, device {_ms(lib_dev)}"
         elif dt == torch.float8_e4m3fn:
             lib, lib_text = _scaled_mm_blockwise(aq, bq, a_s, b_s, bk)
             lib_text += "; " + _scaled_mm_reference(aq, bq)
         report.setdefault("gemm_scaled_time", {})[pol] = dict(
-            shape=label, ms=min(kern), plain_ms=min(plain), library_ms=lib, bound_ms=bound,
-            bound_by=by, max_abs_err=err, library=lib_text)
-        print(f"time gemm_scaled [{label}]: kernel {kern} ms, plain {plain} ms, library "
-              f"{lib_text}, bound {bound:.5f} ms ({by}); {2 * m * n * k / min(kern) / 1e9:.1f} "
-              f"TFLOP/s at the kernel's time")
+            shape=label, route=plan.route, promote=plan.promote or None, ms=min(kern), device_ms=dev,
+            plain_ms=min(plain), library_ms=lib, library_device_ms=lib_dev, bound_ms=bound, bound_by=by,
+            max_abs_err=err, library=lib_text)
+        print(f"time gemm_scaled [{label}] {plan.route} route"
+              f"{f', promote {plan.promote}' if plan.promote else ''}: kernel {kern} ms (events), device "
+              f"{_ms(dev)}; plain {plain} ms; library {lib_text}; bound {bound:.5f} ms ({by}); "
+              f"{2 * m * n * k / (dev or min(kern)) / 1e9:.1f} TFLOP/s at the kernel's device time")
         del aq, bq, a_s, b_s
     del a, b
+    torch.cuda.empty_cache()
+    _check_promote(report)
 
     B, H, K, S, D = pl.CARD.fa
     q = torch.randn((B, H, S, D), generator=gen, device="cuda")
@@ -1213,23 +1307,30 @@ def time_precision_kernels(report):
             prec.quantize_blockwise(x, pol, axis=-1, block=D) for x in (q, kk, v))
         ops_ = (qq, kq, vq, qs, ks, vs)
         label = f"B={B} H={H} K={K} S={S} D={D} causal {pol}"
-        got = flash_attention_scaled_kernel(*ops_, causal=True)
+        route = fs.route(dt)
+        need(route == CARD_FA_ROUTES[pol], f"flash_attention_scaled [{label}] takes {route}")
+        got = fs.flash_attention_scaled_kernel(*ops_, causal=True)
         want = blocked.flash_attention_scaled_values_blocked(*ops_, causal=True)
-        err = _hold_scaled("flash_attention_scaled", f"card {label}", got, want)
+        err = _hold_scaled("flash_attention_scaled", f"card {label} [{route}]", got, want)
         del got, want
-        kern, plain = _in_turns(lambda: flash_attention_scaled_kernel(*ops_, causal=True),
-                                lambda: blocked.flash_attention_scaled_values_blocked(*ops_, causal=True), 3)
-        deq = [prec.dequantize_blockwise(x, s_, axis=-1) for x, s_ in ((qq, qs), (kq, ks), (vq, vs))]
-        lib = time_ms(lambda: F.scaled_dot_product_attention(*deq, is_causal=True))
-        del deq
+        call = lambda: fs.flash_attention_scaled_kernel(*ops_, causal=True)  # noqa: E731
+        kern, plain = _in_turns(call, lambda: blocked.flash_attention_scaled_values_blocked(*ops_, causal=True), 3)
+        dev = device_ms(call)
+        lib = lib_dev = None
+        lib_text = "none (no single call takes per-row scales)"
+        if dt in (torch.float32, torch.bfloat16):  # unit scales: the same function
+            sdpa = lambda: F.scaled_dot_product_attention(qq, kq, vq, is_causal=True)  # noqa: E731
+            lib, lib_dev = time_ms(sdpa), device_ms(sdpa)
+            lib_text = f"SDPA on the {pol} values {lib:.4f} ms, device {_ms(lib_dev)}"
         bound, by = _narrow_bound(_nbytes(*ops_) + 4 * B * H * S * D,
                                   4 * B * H * D * S * (S + 1) // 2, dt)
         report.setdefault("fa_scaled_time", {})[pol] = dict(
-            shape=label, ms=min(kern), plain_ms=min(plain), library_ms=lib, bound_ms=bound,
-            bound_by=by, max_abs_err=err)
-        print(f"time flash_attention_scaled [{label}]: kernel {kern} ms, plain {plain} ms, "
-              f"sdpa on the fp32 dequantized operands (dequantize not timed) {lib:.4f} ms, "
-              f"bound {bound:.5f} ms ({by})")
+            shape=label, route=route, ms=min(kern), device_ms=dev, plain_ms=min(plain), library_ms=lib,
+            library_device_ms=lib_dev, bound_ms=bound, bound_by=by, max_abs_err=err, library=lib_text)
+        print(f"time flash_attention_scaled [{label}] {route} route: kernel {kern} ms (events), device "
+              f"{_ms(dev)}; plain {plain} ms; library {lib_text}; bound {bound:.5f} ms ({by}); "
+              f"{4 * B * H * D * S * (S + 1) / 2 / (dev or min(kern)) / 1e9:.1f} TFLOP/s at the kernel's "
+              f"device time")
     torch.cuda.synchronize()
 
 
@@ -2353,6 +2454,36 @@ def ring_phase(report):
 # ---------------------------------------------------------------------------
 
 
+def check_hgmma(paths):
+    """The disassembly of the built scaled libraries: every wgmma kernel
+    (each instantiation of the GEMM's and the FA's wgmma route) issues the
+    warpgroup MMA (HGMMA for 16-bit inputs, QGMMA for fp8), and the other
+    routes' kernels do not."""
+    import re
+
+    for name in ("gemm_scaled", "flash_attention_scaled"):
+        sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(paths[name])],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = {}
+            elif fn is not None:
+                for op in re.findall(r"\b([HQ]GMMA)\.", line):
+                    counts[fn][op] = counts[fn].get(op, 0) + 1
+        wg = {fn: ops for fn, ops in counts.items() if "wgmma_kernel" in fn}
+        kinds = sorted({"+".join(sorted(ops)) or "none" for ops in wg.values()})
+        print(f"sass {name}: {len(wg)} wgmma-route kernels, each issuing {kinds} "
+              f"({min(sum(o.values()) for o in wg.values())}-{max(sum(o.values()) for o in wg.values())} "
+              f"instructions); {len(counts) - len(wg)} other kernels, none")
+        for fn, ops in counts.items():
+            if fn in wg:
+                need(sum(ops.values()) > 0, f"{name}: wgmma-route kernel {fn} issues no warpgroup MMA")
+            else:
+                need(not ops, f"{name}: warpgroup MMA outside the wgmma route ({fn})")
+
+
 def main() -> int:
     try:
         import torch
@@ -2383,6 +2514,7 @@ def main() -> int:
             # the kernels this slice redesigned or repaired: every instantiation
             shown = regs if name in REDESIGNED else regs[:4]
             print(f"build {name}: " + " | ".join(shown))
+        check_hgmma(paths)
         check_kernels(report)
         check_gcn_kernels(report)
         check_precision_kernels(report)
@@ -2456,10 +2588,14 @@ def main() -> int:
                                *(r["max_abs_err"] for r in report[key].values())),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
-            "policy": "fp8",
+            "policy": "fp8", "device_ms": t["device_ms"], "library": t["library"],
+            # every policy: the kernel of the source it takes ("kernel_route"),
+            # events and device times, the same-function library call's
+            "policies": {pol: {f: r.get(f) for f in (
+                "ms", "device_ms", "library_ms", "library_device_ms", "bound_ms", "bound_by",
+                "plain_ms", "promote")} | {"kernel_route": r["route"]}
+                for pol, r in report[key].items()},
         })
-        if name == "gemm_scaled":  # which library call library_ms is, or why there is none
-            kernels[-1]["library"] = t["library"]
     t = report["la_time"]["rwkv6-3b"]
     kernels.append({
         "name": "linear_attention", "route": "cuda", "source": LA_SOURCE,

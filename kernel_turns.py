@@ -8,8 +8,12 @@ Builds that checkout's kernels and times them with its own
 ``repro_torch`` and ``chip_smoke.py`` helpers: the bf16 FA-2 forward
 (B=1 H=16 D=256 causal; S = 512, and 2048-row ring blocks on and below
 the diagonal), the BSR SpMM at the sparse trio's three card densities,
-the chunked scan at both recurrent models' card shapes, and the fp32 GEMM
-at the GCN's ogbn-arxiv and cora sizes ((n, 144) x (144, 144)), each as a
+the chunked scan at both recurrent models' card shapes, the fp32 GEMM
+at the GCN's ogbn-arxiv and cora sizes ((n, 144) x (144, 144)), and the
+precision ladder's two kernels at its card shapes under every policy (the
+scaled GEMM (2048, 4096) x (4096, 16384) with bk = 256, the scaled FA-2
+B=1 H=K=16 S=2048 D=256 causal, on operands quantized as the ladder
+quantizes them), each as a
 device time (CUDA events around one replay of a CUDA graph of 20 calls);
 the ring hop cold (L2 flushed before each call, events around the one
 call, the median of 40) at 4 MiB and 64 MiB and warm (back to back, events over 50 calls,
@@ -105,12 +109,17 @@ def main(root, label):
     import torch
 
     import chip_smoke as smoke
+    from repro_torch.core import precision as prec
     from repro_torch.core import sparse
     from repro_torch.hopper import build, ops, ring_hop
+    from repro_torch.hopper.flash_attention_scaled import flash_attention_scaled_kernel
+    from repro_torch.hopper.gemm_scaled import gemm_scaled_kernel
+    from repro_torch.launch import precision_ladder as pl
     from repro_torch.parallel.mesh import RingMesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build(("flash_attention", "bsr_spmm", "linear_attention", "ring_hop", "gemm"))
+    build.build(("flash_attention", "bsr_spmm", "linear_attention", "ring_hop", "gemm", "gemm_scaled",
+                 "flash_attention_scaled"))
     out = {"label": label}
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -139,6 +148,21 @@ def main(root, label):
         w = torch.randn((144, 144), generator=gen, device="cuda") / 12
         out[name] = graph_ms(lambda: ops.gemm(a, w, impl="cuda"))
     del a, w
+    m, k, n = pl.CARD.gemm
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    b = torch.randn((k, n), generator=gen, device="cuda")
+    for pol in smoke.POLICIES:
+        (aq, a_s), (bq, b_s) = (prec.quantize_blockwise(x, pol, axis=ax, block=256) for x, ax in ((a, 1), (b, 0)))
+        out[f"gemm_scaled_{pol}"] = graph_ms(lambda: gemm_scaled_kernel(aq, bq, a_s, b_s, bk=256))
+    del a, b, aq, bq
+    torch.cuda.empty_cache()
+    B, H, K, S, D = pl.CARD.fa
+    q, k, v = (torch.randn((B, h, S, D), generator=gen, device="cuda") for h in (H, K, K))
+    for pol in smoke.POLICIES:
+        qkv_s = [prec.quantize_blockwise(x, pol, axis=-1, block=D) for x in (q, k, v)]
+        vals, scales = [x for x, _ in qkv_s], [s_ for _, s_ in qkv_s]
+        out[f"fa_scaled_{pol}"] = graph_ms(lambda: flash_attention_scaled_kernel(*vals, *scales, causal=True))
+    del q, k, v, vals, scales
     torch.cuda.empty_cache()
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")  # 5x the 50 MB L2

@@ -113,36 +113,7 @@ constexpr int WG_BQ = 64;        // q rows of a warpgroup: its m64 tile
 constexpr int WG_BK = 64;        // keys of a KV tile
 constexpr int WG_THREADS = 128;  // a warpgroup
 
-// A 64-row tile of D bf16 columns in shared memory, as wgmma reads it:
-// column blocks of CB = Z / 2 columns, each 64 rows of Z bytes (Z = 128,
-// or the whole row, 64 or 32 bytes, at D = 32 and 16), the 16-byte chunks
-// of every 8 rows swizzled (wgmma::swizzle). Q and K are read K-major
-// (their D columns are the products' depth), V MN-major (its D columns
-// are P.V's N), so all three share the layout and no tile is transposed.
-template <int D>
-struct WgTile {
-  static constexpr int Z = D * 2 >= 128 ? 128 : D * 2;
-  static constexpr int CB = Z / 2;
-  static constexpr int BYTES = 64 * D * 2;
-  static constexpr uint64_t MODE = Z == 128 ? wgmma::SWIZZLE_128B
-                                   : Z == 64 ? wgmma::SWIZZLE_64B
-                                             : wgmma::SWIZZLE_32B;
-  // byte offset of the 16-byte chunk holding columns d0 .. d0 + 7 of `row`
-  static __device__ __forceinline__ uint32_t chunk(int row, int d0) {
-    return (d0 / CB) * 64 * Z + wgmma::swizzle(row * Z + (d0 % CB) * 2, Z);
-  }
-  // Q or K as a K-major operand, depth columns 16 ks .. 16 ks + 15: 8-row
-  // groups Z * 8 bytes apart (SBO); LBO unused within a swizzle row
-  static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ks) {
-    const int d0 = 16 * ks;
-    return wgmma::smem_desc(tile + (d0 / CB) * 64 * Z + (d0 % CB) * 2, 16, 8 * Z, MODE);
-  }
-  // V as an MN-major operand, keys 16 kk .. 16 kk + 15: column blocks
-  // 64 * Z bytes apart (LBO), 8-key groups Z * 8 bytes apart (SBO)
-  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-    return wgmma::smem_desc(tile + 16 * kk * Z, 64 * Z, 8 * Z, MODE);
-  }
-};
+using wgmma::WgTile;
 
 template <int D, int NWG>
 constexpr size_t wg_smem_bytes() {  // Q of each warpgroup, two stages of K and V, 1024-byte alignment

@@ -1,5 +1,6 @@
-// PTX wrappers for Hopper's warpgroup matrix multiply (wgmma), bf16 inputs
-// and fp32 accumulators, for the kernels of this directory (sm_90a only).
+// PTX wrappers for Hopper's warpgroup matrix multiply (wgmma), bf16 and fp8
+// (e4m3, e5m2) inputs and fp32 accumulators, for the kernels of this
+// directory (sm_90a only).
 //
 // A shared-memory operand is given by a 64-bit matrix descriptor
 // (`smem_desc`): its start address, its leading and stride byte offsets
@@ -37,6 +38,37 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t smem_addr, uint32_t lbo_b
          (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32) | (mode << 62);
 }
+
+// A 64-row tile of D bf16 columns in shared memory, as wgmma reads it:
+// column blocks of CB = Z / 2 columns, each 64 rows of Z bytes (Z = 128,
+// or the whole row, 64 or 32 bytes, at D = 32 and 16), the 16-byte chunks
+// of every 8 rows swizzled (`swizzle`). Q and K are read K-major
+// (their D columns are the products' depth), V MN-major (its D columns
+// are P.V's N), so all three share the layout and no tile is transposed.
+template <int D>
+struct WgTile {
+  static constexpr int Z = D * 2 >= 128 ? 128 : D * 2;
+  static constexpr int CB = Z / 2;
+  static constexpr int BYTES = 64 * D * 2;
+  static constexpr uint64_t MODE = Z == 128 ? SWIZZLE_128B
+                                   : Z == 64 ? SWIZZLE_64B
+                                             : SWIZZLE_32B;
+  // byte offset of the 16-byte chunk holding columns d0 .. d0 + 7 of `row`
+  static __device__ __forceinline__ uint32_t chunk(int row, int d0) {
+    return (d0 / CB) * 64 * Z + swizzle(row * Z + (d0 % CB) * 2, Z);
+  }
+  // Q or K as a K-major operand, depth columns 16 ks .. 16 ks + 15: 8-row
+  // groups Z * 8 bytes apart (SBO); LBO unused within a swizzle row
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ks) {
+    const int d0 = 16 * ks;
+    return smem_desc(tile + (d0 / CB) * 64 * Z + (d0 % CB) * 2, 16, 8 * Z, MODE);
+  }
+  // V as an MN-major operand, keys 16 kk .. 16 kk + 15: column blocks
+  // 64 * Z bytes apart (LBO), 8-key groups Z * 8 bytes apart (SBO)
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+    return smem_desc(tile + 16 * kk * Z, 64 * Z, 8 * Z, MODE);
+  }
+};
 
 __device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
@@ -78,6 +110,87 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a, uint64_t 
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 128) (+)= A (64 x 16, desc a) . B (16 x 128, desc b), bf16; A
+// K-major, B MN-major (its 128 columns contiguous, transposed by the
+// instruction); scale_d = 0 overwrites d.
+__device__ __forceinline__ void mma_ss_n128_bf16_tb(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 128) (+)= A (64 x 32, desc a) . B (32 x 128, desc b), fp8 e4m3;
+// both K-major (fp8 has no transposed form); scale_d = 0 overwrites d.
+__device__ __forceinline__ void mma_ss_n128_e4m3(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The same for fp8 e5m2.
+__device__ __forceinline__ void mma_ss_n128_e5m2(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e5m2.e5m2 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

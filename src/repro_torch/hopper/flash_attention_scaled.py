@@ -15,7 +15,9 @@ reference quantizes outside its Pallas body), then calls the kernel.
 Values are fp32, bf16, fp8 e4m3 or fp8 e5m2 (one dtype for q, k and v),
 unit-stride in the head dim; the kernel takes element strides for the
 values and the scales alike. The output is fp32, contiguous. Inputs the
-kernel does not take raise; nothing is copied to make them fit.
+kernel does not take raise; nothing is copied to make them fit. ``route``
+names the source's kernel a value type takes: ``wgmma`` (bf16 and fp8,
+widened to bf16 in shared memory) or ``ffma`` (fp32 on the CUDA cores).
 """
 from __future__ import annotations
 
@@ -33,6 +35,14 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
           torch.float8_e5m2: 3}
 
 _fn = None
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernel of ``csrc/flash_attention_scaled.cu`` that values of
+    ``dtype`` take: ``wgmma`` for bf16 and fp8, ``ffma`` for fp32."""
+    if dtype not in DTYPES:
+        raise TypeError(f"flash_attention_scaled: no route for {dtype}")
+    return "ffma" if dtype == torch.float32 else "wgmma"
 
 
 def _kernel():

@@ -12,40 +12,188 @@ K-block of ``bk`` (``core/precision.py``, outside the kernel, as the
 reference quantizes outside its Pallas body), then calls the kernel.
 
 ``bk`` is semantic: it is the quantization block, resolved as
-``dispatch.resolve_blocks("gemm")`` gives it and capped at K; the kernel
-takes any ``bk >= 1``. Values are fp32, bf16, fp8 e4m3 or fp8 e5m2 (one
+``dispatch.resolve_blocks("gemm")`` gives it and capped at K; any
+``bk >= 1`` is taken. Values are fp32, bf16, fp8 e4m3 or fp8 e5m2 (one
 dtype for both operands), unit-stride along their rows; scales are fp32
 with any strides. The output is fp32 (default) or bf16. Inputs the kernel
-does not take raise; nothing is copied to make them fit.
+does not take raise; nothing is copied to make them fit (the fp8 wgmma
+route transposes B into a scratch, inside the call).
+
+``plan`` (pure Python, so the CPU tests reach it) picks one of the
+source's three kernels from shapes and types alone: ``wgmma`` (bf16 and
+fp8 on Hopper's warpgroup MMA, where bk is a multiple of a stage's k and
+the rows are 16-byte aligned), ``ffma`` (fp32 on the CUDA cores) or
+``mma`` (bf16 and fp8 at every other shape). Each is a kernel of its own
+for its shapes, not a fallback: a build or launch error raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import precision as prec
+from repro_torch.device import sm_count
 from repro_torch.hopper import blocked, build
 from repro_torch.hopper.dispatch import LAUNCHES, resolve_blocks
+from repro_torch.hopper.gemm import CHUNK_SLOTS, COPY_SLOTS, EFF, SMEM_PER_CTA
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
           torch.float8_e5m2: 3}
 OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+ROUTES = {"mma": 0, "wgmma": 1, "ffma": 2}
+
+# csrc/gemm_scaled.cu's wgmma kernel: a stage holds 128 bytes of k for 128
+# rows of A and 128 columns of B; a wgmma k-step is 32 bytes of k
+W_TILE = 128                  # rows and columns of an output tile
+W_STAGE_BYTES = 2 * 128 * 128
+W_MAX_STAGES = 7
+STAGE_K = {torch.bfloat16: 64, torch.float8_e4m3fn: 128, torch.float8_e5m2: 128}
+K_STEP = {torch.bfloat16: 16, torch.float8_e4m3fn: 32, torch.float8_e5m2: 32}
+MIN_MN = 64                   # below it a 128 x 128 tile is mostly padding
+# k values of the wgmma partial before it is scaled into the fp32
+# accumulator (the MMA promotion interval): half a stage, a stage or (bf16)
+# two; the plan takes its largest common divisor with bk. The fp8
+# tensor-core sum keeps fewer bits than fp32, so for fp8 it is the largest
+# at which every chip_smoke.py GEMM_SCALED_CASES case on this route and the
+# ladder's card shape held SCALED_REL_TOL on an H100 (PERF.md); bf16's sum is
+# fp32, and two stages halve the scaling work.
+PROMOTE = {torch.bfloat16: 128, torch.float8_e4m3fn: 64, torch.float8_e5m2: 128}
+
+# csrc/gemm_scaled.cu's ffma kernel (gemm.cu's fp32 design, B streamed)
+F_BK = 32                     # k values per ring stage
+F_AS = F_BK + 4               # floats per A row in a ring stage
+F_TN = 12                     # columns per thread
+F_MAX_THREADS = 384           # acc, part and scales need up to 168 registers
+F_MAX_STAGES = 8
+
+
+class Plan(NamedTuple):
+    route: str               # "wgmma", "ffma" or "mma"
+    stages: int = 0          # ring depth (wgmma, ffma)
+    promote: int = 0         # wgmma: k values per partial (half a stage to two stages)
+    grid: int = 0            # persistent CTAs (wgmma, ffma)
+    tm: int = 0              # ffma: rows of a thread's register tile; 12 columns
+    wr: int = 0              # ffma: warps down the CTA: bm = 8 tm wr
+    wc: int = 0              # ffma: warps across: bn = 48 wc
+    vec: bool = False        # ffma: 16-byte copies
+    smem: int = 0            # dynamic shared memory, bytes
+
+    def args(self) -> tuple:
+        """The six plan integers ``repro_gemm_scaled`` takes."""
+        if self.route == "wgmma":
+            return (self.stages, self.promote, self.grid, 0, 0, 0)
+        if self.route == "ffma":
+            return (self.tm, self.wr, self.wc, self.stages, int(self.vec), self.grid)
+        return (0,) * 6
+
+
+def wgmma_smem_bytes(stages: int) -> int:
+    """The wgmma kernel's shared memory (csrc/gemm_scaled.cu
+    ``w_smem_bytes``): the stages, 1 KB to align them for the 128-byte
+    swizzle, two mbarriers a stage, and two K-blocks' b_s for the tile's
+    128 columns for each consumer warp."""
+    return stages * W_STAGE_BYTES + 1024 + 16 * stages + 8 * 256 * 4
+
+
+def ffma_smem_bytes(tm: int, wr: int, wc: int, stages: int) -> int:
+    """The ffma kernel's shared memory (csrc/gemm_scaled.cu
+    ``f_smem_bytes``): ``stages`` ring stages of A (bm rows of F_AS) and B
+    (F_BK rows of bn)."""
+    return 4 * stages * (8 * tm * wr * F_AS + F_BK * 48 * wc)
+
+
+def rows16(*xs) -> bool:
+    """Every row of every matrix in ``xs`` starts on 16 bytes (its base
+    address and its row stride in bytes): TMA and 16-byte copies take it."""
+    return all(x.data_ptr() % 16 == 0 and x.stride(0) * x.element_size() % 16 == 0
+               for x in xs)
+
+
+def _plan_ffma(M, N, K, bk, sms, vec) -> Plan:
+    """The ffma kernel's register tile, warps, ring and grid. Candidates: tm
+    in {4, 2}, wr and wc with at most 12 warps, the deepest ring that fits;
+    the grid is min(tiles, sms) persistent CTAs walking 8 tm wr x 48 wc
+    tiles. The model (gemm.py ``plan_f32``'s constants): the busiest
+    scheduler runs ceil(warps / 4) warps for each of ``rounds`` tiles, each
+    issuing (tm x 12 FFMA + tm / 4 + 3 shared loads) slots per k, plus
+    CHUNK_SLOTS and COPY_SLOTS per cp.async per chunk of F_BK k, over EFF.
+    Least cost wins; ties go to less padded work, then the larger tile."""
+    nk = -(-K // bk)
+    chunks = (nk - 1) * -(-bk // F_BK) + -(-(K - (nk - 1) * bk) // F_BK)
+    best = None
+    for tm in (4, 2):
+        for wr in range(1, 5):
+            for wc in range(1, 5):
+                threads = 32 * wr * wc
+                if threads > F_MAX_THREADS:
+                    continue
+                bm, bn = 8 * tm * wr, 48 * wc
+                stages = max((s for s in range(2, F_MAX_STAGES + 1)
+                              if ffma_smem_bytes(tm, wr, wc, s) <= SMEM_PER_CTA), default=0)
+                if not stages:
+                    continue
+                tiles = -(-M // bm) * -(-N // bn)
+                grid = min(tiles, sms)
+                rounds = -(-tiles // grid)
+                per_sched = -(-(wr * wc) // 4)
+                copies = (bm * F_BK / 4 + F_BK * bn / 4) / threads
+                slots = (tm * F_TN + tm / 4 + 3) * F_BK + CHUNK_SLOTS + COPY_SLOTS * copies
+                cost = rounds * chunks * per_sched * slots / EFF[min(per_sched, 3)]
+                padded = rounds * grid * bm * bn
+                key = (round(cost / 1e3), padded, -bm * bn, -stages)
+                if best is None or key < best[0]:
+                    best = (key, Plan("ffma", stages, 0, grid, tm, wr, wc, vec,
+                                      ffma_smem_bytes(tm, wr, wc, stages)))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=256)
+def plan(M: int, N: int, K: int, bk: int, dtype: torch.dtype, aligned: bool,
+         sms: int = 132) -> Plan:
+    """The route, and its ring and grid, for C (M, N) = A (M, K) B (K, N)
+    per K-block of ``bk`` with values of ``dtype`` on a card of ``sms``
+    SMs; ``aligned``: both operands' rows start on 16 bytes (``rows16``).
+
+    fp32 takes ``ffma``. bf16 and fp8 take ``wgmma`` where bk is a
+    multiple of a stage's k (64 bf16, 128 fp8 values), the rows are
+    aligned, M and N are at least 64 and (fp8) N is a multiple of 16, with the deepest ring that fits,
+    ``PROMOTE``'s interval and one CTA an SM; at every other shape they
+    take ``mma``."""
+    if dtype == torch.float32:
+        return _plan_ffma(M, N, K, bk, sms, aligned and bk % 4 == 0)
+    if dtype not in STAGE_K:
+        raise TypeError(f"gemm_scaled: no route for {dtype}")
+    if K == 0 or bk % STAGE_K[dtype] or not aligned or min(M, N) < MIN_MN:
+        return Plan("mma")
+    if dtype in FP8 and N % 16:  # B's transpose moves 16-byte chunks of its rows
+        return Plan("mma")
+    stages = max(s for s in range(2, W_MAX_STAGES + 1)
+                 if wgmma_smem_bytes(s) <= SMEM_PER_CTA)
+    tiles = -(-M // W_TILE) * -(-N // W_TILE)
+    return Plan("wgmma", stages, math.gcd(PROMOTE[dtype], bk), min(tiles, sms),
+                smem=wgmma_smem_bytes(stages))
+
 
 _fn = None
+_lib = None
 
 
 def _kernel():
-    global _fn
+    global _fn, _lib
     if _fn is None:
         lib = build.load("gemm_scaled")
         fn = lib.repro_gemm_scaled
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-                       i64, i64, i64, i64, i64, i64, i64, ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+                       i64, i64, i64, i64, i64, i64, i64, i64, i32,
+                       i32, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
-        _fn = (lib, fn)
+        _lib, _fn = lib, fn
     return _fn
 
 
@@ -101,16 +249,28 @@ def gemm_scaled_kernel(aq, bq, a_scale, b_scale, *, bk, out_dtype=torch.float32)
     _check(aq, bq, a_scale, b_scale, bk, out_dtype)
     M, K = aq.shape
     N = bq.shape[1]
+    if K == 0:  # an empty sum: no kernel runs
+        return torch.zeros((M, N), dtype=out_dtype, device=aq.device)
     c = torch.empty((M, N), dtype=out_dtype, device=aq.device)
     if M and N:
-        lib, fn = _kernel()
-        with torch.cuda.device(aq.device):
-            stream = torch.cuda.current_stream(aq.device).cuda_stream
-            err = fn(aq.data_ptr(), bq.data_ptr(), a_scale.data_ptr(), b_scale.data_ptr(),
-                     c.data_ptr(), DTYPES[aq.dtype], OUT_DTYPES[out_dtype], M, N, K, bk,
-                     aq.stride(0), bq.stride(0), c.stride(0), *a_scale.stride(),
-                     *b_scale.stride(), stream)
-        build.check(lib, err, "gemm_scaled kernel launch")
+        fn = _fn or _kernel()
+        dev = aq.device.index
+        pl = plan(M, N, K, bk, aq.dtype, rows16(aq, bq), sm_count(dev))
+        bt, ldbt = None, 0
+        if pl.route == "wgmma" and aq.dtype in FP8:  # B's transpose, rows padded to 16 bytes
+            ldbt = -(-K // 16) * 16
+            bt = torch.empty((N, ldbt), dtype=torch.uint8, device=aq.device)
+        args = (aq.data_ptr(), bq.data_ptr(), a_scale.data_ptr(), b_scale.data_ptr(),
+                c.data_ptr(), None if bt is None else bt.data_ptr(), DTYPES[aq.dtype],
+                OUT_DTYPES[out_dtype], M, N, K, bk, aq.stride(0), bq.stride(0), c.stride(0),
+                *a_scale.stride(), *b_scale.stride(), ldbt, ROUTES[pl.route], *pl.args())
+        if torch.cuda.current_device() == dev:  # the usual case: no device switch
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+        else:
+            with torch.cuda.device(dev):
+                err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+        if err:
+            build.check(_lib, err, f"gemm_scaled kernel launch ({pl.route} route)")
         LAUNCHES["gemm_scaled"] += 1
     return c
 

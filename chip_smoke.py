@@ -29,7 +29,11 @@ Phases, in order; any failure exits non-zero:
      paper's Fig. 9b-d at card size): BSR SpMM, SpMSpM and stencil first
      held against their plain versions on the card (small ragged shapes;
      BSR at bm 8 / 16 / 3, bk 128 / 20, F 256 / 300 with every pair of
-     tile and dense types and unsorted, repeated tiles; every card-size
+     tile and dense types and unsorted, repeated tiles; SpMSpM at R = 1, a
+     ragged C, C past one 4096-column tile, La = 0, Lb = 0, duplicates,
+     padding and out-of-range indices, K = 40000, every pair of value
+     types, a repeated call bitwise equal, and its planner's card tile and
+     scratch sizes against the kernel's; every card-size
      case, BSR also with bf16 tiles and dense), then the entry point once with the launch
      counts zeroed just before and read just after (stencil 5, ELL SpMM 3,
      BSR SpMM 3, SpMSpM 3), each output held to the plain path, each case
@@ -54,10 +58,13 @@ Phases, in order; any failure exits non-zero:
      plain version; the fp8 run's preemptions and first tokens equal the
      bf16 run's);
   9. with GPT-J's weights freed, the recurrent families: the chunked
-     linear-attention kernel first held against its plain version (the
-     reference suite's fp32 cases, both read-outs, chunk 16 and 32; both
-     models' card shapes in bf16, with a ragged T and hymba's broadcast
-     inputs), then ``rwkv6-3b`` and ``hymba-1.5b`` at full width and depth
+     linear-attention kernel first held against its plain version on both
+     its routes, fused and split (the reference suite's fp32 cases, both
+     read-outs, chunk 16 and 32; edge shapes: T of 0, 1 and 33, chunk 1
+     and 34, N of 5 and 128, ragged 32-column slices; both models' card
+     shapes in bf16, with a ragged T and hymba's broadcast inputs, the
+     route the planner takes asserted: fused for rwkv6-3b, split for
+     hymba-1.5b), then ``rwkv6-3b`` and ``hymba-1.5b`` at full width and depth
      with random weights: ``registry.forward`` and ``loss_fn`` on
      B x 2048 tokens (launch counts zeroed just before and read just
      after: linear_attention 32, and flash_attention 32 for hymba),
@@ -90,7 +97,8 @@ Phases, in order; any failure exits non-zero:
      stencil, scan and both scaled kernels and their library calls also by
      device time (events around a CUDA graph's replay of 20 calls, which
      the host's issue does not set), and the FA wrapper's host time per
-     call. The scaled kernels at the ladder's card shapes under every
+     call; the scan by device time on both routes at both card shapes, with
+     each launch's share of the call from a profile. The scaled kernels at the ladder's card shapes under every
      policy, each asserted to take its route (wgmma at bf16 and fp8, ffma
      at fp32), beside ``torch.matmul`` and SDPA on the values at bf16 and
      fp32, where unit scales make them the same function.
@@ -101,6 +109,7 @@ nothing of JAX or of the reference package.
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import subprocess
@@ -129,7 +138,7 @@ NUM_BLOCKS = 56  # tight: this workload preempts twice (checked below)
 # the sources whose every ptxas line (registers, shared memory, spills)
 # the build step prints
 REDESIGNED = ("flash_attention", "bsr_spmm", "linear_attention", "gemm", "ring_hop", "gemm_scaled",
-              "flash_attention_scaled")
+              "flash_attention_scaled", "spmspm")
 FA_REPLACES = "src/repro/kernels/flash_attention.py:57"
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 GEMM_REPLACES = "src/repro/kernels/gemm.py:23"
@@ -753,18 +762,50 @@ def check_sparse_la_kernels(report, cases):
         label = f"hand-built bm={bm} bk={bk} F={F} tiles {vt} dense {dt}, {what}"
         errs["bsr_spmm"].append(_hold("bsr_spmm", label, got, want, SPARSE_TOL))
         need(bool((got[2 * bm:3 * bm] == 0).all()), "bsr_spmm: the empty block row is not 0")
-    # SpMSpM: duplicate indices and padding slots; K past one pass (16384)
-    for R, C, K, La, Lb, dt in ((13, 130, 64, 9, 11, "float32"), (7, 50, 40000, 300, 200, "float32"),
-                                (33, 65, 1000, 40, 3, "bfloat16")):
-        A = _random_ell_dups(rng, R, K, La)
-        B = _random_ell_dups(rng, C, K, Lb)
-        a = (A.values.cuda().to(getattr(torch, dt)), A.cols.cuda())
-        b = (B.values.cuda().to(getattr(torch, dt)), B.cols.cuda())
-        got = ops.spmspm(*a, *b, K, impl="cuda")
-        want = ops.spmspm(*a, *b, K, impl="torch")
-        torch.cuda.synchronize()
-        label = f"dups+padding R={R} C={C} K={K} La={La} Lb={Lb} {dt}"
-        errs["spmspm"].append(_hold("spmspm", label, got, want, SPARSE_TOL))
+    # SpMSpM: duplicate indices and padding slots in both operands; R = 1;
+    # a ragged C; C wider than one 4096-column tile; La = 0 and Lb = 0;
+    # K = 40000; every pair of value types; indices outside [0, K) (held
+    # against the plain version on the same operands with those entries
+    # made padding); a repeated call gives the same bits
+    from repro_torch.hopper import spmspm as sp
+
+    lib = sp._kernel()[0]
+    lib.repro_spmspm_scratch_bytes.restype = ctypes.c_longlong
+    R, C, K = sl.CARD.spmspm
+    card = sp.plan(R, C, 164, K)
+    need((card.ct, card.tiles) == (4096, 1), f"spmspm: the card size takes {card.tiles} tiles of {card.ct}")
+    for c, lb, k in ((C, 164, K), (9000, 7, 300), (7, 200, 40000), (1, 0, 10)):
+        want_bytes = sp.plan(1, c, lb, k).scratch
+        got_bytes = lib.repro_spmspm_scratch_bytes(c, lb, k, sp.plan(1, c, lb, k).ct)
+        need(got_bytes == want_bytes, f"spmspm scratch {got_bytes} (C) != {want_bytes} (planner)")
+    print(f"kernel spmspm: the card size takes one {card.ct}-column tile; scratch sizes agree")
+    for R, C, K, La, Lb in ((1, 50, 64, 9, 7), (13, 130, 64, 9, 11), (5, 9000, 300, 20, 7),
+                            (4, 7, 10, 0, 5), (4, 7, 10, 5, 0), (7, 50, 40000, 300, 200),
+                            (33, 65, 1000, 40, 3)):
+        for at in ("float32", "bfloat16"):
+            for bt in ("float32", "bfloat16"):
+                A = _random_ell_dups(rng, R, K, max(La, 1))
+                B = _random_ell_dups(rng, C, K, max(Lb, 1))
+                a_cols, b_rows = A.cols[:, :La].clone(), B.cols[:, :Lb].clone()
+                if La:
+                    a_cols[0, 0] = K + 3
+                if Lb:
+                    b_rows[-1, 0] = -1
+                a_vals, b_vals = A.values[:, :La], B.values[:, :Lb]
+                a = (a_vals.cuda().to(getattr(torch, at)).contiguous(), a_cols.cuda().contiguous())
+                b = (b_vals.cuda().to(getattr(torch, bt)).contiguous(), b_rows.cuda().contiguous())
+                got = ops.spmspm(*a, *b, K, impl="cuda")
+                again = ops.spmspm(*a, *b, K, impl="cuda")
+                a_in, b_in = (a_cols >= 0) & (a_cols < K), (b_rows >= 0) & (b_rows < K)
+                a_p = (torch.where(a_in, a_vals, 0).cuda().to(getattr(torch, at)),
+                       torch.where(a_in, a_cols, 0).cuda().contiguous())
+                b_p = (torch.where(b_in, b_vals, 0).cuda().to(getattr(torch, bt)),
+                       torch.where(b_in, b_rows, 0).cuda().contiguous())
+                want = ops.spmspm(*a_p, *b_p, K, impl="torch")
+                torch.cuda.synchronize()
+                label = (f"dups+padding+out-of-range R={R} C={C} K={K} La={La} Lb={Lb} A {at} B {bt}")
+                errs["spmspm"].append(_hold("spmspm", label, got, want, SPARSE_TOL))
+                need(torch.equal(got, again), f"spmspm: a repeated call changed the result ({label})")
     # stencil: |d| = 2 on every axis (wrapping every face), box on tiny
     # dims, offsets past the grid's extent in y/z, a 2-D grid, bf16, and y
     # offsets of 40 whose halo outgrows the tiled kernel's shared memory
@@ -1771,6 +1812,10 @@ LA_ORACLE_HEADS = 8
 # state to LA_REL_TOL, o (bf16) to max|diff| <= 1e-2 max|step|, two bf16
 # steps of the largest output
 LA_STEP_O_REL_TOL = 1e-2
+LA_ROUTES = ("fused", "split")
+# the route hopper/linear_attention.py plan takes at each card shape on an
+# H100 (132 SMs): rwkv6's 160 heads cover the card, hymba's 100 do not
+LA_CARD_ROUTES = {"rwkv6-3b": "fused", "hymba-1.5b": "split"}
 RECURRENT = (("rwkv6-3b", 4), ("hymba-1.5b", 2))  # (arch, batch)
 RECURRENT_T = 2048
 GEN_PROMPT, GEN_NEW = 64, 16
@@ -2006,8 +2051,19 @@ def check_la_kernels(report):
 
     from repro_torch.hopper import ops
 
+    from repro_torch.hopper import linear_attention as la
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     errs = {"fp32": [], "bf16": []}
+    lib = la._kernel()[0]  # the fused kernel's layout in C against the planner's in Python
+    lib.repro_linear_attention_smem_bytes.restype = ctypes.c_longlong
+    for n, chunk, vb in ((64, 32, 2), (16, 32, 2), (128, 34, 4), (5, 1, 4), (24, 7, 2)):
+        c_bytes = lib.repro_linear_attention_smem_bytes(n, chunk, vb)
+        need(c_bytes == la.smem_bytes(n, chunk, vb),
+             f"linear_attention: shared memory {c_bytes} (C) != {la.smem_bytes(n, chunk, vb)} (planner)")
+    print("kernel linear_attention: the planner's shared-memory sizes equal the kernel's")
+    # the reference suite's cases through each route (the planner takes
+    # split for these 6 heads; the fused route is forced)
     for mode in ("rwkv", "ssd"):
         for t, n, m in LA_CASES:
             r, k = (torch.randn((2, 3, t, n), generator=gen, device="cuda") for _ in range(2))
@@ -2016,21 +2072,54 @@ def check_la_kernels(report):
             u = torch.randn((3, n), generator=gen, device="cuda") if mode == "rwkv" else None
             s0 = torch.randn((2, 3, n, m), generator=gen, device="cuda")
             for chunk in (16, 32):
-                got = ops.linear_attention(r, k, v, w, u, s0, impl="cuda", chunk=chunk)
                 want = ops.linear_attention(r, k, v, w, u, s0, impl="torch", chunk=chunk)
+                for route in LA_ROUTES:
+                    got = la.linear_attention_cuda(r, k, v, w, u, s0, chunk=chunk, route=route)
+                    torch.cuda.synchronize()
+                    label = f"{mode} t={t} n={n} m={m} chunk={chunk} fp32 s0, {route}"
+                    errs["fp32"].append(_hold("linear_attention", label + " o", got[0], want[0], LA_TOL))
+                    errs["fp32"].append(_hold("linear_attention", label + " S", got[1], want[1], LA_TOL))
+    # each route's edge shapes: T of 0, 1 and 33; chunk 1 and 34; N of 128
+    # and 5 (not a multiple of 4); M of 80 and 20 (ragged 32-column slices)
+    for T, n, m, chunk in ((0, 16, 24, 32), (1, 16, 24, 32), (33, 64, 80, 16), (45, 128, 80, 34),
+                           (40, 5, 20, 1)):
+        r, k = (torch.randn((2, 3, T, n), generator=gen, device="cuda") for _ in range(2))
+        v = torch.randn((2, 3, T, m), generator=gen, device="cuda")
+        w = -(0.001 + 1.999 * torch.rand((2, 3, T, n), generator=gen, device="cuda"))
+        s0 = torch.randn((2, 3, n, m), generator=gen, device="cuda")
+        for u in (torch.randn((3, n), generator=gen, device="cuda"), None):
+            want = ops.linear_attention(r, k, v, w, u, s0, impl="torch", chunk=chunk)
+            for route in LA_ROUTES:
+                got = la.linear_attention_cuda(r, k, v, w, u, s0, chunk=chunk, route=route)
                 torch.cuda.synchronize()
-                label = f"{mode} t={t} n={n} m={m} chunk={chunk} fp32 s0"
+                label = (f"{'rwkv' if u is not None else 'ssd'} T={T} n={n} m={m} chunk={chunk} fp32 "
+                         f"s0, {route}")
                 errs["fp32"].append(_hold("linear_attention", label + " o", got[0], want[0], LA_TOL))
                 errs["fp32"].append(_hold("linear_attention", label + " S", got[1], want[1], LA_TOL))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for arch, _ in RECURRENT:
         for T in (RECURRENT_T, RECURRENT_T - 1):
             r, k, v, w, u, label = _la_card_inputs(arch, T, gen)
+            route = la.plan(*r.shape, v.shape[3], 32, v.element_size(), sms).route
+            if T == RECURRENT_T:
+                need(route == LA_CARD_ROUTES[arch],
+                     f"linear_attention: {arch}'s card shape takes the {route} route, not "
+                     f"{LA_CARD_ROUTES[arch]}")
+                print(f"kernel linear_attention [{label}]: the planner takes the {route} route")
             got = ops.linear_attention(r, k, v, w, u, impl="cuda")
             want = ops.linear_attention(r, k, v, w, u, impl="torch")
             torch.cuda.synchronize()
-            errs["bf16"].append(_hold_bf16("linear_attention", label, got[0], want[0]))
-            errs["bf16"].append(_hold_rel("linear_attention", label + " S (fp32)", got[1], want[1],
-                                          LA_REL_TOL))
+            errs["bf16"].append(_hold_bf16("linear_attention", f"{label}, {route}", got[0], want[0]))
+            errs["bf16"].append(_hold_rel("linear_attention", f"{label}, {route}: S (fp32)", got[1],
+                                          want[1], LA_REL_TOL))
+            # the other route on the same inputs, held the same way
+            other = "split" if route == "fused" else "fused"
+            got2 = la.linear_attention_cuda(r, k, v, ops._floor_decay(w), u, route=other)
+            torch.cuda.synchronize()
+            errs["bf16"].append(_hold_bf16("linear_attention", f"{label}, {other}", got2[0], want[0]))
+            errs["bf16"].append(_hold_rel("linear_attention", f"{label}, {other}: S (fp32)", got2[1],
+                                          want[1], LA_REL_TOL))
+            del got2
             r32, k32, v32 = (x.float() for x in (r, k, v))
             got32 = ops.linear_attention(r32, k32, v32, w, u, impl="cuda")
             want32 = ops.linear_attention(r32, k32, v32, w, u, impl="torch")
@@ -2081,12 +2170,41 @@ def la_bound_ms(r, k, v, w, u, chunk=32):
     return _bound(nbytes, ops_)
 
 
+def _launch_shares(calls):
+    """Each kernel's device time per call and share of its call, from one
+    profile of three calls of each of ``calls`` (name -> fn), the kernels
+    attributed to the call whose launches they are: {name: [(kernel, ms
+    per call, share)]}, empty where the trace holds no device record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    shares = {}
+    for name, fn in calls.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type.name == "CUDA":
+                t = getattr(e, "self_device_time_total", None)
+                rows.append((e.key, (e.self_cuda_time_total if t is None else t) / 3e3))
+        total = sum(ms for _, ms in rows)
+        shares[name] = [(k, ms, ms / total) for k, ms in rows] if total else []
+    return shares
+
+
 def time_la_kernels(report):
-    """Kernel and plain version at both card shapes (in turns), against
-    the bound; no single PyTorch call computes a chunked decay scan, so
-    there is no library time."""
+    """Kernel (the planner's route) and plain version at both card shapes
+    (in turns), against the bound; the device time of each route and each
+    launch's share of it (profile); no single PyTorch call computes a
+    chunked decay scan, so there is no library time."""
     import torch
 
+    from repro_torch.hopper import linear_attention as la
     from repro_torch.hopper import ops
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -2094,15 +2212,25 @@ def time_la_kernels(report):
         r, k, v, w, u, label = _la_card_inputs(arch, RECURRENT_T, gen)
         kern_fn = lambda: ops.linear_attention(r, k, v, w, u, impl="cuda")
         kern, plain = _in_turns(kern_fn, lambda: ops.linear_attention(r, k, v, w, u, impl="torch"), 3)
-        dev = device_ms(kern_fn)
+        wf = ops._floor_decay(w)
+        calls = {route: (lambda route=route: la.linear_attention_cuda(r, k, v, wf, u, route=route))
+                 for route in LA_ROUTES}
+        shares = _launch_shares(calls)
+        route_ms = {route: device_ms(call) for route, call in calls.items()}
+        for route in LA_ROUTES:
+            parts = "; ".join(f"{name[:60]} {share:.1%}" for name, _, share in shares[route])
+            print(f"time linear_attention [{label}] {route} route: device time {_ms(route_ms[route])}; "
+                  f"launch shares (profile): {parts or 'the trace holds no device record'}")
+        route = LA_CARD_ROUTES[arch]
+        dev = route_ms[route]
         bound, by = la_bound_ms(r, k, v, w, u)
         report.setdefault("la_time", {})[arch] = dict(
-            shape=label, ms=min(kern), plain_ms=min(plain), library_ms=None, bound_ms=bound,
-            bound_by=by, device_ms=dev, library_device_ms=None)
-        print(f"time linear_attention [{label}]: kernel {kern} ms (device time {_ms(dev)}), "
-              f"plain {plain} ms, library none "
+            shape=label, route=route, ms=min(kern), plain_ms=min(plain), library_ms=None, bound_ms=bound,
+            bound_by=by, device_ms=dev, library_device_ms=None, route_device_ms=route_ms)
+        print(f"time linear_attention [{label}]: kernel ({route} route) {kern} ms (device time "
+              f"{_ms(dev)}), plain {plain} ms, library none "
               f"(no single PyTorch call computes a chunked decay scan), bound {bound:.5f} ms ({by})")
-        del r, k, v, w
+        del r, k, v, w, wf
 
 
 def cross_route_check(cfg, params, tokens):
@@ -2612,7 +2740,11 @@ def main() -> int:
         "max_abs_err_vs_fp64_oracle": report["la_err_oracle_fp32"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
-        "device_ms": t["device_ms"],
+        "device_ms": t["device_ms"], "kernel_route": t["route"],
+        # each card shape: the route the planner takes and both routes' device times
+        "card_shapes": {a: {f: r[f] for f in ("shape", "route", "device_ms", "route_device_ms",
+                                                "bound_ms", "bound_by")}
+                        for a, r in report["la_time"].items()},
     })
     t = report["ring_hop_time"][4 << 20]
     kernels.append({

@@ -7,8 +7,10 @@ one checkout of the repo, on one NVIDIA card.
 Builds that checkout's kernels and times them with its own
 ``repro_torch`` and ``chip_smoke.py`` helpers: the bf16 FA-2 forward
 (B=1 H=16 D=256 causal; S = 512, and 2048-row ring blocks on and below
-the diagonal), the BSR SpMM at the sparse trio's three card densities,
-the chunked scan at both recurrent models' card shapes, the fp32 GEMM
+the diagonal), the BSR SpMM and the SpMSpM at the sparse trio's three card densities
+((8192, 16384) and (4096, 16384) x (16384, 4096) operands), the chunked
+scan at both recurrent models' card shapes (the route the checkout's
+planner takes), the fp32 GEMM
 at the GCN's ogbn-arxiv and cora sizes ((n, 144) x (144, 144)), and the
 precision ladder's two kernels at its card shapes under every policy (the
 scaled GEMM (2048, 4096) x (4096, 16384) with bk = 256, the scaled FA-2
@@ -118,8 +120,8 @@ def main(root, label):
     from repro_torch.parallel.mesh import RingMesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build(("flash_attention", "bsr_spmm", "linear_attention", "ring_hop", "gemm", "gemm_scaled",
-                 "flash_attention_scaled"))
+    build.build(("flash_attention", "bsr_spmm", "spmspm", "linear_attention", "ring_hop", "gemm",
+                 "gemm_scaled", "flash_attention_scaled"))
     out = {"label": label}
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -139,6 +141,15 @@ def main(root, label):
         A = sparse.ell_to_bsr(sparse.random_ell(rng, 8192, 16384, d), 8, 128).to("cuda")
         D = torch.from_numpy(rng.standard_normal((16384, 256)).astype(np.float32)).cuda()
         out[f"bsr_{d}"] = graph_ms(lambda: ops.bsr_spmm(A, D, impl="cuda"))
+    from repro_torch.launch import sparse_la as sl
+
+    R, C, K = sl.CARD.spmspm
+    rng = np.random.default_rng(0)
+    for d in DENSITIES:  # launch/sparse_la.py make_cases's operands
+        A = sparse.random_ell(rng, R, K, d).to("cuda")
+        B = sparse.random_ell(rng, C, K, sl.RIGHT_DENSITY).to("cuda")
+        out[f"spmspm_{d}"] = graph_ms(lambda: ops.spmspm(A, B, K, impl="cuda"))
+    del B
     for arch, _ in smoke.RECURRENT:
         r, k, v, w, u, _ = smoke._la_card_inputs(arch, smoke.RECURRENT_T, gen)
         out[f"la_{arch}"] = graph_ms(lambda: ops.linear_attention(r, k, v, w, u, impl="cuda"))

@@ -11,12 +11,16 @@ For CPU tensors, and only for them, it runs the plain version
 a_values/a_cols (R, La) are A's ELL rows, b_values/b_rows (C, Lb) B's ELL
 columns, over a contraction dim K (``contraction_dim``); values fp32 or
 bf16, indices int32, rows unit-stride (any row stride). The output (R, C)
-is fp32. The kernel densifies A's rows and gathers them at B's indices
-(R*C*Lb gathers); an index outside [0, K) contributes nothing.
+is fp32. An index outside [0, K) contributes nothing. The kernel builds a
+copy of B indexed by k (the wrapper allocates its scratch, ``plan``) and
+then sums each output row on chip from the lists of A's entries, so its
+work follows the nonzeros (see the source); the output's columns go in
+tiles of at most 4096. Its four launches count as one.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,8 +28,30 @@ from repro_torch.hopper import blocked, build
 from repro_torch.hopper.dispatch import LAUNCHES
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+CT_MAX = 4096  # csrc/spmspm.cu CT_MAX: output columns a warp sums in shared memory
+WARPS = 4  # csrc/spmspm.cu WARPS: (row, tile) items of a CTA
 
 _fn = None
+
+
+class Plan(NamedTuple):
+    ct: int  # output columns of a tile (a multiple of 4)
+    tiles: int  # ceil(C / ct)
+    smem: int  # the row kernel's shared memory per CTA, bytes
+    grid: int  # the row kernel's CTAs: ceil(R * tiles / WARPS)
+    scratch: int  # bytes: tiles * K + 1 counts and offsets (each to 4), C * Lb (n, b) pairs
+
+
+def plan(R: int, C: int, Lb: int, K: int) -> Plan:
+    """The output's column tiles and the scratch for A (R rows) times B
+    (C columns of Lb entries) over K (csrc/spmspm.cu
+    ``repro_spmspm_scratch_bytes``): one tile where C fits in ``CT_MAX``,
+    else the fewest tiles of even width, rounded up to 4."""
+    tiles = -(-C // CT_MAX)
+    ct = (-(-C // tiles) + 3) // 4 * 4
+    tiles = -(-C // ct)
+    offsets = -(-(tiles * K + 1) // 4) * 4
+    return Plan(ct, tiles, 4 * WARPS * ct, -(-R * tiles // WARPS), 8 * offsets + 8 * C * Lb)
 
 
 def _kernel():
@@ -34,8 +60,8 @@ def _kernel():
         lib = build.load("spmspm")
         fn = lib.repro_spmspm
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
-                       i64, i64, i64, i64, i64, ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+                       i32, i64, i64, i64, i64, i64, ptr]
         fn.restype = i32
         _fn = (lib, fn)
     return _fn
@@ -88,12 +114,15 @@ def spmspm_cuda(a_values, a_cols, b_values, b_rows, contraction_dim, **blocks):
     C, Lb = b_values.shape
     out = torch.empty((R, C), dtype=torch.float32, device=a_values.device)
     if R and C:
+        K = int(contraction_dim)
+        pl = plan(R, C, Lb, K)
+        scratch = torch.empty(pl.scratch, dtype=torch.uint8, device=a_values.device)
         lib, fn = _kernel()
         with torch.cuda.device(a_values.device):
             stream = torch.cuda.current_stream(a_values.device).cuda_stream
             err = fn(a_values.data_ptr(), a_cols.data_ptr(), b_values.data_ptr(),
-                     b_rows.data_ptr(), out.data_ptr(), DTYPES[a_values.dtype],
-                     DTYPES[b_values.dtype], R, C, La, Lb, int(contraction_dim),
+                     b_rows.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                     DTYPES[a_values.dtype], DTYPES[b_values.dtype], R, C, La, Lb, K, pl.ct,
                      a_values.stride(0), a_cols.stride(0), b_values.stride(0),
                      b_rows.stride(0), out.stride(0), stream)
         build.check(lib, err, "spmspm kernel launch")

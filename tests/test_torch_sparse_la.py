@@ -492,3 +492,74 @@ def test_cuda_bsr_kernel_edge_shapes():
                             want = ops.bsr_spmm(*args, impl="torch")
                             torch.testing.assert_close(got, want, **TOL)
                             assert not got[2 * bm:3 * bm].any()
+
+
+# ---------------------------------------------------------------------------
+# The SpMSpM kernel's plan (pure Python) and its edge shapes on the card
+# ---------------------------------------------------------------------------
+
+from repro_torch.hopper import spmspm as spmspm_wrapper  # noqa: E402
+
+
+@pytest.mark.parametrize("C,ct,tiles", [(1, 4, 1), (130, 132, 1), (4096, 4096, 1), (4097, 2052, 2),
+                                        (8192, 4096, 2), (9000, 3000, 3), (20000, 4000, 5)])
+def test_spmspm_plan_tiles_the_output_columns(C, ct, tiles):
+    """One tile where C fits 4096 fp32 sums (16 KB of shared memory a
+    warp), else the fewest tiles of even width, rounded up to 4."""
+    pl = spmspm_wrapper.plan(7, C, 11, 64)
+    assert (pl.ct, pl.tiles) == (ct, tiles)
+    assert pl.ct % 4 == 0 and pl.ct <= spmspm_wrapper.CT_MAX and (tiles - 1) * ct < C <= tiles * ct
+    assert pl.smem == 4 * spmspm_wrapper.WARPS * ct <= 64 * 1024
+    assert pl.grid == -(-7 * tiles // spmspm_wrapper.WARPS)
+
+
+@pytest.mark.parametrize("R,C,Lb,K", [(4096, 4096, 164, 16384), (7, 50, 200, 40000), (3, 9000, 7, 300),
+                                      (1, 5, 0, 10)])
+def test_spmspm_scratch_holds_the_copy_of_b(R, C, Lb, K):
+    """Counts and offsets per (tile, k), each array rounded up to 4 ints
+    (16 bytes), then one (column, value) pair per entry of B."""
+    pl = spmspm_wrapper.plan(R, C, Lb, K)
+    offsets = pl.tiles * K + 1
+    assert pl.scratch == 8 * (-(-offsets // 4) * 4) + 8 * C * Lb
+    if (R, C, K) == (4096, 4096, 16384):  # the sparse trio's card size: 5.5 MB
+        assert pl.scratch == 5505056
+
+
+@pytest.mark.cuda
+def test_cuda_spmspm_kernel_edge_shapes():
+    """The SpMSpM kernel against its plain version: R = 1, a ragged C, C
+    wider than one tile, La = 0, Lb = 0, duplicate indices and ELL padding
+    in both operands, K = 40000, every pair of value types; indices outside
+    [0, K) contribute nothing (held against the plain version on the same
+    operands with those entries made padding); a repeated call gives the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper SpMSpM kernel has no CPU mode")
+    rng = np.random.default_rng(2)
+    cases = [(1, 50, 64, 9, 7), (13, 130, 64, 9, 11), (5, 9000, 300, 20, 7), (4, 7, 10, 0, 5),
+             (4, 7, 10, 5, 0), (7, 50, 40000, 300, 200)]
+    for R, C, K, La, Lb in cases:
+        for at in (torch.float32, torch.bfloat16):
+            for bt in (torch.float32, torch.bfloat16):
+                a_cols = rng.integers(0, K, (R, La)).astype(np.int32)
+                b_rows = rng.integers(0, K, (C, Lb)).astype(np.int32)
+                a_vals = rng.standard_normal((R, La)).astype(np.float32)
+                b_vals = rng.standard_normal((C, Lb)).astype(np.float32)
+                if La:
+                    a_vals[:, -1], a_cols[:, -1] = 0, 0  # padding
+                    a_cols[0, 0] = K + 3  # out of range
+                if Lb:
+                    b_vals[:, -1], b_rows[:, -1] = 0, 0
+                    b_rows[-1, 0] = -1
+                a = (torch.from_numpy(a_vals).cuda().to(at), torch.from_numpy(a_cols).cuda())
+                b = (torch.from_numpy(b_vals).cuda().to(bt), torch.from_numpy(b_rows).cuda())
+                got = ops.spmspm(*a, *b, K, impl="cuda")
+                assert torch.equal(got, ops.spmspm(*a, *b, K, impl="cuda"))
+                a_in = (a_cols >= 0) & (a_cols < K)
+                b_in = (b_rows >= 0) & (b_rows < K)
+                a_p = (torch.from_numpy(np.where(a_in, a_vals, 0)).cuda().to(at),
+                       torch.from_numpy(np.where(a_in, a_cols, 0)).cuda())
+                b_p = (torch.from_numpy(np.where(b_in, b_vals, 0)).cuda().to(bt),
+                       torch.from_numpy(np.where(b_in, b_rows, 0)).cuda())
+                want = ops.spmspm(*a_p, *b_p, K, impl="torch")
+                torch.testing.assert_close(got, want, **TOL)

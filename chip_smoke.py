@@ -58,13 +58,11 @@ Phases, in order; any failure exits non-zero:
      plain version; the fp8 run's preemptions and first tokens equal the
      bf16 run's);
   9. with GPT-J's weights freed, the recurrent families: the chunked
-     linear-attention kernel first held against its plain version on both
-     its routes, fused and split (the reference suite's fp32 cases, both
-     read-outs, chunk 16 and 32; edge shapes: T of 0, 1 and 33, chunk 1
-     and 34, N of 5 and 128, ragged 32-column slices; both models' card
-     shapes in bf16, with a ragged T and hymba's broadcast inputs, the
-     route the planner takes asserted: fused for rwkv6-3b, split for
-     hymba-1.5b), then ``rwkv6-3b`` and ``hymba-1.5b`` at full width and depth
+     linear-attention kernel first held against its plain version (the
+     reference suite's fp32 cases, both read-outs, chunk 16 and 32; edge
+     shapes: T of 0, 1 and 33, chunk 1 and 34, N of 5 and 128, ragged
+     64-column blocks; both models' card shapes in bf16, with a ragged T
+     and hymba's broadcast inputs), then ``rwkv6-3b`` and ``hymba-1.5b`` at full width and depth
      with random weights: ``registry.forward`` and ``loss_fn`` on
      B x 2048 tokens (launch counts zeroed just before and read just
      after: linear_attention 32, and flash_attention 32 for hymba),
@@ -97,8 +95,8 @@ Phases, in order; any failure exits non-zero:
      stencil, scan and both scaled kernels and their library calls also by
      device time (events around a CUDA graph's replay of 20 calls, which
      the host's issue does not set), and the FA wrapper's host time per
-     call; the scan by device time on both routes at both card shapes, with
-     each launch's share of the call from a profile. The scaled kernels at the ladder's card shapes under every
+     call; the scan at both card shapes with each of its three launches'
+     share of the call from a profile. The scaled kernels at the ladder's card shapes under every
      policy, each asserted to take its route (wgmma at bf16 and fp8, ffma
      at fp32), beside ``torch.matmul`` and SDPA on the values at bf16 and
      fp32, where unit scales make them the same function.
@@ -1812,10 +1810,6 @@ LA_ORACLE_HEADS = 8
 # state to LA_REL_TOL, o (bf16) to max|diff| <= 1e-2 max|step|, two bf16
 # steps of the largest output
 LA_STEP_O_REL_TOL = 1e-2
-LA_ROUTES = ("fused", "split")
-# the route hopper/linear_attention.py plan takes at each card shape on an
-# H100 (132 SMs): rwkv6's 160 heads cover the card, hymba's 100 do not
-LA_CARD_ROUTES = {"rwkv6-3b": "fused", "hymba-1.5b": "split"}
 RECURRENT = (("rwkv6-3b", 4), ("hymba-1.5b", 2))  # (arch, batch)
 RECURRENT_T = 2048
 GEN_PROMPT, GEN_NEW = 64, 16
@@ -2051,19 +2045,8 @@ def check_la_kernels(report):
 
     from repro_torch.hopper import ops
 
-    from repro_torch.hopper import linear_attention as la
-
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     errs = {"fp32": [], "bf16": []}
-    lib = la._kernel()[0]  # the fused kernel's layout in C against the planner's in Python
-    lib.repro_linear_attention_smem_bytes.restype = ctypes.c_longlong
-    for n, chunk, vb in ((64, 32, 2), (16, 32, 2), (128, 34, 4), (5, 1, 4), (24, 7, 2)):
-        c_bytes = lib.repro_linear_attention_smem_bytes(n, chunk, vb)
-        need(c_bytes == la.smem_bytes(n, chunk, vb),
-             f"linear_attention: shared memory {c_bytes} (C) != {la.smem_bytes(n, chunk, vb)} (planner)")
-    print("kernel linear_attention: the planner's shared-memory sizes equal the kernel's")
-    # the reference suite's cases through each route (the planner takes
-    # split for these 6 heads; the fused route is forced)
     for mode in ("rwkv", "ssd"):
         for t, n, m in LA_CASES:
             r, k = (torch.randn((2, 3, t, n), generator=gen, device="cuda") for _ in range(2))
@@ -2072,15 +2055,15 @@ def check_la_kernels(report):
             u = torch.randn((3, n), generator=gen, device="cuda") if mode == "rwkv" else None
             s0 = torch.randn((2, 3, n, m), generator=gen, device="cuda")
             for chunk in (16, 32):
+                got = ops.linear_attention(r, k, v, w, u, s0, impl="cuda", chunk=chunk)
                 want = ops.linear_attention(r, k, v, w, u, s0, impl="torch", chunk=chunk)
-                for route in LA_ROUTES:
-                    got = la.linear_attention_cuda(r, k, v, w, u, s0, chunk=chunk, route=route)
-                    torch.cuda.synchronize()
-                    label = f"{mode} t={t} n={n} m={m} chunk={chunk} fp32 s0, {route}"
-                    errs["fp32"].append(_hold("linear_attention", label + " o", got[0], want[0], LA_TOL))
-                    errs["fp32"].append(_hold("linear_attention", label + " S", got[1], want[1], LA_TOL))
-    # each route's edge shapes: T of 0, 1 and 33; chunk 1 and 34; N of 128
-    # and 5 (not a multiple of 4); M of 80 and 20 (ragged 32-column slices)
+                torch.cuda.synchronize()
+                label = f"{mode} t={t} n={n} m={m} chunk={chunk} fp32 s0"
+                errs["fp32"].append(_hold("linear_attention", label + " o", got[0], want[0], LA_TOL))
+                errs["fp32"].append(_hold("linear_attention", label + " S", got[1], want[1], LA_TOL))
+    # edge shapes: T of 0, 1 and 33; chunk 1 and 34; N of 128 (a thread's
+    # staging batch of 8 values) and 5 (not a multiple of 4); M of 80 and 20
+    # (a last 64-column block narrower than 64)
     for T, n, m, chunk in ((0, 16, 24, 32), (1, 16, 24, 32), (33, 64, 80, 16), (45, 128, 80, 34),
                            (40, 5, 20, 1)):
         r, k = (torch.randn((2, 3, T, n), generator=gen, device="cuda") for _ in range(2))
@@ -2088,38 +2071,21 @@ def check_la_kernels(report):
         w = -(0.001 + 1.999 * torch.rand((2, 3, T, n), generator=gen, device="cuda"))
         s0 = torch.randn((2, 3, n, m), generator=gen, device="cuda")
         for u in (torch.randn((3, n), generator=gen, device="cuda"), None):
+            got = ops.linear_attention(r, k, v, w, u, s0, impl="cuda", chunk=chunk)
             want = ops.linear_attention(r, k, v, w, u, s0, impl="torch", chunk=chunk)
-            for route in LA_ROUTES:
-                got = la.linear_attention_cuda(r, k, v, w, u, s0, chunk=chunk, route=route)
-                torch.cuda.synchronize()
-                label = (f"{'rwkv' if u is not None else 'ssd'} T={T} n={n} m={m} chunk={chunk} fp32 "
-                         f"s0, {route}")
-                errs["fp32"].append(_hold("linear_attention", label + " o", got[0], want[0], LA_TOL))
-                errs["fp32"].append(_hold("linear_attention", label + " S", got[1], want[1], LA_TOL))
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+            torch.cuda.synchronize()
+            label = f"{'rwkv' if u is not None else 'ssd'} T={T} n={n} m={m} chunk={chunk} fp32 s0"
+            errs["fp32"].append(_hold("linear_attention", label + " o", got[0], want[0], LA_TOL))
+            errs["fp32"].append(_hold("linear_attention", label + " S", got[1], want[1], LA_TOL))
     for arch, _ in RECURRENT:
         for T in (RECURRENT_T, RECURRENT_T - 1):
             r, k, v, w, u, label = _la_card_inputs(arch, T, gen)
-            route = la.plan(*r.shape, v.shape[3], 32, v.element_size(), sms).route
-            if T == RECURRENT_T:
-                need(route == LA_CARD_ROUTES[arch],
-                     f"linear_attention: {arch}'s card shape takes the {route} route, not "
-                     f"{LA_CARD_ROUTES[arch]}")
-                print(f"kernel linear_attention [{label}]: the planner takes the {route} route")
             got = ops.linear_attention(r, k, v, w, u, impl="cuda")
             want = ops.linear_attention(r, k, v, w, u, impl="torch")
             torch.cuda.synchronize()
-            errs["bf16"].append(_hold_bf16("linear_attention", f"{label}, {route}", got[0], want[0]))
-            errs["bf16"].append(_hold_rel("linear_attention", f"{label}, {route}: S (fp32)", got[1],
-                                          want[1], LA_REL_TOL))
-            # the other route on the same inputs, held the same way
-            other = "split" if route == "fused" else "fused"
-            got2 = la.linear_attention_cuda(r, k, v, ops._floor_decay(w), u, route=other)
-            torch.cuda.synchronize()
-            errs["bf16"].append(_hold_bf16("linear_attention", f"{label}, {other}", got2[0], want[0]))
-            errs["bf16"].append(_hold_rel("linear_attention", f"{label}, {other}: S (fp32)", got2[1],
-                                          want[1], LA_REL_TOL))
-            del got2
+            errs["bf16"].append(_hold_bf16("linear_attention", label, got[0], want[0]))
+            errs["bf16"].append(_hold_rel("linear_attention", label + " S (fp32)", got[1], want[1],
+                                          LA_REL_TOL))
             r32, k32, v32 = (x.float() for x in (r, k, v))
             got32 = ops.linear_attention(r32, k32, v32, w, u, impl="cuda")
             want32 = ops.linear_attention(r32, k32, v32, w, u, impl="torch")
@@ -2170,67 +2136,57 @@ def la_bound_ms(r, k, v, w, u, chunk=32):
     return _bound(nbytes, ops_)
 
 
-def _launch_shares(calls):
-    """Each kernel's device time per call and share of its call, from one
-    profile of three calls of each of ``calls`` (name -> fn), the kernels
-    attributed to the call whose launches they are: {name: [(kernel, ms
-    per call, share)]}, empty where the trace holds no device record."""
+def _launch_shares(fn):
+    """Each kernel's share of one call's device time, from a profile of
+    three calls: [(kernel and its launches in the trace, share)], empty
+    where the trace holds no device record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for fn in calls.values():
-        fn()
+    fn()
     torch.cuda.synchronize()
-    shares = {}
-    for name, fn in calls.items():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-        rows = []
-        for e in prof.key_averages():
-            if e.device_type.name == "CUDA":
-                t = getattr(e, "self_device_time_total", None)
-                rows.append((e.key, (e.self_cuda_time_total if t is None else t) / 3e3))
-        total = sum(ms for _, ms in rows)
-        shares[name] = [(k, ms, ms / total) for k, ms in rows] if total else []
-    return shares
+    # acc_events: keep every call's records (without it the profiler may
+    # report only the last cycle's)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":
+            t = getattr(e, "self_device_time_total", None)
+            rows.append((e.key, e.count, e.self_cuda_time_total if t is None else t))
+    total = sum(t for _, _, t in rows)
+    return [(f"{name[:60]} x{count}", t / total) for name, count, t in rows] if total else []
 
 
 def time_la_kernels(report):
-    """Kernel (the planner's route) and plain version at both card shapes
-    (in turns), against the bound; the device time of each route and each
-    launch's share of it (profile); no single PyTorch call computes a
-    chunked decay scan, so there is no library time."""
+    """Kernel and plain version at both card shapes (in turns), against
+    the bound, and each of the kernel's three launches' share of its device
+    time (profile, taken before the CUDA-graph timing); no single PyTorch
+    call computes a chunked decay scan, so there is no library time."""
     import torch
 
-    from repro_torch.hopper import linear_attention as la
     from repro_torch.hopper import ops
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     for arch, _ in RECURRENT:
         r, k, v, w, u, label = _la_card_inputs(arch, RECURRENT_T, gen)
         kern_fn = lambda: ops.linear_attention(r, k, v, w, u, impl="cuda")
+        shares = _launch_shares(kern_fn)
         kern, plain = _in_turns(kern_fn, lambda: ops.linear_attention(r, k, v, w, u, impl="torch"), 3)
-        wf = ops._floor_decay(w)
-        calls = {route: (lambda route=route: la.linear_attention_cuda(r, k, v, wf, u, route=route))
-                 for route in LA_ROUTES}
-        shares = _launch_shares(calls)
-        route_ms = {route: device_ms(call) for route, call in calls.items()}
-        for route in LA_ROUTES:
-            parts = "; ".join(f"{name[:60]} {share:.1%}" for name, _, share in shares[route])
-            print(f"time linear_attention [{label}] {route} route: device time {_ms(route_ms[route])}; "
-                  f"launch shares (profile): {parts or 'the trace holds no device record'}")
-        route = LA_CARD_ROUTES[arch]
-        dev = route_ms[route]
+        dev = device_ms(kern_fn)
         bound, by = la_bound_ms(r, k, v, w, u)
         report.setdefault("la_time", {})[arch] = dict(
-            shape=label, route=route, ms=min(kern), plain_ms=min(plain), library_ms=None, bound_ms=bound,
-            bound_by=by, device_ms=dev, library_device_ms=None, route_device_ms=route_ms)
-        print(f"time linear_attention [{label}]: kernel ({route} route) {kern} ms (device time "
-              f"{_ms(dev)}), plain {plain} ms, library none "
+            shape=label, ms=min(kern), plain_ms=min(plain), library_ms=None, bound_ms=bound,
+            bound_by=by, device_ms=dev, library_device_ms=None,
+            launch_shares={name: share for name, share in shares})
+        parts = "; ".join(f"{name} {share:.1%}" for name, share in shares)
+        print(f"time linear_attention [{label}]: kernel {kern} ms (device time {_ms(dev)}; launch "
+              f"shares (profile, the decay floor's clamp included): "
+              f"{parts or 'the trace holds no device record'}), plain {plain} ms, library none "
               f"(no single PyTorch call computes a chunked decay scan), bound {bound:.5f} ms ({by})")
-        del r, k, v, w, wf
+        del r, k, v, w
 
 
 def cross_route_check(cfg, params, tokens):
@@ -2740,10 +2696,10 @@ def main() -> int:
         "max_abs_err_vs_fp64_oracle": report["la_err_oracle_fp32"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
-        "device_ms": t["device_ms"], "kernel_route": t["route"],
-        # each card shape: the route the planner takes and both routes' device times
-        "card_shapes": {a: {f: r[f] for f in ("shape", "route", "device_ms", "route_device_ms",
-                                                "bound_ms", "bound_by")}
+        "device_ms": t["device_ms"],
+        # both card shapes: device time, bound and each launch's share
+        "card_shapes": {a: {f: r[f] for f in ("shape", "device_ms", "bound_ms", "bound_by",
+                                                "launch_shares")}
                         for a, r in report["la_time"].items()},
     })
     t = report["ring_hop_time"][4 << 20]

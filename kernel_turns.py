@@ -7,11 +7,11 @@ one checkout of the repo, on one NVIDIA card.
 Builds that checkout's kernels and times them with its own
 ``repro_torch`` and ``chip_smoke.py`` helpers: the bf16 FA-2 forward
 (B=1 H=16 D=256 causal; S = 512, and 2048-row ring blocks on and below
-the diagonal), the BSR SpMM and the SpMSpM at the sparse trio's three card densities
-((8192, 16384) and (4096, 16384) x (16384, 4096) operands), the chunked
-scan at both recurrent models' card shapes (the route the checkout's
-planner takes), the fp32 GEMM
-at the GCN's ogbn-arxiv and cora sizes ((n, 144) x (144, 144)), and the
+the diagonal), the BSR SpMM and the SpMSpM at the sparse trio's three
+card densities ((8192, 16384) and (4096, 16384) x (16384, 4096)
+operands), the chunked scan at both recurrent models' card shapes, the
+fp32 GEMM at the GCN's ogbn-arxiv and cora sizes ((n, 144) x (144, 144)),
+and the
 precision ladder's two kernels at its card shapes under every policy (the
 scaled GEMM (2048, 4096) x (4096, 16384) with bk = 256, the scaled FA-2
 B=1 H=K=16 S=2048 D=256 causal, on operands quantized as the ladder

@@ -18,50 +18,10 @@
 // leaves S as the padded one does. o has the inputs' type (fp32 or bf16),
 // S_final is fp32.
 //
-// Bound on this card. The function reads r, k, v, w once and writes o and
-// S_final once; its fp32 work per (b, h) and chunk of c steps is 2 N and
-// 2 M per unmasked score pair and 4 c N M for the read-out against the
-// state and the state update. At rwkv6-3b's shape (B=4 H=40 T=2048
-// N=M=64, bf16 r/k/v, fp32 w) that is ~254 MB (0.076 ms at 3.35 TB/s)
-// against ~6.8 GFLOP (0.10 ms at 67 TFLOP/s): bound by operations, which
-// run on the CUDA cores (FFMA) in exact fp32 (no TF32: the kernel is held
-// to an fp64 oracle).
-//
-// Design: two routes, chosen by the wrapper's planner. The TPU kernel
-// carries the state in VMEM over a sequential chunk grid axis.
-//
-// The fused route (one launch) does the same inside each CTA: a CTA owns
-// one (b, h) and a slice of MS = 32 state columns, holds that N x 32 slice
-// of S in registers and walks the chunks in order, so the state never
-// leaves the chip until S_final. The slices of a head are neighbouring
-// CTAs (their r, k, w reads meet in L2). Per chunk, in shared memory:
-//   1. the chunk came in by cp.async during the previous chunk's products
-//      (16-byte copies for rows of unit stride, 4-byte ones for single fp32
-//      values or aligned 16-bit pairs, plain loads otherwise), steps past T
-//      and rows past N as 0; the incoming state S_c ([n][m]) is put beside
-//      it for the read-out;
-//   2. (RWKV) the bonus sum_n r u k for each step, four lanes a step
-//      combined by shuffles in a fixed order;
-//   3. the decays: the cumsum of w in fp64 (each exponent rounded to fp32
-//      once, where it is taken), by segments of a column per thread whose
-//      sums are exchanged by shuffles in segment order;
-//   4. the masked scores A = r_dec k_dec^T (the RWKV bonus on its diagonal,
-//      where the mask leaves 0), blocks of four columns to the warps,
-//      skipping the row groups the mask zeroes; and the state update
-//      S = exp(total) S + k_tail^T v in registers;
-//   5. the read-out o = [r_dec | A] . [S_c ; v] as one product over N + C,
-//      the reduction split over four groups of warps, whose partials are
-//      then summed in a fixed order and stored.
-// What bounds it (probe runs on the card, PERF.md): each CTA's walk is a
-// chain of barrier-separated phases with few warps per SM (3 CTAs of 8
-// warps), and the products' register tiles (4 x 4 at most) load more
-// floats from shared memory per FFMA than the 32 an SM delivers a cycle can
-// feed at full rate. The scores and the decays are computed by both slices
-// of a head (~30% more operations than the function's own).
-//
-// The split route (three launches, the chunk-parallel form) serves grids
-// with fewer heads than SMs, where the fused walk cannot cover the card
-// (hymba-1.5b's 100 heads):
+// Design. The TPU kernel carries the state in VMEM over a sequential chunk
+// grid axis (one core walks the chunks in order) and computes the cumsum as
+// a lower-triangular MXU product. On the GPU, only the state update
+// depends on the previous chunk, so the scan runs as three launches:
 //   1. `la_chunk_state`, one block per (b, h, chunk) and 64 state columns,
 //      all in parallel: the chunk's state contribution dS = k_tail^T v
 //      (N x M) and its total decay, into an fp32 scratch;
@@ -70,15 +30,33 @@
 //      writing each chunk's incoming state S_c over dS_c, and S_final;
 //   3. `la_output`, one block per (b, h, chunk) and 64 columns, in
 //      parallel: the read-out o = r_dec . S_c + mask(scores) . v (+ bonus).
-// Its scratch holds B*H*ceil(T/C)*N*M fp32 states (N / C times o's element
-// count; 26 MB at hymba's shape, 170 MB at rwkv6's, where it moves ~0.67 GB
-// and would bound the route), allocated by the wrapper.
+// Inside a chunk kernel, in shared memory: r, k, w staged transposed
+// ([n][t], so a warp's lanes run along t) and v as [t][m]; one warp per
+// column n takes the inclusive cumsum of w by shuffles, in fp64 (a second
+// half of 32 lanes only for chunks 33 and 34) and scales r and k by their decays; the products run on
+// CUDA cores (FFMA), each thread computing a 4 x 2 tile with one float4
+// read of the shared operand per step. The scratch holds B*H*ceil(T/C)*N*M
+// fp32 states (N / C times o's element count) and the chunks' totals; the
+// wrapper allocates it. Inputs travel with their element strides (the models hand in
+// transposed views and, for the SSD read-out, head-broadcast r/k and an
+// N-broadcast w with stride 0), so nothing is copied to fit. A chunk kernel
+// loads its operands in register batches before it stores them to shared
+// memory, so that a batch's loads are in flight together.
 //
-// Every sum runs in a fixed order on both routes, so a call's result does
-// not change from run to run. Inputs travel with their element strides
-// (the models hand in transposed views and, for the SSD read-out,
-// head-broadcast r/k and an N-broadcast w with stride 0), so nothing is
-// copied to fit.
+// A one-launch form that carries each head's state on chip across the
+// chunks (a CTA per head and 32 state columns walking the chunks in order,
+// no scratch) was built and measured slower at both models' card shapes:
+// its chunk walk is a chain of barrier-separated phases with few warps an
+// SM, where these launches run a block per chunk (PERF.md).
+//
+// Bound on this card. The function reads r, k, v, w once and writes o and
+// S_final once; its fp32 work per (b, h) and chunk of c steps is 2 N and
+// 2 M per unmasked score pair and 4 c N M for the read-out against the
+// state and the state update. At rwkv6-3b's shape (B=4 H=40 T=2048
+// N=M=64, bf16 r/k/v, fp32 w) that is ~254 MB (0.076 ms at 3.35 TB/s)
+// against ~6.8 GFLOP (0.10 ms at 67 TFLOP/s): bound by operations. The
+// split adds the scratch's traffic (written twice, read twice: ~0.67 GB
+// at that shape) and a second pass over k, w, v.
 //
 // Offsets are 64-bit (long long) throughout.
 
@@ -88,456 +66,12 @@
 
 namespace {
 
-constexpr int MAX_CHUNK = 34;  // ops.linear_attention's overflow guard: 34 * 2.5 <= 85
-constexpr int MAX_N = 128;
-constexpr int MAX_SMEM = 227 * 1024;
-constexpr int G = 4;         // warp groups of the read-out's reduction and the state's rows
-constexpr int MS = 32;       // the fused route's state columns a CTA takes
-constexpr int THREADS = 8 * MS;
-constexpr int MIN_BLOCKS = 3;  // CTAs an SM is to hold at once: 320 at rwkv6-3b's shape fit one wave
-
-// How a chunk's slice of one input comes into shared memory: plain loads
-// and stores; 4-byte cp.async (one fp32 value, or an aligned pair of 16-bit
-// ones); 16-byte cp.async (rows of unit stride, 16-byte aligned).
-enum Copy { PLAIN = 0, ASYNC4 = 1, ASYNC16 = 2 };
-
-struct Params {
-  const void* r;
-  const void* k;
-  const void* v;
-  const float* w;
-  const float* u;   // (H, N) contiguous; null for the SSD read-out
-  const float* s0;  // (B, H, N, M) contiguous; null for zeros
-  void* o;
-  float* s_out;     // (B, H, N, M) contiguous
-  long long sr[4], sk[4], sv[4], sw[4], so[4];  // element strides (b, h, t, n|m)
-  int H, T, N, M, C, nc, slices;
-  int N4, CR, NP, CP, PP;  // N to 4, C to 8; row strides
-  int segs;                // the decay pass's threads per column (a power of two <= 32)
-  int copy_r, copy_k, copy_w, copy_v;  // Copy
-  // shared-memory offsets, in bytes
-  int off_rr, off_kr, off_wr, off_vr, off_r, off_kd, off_kt, off_a, off_v, off_s, off_et, off_bs, off_u;
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
-
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
-}
-
-// acc[j] += sum_q l[q] * rh[q][j]: a row of four against four rows of four
-__device__ __forceinline__ void mac4(float* acc, float4 l, const float4* rh) {
-  acc[0] = fmaf(l.w, rh[3].x, fmaf(l.z, rh[2].x, fmaf(l.y, rh[1].x, fmaf(l.x, rh[0].x, acc[0]))));
-  acc[1] = fmaf(l.w, rh[3].y, fmaf(l.z, rh[2].y, fmaf(l.y, rh[1].y, fmaf(l.x, rh[0].y, acc[1]))));
-  acc[2] = fmaf(l.w, rh[3].z, fmaf(l.z, rh[2].z, fmaf(l.y, rh[1].z, fmaf(l.x, rh[0].z, acc[2]))));
-  acc[3] = fmaf(l.w, rh[3].w, fmaf(l.z, rh[2].w, fmaf(l.y, rh[1].w, fmaf(l.x, rh[0].w, acc[3]))));
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// global to shared memory, asynchronously; zeros where !valid
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-// dst[t][x] (row stride X) <- src[t * st + x * sx] for t < CR, x < X; 0
-// for steps t >= nt and columns x >= xw. ASYNC16 needs sx == 1 and X / (16
-// / sizeof(T)) a power of two that divides THREADS (the host checks).
-template <typename T, int THREADS>
-__device__ __forceinline__ void stage(T* dst, const T* src, long long st, long long sx, int CR, int X, int nt,
-                                      int xw, int mode) {
-  const int tid = threadIdx.x;
-  if (mode == ASYNC16) {
-    constexpr int VE = 16 / sizeof(T);
-    const int sh = 31 - __clz(X / VE);  // vectors a row: 1 << sh
-    const int x = (tid & ((1 << sh) - 1)) * VE;
-    for (int t = tid >> sh; t < CR; t += THREADS >> sh) {
-      const bool in = t < nt && x < xw;
-      cp_async16(dst + t * X + x, in ? src + t * st + x : src, in);
-    }
-  } else if (mode == ASYNC4 && sizeof(T) == 4) {
-    for (int e = tid; e < CR * X; e += THREADS) {
-      const int t = e / X, x = e - t * X;
-      const bool in = t < nt && x < xw;
-      cp_async4(dst + e, in ? src + t * st + x * sx : src, in);
-    }
-  } else if (mode == ASYNC4) {  // 16-bit pairs (x, x + 1): sx == 1, X, xw and every stride even
-    const int X2 = X / 2;
-    for (int e = tid; e < CR * X2; e += THREADS) {
-      const int t = e / X2, x = 2 * (e - t * X2);
-      const bool in = t < nt && x < xw;
-      cp_async4(dst + t * X + x, in ? src + t * st + x : src, in);
-    }
-  } else {
-    for (int e = tid; e < CR * X; e += THREADS) {
-      const int t = e / X, x = e - t * X;
-      dst[e] = (t < nt && x < xw) ? src[t * st + x * sx] : from_f32<T>(0.f);
-    }
-  }
-}
-
-// One CTA: (b, h) = blockIdx.x / slices, state columns m0 .. m0 + MS - 1.
-// NI state rows a thread holds per column (N <= 32 NI); IC row groups of
-// eight steps (the chunk rounded up to 8 is at most 8 IC). 8 MS threads:
-// lanes are (tg = lane % 8, q4 = lane / 8); warp w is in group g = w / MH
-// of the read-out's reduction and the state's rows, and takes columns
-// mq .. mq + 3 of o and S, mq = 4 (q4 + 4 (w % MH)).
-template <typename T, int NI, int IC>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) la_scan(const Params p) {
-  constexpr int WARPS = THREADS / 32, MH = MS / 16, NQ = 8 * NI;
-  static_assert(WARPS / MH == G, "four warp groups");
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* RR = reinterpret_cast<T*>(smem + p.off_rr);          // [CR][N4]: the chunk's r as it comes in
-  T* KR = reinterpret_cast<T*>(smem + p.off_kr);          // [CR][N4]: k
-  float* WR = reinterpret_cast<float*>(smem + p.off_wr);  // [CR][N4]: w
-  T* VR = reinterpret_cast<T*>(smem + p.off_vr);          // [CR][MS]: the slice of v
-  float* R = reinterpret_cast<float*>(smem + p.off_r);    // [CR][NP]: r_dec
-  float* KD = reinterpret_cast<float*>(smem + p.off_kd);  // [CR][NP]: k_dec; then the read-out's partials [G][CR][PP]
-  float* KT = reinterpret_cast<float*>(smem + p.off_kt);  // [N4][CP]: k_tail, transposed
-  float* A = reinterpret_cast<float*>(smem + p.off_a);    // [CR][CP]: masked scores A[t][s]
-  float* V = reinterpret_cast<float*>(smem + p.off_v);    // [CR][MS]: v
-  float* S = reinterpret_cast<float*>(smem + p.off_s);    // [N4][MS]: the state entering the chunk
-  float* ET = reinterpret_cast<float*>(smem + p.off_et);  // [N4]: exp(total)
-  float* BS = reinterpret_cast<float*>(smem + p.off_bs);  // [CR]: the RWKV bonus sum_n r u k
-  float* U = reinterpret_cast<float*>(smem + p.off_u);    // [N4]: u of the head
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tg = lane & 7, q4 = lane >> 3;
-  const int g = warp / MH, mq = 4 * (q4 + 4 * (warp % MH));
-  const long long bh = blockIdx.x / p.slices;
-  const int m0 = (blockIdx.x % p.slices) * MS;
-  const long long b = bh / p.H, h = bh % p.H;
-  const int mw = min(MS, p.M - m0);
-  const bool ssd = p.u == nullptr;
-  const int N = p.N, N4 = p.N4, CR = p.CR, NP = p.NP, CP = p.CP, PP = p.PP;
-  const int I = CR / 8;
-
-  const long long NM = static_cast<long long>(N) * p.M;
-  float st[NI][4];  // S[n][mq + j], n = tg + 8 (g + 4 i)
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int n = tg + 8 * (g + 4 * i);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      st[i][j] = (p.s0 != nullptr && n < N && mq + j < mw) ? p.s0[bh * NM + n * p.M + m0 + mq + j] : 0.f;
-  }
-  for (int n = tid; n < N4; n += THREADS) U[n] = (!ssd && n < N) ? p.u[h * N + n] : 0.f;
-
-  const T* rb = static_cast<const T*>(p.r) + b * p.sr[0] + h * p.sr[1];
-  const T* kb = static_cast<const T*>(p.k) + b * p.sk[0] + h * p.sk[1];
-  const T* vb = static_cast<const T*>(p.v) + b * p.sv[0] + h * p.sv[1] + m0 * p.sv[3];
-  const float* wb = p.w + b * p.sw[0] + h * p.sw[1];
-  T* ob = static_cast<T*>(p.o) + b * p.so[0] + h * p.so[1] + m0 * p.so[3];
-
-  auto stage_chunk = [&](int c) {
-    const long long t0 = static_cast<long long>(c) * p.C;
-    const int nt = static_cast<int>(min(static_cast<long long>(p.C), p.T - t0));
-    stage<T, THREADS>(RR, rb + t0 * p.sr[2], p.sr[2], p.sr[3], CR, N4, nt, N, p.copy_r);
-    stage<T, THREADS>(KR, kb + t0 * p.sk[2], p.sk[2], p.sk[3], CR, N4, nt, N, p.copy_k);
-    stage<float, THREADS>(WR, wb + t0 * p.sw[2], p.sw[2], p.sw[3], CR, N4, nt, N, p.copy_w);
-    stage<T, THREADS>(VR, vb + t0 * p.sv[2], p.sv[2], p.sv[3], CR, MS, nt, mw, p.copy_v);
-    cp_async_commit();
-  };
-  if (p.nc > 0) stage_chunk(0);
-
-  // the decay pass: thread (n, seg) takes steps seg L .. seg L + L - 1 of
-  // column n; its group of segs lanes exchanges segment sums by shuffles
-  const int segs = p.segs, L = (CR + segs - 1) / segs;
-  const bool dec_on = tid < N4 * segs;
-  const int dn = tid / segs, dseg = tid & (segs - 1), dlead = lane & ~(segs - 1);
-
-  for (int c = 0; c < p.nc; ++c) {
-    const long long t0 = static_cast<long long>(c) * p.C;
-    const int nt = static_cast<int>(min(static_cast<long long>(p.C), p.T - t0));
-
-    // 1. the chunk has come in; the incoming state goes beside it for the read-out
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int n = tg + 8 * (g + 4 * i);
-      if (n < N4)
-        *reinterpret_cast<float4*>(S + n * MS + mq) = make_float4(st[i][0], st[i][1], st[i][2], st[i][3]);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
-    // 2. the RWKV bonus from the raw r and k: four lanes a step, summed by
-    // shuffles in a fixed order
-    if (!ssd) {
-      for (int tb = 0; tb < CR; tb += THREADS / 4) {
-        const int t = tb + (tid >> 2), part = tid & 3;
-        float acc = 0.f;
-        if (t < CR)
-          for (int n = part; n < N; n += 4)
-            acc = fmaf(to_f32(RR[t * N4 + n]) * U[n], to_f32(KR[t * N4 + n]), acc);
-        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-        if (t < CR && part == 0) BS[t] = acc;
-      }
-    }
-
-    // 3. the decays. The cumsum of w runs in fp64 (a chain of fp32 adds
-    // rounds at every step, and each rounding of an exponent of up to ~85
-    // scales a decayed term by ~85 * 6e-8, which a near-zero output
-    // magnifies); each exponent is rounded to fp32 once, where it is taken
-    {
-      double part = 0.0;
-      if (dec_on)
-        for (int j = 0; j < L; ++j) {
-          const int t = dseg * L + j;
-          if (t < CR) part += WR[t * N4 + dn];
-        }
-      double before = 0.0, total = 0.0;
-      for (int q = 0; q < segs; ++q) {  // in segment order: a fixed order
-        const double x = __shfl_sync(0xffffffffu, part, dlead + q);
-        if (q < dseg) before += x;
-        total += x;
-      }
-      if (dec_on) {
-        double inc = before;
-#pragma unroll 4
-        for (int j = 0; j < L; ++j) {
-          const int t = dseg * L + j;
-          if (t < CR) {
-            const float wt = WR[t * N4 + dn];
-            inc += wt;
-            const double ex = ssd ? inc : inc - static_cast<double>(wt);
-            const float rr = to_f32(RR[t * N4 + dn]), kk = to_f32(KR[t * N4 + dn]);
-            R[t * NP + dn] = rr * expf(static_cast<float>(ex));
-            KD[t * NP + dn] = kk * expf(static_cast<float>(-inc));
-            KT[dn * CP + t] = kk * expf(static_cast<float>(total - inc));
-          }
-        }
-        if (dseg == 0) ET[dn] = expf(static_cast<float>(total));
-      }
-    }
-    for (int e = tid; e < CR * MS; e += THREADS) V[e] = to_f32(VR[e]);
-    __syncthreads();
-
-    // the raw buffers are free: the next chunk comes in under steps 4-5
-    if (c + 1 < p.nc) stage_chunk(c + 1);
-
-    // 4a. masked scores A[t][s] = r_dec[t] . k_dec[s] (the RWKV bonus on
-    // the diagonal): column blocks of four (s = 4 bl + q4), block bl to
-    // warp bl (round 0), 2W - 1 - bl (round 1), ...; rows t = tg + 8 i,
-    // skipping the row groups the mask zeroes (i < bl / 2)
-    for (int jb = 0; jb * WARPS < CR / 4; ++jb) {
-      const int bl = (jb & 1) ? (jb + 1) * WARPS - 1 - warp : jb * WARPS + warp;
-      if (bl >= CR / 4) continue;
-      const int s = 4 * bl + q4, i0 = bl / 2;
-      float acc[IC];
-#pragma unroll
-      for (int i = 0; i < IC; ++i) acc[i] = 0.f;
-#pragma unroll 4
-      for (int nq = 0; nq < NQ; ++nq) {
-        const int n = 4 * nq;
-        if (n < N4) {
-          const float4 kd = ld4(KD + s * NP + n);
-#pragma unroll
-          for (int i = 0; i < IC; ++i)
-            if (i >= i0 && i < I) acc[i] = dot4(ld4(R + (tg + 8 * i) * NP + n), kd, acc[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < IC; ++i) {
-        if (i < I) {
-          const int t = tg + 8 * i;
-          float a = (ssd ? t >= s : t > s) ? acc[i] : 0.f;
-          if (!ssd && t == s) a = BS[t];
-          A[t * CP + s] = a;
-        }
-      }
-    }
-
-    // 4b. the state update in registers: S = exp(total) S + k_tail^T v
-    {
-      float ds[NI][4];
-#pragma unroll
-      for (int i = 0; i < NI; ++i) ds[i][0] = ds[i][1] = ds[i][2] = ds[i][3] = 0.f;
-#pragma unroll 2
-      for (int s = 0; s < CR; s += 4) {
-        float4 vv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) vv[j] = ld4(V + (s + j) * MS + mq);
-#pragma unroll
-        for (int i = 0; i < NI; ++i) {
-          const int n = tg + 8 * (g + 4 * i);
-          if (n < N4) mac4(ds[i], ld4(KT + n * CP + s), vv);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        const int n = tg + 8 * (g + 4 * i);
-        if (n < N4) {
-          const float e = ET[n];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) st[i][j] = fmaf(e, st[i][j], ds[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-
-    // 5. the read-out o = [r_dec | A] . [S_c ; v]: group g takes every
-    // G-th quad of the N4 + CR reduction; its partials go where k_dec was
-    {
-      float acc[IC][4];
-#pragma unroll
-      for (int i = 0; i < IC; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-      const int nq = N4 / 4, kq_end = nq + CR / 4;
-#pragma unroll 2
-      for (int kq = g; kq < kq_end; kq += G) {
-        const bool state = kq < nq;
-        const int kk = state ? 4 * kq : 4 * (kq - nq);
-        const float* lhs = (state ? R : A) + kk;
-        const int ls = state ? NP : CP;
-        const float* rhs = (state ? S : V) + kk * MS + mq;
-        float4 rh[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) rh[j] = ld4(rhs + j * MS);
-#pragma unroll
-        for (int i = 0; i < IC; ++i)
-          if (i < I) mac4(acc[i], ld4(lhs + (tg + 8 * i) * ls), rh);
-      }
-      float* P = KD + g * CR * PP;
-#pragma unroll
-      for (int i = 0; i < IC; ++i)
-        if (i < I)
-          *reinterpret_cast<float4*>(P + (tg + 8 * i) * PP + mq) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    }
-    __syncthreads();
-
-    for (int e = tid; e < nt * MS; e += THREADS) {
-      const int t = e / MS, m = e - t * MS;
-      if (m < mw) {
-        float val = KD[t * PP + m];
-#pragma unroll
-        for (int q = 1; q < G; ++q) val += KD[(q * CR + t) * PP + m];
-        ob[(t0 + t) * p.so[2] + m * p.so[3]] = from_f32<T>(val);
-      }
-    }
-    __syncthreads();  // the next chunk rewrites S, R, KD
-  }
-
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int n = tg + 8 * (g + 4 * i);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (n < N && mq + j < mw) p.s_out[bh * NM + n * p.M + m0 + mq + j] = st[i][j];
-  }
-}
-
-inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// A row stride of at least x floats, a multiple of 4 with an odd quotient:
-// 16-byte reads of eight rows a stride apart then fall on distinct banks.
-inline int odd_quads(int x) {
-  int q = (x + 3) / 4;
-  if (q % 2 == 0) ++q;
-  return 4 * q;
-}
-
-// Fills the padded sizes and shared-memory offsets for values of `vbytes`
-// bytes; returns the bytes.
-long long layout(Params& p, int vbytes) {
-  const int ms = MS;
-  p.N4 = round_up(p.N, 4);
-  p.CR = round_up(p.C, 8);
-  p.NP = odd_quads(p.N4);
-  p.CP = odd_quads(p.CR);
-  p.PP = odd_quads(ms);
-  long long off = 0;
-  auto take = [&off](long long bytes) {
-    const long long at = off;
-    off += (bytes + 15) / 16 * 16;
-    return static_cast<int>(at);
-  };
-  const long long CR = p.CR, N4 = p.N4, rows = CR * p.NP;
-  p.off_rr = take(CR * N4 * vbytes);
-  p.off_kr = take(CR * N4 * vbytes);
-  p.off_wr = take(CR * N4 * 4);
-  p.off_vr = take(CR * ms * vbytes);
-  p.off_r = take(4 * rows);
-  p.off_kd = take(4 * (rows > G * CR * p.PP ? rows : G * CR * p.PP));
-  p.off_kt = take(4 * N4 * p.CP);
-  p.off_a = take(4 * CR * p.CP);
-  p.off_v = take(4 * CR * ms);
-  p.off_s = take(4 * N4 * ms);
-  p.off_et = take(4 * N4);
-  p.off_bs = take(4 * CR);
-  p.off_u = take(4 * N4);
-  return off;
-}
-
-// The copy a (B, H, T, X) input of `vbytes`-byte values with element
-// strides s takes into rows of X (xw of them valid) on a CTA of `threads`.
-int copy_mode(const void* base, const long long* s, int vbytes, int X, int xw, int threads) {
-  const int ve = 16 / vbytes;
-  const bool even = s[0] % ve == 0 && s[1] % ve == 0 && s[2] % ve == 0;
-  const int vecs = X / ve;
-  if (s[3] == 1 && even && X % ve == 0 && xw % ve == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0 &&
-      vecs > 0 && (vecs & (vecs - 1)) == 0 && threads % vecs == 0)
-    return ASYNC16;
-  if (vbytes == 4) return ASYNC4;
-  const bool pairs = s[3] == 1 && s[0] % 2 == 0 && s[1] % 2 == 0 && s[2] % 2 == 0 && X % 2 == 0 &&
-                     xw % 2 == 0 && reinterpret_cast<uintptr_t>(base) % 4 == 0;
-  return pairs ? ASYNC4 : PLAIN;
-}
-
-template <typename T, int NI, int IC>
-cudaError_t launch(Params& p, long long BH, cudaStream_t st) {
-  const long long smem = layout(p, sizeof(T));
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  p.slices = (p.M + MS - 1) / MS;
-  if (BH * p.slices > 0x7fffffffLL) return cudaErrorInvalidValue;
-  int segs = 1;
-  while (2 * segs * p.N4 <= THREADS && 2 * segs <= 32) segs *= 2;
-  p.segs = segs;
-  const int vb = sizeof(T);
-  p.copy_r = copy_mode(p.r, p.sr, vb, p.N4, p.N, THREADS);
-  p.copy_k = copy_mode(p.k, p.sk, vb, p.N4, p.N, THREADS);
-  p.copy_w = copy_mode(p.w, p.sw, 4, p.N4, p.N, THREADS);
-  // every slice's columns start on a multiple of 16 values; the last is M - m0 wide
-  p.copy_v = copy_mode(p.v, p.sv, vb, MS, p.M % MS ? p.M % MS : MS, THREADS);
-  cudaError_t err = cudaFuncSetAttribute(la_scan<T, NI, IC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  la_scan<T, NI, IC><<<static_cast<unsigned>(BH * p.slices), THREADS, static_cast<size_t>(smem), st>>>(p);
-  return cudaGetLastError();
-}
-
-// NI state rows a thread holds per column: 2 up to N = 64, else 4; IC row
-// groups: 4 up to chunk 32, else 5
-template <typename T>
-cudaError_t launch_shape(Params& p, long long BH, cudaStream_t st) {
-  if (p.C > 32) return p.N <= 64 ? launch<T, 2, 5>(p, BH, st) : launch<T, 4, 5>(p, BH, st);
-  return p.N <= 64 ? launch<T, 2, 4>(p, BH, st) : launch<T, 4, 4>(p, BH, st);
-}
-
-// The three-launch route (the chunk-parallel form): see the head comment.
-namespace split {
-
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MG = 64;         // state columns per chunk block: lanes take m and m + 32
+constexpr int MAX_CHUNK = 34;  // ops.linear_attention's overflow guard: 34 * 2.5 <= 85
+constexpr int MAX_N = 128;
+constexpr int MAX_SMEM = 227 * 1024;
 
 struct Params {
   const void* r;
@@ -557,6 +91,15 @@ struct Params {
   int off_rt, off_kdt, off_wt, off_kt, off_v, off_at, off_s, off_bp;
 };
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
 
 // The running sum is fp64: a chain of fp32 adds rounds at every step, and
 // each rounding of an exponent of up to ~85 scales a decayed term by
@@ -596,9 +139,9 @@ __device__ __forceinline__ Chunk chunk_of_block(const Params& p) {
 // LB elements of an array into registers before it stores any of them, so
 // that their loads are in flight together (a store to shared memory
 // between two loads would hold the second back); LB is 8 where a thread
-// stages 8 elements of r, k and w a chunk (rwkv6-3b), 2 where it stages
-// fewer (hymba-1.5b), where the registers of 8 cost more blocks an SM
-// than the overlap gains (measured, PERF.md).
+// stages 8 elements of r, k and w a chunk (rwkv6-3b), 1 (one element at a
+// time) where it stages fewer (hymba-1.5b): there batches of 2 and 8 were
+// slower (PERF.md).
 template <typename T, int LB>
 __device__ __forceinline__ void stage(const Params& p, const Chunk& q, float* RT, float* KDT, float* WT,
                                       float* V) {
@@ -606,37 +149,52 @@ __device__ __forceinline__ void stage(const Params& p, const Chunk& q, float* RT
   const T* k = static_cast<const T*>(p.k) + q.b * p.sk[0] + q.h * p.sk[1] + q.t0 * p.sk[2];
   const float* w = p.w + q.b * p.sw[0] + q.h * p.sw[1] + q.t0 * p.sw[2];
   const T* v = static_cast<const T*>(p.v) + q.b * p.sv[0] + q.h * p.sv[1] + q.t0 * p.sv[2] + q.m0 * p.sv[3];
-  const int N = p.N, N4 = p.N4, CP = p.CP, E = p.C4 * N4;
-  for (int e0 = threadIdx.x; e0 < E; e0 += LB * THREADS) {
-    float rv[LB], kv[LB], wv[LB];
-#pragma unroll
-    for (int j = 0; j < LB; ++j) {
-      const int e = e0 + j * THREADS, t = e / N4, n = e % N4;
-      const bool in = e < E && t < q.nt && n < N;
-      rv[j] = in && RT != nullptr ? to_f32(r[t * p.sr[2] + n * p.sr[3]]) : 0.f;
-      kv[j] = in ? to_f32(k[t * p.sk[2] + n * p.sk[3]]) : 0.f;
-      wv[j] = in ? w[t * p.sw[2] + n * p.sw[3]] : 0.f;
+  const int N = p.N, N4 = p.N4, CP = p.CP;
+  if constexpr (LB == 1) {
+    for (int e = threadIdx.x; e < p.C4 * N4; e += THREADS) {
+      const int t = e / N4, n = e % N4;
+      const bool in = t < q.nt && n < N;
+      if (RT != nullptr) RT[n * CP + t] = in ? to_f32(r[t * p.sr[2] + n * p.sr[3]]) : 0.f;
+      KDT[n * CP + t] = in ? to_f32(k[t * p.sk[2] + n * p.sk[3]]) : 0.f;
+      WT[n * CP + t] = in ? w[t * p.sw[2] + n * p.sw[3]] : 0.f;
     }
+    for (int e = threadIdx.x; e < p.C4 * MG; e += THREADS) {
+      const int t = e / MG, m = e % MG;
+      V[e] = (t < q.nt && m < q.mw) ? to_f32(v[t * p.sv[2] + m * p.sv[3]]) : 0.f;
+    }
+  } else {
+    const int E = p.C4 * N4;
+    for (int e0 = threadIdx.x; e0 < E; e0 += LB * THREADS) {
+      float rv[LB], kv[LB], wv[LB];
 #pragma unroll
-    for (int j = 0; j < LB; ++j) {
-      const int e = e0 + j * THREADS, t = e / N4, n = e % N4;
-      if (e < E) {
-        if (RT != nullptr) RT[n * CP + t] = rv[j];
-        KDT[n * CP + t] = kv[j];
-        WT[n * CP + t] = wv[j];
+      for (int j = 0; j < LB; ++j) {
+        const int e = e0 + j * THREADS, t = e / N4, n = e % N4;
+        const bool in = e < E && t < q.nt && n < N;
+        rv[j] = in && RT != nullptr ? to_f32(r[t * p.sr[2] + n * p.sr[3]]) : 0.f;
+        kv[j] = in ? to_f32(k[t * p.sk[2] + n * p.sk[3]]) : 0.f;
+        wv[j] = in ? w[t * p.sw[2] + n * p.sw[3]] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < LB; ++j) {
+        const int e = e0 + j * THREADS, t = e / N4, n = e % N4;
+        if (e < E) {
+          if (RT != nullptr) RT[n * CP + t] = rv[j];
+          KDT[n * CP + t] = kv[j];
+          WT[n * CP + t] = wv[j];
+        }
       }
     }
-  }
-  for (int e0 = threadIdx.x; e0 < p.C4 * MG; e0 += LB * THREADS) {
-    float vv[LB];
+    for (int e0 = threadIdx.x; e0 < p.C4 * MG; e0 += LB * THREADS) {
+      float vv[LB];
 #pragma unroll
-    for (int j = 0; j < LB; ++j) {
-      const int e = e0 + j * THREADS, t = e / MG, m = e % MG;
-      vv[j] = (e < p.C4 * MG && t < q.nt && m < q.mw) ? to_f32(v[t * p.sv[2] + m * p.sv[3]]) : 0.f;
+      for (int j = 0; j < LB; ++j) {
+        const int e = e0 + j * THREADS, t = e / MG, m = e % MG;
+        vv[j] = (e < p.C4 * MG && t < q.nt && m < q.mw) ? to_f32(v[t * p.sv[2] + m * p.sv[3]]) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < LB; ++j)
+        if (e0 + j * THREADS < p.C4 * MG) V[e0 + j * THREADS] = vv[j];
     }
-#pragma unroll
-    for (int j = 0; j < LB; ++j)
-      if (e0 + j * THREADS < p.C4 * MG) V[e0 + j * THREADS] = vv[j];
   }
 }
 
@@ -761,16 +319,23 @@ __global__ void __launch_bounds__(THREADS) la_output(const Params p) {
 
   stage<T, LB>(p, q, RT, KDT, WT, V);
   const float* sc = p.dstate + (static_cast<long long>(q.bh) * p.nc + q.c) * N * p.M + q.m0;
-  for (int e0 = tid; e0 < N4 * MG; e0 += LB * THREADS) {
-    float sv[LB];
-#pragma unroll
-    for (int j = 0; j < LB; ++j) {
-      const int e = e0 + j * THREADS, n = e / MG, m = e % MG;
-      sv[j] = (e < N4 * MG && n < N && m < q.mw) ? sc[static_cast<long long>(n) * p.M + m] : 0.f;
+  if constexpr (LB == 1) {
+    for (int e = tid; e < N4 * MG; e += THREADS) {
+      const int n = e / MG, m = e % MG;
+      S[e] = (n < N && m < q.mw) ? sc[static_cast<long long>(n) * p.M + m] : 0.f;
     }
+  } else {
+    for (int e0 = tid; e0 < N4 * MG; e0 += LB * THREADS) {
+      float sv[LB];
 #pragma unroll
-    for (int j = 0; j < LB; ++j)
-      if (e0 + j * THREADS < N4 * MG) S[e0 + j * THREADS] = sv[j];
+      for (int j = 0; j < LB; ++j) {
+        const int e = e0 + j * THREADS, n = e / MG, m = e % MG;
+        sv[j] = (e < N4 * MG && n < N && m < q.mw) ? sc[static_cast<long long>(n) * p.M + m] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < LB; ++j)
+        if (e0 + j * THREADS < N4 * MG) S[e0 + j * THREADS] = sv[j];
+    }
   }
   __syncthreads();
 
@@ -917,28 +482,15 @@ cudaError_t launch_lb(const Params& p, long long BH, long long smem, long long s
 template <typename T>
 cudaError_t launch(const Params& p, long long BH, long long smem, long long state_smem, cudaStream_t st) {
   if (p.C4 * p.N4 >= 8 * THREADS) return launch_lb<T, 8>(p, BH, smem, state_smem, st);
-  return launch_lb<T, 2>(p, BH, smem, state_smem, st);
+  return launch_lb<T, 1>(p, BH, smem, state_smem, st);
 }
-
-}  // namespace split
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory the fused kernel takes for head width N,
-// chunk and r/k/v values of vbytes (4 or 2) bytes; -1 for arguments it
-// refuses.
-long long repro_linear_attention_smem_bytes(int N, int chunk, int vbytes) {
-  if (N <= 0 || N > MAX_N || chunk < 1 || chunk > MAX_CHUNK || (vbytes != 2 && vbytes != 4)) return -1;
-  Params p;
-  p.N = N;
-  p.C = chunk;
-  return layout(p, vbytes);
-}
-
-// Bytes of fp32 scratch the split route needs: (B*H, nc, N, M) states then
-// (B*H, nc, N) totals, nc = ceil(T / chunk).
+// Bytes of fp32 scratch `repro_linear_attention` needs: (B*H, nc, N, M)
+// states then (B*H, nc, N) totals, nc = ceil(T / chunk).
 long long repro_linear_attention_scratch_bytes(int B, int H, int T, int N, int M, int chunk) {
   if (chunk < 1) return -1;
   const long long nc = (static_cast<long long>(T) + chunk - 1) / chunk;
@@ -950,53 +502,20 @@ long long repro_linear_attention_scratch_bytes(int B, int H, int T, int N, int M
 // r, k, w (B, H, T, N); v, o (B, H, T, M), each with its (b, h, t, last)
 // element strides in `strides` (20 values: r, k, v, w, o). u (H, N) fp32
 // contiguous or null (SSD read-out); s0 (B, H, N, M) fp32 contiguous or null
-// (zeros); s_out (B, H, N, M) fp32 contiguous. 1 <= chunk <= 34, N <= 128.
-// fused: 1 for the fused route (one launch; scratch unused), 0 for the
-// split route (three launches over scratch of
-// repro_linear_attention_scratch_bytes, 16-byte aligned). Returns the first
-// failing launch's cudaError_t, else 0.
+// (zeros); s_out (B, H, N, M) fp32 contiguous; scratch of
+// repro_linear_attention_scratch_bytes, 16-byte aligned. 1 <= chunk <= 34,
+// N <= 128. Returns the first failing launch's cudaError_t, else 0.
 int repro_linear_attention(const void* r, const void* k, const void* v, const float* w, const float* u,
-                           const float* s0, void* o, float* s_out, void* scratch, int dtype, int B, int H,
-                           int T, int N, int M, int chunk, int fused, const long long* strides, void* stream) {
+                           const float* s0, void* o, float* s_out, void* scratch, int dtype,
+                           int B, int H, int T, int N, int M, int chunk, const long long* strides,
+                           void* stream) {
   if (B <= 0 || H <= 0 || T < 0 || N <= 0 || N > MAX_N || M <= 0) return cudaErrorInvalidValue;
-  if (chunk < 1 || chunk > MAX_CHUNK || (fused != 0 && fused != 1)) return cudaErrorInvalidValue;
+  if (chunk < 1 || chunk > MAX_CHUNK) return cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   const long long BH = static_cast<long long>(B) * H;
   const long long nc = (static_cast<long long>(T) + chunk - 1) / chunk;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!fused) {
-    if (BH * nc > 0x7fffffffLL || (M + split::MG - 1) / split::MG > 65535) return cudaErrorInvalidValue;
-    if ((BH * N * M + split::THREADS - 1) / split::THREADS > 0x7fffffffLL) return cudaErrorInvalidValue;
-    split::Params p;
-    p.r = r;
-    p.k = k;
-    p.v = v;
-    p.w = w;
-    p.u = u;
-    p.s0 = s0;
-    p.o = o;
-    p.s_out = s_out;
-    p.dstate = static_cast<float*>(scratch);
-    p.dtot = p.dstate + BH * nc * N * M;
-    for (int i = 0; i < 4; ++i) {
-      p.sr[i] = strides[i];
-      p.sk[i] = strides[4 + i];
-      p.sv[i] = strides[8 + i];
-      p.sw[i] = strides[12 + i];
-      p.so[i] = strides[16 + i];
-    }
-    p.H = H;
-    p.T = T;
-    p.N = N;
-    p.M = M;
-    p.C = chunk;
-    p.nc = static_cast<int>(nc);
-    long long state_smem = 0;
-    const long long smem = split::layout(p, state_smem);
-    if (smem > MAX_SMEM || state_smem > MAX_SMEM) return cudaErrorInvalidValue;
-    if (dtype == 0) return split::launch<float>(p, BH, smem, state_smem, st);
-    return split::launch<__nv_bfloat16>(p, BH, smem, state_smem, st);
-  }
+  if (BH * nc > 0x7fffffffLL || (M + MG - 1) / MG > 65535) return cudaErrorInvalidValue;
+  if ((BH * N * M + THREADS - 1) / THREADS > 0x7fffffffLL) return cudaErrorInvalidValue;
   Params p;
   p.r = r;
   p.k = k;
@@ -1006,6 +525,8 @@ int repro_linear_attention(const void* r, const void* k, const void* v, const fl
   p.s0 = s0;
   p.o = o;
   p.s_out = s_out;
+  p.dstate = static_cast<float*>(scratch);
+  p.dtot = p.dstate + BH * nc * N * M;
   for (int i = 0; i < 4; ++i) {
     p.sr[i] = strides[i];
     p.sk[i] = strides[4 + i];
@@ -1019,7 +540,12 @@ int repro_linear_attention(const void* r, const void* k, const void* v, const fl
   p.M = M;
   p.C = chunk;
   p.nc = static_cast<int>(nc);
-  return dtype == 0 ? launch_shape<float>(p, BH, st) : launch_shape<__nv_bfloat16>(p, BH, st);
+  long long state_smem = 0;
+  const long long smem = layout(p, state_smem);
+  if (smem > MAX_SMEM || state_smem > MAX_SMEM) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(p, BH, smem, state_smem, st);
+  return launch<__nv_bfloat16>(p, BH, smem, state_smem, st);
 }
 
 const char* repro_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

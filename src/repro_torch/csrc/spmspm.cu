@@ -50,12 +50,12 @@
 // a call's result does not change from run to run.
 //
 // What bounds it (probe runs on the card, PERF.md): step 4 by the load/store
-// pipe, about 1.4 list entries a cycle an SM (a list entry's global load and
-// its shared-memory read and write at a random column, with bank conflicts;
-// shared-memory atomics instead of the plain read-modify-write were 2.3x
-// slower, deeper prefetch or other CTA shapes no faster); steps 1 and 3 by
-// L2 atomics on contended counters (each k is counted by ~41 columns at the
-// sparse trio's card size): ~45 us a call at every density.
+// pipe (a list entry's global load and its shared-memory read and write at a
+// random column, with bank conflicts; shared-memory atomics in place of the
+// plain read-modify-write were slower, deeper prefetch or other CTA shapes no
+// faster); steps 1 and 3 by L2 atomics on contended counters (each k is
+// counted by ~41 columns at the sparse trio's card size), a fixed cost at
+// every density.
 //
 // Offsets are 64-bit (long long) throughout.
 
@@ -96,7 +96,7 @@ template <typename BT>
 struct Column {
   const int* rows;
   const BT* vals;
-  int Lb, K;
+  int K;
   bool sorted;
 
   __device__ bool kept(int k, float v) const { return static_cast<unsigned>(k) < static_cast<unsigned>(K) && v != 0.f; }
@@ -118,7 +118,6 @@ __device__ __forceinline__ bool column_of_warp(const Params& p, Column<BT>& col,
   const int lane = threadIdx.x & 31;
   col.rows = p.b_rows + n * p.ldbr;
   col.vals = static_cast<const BT*>(p.b_vals) + n * p.ldbv;
-  col.Lb = p.Lb;
   col.K = p.K;
   bool up = true;
   for (int j0 = 0; j0 < p.Lb; j0 += 32 * WIN) {

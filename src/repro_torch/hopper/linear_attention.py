@@ -14,17 +14,14 @@ share one dtype (fp32 or bf16); w is fp32; u and s0 are read as
 fp32 (each a small copy where it is not already contiguous fp32). o takes
 v's layout and dtype; S_final is fp32 (B, H, N, M). The ragged last chunk
 of a T that ``chunk`` does not divide acts as the reference's zero padding.
-``plan`` picks one of two routes (see the source). ``fused``: one launch
-in which each CTA carries an N x 32 slice of one head's state on chip
-across the chunks. ``split``: three launches (the chunks' state
-contributions in parallel, the sequential pass over the chunks, the
-read-out in parallel) over an fp32 scratch of B*H*ceil(T/chunk)*N*(M + 1)
-values, which the wrapper allocates. Either counts as one launch.
+One call is three launches (the chunks' state contributions, the
+sequential pass over the chunks, the read-out; see the source) and counts
+as one launch of the kernel. The wrapper allocates the launches' fp32
+scratch, B*H*ceil(T/chunk)*N*(M + 1) values.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
 
 import torch
 
@@ -34,75 +31,8 @@ from repro_torch.hopper.dispatch import LAUNCHES, resolve_blocks
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 34  # csrc/linear_attention.cu MAX_CHUNK: ops.linear_attention's overflow guard
 MAX_N = 128  # csrc/linear_attention.cu MAX_N
-MS = 32  # csrc/linear_attention.cu MS: the fused route's state columns a CTA takes
-THREADS = 8 * MS
-MIN_BLOCKS = 3  # csrc/linear_attention.cu MIN_BLOCKS: CTAs an SM holds at once (registers)
-SMEM_PER_SM = 228 * 1024  # an H100 SM's shared memory; each resident CTA reserves 1 KB of it
-SMEM_PER_CTA = 227 * 1024
-THREADS_PER_SM = 2048
 
 _fn = None
-
-
-class Plan(NamedTuple):
-    route: str  # "fused": one launch, the state on chip; "split": three launches over a scratch
-    grid: int = 0  # fused: CTAs, B * H * ceil(M / MS)
-    smem: int = 0  # fused: dynamic shared memory per CTA, bytes
-    per_sm: int = 0  # fused: CTAs an SM holds at once, by shared memory, threads and registers
-    scratch: int = 0  # split: fp32 scratch, bytes
-
-
-def _odd_quads(x: int) -> int:
-    q = -(-x // 4)
-    return 4 * (q + 1 - q % 2)
-
-
-def smem_bytes(N: int, chunk: int, vbytes: int) -> int:
-    """The fused kernel's shared memory for head width N, ``chunk`` and
-    r/k/v values of ``vbytes`` bytes (csrc/linear_attention.cu ``layout``):
-    the incoming chunk's raw r, k, w and slice of v; r_dec and k_dec [t][n]
-    (k_dec's region later holds the read-out's four partials), k_tail
-    [n][t], the scores, v and the state slice in fp32, exp(total), the RWKV
-    bonus and u; fp32 rows padded to an odd number of 16-byte quads, each
-    array to 16 bytes."""
-    n4, cr = -(-N // 4) * 4, -(-chunk // 8) * 8
-    np_, cp, pp = _odd_quads(n4), _odd_quads(cr), _odd_quads(MS)
-    parts = [cr * n4 * vbytes, cr * n4 * vbytes, 4 * cr * n4, cr * MS * vbytes,
-             4 * cr * np_, 4 * max(cr * np_, 4 * cr * pp), 4 * n4 * cp, 4 * cr * cp,
-             4 * cr * MS, 4 * n4 * MS, 4 * n4, 4 * cr, 4 * n4]
-    return sum(-(-x // 16) * 16 for x in parts)
-
-
-def scratch_bytes(B: int, H: int, T: int, N: int, M: int, chunk: int) -> int:
-    """The split route's fp32 scratch (csrc/linear_attention.cu
-    ``repro_linear_attention_scratch_bytes``): each chunk's state (B*H, nc,
-    N, M), then each chunk's total decay (B*H, nc, N), nc = ceil(T/chunk)."""
-    return 4 * B * H * -(-T // chunk) * N * (M + 1)
-
-
-def plan(B: int, H: int, T: int, N: int, M: int, chunk: int, vbytes: int = 2, sms: int = 132,
-         route: str | None = None) -> Plan:
-    """The launch for (B, H) heads of T steps, key width N and value width
-    M in chunks of ``chunk``, r/k/v values of ``vbytes`` bytes, on a card
-    of ``sms`` SMs. Each fused CTA walks all the chunks of one head in
-    order, so the fused route needs the heads to cover the card: with
-    fewer heads than SMs (hymba-1.5b's B=2 x 50 on an H100) the split
-    route, whose read-out runs a CTA per chunk, is faster; otherwise the
-    fused route is (rwkv6-3b's B=4 x 40; both measured, PERF.md).
-    ``route`` forces one. Raises on N > 128 or a chunk outside 1..34."""
-    if not 1 <= N <= MAX_N:
-        raise ValueError(f"linear_attention kernel takes 1 <= N <= {MAX_N}, got {N}")
-    if not 1 <= chunk <= MAX_CHUNK:
-        raise ValueError(f"linear_attention kernel takes 1 <= chunk <= {MAX_CHUNK}, got {chunk}")
-    if route not in (None, "fused", "split"):
-        raise ValueError(f"linear_attention kernel routes are 'fused' and 'split', got {route!r}")
-    if route is None:
-        route = "fused" if B * H >= sms else "split"
-    if route == "split":
-        return Plan("split", scratch=scratch_bytes(B, H, T, N, M, chunk))
-    smem = smem_bytes(N, chunk, vbytes)
-    per_sm = min(SMEM_PER_SM // (smem + 1024), THREADS_PER_SM // THREADS, MIN_BLOCKS)
-    return Plan("fused", B * H * -(-M // MS), smem, per_sm)
 
 
 def _kernel():
@@ -111,7 +41,7 @@ def _kernel():
         lib = build.load("linear_attention")
         fn = lib.repro_linear_attention
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                        i32, i32, i32, i32, ctypes.POINTER(ctypes.c_longlong), ptr]
         fn.restype = i32
         _fn = (lib, fn)
@@ -154,11 +84,10 @@ def _check(r, k, v, w_log, u, s0, chunk):
         raise ValueError(f"linear_attention kernel takes 1 <= chunk <= {MAX_CHUNK}, got {chunk}")
 
 
-def linear_attention_cuda(r, k, v, w_log, u=None, s0=None, *, chunk=None, route=None):
+def linear_attention_cuda(r, k, v, w_log, u=None, s0=None, *, chunk=None):
     """r, k, w_log (B, H, T, N); v (B, H, T, M); u (H, N) or None (SSD);
-    s0 (B, H, N, M) or None. Launches the Hopper kernel for CUDA tensors
-    (``route`` forces ``plan``'s); runs
-    ``blocked.linear_attention_blocked`` for CPU tensors. Returns
+    s0 (B, H, N, M) or None. Launches the Hopper kernel for CUDA tensors;
+    runs ``blocked.linear_attention_blocked`` for CPU tensors. Returns
     (o (B, H, T, M) in v's dtype, S_final (B, H, N, M) fp32)."""
     if r.device.type == "cpu":
         return blocked.linear_attention_blocked(r, k, v, w_log, u, s0, chunk=chunk)
@@ -170,10 +99,10 @@ def linear_attention_cuda(r, k, v, w_log, u=None, s0=None, *, chunk=None, route=
     s_out = torch.empty((B, H, N, M), dtype=torch.float32, device=v.device)
     if not s_out.numel():  # B, H, N or M is 0: nothing to scan (N = 0 reads out 0)
         return o.zero_(), s_out
-    props = torch.cuda.get_device_properties(v.device)
-    pl = plan(B, H, T, N, M, chunk, v.element_size(), props.multi_processor_count, route)
-    scratch = (torch.empty(pl.scratch // 4, dtype=torch.float32, device=v.device)
-               if pl.route == "split" else None)
+    nc = -(-T // chunk)
+    # the kernel's fp32 scratch: each chunk's state (B*H, nc, N, M), then
+    # each chunk's total decay (B*H, nc, N)
+    scratch = torch.empty(B * H * nc * N * (M + 1), dtype=torch.float32, device=v.device)
     uf = None if u is None else u.float().contiguous()
     s0f = None if s0 is None else s0.float().contiguous()
     strides = (ctypes.c_longlong * 20)(
@@ -186,9 +115,8 @@ def linear_attention_cuda(r, k, v, w_log, u=None, s0=None, *, chunk=None, route=
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
             uf.data_ptr() if uf is not None else None,
             s0f.data_ptr() if s0f is not None else None,
-            o.data_ptr(), s_out.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None, DTYPES[v.dtype],
-            B, H, T, N, M, chunk, int(pl.route == "fused"), strides, stream,
+            o.data_ptr(), s_out.data_ptr(), scratch.data_ptr(), DTYPES[v.dtype],
+            B, H, T, N, M, chunk, strides, stream,
         )
     build.check(lib, err, "linear_attention kernel launch")
     LAUNCHES["linear_attention"] += 1

@@ -274,105 +274,49 @@ def test_cuda_kernel_near_zero_outputs_against_fp64():
 
 
 # ---------------------------------------------------------------------------
-# The kernel's launch plan (pure Python) and its edge shapes on the card
+# The kernel's edge shapes on the card
 # ---------------------------------------------------------------------------
-
-from repro_torch.hopper import linear_attention as la_wrapper  # noqa: E402
-
-
-@pytest.mark.parametrize("shape,route,grid", [((4, 40, 2048, 64, 64, 32), "fused", 320),
-                                              ((2, 50, 2048, 16, 64, 32), "split", 0)],
-                         ids=["rwkv6-3b", "hymba-1.5b"])
-def test_plan_routes_each_card_shape(shape, route, grid):
-    """The models' card shapes (B, H, T, N, M, chunk; bf16 r/k/v) on the
-    H100's 132 SMs: rwkv6's 160 heads cover the card, so the fused launch,
-    all its CTAs resident at once; hymba's 100 heads do not, so the split
-    route and its scratch."""
-    B, H, T, N, M, chunk = shape
-    pl = la_wrapper.plan(*shape)
-    assert (pl.route, pl.grid) == (route, grid)
-    if route == "fused":
-        assert pl.grid <= 132 * pl.per_sm and pl.scratch == 0
-        assert pl.smem == la_wrapper.smem_bytes(N, chunk, 2)
-    else:
-        assert pl.scratch == 4 * B * H * -(-T // chunk) * N * (M + 1)
-
-
-@pytest.mark.parametrize("vbytes", [2, 4])
-def test_plan_shared_memory_fits_every_admitted_shape(vbytes):
-    """Every N <= 128 and chunk <= 34 fits one CTA's 227 KB, and three CTAs
-    fit an SM up to N = 64 with bf16 inputs."""
-    worst = max(la_wrapper.smem_bytes(n, c, vbytes) for n in range(1, la_wrapper.MAX_N + 1)
-                for c in range(1, la_wrapper.MAX_CHUNK + 1))
-    assert worst <= la_wrapper.SMEM_PER_CTA
-    if vbytes == 2:
-        assert 3 * (la_wrapper.smem_bytes(64, 32, 2) + 1024) <= la_wrapper.SMEM_PER_SM
-
-
-@pytest.mark.parametrize("B,H,M", [(1, 1, 8), (2, 3, 24), (4, 40, 64), (2, 50, 64), (8, 64, 128),
-                                   (1, 132, 80), (1, 131, 80)])
-def test_plan_takes_the_fused_route_where_the_heads_cover_the_card(B, H, M):
-    """Fused where B * H is at least the SMs (each CTA walks one head's
-    chunks; its grid is B * H * ceil(M / 32)), else split; either can be
-    forced."""
-    pl = la_wrapper.plan(B, H, 64, 64, M, 32)
-    assert pl.route == ("fused" if B * H >= 132 else "split")
-    fused = la_wrapper.plan(B, H, 64, 64, M, 32, route="fused")
-    assert fused.route == "fused" and fused.grid == B * H * -(-M // 32)
-    assert la_wrapper.plan(B, H, 64, 64, M, 32, route="split").route == "split"
-
-
-def test_plan_rejects_what_the_kernel_does_not_take():
-    with pytest.raises(ValueError, match="N <= 128"):
-        la_wrapper.plan(1, 1, 64, 129, 8, 32)
-    for chunk in (0, 35):
-        with pytest.raises(ValueError, match="chunk <= 34"):
-            la_wrapper.plan(1, 1, 64, 64, 8, chunk)
-    with pytest.raises(ValueError, match="routes"):
-        la_wrapper.plan(1, 1, 64, 64, 8, 32, route="chunked")
 
 
 @pytest.mark.cuda
 def test_cuda_kernel_edge_shapes():
-    """The kernel against its plain version on each route: T of 0,
-    1, 33 and 2047; chunks of 1, 16 and 34; N of 16, 64 and 128; M of 24,
-    64 and 80 (a last slice narrower than the width); s0; both read-outs;
-    bf16 with the models' broadcast (hymba) and transposed (rwkv6) views,
-    which take the 4- and 16-byte copies, and a view one element in, which
-    takes the plain loads."""
+    """The kernel against its plain version: T of 0, 1, 33 and 2047;
+    chunks of 1, 16 and 34; N of 16, 64 and 128 (a thread's staging batch
+    of 1 and of 8 values); M of 24, 64 and 80 (a last 64-column block
+    narrower than 64); s0; both read-outs; bf16 with the models' broadcast
+    (hymba) and transposed (rwkv6) views and a view one element in."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(3)
     shapes = [(0, 16, 24, 32), (1, 16, 24, 32), (33, 64, 64, 16), (2047, 64, 80, 32),
               (45, 128, 80, 34), (40, 16, 24, 1), (70, 128, 64, 16)]
-    for route in ("split", "fused"):
-        for ssd in (False, True):
-            for T, N, M, chunk in shapes:
-                r, k = (torch.randn((2, 3, T, N), generator=gen, device="cuda") for _ in range(2))
-                v = torch.randn((2, 3, T, M), generator=gen, device="cuda")
-                w = -(0.001 + 1.999 * torch.rand((2, 3, T, N), generator=gen, device="cuda"))
-                u = None if ssd else torch.randn((3, N), generator=gen, device="cuda")
-                s0 = torch.randn((2, 3, N, M), generator=gen, device="cuda")
-                got = la_wrapper.linear_attention_cuda(r, k, v, w, u, s0, chunk=chunk, route=route)
-                want = ops.linear_attention(r, k, v, w, u, s0, impl="torch", chunk=chunk)
-                for g, x in zip(got, want):
-                    torch.testing.assert_close(g, x, **TOL)
-            B, H, T, N, M = 2, 5, 77, 16, 64
-            big = torch.randn((B, T, H, N + 1), generator=gen, device="cuda").bfloat16()
-            forms = {
-                "broadcast": (torch.randn((B, T, N), generator=gen, device="cuda").bfloat16()[:, None]
-                              .expand(B, H, T, N), -torch.rand((B, T, H), generator=gen, device="cuda")
-                              .transpose(1, 2)[..., None].expand(B, H, T, N)),
-                "transposed": (big[..., :N].transpose(1, 2), None),
-                "offset": (big[..., 1:].transpose(1, 2), None),
-            }
-            for name, (x, w) in forms.items():
-                if w is None:
-                    w = -(0.001 + 1.999 * torch.rand((B, H, T, N), generator=gen, device="cuda"))
-                v = torch.randn((B, T, H, M), generator=gen, device="cuda").bfloat16().transpose(1, 2)
-                u = None if ssd else torch.randn((H, N), generator=gen, device="cuda")
-                got = la_wrapper.linear_attention_cuda(x, x, v, w, u, route=route)
-                want = ops.linear_attention(x, x, v, w, u, impl="torch")
-                step = float(2.0 ** (torch.floor(torch.log2(want[0].float().abs().max())) - 7))
-                assert float((got[0].float() - want[0].float()).abs().max()) <= step, (route, ssd, name)
-                torch.testing.assert_close(got[1], want[1], **TOL)
+    for ssd in (False, True):
+        for T, N, M, chunk in shapes:
+            r, k = (torch.randn((2, 3, T, N), generator=gen, device="cuda") for _ in range(2))
+            v = torch.randn((2, 3, T, M), generator=gen, device="cuda")
+            w = -(0.001 + 1.999 * torch.rand((2, 3, T, N), generator=gen, device="cuda"))
+            u = None if ssd else torch.randn((3, N), generator=gen, device="cuda")
+            s0 = torch.randn((2, 3, N, M), generator=gen, device="cuda")
+            got = linear_attention_cuda(r, k, v, w, u, s0, chunk=chunk)
+            want = ops.linear_attention(r, k, v, w, u, s0, impl="torch", chunk=chunk)
+            for g, x in zip(got, want):
+                torch.testing.assert_close(g, x, **TOL)
+        B, H, T, N, M = 2, 5, 77, 16, 64
+        big = torch.randn((B, T, H, N + 1), generator=gen, device="cuda").bfloat16()
+        forms = {
+            "broadcast": (torch.randn((B, T, N), generator=gen, device="cuda").bfloat16()[:, None]
+                          .expand(B, H, T, N), -torch.rand((B, T, H), generator=gen, device="cuda")
+                          .transpose(1, 2)[..., None].expand(B, H, T, N)),
+            "transposed": (big[..., :N].transpose(1, 2), None),
+            "offset": (big[..., 1:].transpose(1, 2), None),
+        }
+        for name, (x, w) in forms.items():
+            if w is None:
+                w = -(0.001 + 1.999 * torch.rand((B, H, T, N), generator=gen, device="cuda"))
+            v = torch.randn((B, T, H, M), generator=gen, device="cuda").bfloat16().transpose(1, 2)
+            u = None if ssd else torch.randn((H, N), generator=gen, device="cuda")
+            got = linear_attention_cuda(x, x, v, w, u)
+            want = ops.linear_attention(x, x, v, w, u, impl="torch")
+            step = float(2.0 ** (torch.floor(torch.log2(want[0].float().abs().max())) - 7))
+            assert float((got[0].float() - want[0].float()).abs().max()) <= step, (ssd, name)
+            torch.testing.assert_close(got[1], want[1], **TOL)

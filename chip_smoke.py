@@ -136,7 +136,7 @@ NUM_BLOCKS = 56  # tight: this workload preempts twice (checked below)
 # the sources whose every ptxas line (registers, shared memory, spills)
 # the build step prints
 REDESIGNED = ("flash_attention", "bsr_spmm", "linear_attention", "gemm", "ring_hop", "gemm_scaled",
-              "flash_attention_scaled", "spmspm")
+              "flash_attention_scaled", "spmspm", "spmm", "stencil")
 FA_REPLACES = "src/repro/kernels/flash_attention.py:57"
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 GEMM_REPLACES = "src/repro/kernels/gemm.py:23"
@@ -432,10 +432,10 @@ SPMM_CASES = [
     ("random L=25 F=300", 1000, 500, 0.05, 300, "float32", "float32"),
     ("random L=64 F=40", 333, 1280, 0.05, 40, "float32", "float32"),
 ]
-# by output (dense) dtype. fp32: kernel and plain version add the slots in
-# the same order with the same roundings (the reference suite's 1e-5 is
-# stated; they agree bitwise). bf16: one bf16 step of the rounded sum.
-SPMM_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
+# by output (dense) dtype. fp32: kernel (either route) and plain version add
+# the slots in the same order with the same roundings, so they must agree
+# bitwise. bf16: one bf16 step of the rounded sum.
+SPMM_TOL = {"float32": (0.0, 0.0), "bfloat16": (1e-2, 1e-2)}
 
 # GCN outputs against the plain path and the dense oracle: max |diff| over
 # max |reference|; only the summation order differs, in fp32
@@ -523,7 +523,62 @@ def check_gcn_kernels(report):
         torch.cuda.synchronize()
         errs.append(_hold("spmm", f"{label} ({R},{values.shape[1]})x({C},{Fd})", got, want,
                           SPMM_TOL[ddt]))
+    errs += check_ell_edges(rng)
     report["spmm_err"] = max(errs)
+
+
+def check_ell_edges(rng):
+    """The ELL kernel at edge shapes, held to the plain version (fp32
+    bitwise, bf16 one step): F of 1, 33, 144 and 300 (one-element and
+    16-byte loads), also with the L2 budget shrunk to a quarter of dense so
+    that F goes in about 4 slabs (a ragged last one for bf16 at 144); L of
+    0, 1, 9 (a batch of 8 and one more) and 37 (two batches of 16 and 5
+    more); R = 1000, not a multiple of a block; values, cols and dense as row slices of
+    wider tensors; every pair of value and dense types; sorted and unsorted
+    slots, each row with a repeated column; a repeated call bitwise equal.
+    Returns the largest differences."""
+    import numpy as np
+    import torch
+
+    from repro_torch.hopper import ops
+    from repro_torch.hopper import spmm as sp
+
+    errs, vecs = [], {}
+    R, C = 1000, 700
+    for F in (1, 33, 144, 300):
+        for L in (0, 1, 9, 37):
+            for vt in ("float32", "bfloat16"):
+                for dt in ("float32", "bfloat16"):
+                    cols = rng.integers(0, C, (R, L + 3)).astype(np.int32)
+                    cols[:, 1:3] = cols[:, :1]  # repeated columns
+                    vals = torch.from_numpy(rng.standard_normal((R, L + 3)).astype(np.float32))
+                    wide = torch.randn((C, F + 8), device="cuda").to(getattr(torch, dt))
+                    dense, values = wide[:, :F], vals.cuda().to(getattr(torch, vt))[:, :L]
+                    for srt in (True, False):
+                        c = torch.from_numpy(np.sort(cols, axis=1) if srt else cols).cuda()[:, :L]
+                        want = ops.spmm(values, c, dense, impl="torch")
+                        esize = dense.element_size()
+                        for budget in (sp.L2_SLAB_BYTES, C * F * esize // 4):
+                            q = sp.plan(R, L, C, F, esize, sp.vec16(dense))
+                            if budget != sp.L2_SLAB_BYTES:
+                                sp.L2_SLAB_BYTES, full = budget, sp.L2_SLAB_BYTES
+                                q = sp.plan(R, L, C, F, esize, sp.vec16(dense))
+                                sp.L2_SLAB_BYTES = full
+                            outs = []
+                            for _ in range(2):
+                                outs.append(torch.empty((R, F), dtype=dense.dtype, device="cuda"))
+                                sp.launch(values, c, dense, outs[-1], q)
+                            torch.cuda.synchronize()
+                            label = (f"edge R={R} L={L} F={F} values {vt} dense {dt} "
+                                     f"{'sorted' if srt else 'unsorted'} strided, vec {q.vec}, batch {q.batch}, "
+                                     f"{-(-F // q.slab)} slabs of {q.slab}")
+                            need(torch.equal(outs[0], outs[1]), f"spmm: a repeated call changed ({label})")
+                            if dt == "float32":
+                                need(torch.equal(outs[0], want), f"spmm: {label} not bitwise the plain version")
+                            errs.append(_hold("spmm", label, outs[0], want, SPMM_TOL[dt]))
+                            vecs[q.vec] = vecs.get(q.vec, 0) + 1
+    print(f"kernel spmm: edge shapes held, by vector width {vecs}")
+    return errs
 
 
 def _rel(got, want):
@@ -651,18 +706,64 @@ def time_gcn_kernels(report):
         lib_a = torch.sparse_csr_tensor(
             csr.indptr.long().cuda(), csr.indices.long().cuda(), csr.data.cuda(),
             size=adj.shape)
-        kern, plain = _in_turns(lambda: ops.spmm(adj, dense, impl="cuda"),
-                                lambda: ops.spmm(adj, dense, impl="torch"), plain_iters)
-        lib = time_ms(lambda: torch.sparse.mm(lib_a, dense))
-        lib_err = float((torch.sparse.mm(lib_a, dense) - ops.spmm(adj, dense)).abs().max())
+        kern_fn, lib_fn = lambda: ops.spmm(adj, dense, impl="cuda"), lambda: torch.sparse.mm(lib_a, dense)
+        kern, plain = _in_turns(kern_fn, lambda: ops.spmm(adj, dense, impl="torch"), plain_iters)
+        lib = time_ms(lib_fn)
+        dev = [device_ms(kern_fn), device_ms(lib_fn), device_ms(lib_fn), device_ms(kern_fn)]
+        lib_err = float((lib_fn() - ops.spmm(adj, dense)).abs().max())
         bound, by = spmm_bound_ms(adj, dense)
         L = adj.values.shape[1]
+        dev_k = min((d for d in (dev[0], dev[3]) if d is not None), default=None)
+        dev_l = min((d for d in (dev[1], dev[2]) if d is not None), default=None)
+        gathered = adj.values.numel() * F * dense.element_size()
         report.setdefault("spmm_time", {})[name] = dict(
             shape=f"ELL ({n},{L}) nnz={adj.nnz} x ({n},{F}) float32", ms=min(kern),
-            plain_ms=min(plain), library_ms=lib, bound_ms=bound, bound_by=by)
+            plain_ms=min(plain), library_ms=lib, bound_ms=bound, bound_by=by,
+            device_ms=dev_k, library_device_ms=dev_l, gathered_bytes=gathered)
         print(f"time spmm [{name} ELL ({n},{L}) x ({n},{F}) f32]: kernel {kern} ms, plain "
-              f"{plain} ms, torch.sparse.mm (CSR) {lib:.4f} ms (max |diff| vs kernel "
-              f"{lib_err:.2e}), bound {bound:.5f} ms ({by})")
+              f"{plain} ms, torch.sparse.mm (CSR) {lib:.4f} ms (events; max |diff| vs kernel "
+              f"{lib_err:.2e}); device time in turns kernel {_ms(dev[0])}, {_ms(dev[3])}, "
+              f"torch.sparse.mm {_ms(dev[1])}, {_ms(dev[2])}; bound {bound:.5f} ms ({by}); "
+              f"{gathered / 1e9:.3f} GB gathered"
+              + (f", {gathered / dev_k / 1e9:.3f} TB/s at the kernel's device time" if dev_k else ""))
+        if name == OGBN_ARXIV[0]:
+            ell_l2_probe(rng, gen, adj, dense, report)
+
+
+def ell_l2_probe(rng, gen, adj, dense, report):
+    """The rate at which the ELL kernel reads gathered rows from L2: the
+    ogbn-arxiv-size adjacency's shape (R, L, F) and plan (3 slabs of 48
+    columns) with its columns drawn over a dense of 16384 rows (9.4 MB,
+    L2-resident), so every gather hits L2 and the device time is the
+    gathered bytes at L2's rate for this access pattern; beside it the same
+    plan on the real dense (97.5 MB), and one slab of all F columns (the
+    whole of dense at once, past the L2)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import sparse
+    from repro_torch.hopper import spmm as sp
+
+    R, L = adj.values.shape
+    F = dense.shape[1]
+    small = torch.randn((16384, F), generator=gen, device="cuda")
+    cols = torch.from_numpy(rng.integers(0, 16384, (R, L)).astype(np.int32)).cuda()
+    probe = sparse.EllMatrix(adj.values, cols, (R, 16384))
+    out = torch.empty((R, F), device="cuda")
+    gathered = R * L * F * 4
+    qs = sp.plan(R, L, R, F, 4, sp.vec16(dense))  # the real dense's slabs, for both
+    t_l2 = device_ms(lambda: sp.launch(probe.values, probe.cols, small, out, qs))
+    t_slabs = device_ms(lambda: sp.launch(adj.values, adj.cols, dense, out, qs))
+    rows = sp.THREADS // (F // 4)  # one slab: a row's F // 4 vectors in one block
+    q1 = qs._replace(slab=F, lanes=F // 4, rows=rows, row_blocks=-(-R // rows), grid=-(-R // rows))
+    t_one = device_ms(lambda: sp.launch(adj.values, adj.cols, dense, out, q1))
+    report["spmm_l2_probe"] = dict(gathered_bytes=gathered, l2_resident_ms=t_l2,
+                                   l2_read_tb_s=gathered / t_l2 / 1e9, slabs_ms=t_slabs,
+                                   one_slab_ms=t_one, slabs=-(-F // qs.slab))
+    print(f"probe spmm L2 gather rate: ({R},{L}) x (16384,{F}) f32 (dense L2-resident): "
+          f"{_ms(t_l2)} device, {gathered / 1e9:.3f} GB gathered, {gathered / t_l2 / 1e9:.3f} "
+          f"TB/s; the real ({R},{F}) dense in {-(-F // qs.slab)} slabs of {qs.slab} columns "
+          f"{_ms(t_slabs)}, in one slab of {F} {_ms(t_one)}")
 
 
 # ---------------------------------------------------------------------------
@@ -805,23 +906,43 @@ def check_sparse_la_kernels(report, cases):
                 errs["spmspm"].append(_hold("spmspm", label, got, want, SPARSE_TOL))
                 need(torch.equal(got, again), f"spmspm: a repeated call changed the result ({label})")
     # stencil: |d| = 2 on every axis (wrapping every face), box on tiny
-    # dims, offsets past the grid's extent in y/z, a 2-D grid, bf16, and y
-    # offsets of 40 whose halo outgrows the tiled kernel's shared memory
-    # (the direct kernel's path)
+    # dims (grids smaller than a tile), offsets past the grid's extent in
+    # y/z, 2-D grids, bf16, X not a multiple of the 16-plane run (20 with
+    # bx = 4, 100, and 5), 40 random points of radius 2, x offsets of 9
+    # (a halo wider than half the run), and y offsets of 40 whose halo
+    # outgrows the window (the direct kernel's path); each call repeated
+    # bitwise
+    from repro_torch.hopper import stencil as st
+
     far = np.array([[0, 0, 0], [2, -7, 3], [-2, 5, -9], [1, 1, 1]])
     wide = np.array([[0, 0, 0], [1, 40, 0], [-1, -40, 3], [0, 1, -1]])
-    for shape, offs, dt in (((16, 12, 10), sl.star(2, 3), "float32"),
-                            ((8, 5, 3), sl.BOX27, "float32"), ((8, 5, 2), far, "float32"),
-                            ((64, 48, 1), sl.star(2, 2), "float32"),
-                            ((16, 40, 24), sl.BOX27, "bfloat16"),
-                            ((40, 96, 40), wide, "float32"), ((40, 96, 40), wide, "bfloat16")):
+    many = rng.integers(-2, 3, (40, 3))
+    routes = {"march": 0, "direct": 0}
+    for shape, offs, dt, bx, route in (
+            ((16, 12, 10), sl.star(2, 3), "float32", None, "march"),
+            ((8, 5, 3), sl.BOX27, "float32", None, "march"), ((8, 5, 2), far, "float32", None, "direct"),
+            ((64, 48, 1), sl.star(2, 2), "float32", None, "march"),
+            ((24, 70, 1), sl.star(1, 2), "bfloat16", None, "march"),
+            ((16, 40, 24), sl.BOX27, "bfloat16", None, "march"),
+            ((20, 33, 40), sl.BOX27, "float32", 4, "march"), ((5, 40, 36), sl.star(1, 3), "float32", None, "march"),
+            ((48, 9, 64), many, "float32", None, "march"),
+            ((100, 20, 33), sl.star(2, 3), "float32", 4, "march"),
+            ((64, 8, 40), np.array([[9, 0, 0], [-9, 1, 0], [0, 0, 0]]), "float32", 16, "march"),
+            ((40, 96, 40), wide, "float32", None, "direct"), ((40, 96, 40), wide, "bfloat16", None, "direct")):
         g = dev(rng.standard_normal(shape).astype(np.float32)).to(getattr(torch, dt))
         w = rng.standard_normal(len(offs)).astype(np.float32)
-        got = ops.stencil(g, offs, w, impl="cuda")
-        want = ops.stencil(g, offs, w, impl="torch")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        q = st.plan(shape, st.reduce_offsets(offs, shape), sms)
+        need(q.route == route, f"stencil {shape}: the planner took {q.route}, not {route}")
+        routes[route] += 1
+        got = ops.stencil(g, offs, w, impl="cuda", bx=bx)
+        again = ops.stencil(g, offs, w, impl="cuda", bx=bx)
+        want = ops.stencil(g, offs, w, impl="torch", bx=bx)
         torch.cuda.synchronize()
-        label = f"{shape} {len(offs)}pt {dt}"
+        label = f"{shape} {len(offs)}pt {dt} {route}"
+        need(torch.equal(got, again), f"stencil: a repeated call changed ({label})")
         errs["stencil"].append(_hold("stencil", label, got, want, STENCIL_TOL))
+    print(f"kernel stencil: edge shapes through each route {routes}")
 
     plain = {}
     for case in cases:
@@ -829,6 +950,8 @@ def check_sparse_la_kernels(report, cases):
         want = _call(case, "torch")
         torch.cuda.synchronize()
         tol = STENCIL_TOL if case.op == "stencil" else SPARSE_TOL
+        if case.op in ("spmm", "stencil"):  # fp32, the plain version's order: bitwise
+            need(torch.equal(got, want), f"{case.op} card {case.name}: not bitwise the plain version")
         err = _hold(case.op, f"card {case.name} ({case.note})", got, want, tol)
         if case.op in errs:
             errs[case.op].append(err)
@@ -933,9 +1056,17 @@ def _library(case):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.core import sparse
+
     if case.op == "bsr_spmm":
         A, dense = case.args
         a_csr = A.todense().to_sparse_csr()
+        return lambda: torch.sparse.mm(a_csr, dense)
+    if case.op == "spmm":
+        A, dense = case.args
+        csr = sparse.ell_to_csr(A)
+        a_csr = torch.sparse_csr_tensor(csr.indptr.long().cuda(), csr.indices.long().cuda(),
+                                        csr.data.cuda(), size=A.shape)
         return lambda: torch.sparse.mm(a_csr, dense)
     if case.op == "spmspm":
         A, B, _ = case.args
@@ -954,15 +1085,21 @@ def _library(case):
 
 
 def time_sparse_la_kernels(report, cases):
-    """Every card-size BSR, SpMSpM and stencil case: kernel and plain
+    """Every card-size ELL, BSR, SpMSpM and stencil case: kernel and plain
     version in turns (plain, kernel, kernel, plain), the library call and
     the bound; the densest BSR and SpMSpM cases and the 27-point stencil
-    go into the kernels line."""
+    go into the kernels line (the ELL cases beside the GCN's)."""
     import torch
 
+    from repro_torch.hopper import stencil as st
+
     for case in cases:
-        if case.op == "spmm":
-            continue  # the ELL kernel is timed on the GCN path
+        if case.op == "stencil":
+            grid, offs = case.args[:2]
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            q = st.plan(grid.shape, st.reduce_offsets(offs, grid.shape), sms)
+            print(f"stencil plan [{case.name}]: {q.route} tile {q.ty}x{q.tz}, {q.runs} runs of "
+                  f"{st.XR} planes a block, {q.grid} blocks, {q.smem} B shared")
         plain_iters = 3
         kern, plain = _in_turns(lambda: _call(case, "cuda"), lambda: _call(case, "torch"),
                                 plain_iters)
@@ -972,9 +1109,14 @@ def time_sparse_la_kernels(report, cases):
         # cuSPARSE's SpGEMM sizes its output on the host while it is being
         # captured, so a graph would hold only part of the call: not measured
         lib_dev = None if case.op == "spmspm" else device_ms(lib_fn)
+        if case.op in ("spmm", "stencil"):  # the kernel's device time in turns with the library's
+            dev = min((d for d in (dev, device_ms(lambda: _call(case, "cuda"))) if d is not None),
+                      default=None)
         lib_err = float((lib_fn().float() - _call(case, "cuda").float()).abs().max())
         if case.op == "bsr_spmm":
             bound, by = bsr_bound_ms(*case.args)
+        elif case.op == "spmm":
+            bound, by = spmm_bound_ms(*case.args)
         elif case.op == "spmspm":
             bound, by = spmspm_bound_ms(*case.args[:2])
         else:
@@ -2649,8 +2791,14 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
         })
-        if name == "gemm":  # device times (CUDA-graph replay) beside the events' ms
-            kernels[-1].update(device_ms=t["device_ms"], library_device_ms=t["library_device_ms"])
+        # device times (CUDA-graph replay) beside the events' ms
+        kernels[-1].update(device_ms=t["device_ms"], library_device_ms=t["library_device_ms"])
+        if name == "spmm":  # the sparse trio's ELL cases and the L2 probe
+            kernels[-1].update(
+                trio_launches=report["sparse_la_launches"]["spmm"],
+                trio={c: {f: r[f] for f in ("device_ms", "library_device_ms", "bound_ms", "bound_by")}
+                      for c, r in report["spmm_time"].items() if c.startswith("fig9c")},
+                l2_probe=report["spmm_l2_probe"])
     for name, source, replaces, case in SPARSE_LA_JSON:
         t = report[f"{name}_time"][case]
         kernels.append({

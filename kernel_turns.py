@@ -9,7 +9,11 @@ Builds that checkout's kernels and times them with its own
 (B=1 H=16 D=256 causal; S = 512, and 2048-row ring blocks on and below
 the diagonal), the BSR SpMM and the SpMSpM at the sparse trio's three
 card densities ((8192, 16384) and (4096, 16384) x (16384, 4096)
-operands), the chunked scan at both recurrent models' card shapes, the
+operands), the ELL SpMM at the same three densities ((8192, 16384)
+rows of sorted columns x (16384, 256)) and at the GCN's ogbn-arxiv size
+((169343, 15) x (169343, 144)), the sparse trio's five fp32 stencils
+(j2d5pt and j2d9pt on 8192^2, j3d7pt, j3d13pt and j3d27pt on 512^3), the
+chunked scan at both recurrent models' card shapes, the
 fp32 GEMM at the GCN's ogbn-arxiv and cora sizes ((n, 144) x (144, 144)),
 and the
 precision ladder's two kernels at its card shapes under every policy (the
@@ -121,7 +125,7 @@ def main(root, label):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build(("flash_attention", "bsr_spmm", "spmspm", "linear_attention", "ring_hop", "gemm",
-                 "gemm_scaled", "flash_attention_scaled"))
+                 "gemm_scaled", "flash_attention_scaled", "spmm", "stencil"))
     out = {"label": label}
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -138,10 +142,32 @@ def main(root, label):
 
     rng = np.random.default_rng(0)
     for d in DENSITIES:
-        A = sparse.ell_to_bsr(sparse.random_ell(rng, 8192, 16384, d), 8, 128).to("cuda")
+        E = sparse.random_ell(rng, 8192, 16384, d)
+        A = sparse.ell_to_bsr(E, 8, 128).to("cuda")
         D = torch.from_numpy(rng.standard_normal((16384, 256)).astype(np.float32)).cuda()
         out[f"bsr_{d}"] = graph_ms(lambda: ops.bsr_spmm(A, D, impl="cuda"))
+        E = E.to("cuda")
+        out[f"ell_{d}"] = graph_ms(lambda: ops.spmm(E, D, impl="cuda"))
+        from repro_torch.hopper import spmm as sp
+
+        if hasattr(sp, "staged_plan"):  # this tree's staged route, forced (its rows are sorted)
+            o = torch.empty((8192, 256), device="cuda")
+            q = sp.staged_plan(8192, 256, 4)
+            out[f"ell_{d}_staged"] = graph_ms(lambda: sp.launch(E.values, E.cols, D, o, q, sp.STAGED_CRANGE))
+            assert torch.equal(o, ops.spmm(E, D, impl="torch"))
+    from repro_torch.launch import gcn_inference as gi
     from repro_torch.launch import sparse_la as sl
+
+    adj = gi.adjacency(rng, 169343, 13.7).to("cuda")  # chip_smoke.OGBN_ARXIV's graph
+    D = torch.randn((169343, 144), generator=gen, device="cuda")
+    out["ell_ogbn"] = graph_ms(lambda: ops.spmm(adj, D, impl="cuda"))
+    del adj, E
+    for name, kind, offs in sl.STENCILS:
+        shape = sl.CARD.grid_2d if kind == "2d" else sl.CARD.grid_3d
+        g = torch.randn(shape, generator=gen, device="cuda")
+        w = rng.standard_normal(len(offs)).astype(np.float32)
+        out[f"stencil_{name}"] = graph_ms(lambda: ops.stencil(g, offs, w, impl="cuda"))
+    del g
 
     R, C, K = sl.CARD.spmspm
     rng = np.random.default_rng(0)

@@ -11,27 +11,36 @@
 // product to the row's sum in slot order j = 0..L-1, product and sum each
 // rounded to fp32 (__fmul_rn / __fadd_rn, no FMA contraction): the Pallas
 // body's order and rounding, and the plain version's, so in fp32 the kernel
-// and `blocked.spmm_blocked` agree bitwise.
-//
-// Design. One block of 8 warps per 32 rows; each warp owns 4 rows and its
-// lanes run across F (lane + 32 * c, NC column groups per lane, NC a
-// template parameter up to 8, more columns as further blocks along
-// grid.y), so every gathered row dense[col, :] is read as whole 128-byte
-// lines. The (col, value) pairs of the block's rows are staged in shared
-// memory 32 slots at a time; a warp walks its 4 rows together, slot by
-// slot, so it has 4 * NC independent gathers in flight. Padding slots are
-// read like any other (they add 0); rows past R are skipped.
-//
-// Differences from the TPU kernel. The TPU keeps all of `dense` resident in
-// VMEM, which caps C * F; here it is read through L2 and device memory, so
-// there is no such cap.
+// and `blocked.spmm_blocked` agree bitwise. Every route keeps that order:
+// the columns of a row are independent sums, and no route splits a row's
+// slots.
 //
 // Bound on this card. The function must read values and cols once, dense
-// once and write out once; it does 2 * nnz * F operations, far below the
-// fp32 peak's share, so it is bound by bytes. The kernel reads each
-// gathered row once per slot that names it (nnz * F elements, L times
-// dense's size for a graph with L slots per row); only L2 hits bring that
-// towards the bound. Ordering the rows for locality is a later step.
+// once and write out once; it does 2 * nnz * F operations. A kernel that
+// gathers dense[col] per slot moves nnz * F elements from L2 (1.46 GB for
+// the GCN's ogbn-arxiv-size graph), L times dense's size: L2 bandwidth,
+// not the byte bound, sets its floor.
+//
+// Design. The wrapper's planner (`hopper/spmm.py` `plan`) picks the tiles
+// from the shapes and types. A thread owns one (row, vector of VEC
+// columns) pair: VEC = 16 bytes of dense where F, the row strides and the
+// pointers allow it, else one element, so a row's lanes read whole 16-byte
+// pieces of the gathered row and F = 144 (36 float4) leaves no lane idle.
+// A thread loads U slots' (col, value) at once and then their U gathers,
+// so it keeps U independent 16-byte loads in flight (the first version
+// kept 4 rows x 5 groups of 4-byte loads a warp, synchronising every 32
+// slots): U = 16 where a row has 16 slots or more, else 8, since a larger
+// batch costs registers and so resident warps (the GCN's L = 15 runs
+// fastest at 8, the sparse trio's L = 164 and 459 at 16). F is cut into slabs whose slice of dense
+// (C x slab) fits the L2 (48 of the GCN's 144 columns: 32.5 MB of 97.5),
+// and the 1-D grid is slab-major, so one slab's blocks run together and
+// its gathers hit L2; the DRAM then reads dense about once.
+//
+// A staged route, for rows whose columns are sorted (crange > 0, taken
+// only where the caller forces it; `kernel_turns.py` times it at the sparse
+// trio's densities): a block of 128 rows copies dense's rows range by range
+// into shared memory by cp.async (two buffers) and consumes each row's
+// slots as their columns come up, in slot order.
 //
 // Offsets are 64-bit (long long) throughout.
 
@@ -41,113 +50,255 @@
 
 namespace {
 
-constexpr int BR = 32;              // rows per block
-constexpr int WARPS = 8;            // 256 threads
-constexpr int RPW = BR / WARPS;     // rows per warp
-constexpr int SC = 32;              // slots staged per chunk
-constexpr int THREADS = WARPS * 32;
-constexpr int MAX_NC = 8;           // column groups per lane: 256 columns per block
+constexpr int LPR = 16;  // staged: lanes per row
+constexpr int RPT = 8;   // staged: rows per thread
+constexpr int STAGED_THREADS = 256;
+constexpr int STAGED_ROWS = STAGED_THREADS / LPR * RPT;  // 128 rows a block
+constexpr int NO_COL = 0x7fffffff;
+
 
 struct Params {
   const void* values;
   const int* cols;
   const void* dense;
   void* out;
-  int R, L, F;
+  int R, L, F, C;
   long long ldv, ldcol, ldd, ldo;  // row strides in elements
+  int slab;        // columns a block covers
+  int lanes;       // threads a row
+  int rows;        // rows a block covers
+  int row_blocks;  // blocks along R
+  int crange;      // staged: dense rows a stage
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
-
-template <typename VT, typename DT, int NC>
-__global__ void __launch_bounds__(THREADS) ell_spmm_kernel(const Params p) {
-  __shared__ int sCol[BR][SC];
-  __shared__ float sVal[BR][SC];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const long long r0 = static_cast<long long>(blockIdx.x) * BR;
-  const int f0 = blockIdx.y * 32 * MAX_NC;
-  const VT* values = static_cast<const VT*>(p.values);
-  const DT* dense = static_cast<const DT*>(p.dense);
-
-  float acc[RPW][NC];
+// VEC consecutive elements of p as fp32 (one 16-byte load where VEC fills 16 bytes)
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* p, float (&x)[VEC]) {
+  if constexpr (VEC == 1) {
+    x[0] = to_f32(p[0]);
+  } else {
+    static_assert(VEC * sizeof(T) == 16, "vector loads are 16 bytes");
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    if constexpr (sizeof(T) == 4) {
+      x[0] = __uint_as_float(raw.x);
+      x[1] = __uint_as_float(raw.y);
+      x[2] = __uint_as_float(raw.z);
+      x[3] = __uint_as_float(raw.w);
+    } else {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int rr = 0; rr < RPW; ++rr)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[rr][c] = 0.f;
-
-  bool live[RPW];  // this warp's rows that exist
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) live[rr] = r0 + warp * RPW + rr < p.R;
-
-  for (int j0 = 0; j0 < p.L; j0 += SC) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int i = tid; i < BR * SC; i += THREADS) {
-      const int r = i / SC, j = i % SC;
-      const long long row = r0 + r;
-      const int slot = j0 + j;
-      const bool ok = row < p.R && slot < p.L;
-      sCol[r][j] = ok ? p.cols[row * p.ldcol + slot] : 0;
-      sVal[r][j] = ok ? to_f32(values[row * p.ldv + slot]) : 0.f;
-    }
-    __syncthreads();
-
-    const int nj = min(SC, p.L - j0);
-    for (int j = 0; j < nj; ++j) {
-#pragma unroll
-      for (int rr = 0; rr < RPW; ++rr) {
-        if (!live[rr]) continue;
-        const int r = warp * RPW + rr;
-        const float v = sVal[r][j];
-        const DT* drow = dense + static_cast<long long>(sCol[r][j]) * p.ldd;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int f = f0 + lane + 32 * c;
-          if (f < p.F) acc[rr][c] = __fadd_rn(acc[rr][c], __fmul_rn(v, to_f32(drow[f])));
-        }
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        x[2 * i] = f.x;
+        x[2 * i + 1] = f.y;
       }
-    }
-  }
-
-  DT* out = static_cast<DT*>(p.out);
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    if (!live[rr]) continue;
-    const long long row = r0 + warp * RPW + rr;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int f = f0 + lane + 32 * c;
-      if (f < p.F) out[row * p.ldo + f] = from_f32<DT>(acc[rr][c]);
     }
   }
 }
 
-template <typename VT, typename DT>
-cudaError_t launch(const Params& p, cudaStream_t st) {
-  const int groups = (p.F + 31) / 32;
-  const int nc = groups < MAX_NC ? groups : MAX_NC;
-  const dim3 grid(static_cast<unsigned>((static_cast<long long>(p.R) + BR - 1) / BR),
-                  static_cast<unsigned>((p.F + 32 * MAX_NC - 1) / (32 * MAX_NC)));
-  switch (nc) {
-    case 1: ell_spmm_kernel<VT, DT, 1><<<grid, THREADS, 0, st>>>(p); break;
-    case 2: ell_spmm_kernel<VT, DT, 2><<<grid, THREADS, 0, st>>>(p); break;
-    case 3: ell_spmm_kernel<VT, DT, 3><<<grid, THREADS, 0, st>>>(p); break;
-    case 4: ell_spmm_kernel<VT, DT, 4><<<grid, THREADS, 0, st>>>(p); break;
-    case 5: ell_spmm_kernel<VT, DT, 5><<<grid, THREADS, 0, st>>>(p); break;
-    case 6: ell_spmm_kernel<VT, DT, 6><<<grid, THREADS, 0, st>>>(p); break;
-    case 7: ell_spmm_kernel<VT, DT, 7><<<grid, THREADS, 0, st>>>(p); break;
-    default: ell_spmm_kernel<VT, DT, 8><<<grid, THREADS, 0, st>>>(p); break;
+// the same from shared memory (the staged slice)
+template <typename T, int VEC>
+__device__ __forceinline__ void lds_vec(const T* p, float (&x)[VEC]) {
+  static_assert(VEC * sizeof(T) == 16, "vector loads are 16 bytes");
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  if constexpr (sizeof(T) == 4) {
+    x[0] = __uint_as_float(raw.x);
+    x[1] = __uint_as_float(raw.y);
+    x[2] = __uint_as_float(raw.z);
+    x[3] = __uint_as_float(raw.w);
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
   }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* p, const float (&x)[VEC]) {
+  if constexpr (VEC == 1) {
+    if constexpr (sizeof(T) == 4) p[0] = x[0];
+    else p[0] = __float2bfloat16_rn(x[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+}
+
+template <typename VT, typename DT, int VEC, int U>
+__global__ void __launch_bounds__(256) ell_gather_kernel(const Params p) {
+  const int slab = blockIdx.x / p.row_blocks, rb = blockIdx.x % p.row_blocks;
+  const int lane = threadIdx.x % p.lanes;
+  const long long row = static_cast<long long>(rb) * p.rows + threadIdx.x / p.lanes;
+  const int f = slab * p.slab + lane * VEC;
+  if (row >= p.R || f >= p.F) return;  // no barrier in this kernel
+  const int* crow = p.cols + row * p.ldcol;
+  const VT* vrow = static_cast<const VT*>(p.values) + row * p.ldv;
+  const DT* dense = static_cast<const DT*>(p.dense) + f;
+
+  float acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  int j = 0;
+  for (; j + U <= p.L; j += U) {  // U slots at a time, in slot order
+    int c[U];
+    float v[U], d[U][VEC];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      c[u] = __ldg(crow + j + u);
+      v[u] = to_f32(vrow[j + u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) load_vec<DT, VEC>(dense + static_cast<long long>(c[u]) * p.ldd, d[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(v[u], d[u][e]));
+  }
+  for (; j < p.L; ++j) {  // the last L % U slots, one at a time
+    float d[VEC];
+    const float v = to_f32(vrow[j]);
+    load_vec<DT, VEC>(dense + static_cast<long long>(__ldg(crow + j)) * p.ldd, d);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(v, d[e]));
+  }
+  store_vec<DT, VEC>(static_cast<DT*>(p.out) + row * p.ldo + f, acc);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = full ? 16 : 0;  // 0: zero-fill, nothing read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+template <typename VT, typename DT, int VEC>
+__global__ void __launch_bounds__(STAGED_THREADS) ell_staged_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DT* stage = reinterpret_cast<DT*>(smem_raw);  // [2][crange][slab]
+  const int slab = blockIdx.x / p.row_blocks, rb = blockIdx.x % p.row_blocks;
+  const int lane = threadIdx.x % LPR, group = threadIdx.x / LPR;
+  const int f0 = slab * p.slab, f = f0 + lane * VEC;
+  const long long row0 = static_cast<long long>(rb) * STAGED_ROWS + group;
+  const DT* dense = static_cast<const DT*>(p.dense);
+  const VT* values = static_cast<const VT*>(p.values);
+  const int stage_elems = p.crange * p.slab;
+
+  // each of the thread's rows: the next slot, its column (NO_COL past the
+  // last slot) and its value
+  int ptr[RPT], cn[RPT];
+  float vn[RPT], acc[RPT][VEC];
+#pragma unroll
+  for (int rr = 0; rr < RPT; ++rr) {
+    const long long row = row0 + rr * (STAGED_THREADS / LPR);
+    ptr[rr] = 0;
+    cn[rr] = NO_COL;
+    vn[rr] = 0.f;
+    if (row < p.R && p.L > 0) {
+      cn[rr] = p.cols[row * p.ldcol];
+      vn[rr] = to_f32(values[row * p.ldv]);
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[rr][e] = 0.f;
+  }
+
+  // copy dense rows [c0, c0 + crange) x columns [f0, f0 + slab) into buffer b
+  auto stage_range = [&](int c0, int b) {
+    const int pieces = p.crange * (p.slab / VEC);
+    for (int i = threadIdx.x; i < pieces; i += STAGED_THREADS) {
+      const int r = i / (p.slab / VEC), v = i % (p.slab / VEC);
+      const int c = c0 + r, col = f0 + v * VEC;
+      const bool in = c < p.C && col < p.F;
+      const DT* src = in ? dense + static_cast<long long>(c) * p.ldd + col : dense;
+      cp_async16(stage + b * stage_elems + r * p.slab + v * VEC, src, in);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  const int ranges = (p.C + p.crange - 1) / p.crange;
+  stage_range(0, 0);
+  for (int i = 0; i < ranges; ++i) {
+    if (i + 1 < ranges) {
+      stage_range((i + 1) * p.crange, (i + 1) & 1);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();  // range i's slice has landed for every thread
+    const int c0 = i * p.crange, c_hi = c0 + p.crange;
+    const DT* buf = stage + (i & 1) * stage_elems + lane * VEC;
+#pragma unroll
+    for (int rr = 0; rr < RPT; ++rr) {
+      const long long row = row0 + rr * (STAGED_THREADS / LPR);
+      while (cn[rr] < c_hi) {  // the row's sorted slots in this range, in slot order
+        float d[VEC];
+        lds_vec<DT, VEC>(buf + (cn[rr] - c0) * p.slab, d);
+        const float v = vn[rr];
+        if (++ptr[rr] < p.L) {
+          cn[rr] = p.cols[row * p.ldcol + ptr[rr]];
+          vn[rr] = to_f32(values[row * p.ldv + ptr[rr]]);
+        } else {
+          cn[rr] = NO_COL;
+        }
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[rr][e] = __fadd_rn(acc[rr][e], __fmul_rn(v, d[e]));
+      }
+    }
+    __syncthreads();  // buffer (i & 1) is free for range i + 2
+  }
+
+  if (f >= p.F) return;
+  DT* out = static_cast<DT*>(p.out);
+#pragma unroll
+  for (int rr = 0; rr < RPT; ++rr) {
+    const long long row = row0 + rr * (STAGED_THREADS / LPR);
+    if (row < p.R) store_vec<DT, VEC>(out + row * p.ldo + f, acc[rr]);
+  }
+}
+
+template <typename VT, typename DT, int VEC>
+cudaError_t launch_batch(const Params& p, int batch, dim3 grid, int threads, cudaStream_t st) {
+  if (batch == 8) ell_gather_kernel<VT, DT, VEC, 8><<<grid, threads, 0, st>>>(p);
+  else if (batch == 16) ell_gather_kernel<VT, DT, VEC, 16><<<grid, threads, 0, st>>>(p);
+  else return cudaErrorInvalidValue;
   return cudaGetLastError();
+}
+
+template <typename VT, typename DT>
+cudaError_t launch(const Params& p, int vec, int batch, cudaStream_t st) {
+  constexpr int V16 = 16 / sizeof(DT);
+  if (p.crange > 0) {  // staged (each row's cols non-decreasing)
+    const long long sblocks = static_cast<long long>(p.row_blocks) * ((p.F + p.slab - 1) / p.slab);
+    if (vec != V16 || p.slab != LPR * V16 || static_cast<long long>(p.row_blocks) * STAGED_ROWS < p.R)
+      return cudaErrorInvalidValue;
+    const size_t smem = 2 * static_cast<size_t>(p.crange) * p.slab * sizeof(DT);
+    const cudaError_t err = cudaFuncSetAttribute(ell_staged_kernel<VT, DT, V16>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 sgrid(static_cast<unsigned>(sblocks));
+    ell_staged_kernel<VT, DT, V16><<<sgrid, STAGED_THREADS, smem, st>>>(p);
+    return cudaGetLastError();
+  }
+  const long long blocks = static_cast<long long>(p.row_blocks) * ((p.F + p.slab - 1) / p.slab);
+  const int threads = p.rows * p.lanes;
+  if (blocks <= 0 || blocks > 0x7fffffffLL || threads <= 0 || threads > 256 ||
+      p.lanes * vec != p.slab || static_cast<long long>(p.row_blocks) * p.rows < p.R)
+    return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks));
+  if (vec == V16) return launch_batch<VT, DT, V16>(p, batch, grid, threads, st);
+  if (vec == 1) return launch_batch<VT, DT, 1>(p, batch, grid, threads, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -156,12 +307,17 @@ extern "C" {
 
 // val_dtype / dense_dtype: 0 = float32, 1 = bfloat16; out has dense's type.
 // values/cols (R, L), dense (C, F), out (R, F), each with unit column
-// stride and the given row strides (elements); every col in [0, C).
-// Returns the launch's cudaError_t.
+// stride and the given row strides (elements); every col in [0, C). The
+// plan (hopper/spmm.py `plan`): vec elements a load (1, or 16 bytes'
+// worth, which F, the row strides and the pointers must allow), batch
+// slots a thread loads together (8 or 16), slab columns a block, lanes
+// threads a row, rows a block, row_blocks blocks along R. Returns the
+// launch's cudaError_t.
 int repro_ell_spmm(const void* values, const int* cols, const void* dense, void* out, int val_dtype,
                    int dense_dtype, int R, int L, int F, long long ldv, long long ldcol, long long ldd,
-                   long long ldo, void* stream) {
-  if (R <= 0 || L < 0 || F <= 0) return cudaErrorInvalidValue;
+                   long long ldo, int vec, int batch, int slab, int lanes, int rows, int row_blocks,
+                   int C, int crange, void* stream) {
+  if (R <= 0 || L < 0 || F <= 0 || slab <= 0 || row_blocks <= 0) return cudaErrorInvalidValue;
   if ((val_dtype != 0 && val_dtype != 1) || (dense_dtype != 0 && dense_dtype != 1)) return cudaErrorInvalidValue;
   Params p;
   p.values = values;
@@ -175,13 +331,19 @@ int repro_ell_spmm(const void* values, const int* cols, const void* dense, void*
   p.ldcol = ldcol;
   p.ldd = ldd;
   p.ldo = ldo;
+  p.slab = slab;
+  p.lanes = lanes;
+  p.rows = rows;
+  p.row_blocks = row_blocks;
+  p.C = C;
+  p.crange = crange;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (val_dtype == 0) {
-    if (dense_dtype == 0) return launch<float, float>(p, st);
-    return launch<float, __nv_bfloat16>(p, st);
+    if (dense_dtype == 0) return launch<float, float>(p, vec, batch, st);
+    return launch<float, __nv_bfloat16>(p, vec, batch, st);
   }
-  if (dense_dtype == 0) return launch<__nv_bfloat16, float>(p, st);
-  return launch<__nv_bfloat16, __nv_bfloat16>(p, st);
+  if (dense_dtype == 0) return launch<__nv_bfloat16, float>(p, vec, batch, st);
+  return launch<__nv_bfloat16, __nv_bfloat16>(p, vec, batch, st);
 }
 
 const char* repro_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

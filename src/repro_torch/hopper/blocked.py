@@ -305,7 +305,9 @@ def spmspm_blocked(a_values, a_cols, b_values, b_rows, contraction_dim, *,
     """Sparse x sparse by one-side densified intersection: A's rows (ELL
     (R, La)) densified to (rows, K) fp32, gathered at B's indices (ELL
     columns (C, Lb)), contracted with B's values: ``out[r, c] = sum_j
-    b[c, j] * a_dense[r, b_rows[c, j]]`` -> fp32 (R, C).
+    b[c, j] * a_dense[r, b_rows[c, j]]`` -> fp32 (R, C). An index outside
+    ``[0, K)`` contributes nothing (the kernel's contract): such an entry is
+    made padding, value 0 at index 0, before the densify and the gather.
 
     Rows go in chunks of a multiple of ``bm`` whose gathered (rows, C, Lb)
     block stays within ``CHUNK_BYTES``; ``bn`` is accepted for the common
@@ -314,8 +316,11 @@ def spmspm_blocked(a_values, a_cols, b_values, b_rows, contraction_dim, *,
     C, Lb = b_values.shape
     bm = max(1, resolve_blocks("spmspm", bm=bm, bn=bn)["bm"])
     step = bm * max(1, CHUNK_BYTES // max(1, bm * C * Lb * 4))
-    bv = b_values.float()
-    bidx = b_rows.long()
+    a_in = (a_cols >= 0) & (a_cols < contraction_dim)
+    a_values, a_cols = torch.where(a_in, a_values, 0), torch.where(a_in, a_cols, 0)
+    b_in = (b_rows >= 0) & (b_rows < contraction_dim)
+    bv = torch.where(b_in, b_values.float(), 0.0)
+    bidx = torch.where(b_in, b_rows, 0).long()
     out = torch.empty((R, C), dtype=torch.float32, device=a_values.device)
     for r0 in range(0, R, step):
         vals = a_values[r0:r0 + step]

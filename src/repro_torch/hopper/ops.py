@@ -394,7 +394,9 @@ def spmspm(a_values, a_cols, b_values=None, b_rows=None, contraction_dim=None,
     """Sparse x sparse by index intersection, fp32 out (R, C). Either
     ``spmspm(A, B, k)`` with ELL operands (B holding the right matrix's
     columns), or unpacked arrays. ``bm``/``bn`` shape the plain form
-    only."""
+    only. An index outside ``[0, contraction_dim)`` contributes nothing,
+    in the kernel and in its plain version alike (``impl="ref"`` is the
+    reference's twin, which such indices lie outside the contract of)."""
     if isinstance(a_values, EllMatrix):
         A, B = a_values, a_cols
         if not isinstance(B, EllMatrix):

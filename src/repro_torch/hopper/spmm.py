@@ -12,10 +12,15 @@ fp32 or bf16; the output (R, F) has dense's dtype, summed in fp32. Rows
 must be unit-stride (any row stride). Column indices are not checked here:
 ``core.sparse.EllMatrix`` checks them once, at construction; a launch does
 not synchronise to check them again.
+
+The kernel's tiles come from ``plan`` (pure Python, so the CPU tests
+reach it): a thread owns a (row, 16-byte vector) pair, and F goes in
+slabs whose slice of dense fits the L2, the grid slab-major.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,7 +29,64 @@ from repro_torch.hopper.dispatch import LAUNCHES
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# csrc/spmm.cu's tiles and the card they are planned for
+THREADS = 256             # a block's threads, at most
+MAX_LANES = 64            # threads a row, at most
+L2_SLAB_BYTES = 32 << 20  # dense's slice a slab may hold (of the H100's 50 MB L2)
+BATCHES = (8, 16)         # slots a thread loads together: 16 where a row has as many
+STAGED_ROWS, STAGED_LANES, STAGED_CRANGE = 128, 16, 128  # the staged route (sorted rows)
+
 _fn = None
+
+
+class Plan(NamedTuple):
+    vec: int         # elements a load: 1, or 16 bytes of dense
+    batch: int       # slots a thread loads together (8 or 16)
+    slab: int        # columns a block covers
+    lanes: int       # threads a row
+    rows: int        # rows a block covers
+    row_blocks: int  # blocks along R; the grid is slab-major
+    grid: int        # blocks
+
+
+def staged_plan(R: int, F: int, esize: int) -> Plan:
+    """The staged route's tiles (rows with sorted columns, 16-byte loads):
+    128 rows and 16 vectors a block; ``launch`` it with ``crange =
+    STAGED_CRANGE`` dense rows a stage."""
+    v = 16 // esize
+    rb = _cdiv(R, STAGED_ROWS)
+    return Plan(v, 0, STAGED_LANES * v, STAGED_LANES, STAGED_ROWS, rb,
+                rb * _cdiv(F, STAGED_LANES * v))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(R: int, L: int, C: int, F: int, esize: int, vec_ok: bool) -> Plan:
+    """Tiles for R ELL rows of L slots times dense (C, F) of ``esize``-byte
+    elements. ``vec_ok``: F, dense's row stride and its pointer allow
+    16-byte loads. F goes in the fewest slabs whose slice of dense fits
+    ``L2_SLAB_BYTES`` (each at most ``MAX_LANES`` vectors wide), split
+    evenly in whole vectors; a block holds as many whole rows of a slab as
+    fit ``THREADS``; a thread loads 16 slots at once where L >= 16, else 8."""
+    vec = 16 // esize if vec_ok else 1
+    widest = min(max(vec, L2_SLAB_BYTES // max(1, C * esize) // vec * vec), MAX_LANES * vec)
+    nslab = _cdiv(F, widest)
+    slab = _cdiv(_cdiv(F, nslab), vec) * vec  # <= widest, a multiple of vec
+    lanes = slab // vec
+    rows = max(1, THREADS // lanes)
+    row_blocks = _cdiv(R, rows)
+    batch = BATCHES[1] if L >= BATCHES[1] else BATCHES[0]
+    return Plan(vec, batch, slab, lanes, rows, row_blocks, row_blocks * _cdiv(F, slab))
+
+
+def vec16(dense) -> bool:
+    """16-byte loads of dense's rows (and stores of the output's): F and
+    dense's row stride are multiples of 16 bytes' elements and its pointer
+    is 16-byte aligned (the output is allocated fresh, so it follows)."""
+    v = 16 // dense.element_size()
+    return dense.shape[1] % v == 0 and dense.stride(0) % v == 0 and dense.data_ptr() % 16 == 0
 
 
 def _kernel():
@@ -34,7 +96,7 @@ def _kernel():
         fn = lib.repro_ell_spmm
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                       i64, i64, i64, i64, ptr]
+                       i64, i64, i64, i64, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
         _fn = (lib, fn)
     return _fn
@@ -69,6 +131,24 @@ def _check(values, cols, dense):
             )
 
 
+def launch(values, cols, dense, out, q: Plan, crange: int = 0):
+    """Launch the kernel with plan ``q`` into ``out`` (R, F) on the current
+    stream, counting the launch; raises on a launch error. ``crange`` > 0
+    takes the staged route."""
+    R, L = values.shape
+    F = dense.shape[1]
+    lib, fn = _kernel()
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        err = fn(values.data_ptr(), cols.data_ptr(), dense.data_ptr(), out.data_ptr(),
+                 DTYPES[values.dtype], DTYPES[dense.dtype], R, L, F,
+                 values.stride(0), cols.stride(0), dense.stride(0), out.stride(0),
+                 q.vec, q.batch, q.slab, q.lanes, q.rows, q.row_blocks, dense.shape[0], crange,
+                 stream)
+    build.check(lib, err, "spmm kernel launch")
+    LAUNCHES["spmm"] += 1
+
+
 def spmm_cuda(values, cols, dense, **blocks):
     """out (R, F) = sum_j values[:, j] * dense[cols[:, j]]. Launches the
     Hopper kernel for CUDA tensors; runs ``blocked.spmm_blocked`` for CPU
@@ -78,16 +158,8 @@ def spmm_cuda(values, cols, dense, **blocks):
         return blocked.spmm_blocked(values, cols, dense, **blocks)
     _check(values, cols, dense)
     R, L = values.shape
-    F = dense.shape[1]
+    C, F = dense.shape
     out = torch.empty((R, F), dtype=dense.dtype, device=dense.device)
     if R and F:
-        lib, fn = _kernel()
-        with torch.cuda.device(values.device):
-            stream = torch.cuda.current_stream(values.device).cuda_stream
-            err = fn(values.data_ptr(), cols.data_ptr(), dense.data_ptr(),
-                     out.data_ptr(), DTYPES[values.dtype], DTYPES[dense.dtype],
-                     R, L, F, values.stride(0), cols.stride(0), dense.stride(0),
-                     out.stride(0), stream)
-        build.check(lib, err, "spmm kernel launch")
-        LAUNCHES["spmm"] += 1
+        launch(values, cols, dense, out, plan(R, L, C, F, dense.element_size(), vec16(dense)))
     return out

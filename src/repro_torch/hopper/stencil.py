@@ -7,28 +7,81 @@ of the x-block ``bx``, an x offset larger than ``bx``), for CPU and CUDA
 tensors alike, though the CUDA kernel needs neither restriction. For CUDA
 tensors it then checks the grid, allocates the output, launches the
 kernel on PyTorch's current stream with the offsets (reduced to the
-nearest equivalent shift of the periodic grid) and fp32 weights by value, raises on a launch error and adds one to
+nearest equivalent shift of the periodic grid), the fp32 weights and the
+plan by value, raises on a launch error and adds one to
 ``dispatch.LAUNCHES["stencil"]``. For CPU tensors, and only for them, it
 runs the plain version ``blocked.stencil_blocked``.
 
 grid (X, Y, Z) contiguous, fp32 or bf16; offsets (P, 3) ints, P <= 64;
 weights (P,) (host values, rounded to fp32); the output has the grid's
 dtype.
+
+The kernel's route and tiles come from ``plan`` (pure Python, so the CPU
+tests reach it). ``march``: a block owns a (ty, tz) tile of the (y, z)
+plane and marches along x, ``XR`` outputs a thread at a time, through a
+window of ``XR + 2 rx`` planes in shared memory whose next planes load
+while the current run is summed. ``direct``: one thread per (y, z)
+column, each point read from L2, for offsets whose halo outgrows the
+window.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.hopper import blocked, build
 from repro_torch.hopper.dispatch import LAUNCHES, resolve_blocks
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_POINTS = 64  # csrc/stencil.cu MAX_POINTS: offsets travel in the launch's parameters
 
+# csrc/stencil.cu's march kernel
+XR = 16               # x outputs a thread sums at a time (a run)
+THREADS = 256         # threads a block, at most
+CELLS_PER_THREAD = 2  # tile-plus-halo cells a thread stages
+PITCH = CELLS_PER_THREAD * THREADS  # floats a window plane holds
+MAX_SMEM = 100 * 1024  # the window's shared memory, at most
+BLOCKS_PER_SM = 8     # the grid's target: x is cut until the card has this many blocks an SM
+
 _fn = None
+
+
+class Plan(NamedTuple):
+    route: str   # "march" or "direct"
+    ty: int      # march: the (y, z) tile
+    tz: int
+    runs: int    # march: runs of XR planes a block marches
+    grid: int    # blocks
+    smem: int    # bytes of shared memory a block
+
+
+def plan(shape, red, sms: int) -> Plan:
+    """Route and tiles for a grid of ``shape`` (X, Y, Z) and offsets ``red``
+    (P, 3), already reduced to (-dim/2, dim/2]. ``march`` where the tile
+    plus its halo stays within ``CELLS_PER_THREAD`` cells a thread and the
+    window of ``XR + 2 rx`` planes within ``MAX_SMEM``; else ``direct``.
+    Lanes run along z (tz = min(Z, 32)), or along y when Z < 32, so a 2-D
+    grid (Z = 1) keeps 256 lanes along y. x is cut into ``runs`` of ``XR``
+    planes a block until the grid has about ``BLOCKS_PER_SM`` blocks an
+    SM."""
+    X, Y, Z = shape
+    red = np.asarray(red, dtype=np.int64).reshape(-1, 3)
+    rx, ry, rz = (int(np.abs(red[:, a]).max(initial=0)) for a in range(3))
+    tz = min(Z, 32)
+    ty = THREADS // tz
+    cells = (ty + 2 * ry) * (tz + 2 * rz)
+    smem = 4 * PITCH * (XR + 2 * rx)
+    if cells > CELLS_PER_THREAD * ty * tz or smem > MAX_SMEM:
+        return Plan("direct", 0, 0, 0, -(-(Y * Z) // THREADS) * min(X, 65535), 0)
+    nruns = -(-X // XR)
+    tiles = -(-Y // ty) * -(-Z // tz)
+    xsplit = min(nruns, max(1, -(-BLOCKS_PER_SM * sms // tiles)))
+    runs = -(-nruns // xsplit)
+    return Plan("march", ty, tz, runs, tiles * -(-nruns // runs), smem)
 
 
 def _kernel():
@@ -37,7 +90,8 @@ def _kernel():
         lib = build.load("stencil")
         fn = lib.repro_stencil
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
+        fn.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr,
+                       i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
         _fn = (lib, fn)
     return _fn
@@ -65,6 +119,14 @@ def _offsets(offsets, weights):
     return offsets.astype(np.int64), w
 
 
+def reduce_offsets(offsets, shape):
+    """Each offset as the equivalent shift of the periodic grid in
+    (-dim/2, dim/2] of its axis (int32 (P, 3))."""
+    dims = np.asarray(shape)
+    red = np.asarray(offsets) % dims
+    return np.where(2 * red > dims, red - dims, red).astype(np.int32)
+
+
 def stencil_cuda(grid, offsets, weights, *, bx=None):
     """out (X, Y, Z) = sum_p w_p * grid shifted by -offsets[p], periodic,
     summed in fp32 in point order. Launches the Hopper kernel for CUDA
@@ -87,15 +149,16 @@ def stencil_cuda(grid, offsets, weights, *, bx=None):
     out = torch.empty_like(grid)
     if grid.numel():
         X, Y, Z = grid.shape
-        dims = np.array([X, Y, Z])
-        red = offsets % dims
-        red = np.where(2 * red > dims, red - dims, red).astype(np.int32)  # (-dim/2, dim/2]
+        red = reduce_offsets(offsets, grid.shape)
+        q = plan(grid.shape, red, sm_count(grid.device.index))
         dx, dy, dz = (np.ascontiguousarray(red[:, a]) for a in range(3))
         lib, fn = _kernel()
         with torch.cuda.device(grid.device):
             stream = torch.cuda.current_stream(grid.device).cuda_stream
             err = fn(grid.data_ptr(), out.data_ptr(), DTYPES[grid.dtype], X, Y, Z, P,
-                     dx.ctypes.data, dy.ctypes.data, dz.ctypes.data, w.ctypes.data, stream)
+                     dx.ctypes.data, dy.ctypes.data, dz.ctypes.data, w.ctypes.data,
+                     int(q.route == "direct"), q.ty, q.tz, q.runs, q.grid, stream)
         build.check(lib, err, "stencil kernel launch")
         LAUNCHES["stencil"] += 1
     return out
+

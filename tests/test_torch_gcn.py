@@ -352,3 +352,93 @@ def test_cuda_gemm_kernel_edge_shapes():
     assert not gemm_wrapper.vec16(a, b)
     torch.testing.assert_close(ops.gemm(a, b, impl="cuda"), ops.gemm(a, b, impl="torch"),
                                rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the ELL kernel's planner (pure Python; the kernel takes its plan)
+# ---------------------------------------------------------------------------
+
+from repro_torch.hopper import spmm as spmm_wrapper  # noqa: E402
+
+
+@pytest.mark.parametrize("R,L,C,F,esize,vec_ok,want", [
+    # the GCN at ogbn-arxiv size: 3 slabs of 48 columns (32.5 MB of dense each), 12 lanes a row
+    (169343, 15, 169343, 144, 4, True, (4, 8, 48, 12, 21, 8064, 24192)),
+    (2708, 3, 2708, 144, 4, True, (4, 8, 144, 36, 7, 387, 387)),          # cora: one slab
+    (8192, 459, 16384, 256, 4, True, (4, 16, 256, 64, 4, 2048, 2048)),    # the trio at 2.8 %
+    (8192, 20, 16384, 256, 4, True, (4, 16, 256, 64, 4, 2048, 2048)),     # the trio at 0.12 %
+    (169343, 15, 169343, 144, 2, True, (8, 8, 72, 9, 28, 6048, 12096)),   # bf16 dense: 2 slabs
+    (1000, 37, 700, 33, 4, False, (1, 16, 33, 33, 7, 143, 143)),          # ragged F: 4-byte loads
+    (1000, 9, 700, 1, 2, False, (1, 8, 1, 1, 256, 4, 4)),
+    (300, 0, 4096, 4096, 4, True, (4, 8, 256, 64, 4, 75, 1200)),          # F past 64 vectors
+])
+def test_spmm_plan_tiles(R, L, C, F, esize, vec_ok, want):
+    """(vec, batch, slab, lanes, rows, row_blocks, grid): 16-byte vectors
+    where allowed, 16 slots a batch where a row has as many, F in the
+    fewest slabs whose slice of dense fits ``L2_SLAB_BYTES`` (at most 64
+    vectors wide), as many whole rows a block as fit 256 threads."""
+    assert tuple(spmm_wrapper.plan(R, L, C, F, esize, vec_ok)) == want
+
+
+@pytest.mark.parametrize("F", [1, 33, 144, 256, 300, 4096])
+@pytest.mark.parametrize("C", [700, 169343])
+@pytest.mark.parametrize("esize,vec_ok", [(4, True), (4, False), (2, True), (2, False)])
+def test_spmm_plan_covers_every_output_once(F, C, esize, vec_ok):
+    """Every (row, column) is one thread's: a row's lanes cover the slab in
+    whole vectors, a block's threads stay within 256, the blocks cover R
+    and every slab, and a slab's slice of dense fits the L2 budget unless
+    the slab is a single vector wide."""
+    R, L = 1000, 15
+    if vec_ok and F % (16 // esize):
+        return  # the wrapper allows 16-byte loads only where F is a multiple
+    q = spmm_wrapper.plan(R, L, C, F, esize, vec_ok)
+    assert q.lanes * q.vec == q.slab and q.slab % q.vec == 0
+    assert q.rows * q.lanes <= spmm_wrapper.THREADS and q.row_blocks * q.rows >= R > (q.row_blocks - 1) * q.rows
+    assert q.grid == q.row_blocks * -(-F // q.slab)
+    assert q.slab <= spmm_wrapper.MAX_LANES * q.vec
+    assert C * min(q.slab, F) * esize <= spmm_wrapper.L2_SLAB_BYTES or q.slab == q.vec
+
+
+def test_spmm_takes_16_byte_loads_only_for_aligned_rows():
+    wide = torch.zeros((50, 152))
+    assert spmm_wrapper.vec16(wide[:, :144])
+    assert not spmm_wrapper.vec16(wide[:, :33])
+    assert not spmm_wrapper.vec16(wide[:, 1:145])          # the pointer is off 16 bytes
+    assert not spmm_wrapper.vec16(torch.zeros((50, 146))[:, :144])  # row stride 146
+    assert spmm_wrapper.vec16(torch.zeros((50, 144), dtype=torch.bfloat16))
+    assert not spmm_wrapper.vec16(torch.zeros((50, 300), dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_cuda_spmm_kernel_edge_shapes(monkeypatch):
+    """The ELL kernel against its plain version (fp32 bitwise, bf16 one
+    step): F of 1, 33, 144 and 300, also in about 4 slabs (the L2 budget
+    shrunk); L of 0, 1, 9 and 37; R = 1000; values, cols and dense as row
+    slices of wider tensors; every pair of value and dense types; sorted
+    and unsorted slots with a repeated column; a repeated call bitwise
+    equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper SpMM kernel has no CPU mode")
+    rng = np.random.default_rng(1)
+    R, C = 1000, 700
+    for F in (1, 33, 144, 300):
+        for L in (0, 1, 9, 37):
+            for vt in (torch.float32, torch.bfloat16):
+                for dt in (torch.float32, torch.bfloat16):
+                    cols = rng.integers(0, C, (R, L + 3)).astype(np.int32)
+                    cols[:, 1:3] = cols[:, :1]
+                    wide_v = torch.from_numpy(rng.standard_normal((R, L + 3)).astype(np.float32))
+                    values = wide_v.cuda().to(vt)[:, :L]
+                    dense = torch.randn((C, F + 8), device="cuda").to(dt)[:, :F]
+                    for srt in (True, False):
+                        c = torch.from_numpy(np.sort(cols, axis=1) if srt else cols).cuda()[:, :L]
+                        want = ops.spmm(values, c, dense, impl="torch")
+                        for budget in (spmm_wrapper.L2_SLAB_BYTES, C * F * dense.element_size() // 4):
+                            monkeypatch.setattr(spmm_wrapper, "L2_SLAB_BYTES", budget)
+                            got = ops.spmm(values, c, dense, impl="cuda")
+                            assert torch.equal(got, ops.spmm(values, c, dense, impl="cuda"))
+                            if dt == torch.float32:
+                                assert torch.equal(got, want), (F, L, vt, srt, budget)
+                            else:
+                                torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+                            monkeypatch.undo()

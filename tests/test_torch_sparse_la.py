@@ -563,3 +563,138 @@ def test_cuda_spmspm_kernel_edge_shapes():
                        torch.from_numpy(np.where(b_in, b_rows, 0)).cuda())
                 want = ops.spmspm(*a_p, *b_p, K, impl="torch")
                 torch.testing.assert_close(got, want, **TOL)
+
+
+def test_spmspm_out_of_range_indices_contribute_nothing():
+    """An index outside [0, K) contributes nothing, through the plain
+    version (``torch``) and the kernel's wrapper on CPU tensors (``cuda``)
+    alike: K = 8, A = [(-1, 1), (3, 2)], B = [(-1, 5), (3, 7)] gives 2 * 7
+    with -1 or K + 3 in both, as with those entries removed."""
+    K = 8
+    for bad in (-1, K + 3):
+        a = (torch.tensor([[1.0, 2.0]]), torch.tensor([[bad, 3]], dtype=torch.int32))
+        b = (torch.tensor([[5.0, 7.0]]), torch.tensor([[bad, 3]], dtype=torch.int32))
+        for impl in ("torch", "cuda"):
+            assert ops.spmspm(*a, *b, K, impl=impl).tolist() == [[14.0]]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_spmspm_out_of_range_entries_equal_their_removal(seed):
+    """Random operands with duplicates, padding and entries at -1, -5, K
+    and K + 3 in both: ``torch`` and ``cuda`` on CPU tensors agree
+    bitwise, and equal the product with those entries made padding."""
+    rng = np.random.default_rng(seed)
+    R, C, K, La, Lb = 9, 11, 40, 7, 6
+    a_cols = rng.integers(0, K, (R, La)).astype(np.int32)
+    b_rows = rng.integers(0, K, (C, Lb)).astype(np.int32)
+    a_vals = rng.standard_normal((R, La)).astype(np.float32)
+    b_vals = rng.standard_normal((C, Lb)).astype(np.float32)
+    a_cols[:, 1] = a_cols[:, 0]  # duplicates
+    a_vals[:, -1], a_cols[:, -1] = 0, 0  # padding
+    for i, bad in enumerate((-1, -5, K, K + 3)):
+        a_cols[2 * i, 2] = bad
+        b_rows[2 * i + 1, 3] = bad
+    a = (torch.from_numpy(a_vals), torch.from_numpy(a_cols))
+    b = (torch.from_numpy(b_vals), torch.from_numpy(b_rows))
+    got = ops.spmspm(*a, *b, K, impl="torch")
+    assert torch.equal(got, ops.spmspm(*a, *b, K, impl="cuda"))
+    a_in, b_in = (a_cols >= 0) & (a_cols < K), (b_rows >= 0) & (b_rows < K)
+    cleaned = (torch.from_numpy(np.where(a_in, a_vals, 0)), torch.from_numpy(np.where(a_in, a_cols, 0)),
+               torch.from_numpy(np.where(b_in, b_vals, 0)), torch.from_numpy(np.where(b_in, b_rows, 0)))
+    assert torch.equal(got, ops.spmspm(*cleaned, K, impl="torch"))
+    torch.testing.assert_close(got, ops.spmspm(*cleaned, K, impl="ref"), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# The stencil kernel's plan (pure Python) and its edge shapes on the card
+# ---------------------------------------------------------------------------
+
+from repro_torch.hopper import stencil as stencil_wrapper  # noqa: E402
+
+SMS = 132  # an H100 SXM
+FAR = np.array([[0, 0, 0], [2, -7, 3], [-2, 5, -9], [1, 1, 1]])
+WIDE_Y = np.array([[0, 0, 0], [1, 40, 0], [-1, -40, 3], [0, 1, -1]])
+X9 = np.array([[9, 0, 0], [-9, 1, 0], [0, 0, 0]])
+
+
+@pytest.mark.parametrize("shape,offsets,route,tile,runs,grid,smem", [
+    ((8192, 8192, 1), sparse_la.star(1, 2), "march", (256, 1), 16, 1024, 36864),
+    ((8192, 8192, 1), sparse_la.star(2, 2), "march", (256, 1), 16, 1024, 40960),
+    ((512, 512, 512), sparse_la.star(1, 3), "march", (8, 32), 16, 2048, 36864),
+    ((512, 512, 512), sparse_la.star(2, 3), "march", (8, 32), 16, 2048, 40960),
+    ((512, 512, 512), BOX27, "march", (8, 32), 16, 2048, 36864),
+    ((8, 5, 3), BOX27, "march", (85, 3), 1, 1, 36864),
+    ((64, 8, 40), X9, "march", (8, 32), 1, 8, 69632),
+    ((8, 5, 2), FAR, "direct", None, None, None, 0),
+    ((40, 96, 40), WIDE_Y, "direct", None, None, None, 0),
+    ((64, 8, 40), np.array([[20, 0, 0], [0, 0, 0]]), "direct", None, None, None, 0),
+], ids=["j2d5pt-card", "j2d9pt-card", "j3d7pt-card", "j3d13pt-card", "j3d27pt-card", "box-tiny",
+        "x-halo-9", "far-small-z", "y-halo-40", "x-halo-20"])
+def test_stencil_plan_routes_and_tiles(shape, offsets, route, tile, runs, grid, smem):
+    """The card shapes march 16-plane runs (2-D grids with 256 lanes along
+    y, 3-D with 8 x 32 tiles, x cut until the grid has ~8 blocks an SM);
+    a halo past 2 cells a thread or a window past ``MAX_SMEM`` takes the
+    direct route."""
+    q = stencil_wrapper.plan(shape, stencil_wrapper.reduce_offsets(offsets, shape), SMS)
+    assert q.route == route and q.smem == smem
+    if route == "march":
+        assert ((q.ty, q.tz), q.runs, q.grid) == (tile, runs, grid)
+
+
+@pytest.mark.parametrize("shape", [(8192, 8192, 1), (512, 512, 512), (20, 33, 40), (5, 40, 36),
+                                   (100, 20, 33), (64, 48, 1), (16, 40, 24), (48, 9, 64), (1, 1, 1)])
+@pytest.mark.parametrize("offsets", [sparse_la.star(1, 2), sparse_la.star(2, 3), BOX27,
+                                     np.zeros((0, 3), int)], ids=["star5", "star13", "box27", "none"])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_stencil_plan_fits_and_covers_the_grid(shape, offsets, sms):
+    """A march plan stages at most 2 cells a thread, fits its window in
+    ``MAX_SMEM``, and its blocks cover every (tile, run) once: tiles x
+    ceil(runs / runs a block) blocks, the last x chunk not empty."""
+    red = stencil_wrapper.reduce_offsets(offsets, shape)
+    q = stencil_wrapper.plan(shape, red, sms)
+    X, Y, Z = shape
+    if q.route == "direct":
+        return
+    rx, ry, rz = (int(np.abs(red[:, a]).max(initial=0)) for a in range(3))
+    threads = q.ty * q.tz
+    assert threads <= stencil_wrapper.THREADS and q.tz == min(Z, 32)
+    assert (q.ty + 2 * ry) * (q.tz + 2 * rz) <= stencil_wrapper.CELLS_PER_THREAD * threads
+    assert q.smem == 4 * stencil_wrapper.PITCH * (stencil_wrapper.XR + 2 * rx)
+    assert q.smem <= stencil_wrapper.MAX_SMEM
+    tiles = -(-Y // q.ty) * -(-Z // q.tz)
+    nruns = -(-X // stencil_wrapper.XR)
+    chunks = q.grid // tiles
+    assert q.grid == tiles * chunks and chunks * q.runs >= nruns > (chunks - 1) * q.runs
+
+
+@pytest.mark.cuda
+def test_cuda_stencil_kernel_edge_shapes():
+    """The stencil kernel against its plain version, bitwise, through both
+    routes: radius 2 wrapping every face, the box on grids smaller than a
+    tile, 2-D grids, bf16, X not a multiple of the 16-plane run (20, 100,
+    5), 40 random points, an x halo of 9 (wider than half a run), and
+    offsets whose halo outgrows the window (direct); a repeated call gives
+    the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper stencil kernel has no CPU mode")
+    rng = np.random.default_rng(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [((16, 12, 10), STAR_R2, torch.float32, None, "march"),
+             ((8, 5, 3), BOX27, torch.float32, None, "march"),
+             ((64, 48, 1), sparse_la.star(2, 2), torch.float32, None, "march"),
+             ((24, 70, 1), sparse_la.star(1, 2), torch.bfloat16, None, "march"),
+             ((16, 40, 24), BOX27, torch.bfloat16, None, "march"),
+             ((20, 33, 40), BOX27, torch.float32, 4, "march"),
+             ((100, 20, 33), STAR_R2, torch.float32, 4, "march"),
+             ((5, 40, 36), STAR, torch.float32, None, "march"),
+             ((48, 9, 64), rng.integers(-2, 3, (40, 3)), torch.float32, None, "march"),
+             ((64, 8, 40), X9, torch.float32, 16, "march"),
+             ((8, 5, 2), FAR, torch.float32, None, "direct"),
+             ((40, 96, 40), WIDE_Y, torch.bfloat16, None, "direct")]
+    for shape, offs, dt, bx, route in cases:
+        assert stencil_wrapper.plan(shape, stencil_wrapper.reduce_offsets(offs, shape), sms).route == route
+        g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda().to(dt)
+        w = rng.standard_normal(len(offs)).astype(np.float32)
+        got = ops.stencil(g, offs, w, impl="cuda", bx=bx)
+        assert torch.equal(got, ops.stencil(g, offs, w, impl="cuda", bx=bx))
+        assert torch.equal(got, ops.stencil(g, offs, w, impl="torch", bx=bx)), (shape, route)

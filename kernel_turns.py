@@ -148,13 +148,6 @@ def main(root, label):
         out[f"bsr_{d}"] = graph_ms(lambda: ops.bsr_spmm(A, D, impl="cuda"))
         E = E.to("cuda")
         out[f"ell_{d}"] = graph_ms(lambda: ops.spmm(E, D, impl="cuda"))
-        from repro_torch.hopper import spmm as sp
-
-        if hasattr(sp, "staged_plan"):  # this tree's staged route, forced (its rows are sorted)
-            o = torch.empty((8192, 256), device="cuda")
-            q = sp.staged_plan(8192, 256, 4)
-            out[f"ell_{d}_staged"] = graph_ms(lambda: sp.launch(E.values, E.cols, D, o, q, sp.STAGED_CRANGE))
-            assert torch.equal(o, ops.spmm(E, D, impl="torch"))
     from repro_torch.launch import gcn_inference as gi
     from repro_torch.launch import sparse_la as sl
 

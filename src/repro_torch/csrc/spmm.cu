@@ -36,11 +36,11 @@
 // and the 1-D grid is slab-major, so one slab's blocks run together and
 // its gathers hit L2; the DRAM then reads dense about once.
 //
-// A staged route, for rows whose columns are sorted (crange > 0, taken
-// only where the caller forces it; `kernel_turns.py` times it at the sparse
-// trio's densities): a block of 128 rows copies dense's rows range by range
-// into shared memory by cp.async (two buffers) and consumes each row's
-// slots as their columns come up, in slot order.
+// A staged route for rows whose columns are sorted (a block of 128 rows
+// copied dense's rows range by range into shared memory by cp.async and
+// consumed each row's slots as their columns came up) measured slower than
+// this one at every density of the sparse trio, and was removed (PERF.md,
+// PR 21).
 //
 // Offsets are 64-bit (long long) throughout.
 
@@ -50,25 +50,18 @@
 
 namespace {
 
-constexpr int LPR = 16;  // staged: lanes per row
-constexpr int RPT = 8;   // staged: rows per thread
-constexpr int STAGED_THREADS = 256;
-constexpr int STAGED_ROWS = STAGED_THREADS / LPR * RPT;  // 128 rows a block
-constexpr int NO_COL = 0x7fffffff;
-
 
 struct Params {
   const void* values;
   const int* cols;
   const void* dense;
   void* out;
-  int R, L, F, C;
+  int R, L, F;
   long long ldv, ldcol, ldd, ldo;  // row strides in elements
   int slab;        // columns a block covers
   int lanes;       // threads a row
   int rows;        // rows a block covers
   int row_blocks;  // blocks along R
-  int crange;      // staged: dense rows a stage
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -95,27 +88,6 @@ __device__ __forceinline__ void load_vec(const T* p, float (&x)[VEC]) {
         x[2 * i] = f.x;
         x[2 * i + 1] = f.y;
       }
-    }
-  }
-}
-
-// the same from shared memory (the staged slice)
-template <typename T, int VEC>
-__device__ __forceinline__ void lds_vec(const T* p, float (&x)[VEC]) {
-  static_assert(VEC * sizeof(T) == 16, "vector loads are 16 bytes");
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  if constexpr (sizeof(T) == 4) {
-    x[0] = __uint_as_float(raw.x);
-    x[1] = __uint_as_float(raw.y);
-    x[2] = __uint_as_float(raw.z);
-    x[3] = __uint_as_float(raw.w);
-  } else {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
     }
   }
 }
@@ -176,96 +148,6 @@ __global__ void __launch_bounds__(256) ell_gather_kernel(const Params p) {
   store_vec<DT, VEC>(static_cast<DT*>(p.out) + row * p.ldo + f, acc);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = full ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-template <typename VT, typename DT, int VEC>
-__global__ void __launch_bounds__(STAGED_THREADS) ell_staged_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  DT* stage = reinterpret_cast<DT*>(smem_raw);  // [2][crange][slab]
-  const int slab = blockIdx.x / p.row_blocks, rb = blockIdx.x % p.row_blocks;
-  const int lane = threadIdx.x % LPR, group = threadIdx.x / LPR;
-  const int f0 = slab * p.slab, f = f0 + lane * VEC;
-  const long long row0 = static_cast<long long>(rb) * STAGED_ROWS + group;
-  const DT* dense = static_cast<const DT*>(p.dense);
-  const VT* values = static_cast<const VT*>(p.values);
-  const int stage_elems = p.crange * p.slab;
-
-  // each of the thread's rows: the next slot, its column (NO_COL past the
-  // last slot) and its value
-  int ptr[RPT], cn[RPT];
-  float vn[RPT], acc[RPT][VEC];
-#pragma unroll
-  for (int rr = 0; rr < RPT; ++rr) {
-    const long long row = row0 + rr * (STAGED_THREADS / LPR);
-    ptr[rr] = 0;
-    cn[rr] = NO_COL;
-    vn[rr] = 0.f;
-    if (row < p.R && p.L > 0) {
-      cn[rr] = p.cols[row * p.ldcol];
-      vn[rr] = to_f32(values[row * p.ldv]);
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[rr][e] = 0.f;
-  }
-
-  // copy dense rows [c0, c0 + crange) x columns [f0, f0 + slab) into buffer b
-  auto stage_range = [&](int c0, int b) {
-    const int pieces = p.crange * (p.slab / VEC);
-    for (int i = threadIdx.x; i < pieces; i += STAGED_THREADS) {
-      const int r = i / (p.slab / VEC), v = i % (p.slab / VEC);
-      const int c = c0 + r, col = f0 + v * VEC;
-      const bool in = c < p.C && col < p.F;
-      const DT* src = in ? dense + static_cast<long long>(c) * p.ldd + col : dense;
-      cp_async16(stage + b * stage_elems + r * p.slab + v * VEC, src, in);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  const int ranges = (p.C + p.crange - 1) / p.crange;
-  stage_range(0, 0);
-  for (int i = 0; i < ranges; ++i) {
-    if (i + 1 < ranges) {
-      stage_range((i + 1) * p.crange, (i + 1) & 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();  // range i's slice has landed for every thread
-    const int c0 = i * p.crange, c_hi = c0 + p.crange;
-    const DT* buf = stage + (i & 1) * stage_elems + lane * VEC;
-#pragma unroll
-    for (int rr = 0; rr < RPT; ++rr) {
-      const long long row = row0 + rr * (STAGED_THREADS / LPR);
-      while (cn[rr] < c_hi) {  // the row's sorted slots in this range, in slot order
-        float d[VEC];
-        lds_vec<DT, VEC>(buf + (cn[rr] - c0) * p.slab, d);
-        const float v = vn[rr];
-        if (++ptr[rr] < p.L) {
-          cn[rr] = p.cols[row * p.ldcol + ptr[rr]];
-          vn[rr] = to_f32(values[row * p.ldv + ptr[rr]]);
-        } else {
-          cn[rr] = NO_COL;
-        }
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[rr][e] = __fadd_rn(acc[rr][e], __fmul_rn(v, d[e]));
-      }
-    }
-    __syncthreads();  // buffer (i & 1) is free for range i + 2
-  }
-
-  if (f >= p.F) return;
-  DT* out = static_cast<DT*>(p.out);
-#pragma unroll
-  for (int rr = 0; rr < RPT; ++rr) {
-    const long long row = row0 + rr * (STAGED_THREADS / LPR);
-    if (row < p.R) store_vec<DT, VEC>(out + row * p.ldo + f, acc[rr]);
-  }
-}
-
 template <typename VT, typename DT, int VEC>
 cudaError_t launch_batch(const Params& p, int batch, dim3 grid, int threads, cudaStream_t st) {
   if (batch == 8) ell_gather_kernel<VT, DT, VEC, 8><<<grid, threads, 0, st>>>(p);
@@ -277,19 +159,6 @@ cudaError_t launch_batch(const Params& p, int batch, dim3 grid, int threads, cud
 template <typename VT, typename DT>
 cudaError_t launch(const Params& p, int vec, int batch, cudaStream_t st) {
   constexpr int V16 = 16 / sizeof(DT);
-  if (p.crange > 0) {  // staged (each row's cols non-decreasing)
-    const long long sblocks = static_cast<long long>(p.row_blocks) * ((p.F + p.slab - 1) / p.slab);
-    if (vec != V16 || p.slab != LPR * V16 || static_cast<long long>(p.row_blocks) * STAGED_ROWS < p.R)
-      return cudaErrorInvalidValue;
-    const size_t smem = 2 * static_cast<size_t>(p.crange) * p.slab * sizeof(DT);
-    const cudaError_t err = cudaFuncSetAttribute(ell_staged_kernel<VT, DT, V16>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const dim3 sgrid(static_cast<unsigned>(sblocks));
-    ell_staged_kernel<VT, DT, V16><<<sgrid, STAGED_THREADS, smem, st>>>(p);
-    return cudaGetLastError();
-  }
   const long long blocks = static_cast<long long>(p.row_blocks) * ((p.F + p.slab - 1) / p.slab);
   const int threads = p.rows * p.lanes;
   if (blocks <= 0 || blocks > 0x7fffffffLL || threads <= 0 || threads > 256 ||
@@ -316,7 +185,7 @@ extern "C" {
 int repro_ell_spmm(const void* values, const int* cols, const void* dense, void* out, int val_dtype,
                    int dense_dtype, int R, int L, int F, long long ldv, long long ldcol, long long ldd,
                    long long ldo, int vec, int batch, int slab, int lanes, int rows, int row_blocks,
-                   int C, int crange, void* stream) {
+                   void* stream) {
   if (R <= 0 || L < 0 || F <= 0 || slab <= 0 || row_blocks <= 0) return cudaErrorInvalidValue;
   if ((val_dtype != 0 && val_dtype != 1) || (dense_dtype != 0 && dense_dtype != 1)) return cudaErrorInvalidValue;
   Params p;
@@ -335,8 +204,6 @@ int repro_ell_spmm(const void* values, const int* cols, const void* dense, void*
   p.lanes = lanes;
   p.rows = rows;
   p.row_blocks = row_blocks;
-  p.C = C;
-  p.crange = crange;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (val_dtype == 0) {
     if (dense_dtype == 0) return launch<float, float>(p, vec, batch, st);

@@ -34,7 +34,6 @@ THREADS = 256             # a block's threads, at most
 MAX_LANES = 64            # threads a row, at most
 L2_SLAB_BYTES = 32 << 20  # dense's slice a slab may hold (of the H100's 50 MB L2)
 BATCHES = (8, 16)         # slots a thread loads together: 16 where a row has as many
-STAGED_ROWS, STAGED_LANES, STAGED_CRANGE = 128, 16, 128  # the staged route (sorted rows)
 
 _fn = None
 
@@ -47,16 +46,6 @@ class Plan(NamedTuple):
     rows: int        # rows a block covers
     row_blocks: int  # blocks along R; the grid is slab-major
     grid: int        # blocks
-
-
-def staged_plan(R: int, F: int, esize: int) -> Plan:
-    """The staged route's tiles (rows with sorted columns, 16-byte loads):
-    128 rows and 16 vectors a block; ``launch`` it with ``crange =
-    STAGED_CRANGE`` dense rows a stage."""
-    v = 16 // esize
-    rb = _cdiv(R, STAGED_ROWS)
-    return Plan(v, 0, STAGED_LANES * v, STAGED_LANES, STAGED_ROWS, rb,
-                rb * _cdiv(F, STAGED_LANES * v))
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -96,7 +85,7 @@ def _kernel():
         fn = lib.repro_ell_spmm
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                       i64, i64, i64, i64, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
+                       i64, i64, i64, i64, i32, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
         _fn = (lib, fn)
     return _fn
@@ -131,10 +120,9 @@ def _check(values, cols, dense):
             )
 
 
-def launch(values, cols, dense, out, q: Plan, crange: int = 0):
+def launch(values, cols, dense, out, q: Plan):
     """Launch the kernel with plan ``q`` into ``out`` (R, F) on the current
-    stream, counting the launch; raises on a launch error. ``crange`` > 0
-    takes the staged route."""
+    stream, counting the launch; raises on a launch error."""
     R, L = values.shape
     F = dense.shape[1]
     lib, fn = _kernel()
@@ -143,8 +131,7 @@ def launch(values, cols, dense, out, q: Plan, crange: int = 0):
         err = fn(values.data_ptr(), cols.data_ptr(), dense.data_ptr(), out.data_ptr(),
                  DTYPES[values.dtype], DTYPES[dense.dtype], R, L, F,
                  values.stride(0), cols.stride(0), dense.stride(0), out.stride(0),
-                 q.vec, q.batch, q.slab, q.lanes, q.rows, q.row_blocks, dense.shape[0], crange,
-                 stream)
+                 q.vec, q.batch, q.slab, q.lanes, q.rows, q.row_blocks, stream)
     build.check(lib, err, "spmm kernel launch")
     LAUNCHES["spmm"] += 1
 

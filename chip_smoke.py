@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero:
      bf16 head dim with GQA, window, q_offset, ragged Sk and return_lse,
      on zigzag half views, at grids of more 64-row tiles than SMs (its
      two-warpgroup CTAs), and at small fp32 shapes; the GEMM at the GCN shapes and at ragged fp32/bf16 ones;
-     the ELL SpMM at the GCN adjacencies and at wider random ELL matrices;
+     the ELL SpMM at the GCN adjacencies, at wider random ELL matrices and
+     at edge shapes (F of 1, 33, 144, 300, also in slabs of a shrunk L2
+     budget; L of 0, 1, 9, 37; strided rows; every type pair; sorted and
+     unsorted rows with repeats; fp32 bitwise; a repeated call equal);
      the scaled GEMM and scaled FA-2 (phase 5's kernels) at their shapes,
      the GEMM through each of its three routes (wgmma, ffma, mma) and the
      fp8 wgmma route at both promotion intervals it offers;
@@ -28,6 +31,10 @@ Phases, in order; any failure exits non-zero:
   4. run the sparse-LA path (``repro_torch.launch.sparse_la.run``, the
      paper's Fig. 9b-d at card size): BSR SpMM, SpMSpM and stencil first
      held against their plain versions on the card (small ragged shapes;
+     the stencil bitwise at each route's edge shapes (radius 2 wrapping
+     every face, grids smaller than a tile, 2-D, bf16, X of 5, 20 and 100,
+     an x halo of 9, 40 random points, halos past the window), the route
+     asserted from its planner, a repeated call equal;
      BSR at bm 8 / 16 / 3, bk 128 / 20, F 256 / 300 with every pair of
      tile and dense types and unsorted, repeated tiles; SpMSpM at R = 1, a
      ragged C, C past one 4096-column tile, La = 0, Lb = 0, duplicates,
@@ -95,7 +102,10 @@ Phases, in order; any failure exits non-zero:
      stencil, scan and both scaled kernels and their library calls also by
      device time (events around a CUDA graph's replay of 20 calls, which
      the host's issue does not set), and the FA wrapper's host time per
-     call; the scan at both card shapes with each of its three launches'
+     call; the ELL kernel also at the sparse trio's three densities and,
+     at ogbn-arxiv's size, beside a probe of its L2 gather rate (the same
+     plan on an L2-resident dense) and one slab of all 144 columns; each
+     stencil's plan; the scan at both card shapes with each of its three launches'
      share of the call from a profile. The scaled kernels at the ladder's card shapes under every
      policy, each asserted to take its route (wgmma at bf16 and fp8, ffma
      at fp32), beside ``torch.matmul`` and SDPA on the values at bf16 and
@@ -732,12 +742,12 @@ def time_gcn_kernels(report):
 
 def ell_l2_probe(rng, gen, adj, dense, report):
     """The rate at which the ELL kernel reads gathered rows from L2: the
-    ogbn-arxiv-size adjacency's shape (R, L, F) and plan (3 slabs of 48
-    columns) with its columns drawn over a dense of 16384 rows (9.4 MB,
-    L2-resident), so every gather hits L2 and the device time is the
-    gathered bytes at L2's rate for this access pattern; beside it the same
-    plan on the real dense (97.5 MB), and one slab of all F columns (the
-    whole of dense at once, past the L2)."""
+    ogbn-arxiv-size adjacency's shape (R, L, F) and plan (its slabs of F)
+    with its columns drawn over a dense of 16384 rows (9.4 MB, L2-resident),
+    so every gather hits L2 and the device time is the gathered bytes at
+    L2's rate for this access pattern; beside it the same plan on the real
+    dense (97.5 MB), and one slab of all F columns (the whole of dense at
+    once, past the L2)."""
     import numpy as np
     import torch
 

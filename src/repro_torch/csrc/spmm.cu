@@ -31,10 +31,12 @@
 // kept 4 rows x 5 groups of 4-byte loads a warp, synchronising every 32
 // slots): U = 16 where a row has 16 slots or more, else 8, since a larger
 // batch costs registers and so resident warps (the GCN's L = 15 runs
-// fastest at 8, the sparse trio's L = 164 and 459 at 16). F is cut into slabs whose slice of dense
-// (C x slab) fits the L2 (48 of the GCN's 144 columns: 32.5 MB of 97.5),
-// and the 1-D grid is slab-major, so one slab's blocks run together and
-// its gathers hit L2; the DRAM then reads dense about once.
+// fastest at 8, the sparse trio's L = 164 and 459 at 16). F is cut into
+// slabs whose slice of dense (C x slab) fits the L2, in whole 128-byte
+// lines (32 of the GCN's 144 columns: 21.7 MB of 97.5 MB, 5 slabs, which
+// measured faster than 3 of 48 or 6 of 24), and the 1-D grid is
+// slab-major, so one slab's blocks run together and its gathers hit L2;
+// the DRAM then reads dense about once.
 //
 // A staged route for rows whose columns are sorted (a block of 128 rows
 // copied dense's rows range by range into shared memory by cp.async and

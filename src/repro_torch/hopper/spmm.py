@@ -33,6 +33,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 THREADS = 256             # a block's threads, at most
 MAX_LANES = 64            # threads a row, at most
 L2_SLAB_BYTES = 32 << 20  # dense's slice a slab may hold (of the H100's 50 MB L2)
+LINE_BYTES = 128          # slabs of several go in whole lines of this many bytes
 BATCHES = (8, 16)         # slots a thread loads together: 16 where a row has as many
 
 _fn = None
@@ -55,14 +56,19 @@ def _cdiv(a: int, b: int) -> int:
 def plan(R: int, L: int, C: int, F: int, esize: int, vec_ok: bool) -> Plan:
     """Tiles for R ELL rows of L slots times dense (C, F) of ``esize``-byte
     elements. ``vec_ok``: F, dense's row stride and its pointer allow
-    16-byte loads. F goes in the fewest slabs whose slice of dense fits
-    ``L2_SLAB_BYTES`` (each at most ``MAX_LANES`` vectors wide), split
-    evenly in whole vectors; a block holds as many whole rows of a slab as
-    fit ``THREADS``; a thread loads 16 slots at once where L >= 16, else 8."""
+    16-byte loads. F goes in one slab where it fits ``L2_SLAB_BYTES`` and
+    ``MAX_LANES`` vectors, else in the fewest slabs of whole 128-byte lines
+    that do (5 slabs of 32 columns at ogbn-arxiv's size: faster than 3 of
+    48 or 6 of 24 on an H100); a block holds as many whole rows of a slab
+    as fit ``THREADS``; a thread loads 16 slots at once where L >= 16,
+    else 8."""
     vec = 16 // esize if vec_ok else 1
-    widest = min(max(vec, L2_SLAB_BYTES // max(1, C * esize) // vec * vec), MAX_LANES * vec)
-    nslab = _cdiv(F, widest)
-    slab = _cdiv(_cdiv(F, nslab), vec) * vec  # <= widest, a multiple of vec
+    line = LINE_BYTES // esize  # a multiple of vec, and MAX_LANES * vec of it
+    widest = min(max(line, L2_SLAB_BYTES // max(1, C * esize) // line * line), MAX_LANES * vec)
+    if F <= widest:
+        slab = _cdiv(F, vec) * vec
+    else:
+        slab = _cdiv(_cdiv(F, _cdiv(F, widest)), line) * line  # <= widest
     lanes = slab // vec
     rows = max(1, THREADS // lanes)
     row_blocks = _cdiv(R, rows)

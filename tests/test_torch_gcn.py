@@ -362,21 +362,22 @@ from repro_torch.hopper import spmm as spmm_wrapper  # noqa: E402
 
 
 @pytest.mark.parametrize("R,L,C,F,esize,vec_ok,want", [
-    # the GCN at ogbn-arxiv size: 3 slabs of 48 columns (32.5 MB of dense each), 12 lanes a row
-    (169343, 15, 169343, 144, 4, True, (4, 8, 48, 12, 21, 8064, 24192)),
+    # the GCN at ogbn-arxiv size: 5 slabs of 32 columns (21.7 MB of dense each), 8 lanes a row
+    (169343, 15, 169343, 144, 4, True, (4, 8, 32, 8, 32, 5292, 26460)),
     (2708, 3, 2708, 144, 4, True, (4, 8, 144, 36, 7, 387, 387)),          # cora: one slab
     (8192, 459, 16384, 256, 4, True, (4, 16, 256, 64, 4, 2048, 2048)),    # the trio at 2.8 %
     (8192, 20, 16384, 256, 4, True, (4, 16, 256, 64, 4, 2048, 2048)),     # the trio at 0.12 %
-    (169343, 15, 169343, 144, 2, True, (8, 8, 72, 9, 28, 6048, 12096)),   # bf16 dense: 2 slabs
+    (169343, 15, 169343, 144, 2, True, (8, 8, 64, 8, 32, 5292, 15876)),   # bf16 dense: 3 slabs of 64
     (1000, 37, 700, 33, 4, False, (1, 16, 33, 33, 7, 143, 143)),          # ragged F: 4-byte loads
     (1000, 9, 700, 1, 2, False, (1, 8, 1, 1, 256, 4, 4)),
     (300, 0, 4096, 4096, 4, True, (4, 8, 256, 64, 4, 75, 1200)),          # F past 64 vectors
 ])
 def test_spmm_plan_tiles(R, L, C, F, esize, vec_ok, want):
     """(vec, batch, slab, lanes, rows, row_blocks, grid): 16-byte vectors
-    where allowed, 16 slots a batch where a row has as many, F in the
-    fewest slabs whose slice of dense fits ``L2_SLAB_BYTES`` (at most 64
-    vectors wide), as many whole rows a block as fit 256 threads."""
+    where allowed, 16 slots a batch where a row has as many, F in one slab
+    where it fits, else in the fewest slabs of whole 128-byte lines whose
+    slice of dense fits ``L2_SLAB_BYTES`` (at most 64 vectors wide), as
+    many whole rows a block as fit 256 threads."""
     assert tuple(spmm_wrapper.plan(R, L, C, F, esize, vec_ok)) == want
 
 
@@ -386,8 +387,8 @@ def test_spmm_plan_tiles(R, L, C, F, esize, vec_ok, want):
 def test_spmm_plan_covers_every_output_once(F, C, esize, vec_ok):
     """Every (row, column) is one thread's: a row's lanes cover the slab in
     whole vectors, a block's threads stay within 256, the blocks cover R
-    and every slab, and a slab's slice of dense fits the L2 budget unless
-    the slab is a single vector wide."""
+    and every slab, a slab of several is whole 128-byte lines, and a slab's
+    slice of dense fits the L2 budget unless the slab is one line wide."""
     R, L = 1000, 15
     if vec_ok and F % (16 // esize):
         return  # the wrapper allows 16-byte loads only where F is a multiple
@@ -396,7 +397,9 @@ def test_spmm_plan_covers_every_output_once(F, C, esize, vec_ok):
     assert q.rows * q.lanes <= spmm_wrapper.THREADS and q.row_blocks * q.rows >= R > (q.row_blocks - 1) * q.rows
     assert q.grid == q.row_blocks * -(-F // q.slab)
     assert q.slab <= spmm_wrapper.MAX_LANES * q.vec
-    assert C * min(q.slab, F) * esize <= spmm_wrapper.L2_SLAB_BYTES or q.slab == q.vec
+    line = spmm_wrapper.LINE_BYTES // esize
+    assert q.slab >= F or q.slab % line == 0
+    assert C * min(q.slab, F) * esize <= spmm_wrapper.L2_SLAB_BYTES or q.slab == line
 
 
 def test_spmm_takes_16_byte_loads_only_for_aligned_rows():

@@ -20,6 +20,9 @@ Phases, in order; any failure exits non-zero:
      at edge shapes (F of 1, 33, 144, 300, also in slabs of a shrunk L2
      budget; L of 0, 1, 9, 37; strided rows; every type pair; sorted and
      unsorted rows with repeats; fp32 bitwise; a repeated call equal);
+     the GEMM with a narrow accumulator (``accum_dtype`` bf16 and fp16,
+     both routes, K blocks of 256 and 64, a ragged last block, one block)
+     against its per-block plain version;
      the scaled GEMM and scaled FA-2 (phase 5's kernels) at their shapes,
      the GEMM through each of its three routes (wgmma, ffma, mma) and the
      fp8 wgmma route at both promotion intervals it offers;
@@ -64,7 +67,23 @@ Phases, in order; any failure exits non-zero:
      per layer per prefill, a prefill's logits with the kernel vs with the
      plain version; the fp8 run's preemptions and first tokens equal the
      bf16 run's);
-  9. with GPT-J's weights freed, the recurrent families: the chunked
+  9. still with GPT-J's weights, dense ``launch.serve.generate`` through
+     the contiguous cache: 4 prompts of 512 tokens + 16 new ones, with the
+     launch counts zeroed just before and read just after (28 FA launches,
+     all in the prefill; a prefill alone 28, a decode step alone none);
+     the prefill's cache copied into shuffled pages of 16 and one
+     contiguous ``decode_step`` (its scan pinned to bs 16) held bitwise
+     against ``decode_step_paged``; decode against the teacher-forced
+     forward (the reference's 2e-2 of max|logits|, on the first 2 layers
+     in fp32; all layers in bf16 printed); the prefill, the contiguous
+     decode step (at its own bs and at bs 16) and the paged step profiled
+     at the same B and lengths (wall, device busy, idle share);
+  10. with GPT-J's weights freed, gemma-2b, qwen1.5-4b, qwen3-14b and
+     command-r-35b at full width (command-r-35b cut to 8 of its 40 layers,
+     the cut and its reason printed) with random weights from seed 0, one
+     after another through the same generate, launch counts, decode
+     against the forward and profiles;
+  11. with the dense models freed, the recurrent families: the chunked
      linear-attention kernel first held against its plain version (the
      reference suite's fp32 cases, both read-outs, chunk 16 and 32; edge
      shapes: T of 0, 1 and 33, chunk 1 and 34, N of 5 and 128, ragged
@@ -79,7 +98,7 @@ Phases, in order; any failure exits non-zero:
      fp64 per-token oracle on b = 0, heads 0-7, and on the (b, head) of
      the tensor's worst bf16 entry, with that entry's values, its fp64
      terms and each form's miss in fp32 spacings of the largest printed;
-  10. the sequence-parallel ring at occamy-gptj's attention width on a
+  12. the sequence-parallel ring at occamy-gptj's attention width on a
      ``RingMesh`` of 4 ranks (one stream each, on one card or one card
      each): the ring-hop kernel (``remote_ring_hop``'s port) held bitwise
      to ``copy_`` at byte-odd sizes and offsets, and the flash ring in fp32
@@ -97,7 +116,7 @@ Phases, in order; any failure exits non-zero:
      unsharded kernel, the ring with its last hop left out beyond 1e-2,
      ring decode bitwise ``ring_decode_reference``; then profiles of a
      warm ring call;
-  11. time every kernel against its plain version, the library call and
+  13. time every kernel against its plain version, the library call and
      its bound (CUDA events over back-to-back calls); the FA, BSR, SpMSpM,
      stencil, scan and both scaled kernels and their library calls also by
      device time (events around a CUDA graph's replay of 20 calls, which
@@ -109,7 +128,9 @@ Phases, in order; any failure exits non-zero:
      share of the call from a profile. The scaled kernels at the ladder's card shapes under every
      policy, each asserted to take its route (wgmma at bf16 and fp8, ffma
      at fp32), beside ``torch.matmul`` and SDPA on the values at bf16 and
-     fp32, where unit scales make them the same function.
+     fp32, where unit scales make them the same function. The GEMM with
+     a narrow accumulator at 4096^3, both input types, beside the same
+     kernel with an fp32 accumulator and the per-block plain version.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Imports
@@ -469,6 +490,99 @@ def _hold(name, label, got, want, tol):
           f" {'ok' if ok else 'FAIL'}")
     need(ok, f"{name} kernel disagrees with plain version: {label}")
     return max_abs
+
+
+# The GEMM with a narrow accumulator (ops.gemm accum_dtype=bf16 / fp16):
+# (label, M, K, N, input dtype, bk). Each runs with both accumulators and is
+# held to the per-block plain version (blocked.gemm_accum_blocked): K blocks
+# of bk, each block's fp32 dot rounded to the accumulator and added into a
+# running sum rounded after each add. The kernel's fp32 order inside a
+# block is its own, so a block's rounding may land one step of the
+# accumulator away and the running sum carries it on: each entry within
+# one step of the coarser of the input and accumulator types at max|C| per
+# K block, and at least ACCUM_EQUAL of the entries equal bitwise. The last
+# case is the timed shape (16 K blocks).
+GEMM_ACCUM_CASES = [
+    ("ragged, 4 blocks", 257, 1000, 65, "float32", 256),
+    ("one block", 100, 70, 130, "float32", 256),
+    ("bk 64", 64, 512, 144, "float32", 64),
+    ("ragged, 4 blocks", 257, 1000, 65, "bfloat16", 256),
+    ("one block", 100, 70, 130, "bfloat16", 256),
+    ("bk 64", 64, 512, 144, "bfloat16", 64),
+    ("timed", 4096, 4096, 4096, "float32", 256),
+    ("timed", 4096, 4096, 4096, "bfloat16", 256),
+]
+ACCUMS = ("bfloat16", "float16")
+ACCUM_EQUAL = 0.99
+
+
+def check_gemm_accum(report):
+    """Phase 2 for ``ops.gemm(accum_dtype=)``: the GEMM kernel (both routes)
+    with each narrow accumulator against its per-block plain version."""
+    import torch
+
+    from repro_torch.hopper import blocked, ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    errs = {}
+    for label, M, K, N, dt, bk in GEMM_ACCUM_CASES:
+        dtype = getattr(torch, dt)
+        a = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+        b = torch.randn((K, N), generator=gen, device="cuda").to(dtype)
+        for acc in ACCUMS:
+            adt = getattr(torch, acc)
+            got = ops.gemm(a, b, impl="cuda", accum_dtype=adt, bk=bk, out_dtype=torch.float32)
+            want = blocked.gemm_accum_blocked(a, b, bk=min(bk, K), accum_dtype=adt,
+                                              out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            blocks = -(-K // min(bk, K))
+            eps = max(torch.finfo(dtype).eps, torch.finfo(adt).eps)
+            tol = blocks * eps * float(want.abs().max())
+            err = float((got - want).abs().max())
+            equal = float((got == want).float().mean())
+            ok = bool(torch.isfinite(got).all()) and err <= tol and equal >= ACCUM_EQUAL
+            print(f"kernel gemm accum {acc} [{label} ({M},{K})x({K},{N}) {dt}, bk {bk}]: "
+                  f"max_abs={err:.3e} tol {tol:.3e} ({blocks} blocks x eps {eps:g} x max|C|), "
+                  f"bitwise equal {equal:.5f} (>= {ACCUM_EQUAL}) {'ok' if ok else 'FAIL'}")
+            need(ok, f"gemm accum {acc} kernel disagrees with its per-block plain version: {label} {dt}")
+            errs[acc] = max(errs.get(acc, 0.0), err)
+    report["gemm_accum_err"] = errs
+
+
+def time_gemm_accum(report):
+    """The narrow-accumulator GEMM at the timed shape, both input types:
+    the kernel with each accumulator and with fp32 beside it (the same
+    kernel without the block folds), the per-block plain version, and the
+    bound. No PyTorch call computes a sum rounded per K block."""
+    import torch
+
+    from repro_torch.hopper import blocked, ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    label, M, K, N = next((c[0], c[1], c[2], c[3]) for c in GEMM_ACCUM_CASES if c[0] == "timed")
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        a = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+        b = torch.randn((K, N), generator=gen, device="cuda").to(dtype)
+        bound, by = gemm_bound_ms(M, K, N, dt, "float32")
+        f32 = device_ms(lambda: ops.gemm(a, b, impl="cuda", out_dtype=torch.float32))
+        for acc in ACCUMS:
+            adt = getattr(torch, acc)
+            kern_fn = lambda: ops.gemm(a, b, impl="cuda", accum_dtype=adt, out_dtype=torch.float32)  # noqa: E731
+            plain_fn = lambda: blocked.gemm_accum_blocked(  # noqa: E731
+                a, b, bk=256, accum_dtype=adt, out_dtype=torch.float32)
+            kern, plain = _in_turns(kern_fn, plain_fn, 5)
+            dev = device_ms(kern_fn)
+            out[f"{dt}/{acc}"] = dict(
+                shape=f"({M},{K})x({K},{N}) {dt} accum {acc}, bk 256", ms=min(kern),
+                plain_ms=min(plain), device_ms=dev, fp32_accum_device_ms=f32,
+                bound_ms=bound, bound_by=by, library_ms=None)
+            print(f"time gemm accum {acc} [({M},{K})x({K},{N}) {dt}]: kernel {kern} ms, per-block "
+                  f"plain {plain} ms (events, back to back); device time {_ms(dev)}, the same "
+                  f"kernel with an fp32 accumulator {_ms(f32)}; bound {bound:.5f} ms ({by}); no "
+                  f"library call rounds per K block")
+    report["gemm_accum_time"] = out
 
 
 def _gcn_graphs():
@@ -1649,6 +1763,8 @@ def serve(report):
     check_prefill_logits(cfg, params, reqs, out)
     profile_steps(engine, reqs, report)
     serve_fp8(report, cfg, params, engine, run)
+    del engine
+    dense_generate_phase(report, "occamy-gptj", cfg, params, paged=True)
 
 
 def _drive(engine, reqs):
@@ -1927,7 +2043,222 @@ def profile_fn(name, fn, report):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the recurrent families (rwkv6-3b, hymba-1.5b) and their chunked
+# phases 9-10: dense contiguous-cache decode and generate at full width:
+# occamy-gptj (its weights still resident after serving), then the four
+# other dense configs
+# ---------------------------------------------------------------------------
+
+DENSE_B, DENSE_PROMPT, DENSE_NEW = 4, 512, 16
+DENSE_PAGE = 16  # the paged step's page size; the contiguous scan pinned to it for the bitwise check
+# (arch, layers kept or None, why): full width and, where it fits, depth
+DENSE_OTHERS = (
+    ("gemma-2b", None, None),
+    ("qwen1.5-4b", None, None),
+    ("qwen3-14b", None, None),
+    ("command-r-35b", 8, "its 40 layers take ~60.6 GB in bf16, and layers.dense_init draws each "
+                         "stacked leaf whole in fp32 (the (40, 8192, 22528) wi alone is 29.5 GB), "
+                         "which puts the peak past the card's 80 GB"),
+)
+# Decode against the teacher-forced forward, at the reference's bound
+# (tests/test_models.py: max|decode - forward| / max|forward| < 2e-2). The
+# reference holds it in fp32; random full-depth bf16 weights amplify any
+# two summation orders apart (layers.dense_init scales the stacked leaves
+# by 1/sqrt(num_layers), see check_prefill_logits), so the bound is held on
+# the first DECODE_CHECK_LAYERS layers of the full-width model in fp32,
+# and the full-depth bf16 figure is printed beside it, not gated.
+DECODE_CHECK_LAYERS = 2
+DECODE_CHECK_STEPS = 4
+DECODE_FWD_REL_TOL = 2e-2
+
+
+def _layers_cut(params, cfg, layers, dtype_name):
+    """The first ``layers`` layers of ``params`` in ``dtype_name``."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    cut = {k: v.to(dtype) for k, v in params.items() if k != "layers"}
+    cut["layers"] = {k: v[:layers].to(dtype) for k, v in params["layers"].items()}
+    return cut, cfg.replace(num_layers=layers, dtype=dtype_name)
+
+
+def _decode_vs_forward(params, cfg, seq, S0, steps):
+    """Prefill ``seq[:, :S0]``, decode ``steps`` steps teacher-forced with
+    ``seq``'s tokens, and the forward of ``seq[:, :S0 + steps]``: the
+    largest |decode - forward| over those positions' logits, relative to
+    the forward's largest."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    B = seq.shape[0]
+    with torch.no_grad():
+        _, cache = transformer.prefill_step(params, cfg, {"tokens": seq[:, :S0]}, S0 + steps)
+        dec = []
+        for i in range(steps):
+            pos = torch.full((B,), S0 + i, dtype=torch.int32, device="cuda")
+            lg, cache = transformer.decode_step(params, cfg, cache, {"token": seq[:, S0 + i],
+                                                                     "position": pos})
+            dec.append(lg)
+        full, _ = transformer.forward(params, cfg, {"tokens": seq[:, :S0 + steps]})
+    full = full[:, S0:S0 + steps].float()
+    return float((torch.stack(dec, 1) - full).abs().max() / full.abs().max())
+
+
+def _paged_copy(cfg, cache, rng):
+    """The contiguous cache (nl, B, K, S, hd) in pages of DENSE_PAGE rows at
+    shuffled pool slots: (PagedKVCache, block table (B, S / DENSE_PAGE))."""
+    import torch
+
+    from repro_torch.serving.paged_cache import init_paged_cache
+
+    nl, B, K, S, hd = cache["k"].shape
+    nb = S // DENSE_PAGE
+    paged = init_paged_cache(cfg, num_blocks=B * nb + 1, block_size=DENSE_PAGE, device="cuda")
+    slots = torch.from_numpy(rng.permutation(B * nb) + 1).cuda()
+    for name, pool in (("k", paged.k_pool), ("v", paged.v_pool)):
+        pages = cache[name].reshape(nl, B, K, nb, DENSE_PAGE, hd).permute(0, 1, 3, 2, 4, 5)
+        pool[:, slots] = pages.reshape(nl, B * nb, K, DENSE_PAGE, hd)
+    return paged, slots.reshape(B, nb).to(torch.int32)
+
+
+def dense_generate_phase(report, arch, cfg, params, *, paged=False):
+    """``launch.serve.generate`` of DENSE_B prompts of DENSE_PROMPT tokens
+    plus DENSE_NEW new ones through the contiguous cache, with the launch
+    counts zeroed just before and read just after (one FA launch per layer,
+    all in the prefill); a prefill and a decode step alone with their
+    counts; decode against the teacher-forced forward; the prefill and the
+    contiguous decode step profiled (wall, device busy, idle share). With
+    ``paged``: the prefill's cache in pages, one contiguous step bitwise
+    against ``decode_step_paged`` at a pinned page size, and the paged step
+    profiled at the same B and lengths."""
+    import numpy as np
+    import torch
+
+    from repro_torch.hopper import dispatch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer
+
+    nl, S0 = cfg.num_layers, DENSE_PROMPT
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (DENSE_B, S0))).cuda()
+    fa = {"flash_attention": nl}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t = time.perf_counter()
+        out = launch_serve.generate(cfg, params, tokens, DENSE_NEW, S0 + DENSE_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t
+        launches = dict(dispatch.LAUNCHES)
+        print(f"{arch} generate B={DENSE_B} prompt {S0} + {DENSE_NEW} new (contiguous cache): "
+              f"{gen_s:.3f} s (first call), kernel launches {launches}, expected {fa} "
+              f"(the prefill's, one a layer; none in the {DENSE_NEW - 1} decode steps)")
+        need(launches == fa, f"{arch} generate launch counts != {fa}")
+        need(tuple(out.shape) == (DENSE_B, S0 + DENSE_NEW), f"{arch} generate shape")
+        need(bool((out[:, :S0] == tokens).all()), f"{arch} generate changed the prompt")
+        new = out[:, S0:]
+        need(bool(((new >= 0) & (new < cfg.vocab_size)).all()), f"{arch}: token outside the vocab")
+        print(f"{arch} generate sample: {new[0].tolist()}")
+
+        dispatch.reset_launches()
+        logits, cache = transformer.prefill_step(params, cfg, {"tokens": tokens}, S0 + DENSE_NEW)
+        torch.cuda.synchronize()
+        pre = dict(dispatch.LAUNCHES)
+        need(bool((logits[:, -1, : cfg.vocab_size].argmax(-1) == new[:, 0]).all()),
+             f"{arch}: generate's first token != a direct prefill's argmax")
+        del logits
+        step = {"token": new[:, 0], "position": torch.full((DENSE_B,), S0, dtype=torch.int32,
+                                                           device="cuda")}
+        dispatch.reset_launches()
+        transformer.decode_step(params, cfg, {k: v.clone() for k, v in cache.items()}, step)
+        torch.cuda.synchronize()
+        dec = dict(dispatch.LAUNCHES)
+        print(f"{arch} launches: prefill alone {pre}, one contiguous decode step alone {dec}")
+        need(pre == fa and dec == {}, f"{arch}: prefill / decode launch counts")
+
+        res = dict(gen_s=gen_s, launches=launches, cut_layers=nl)
+        if paged:
+            pcache, table = _paged_copy(cfg, cache, rng)
+            with dispatch.block_override("decode_attention", bs=DENSE_PAGE):
+                want, _ = transformer.decode_step(params, cfg,
+                                                  {k: v.clone() for k, v in cache.items()}, step)
+            got, _ = transformer.decode_step_paged(params, cfg, pcache, dict(step, block_table=table))
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            print(f"{arch} decode step contiguous (scan pinned to bs {DENSE_PAGE}) vs paged (pages of "
+                  f"{DENSE_PAGE}, shuffled), B={DENSE_B} at position {S0}: bitwise equal {same}; "
+                  f"max|diff| {float((got - want).abs().max()):.3e}")
+            need(same, f"{arch}: contiguous decode != paged decode bitwise")
+            res["paged_bitwise"] = same
+
+        seq = out[:2, : S0 + DECODE_CHECK_STEPS]
+        ncheck = min(DECODE_CHECK_LAYERS, nl)
+        cut, cut_cfg = _layers_cut(params, cfg, ncheck, "float32")
+        rel = _decode_vs_forward(cut, cut_cfg, seq, S0, DECODE_CHECK_STEPS)
+        del cut
+        torch.cuda.empty_cache()
+        deep = _decode_vs_forward(params, cfg, seq, S0, DECODE_CHECK_STEPS)
+        print(f"{arch} decode vs teacher-forced forward, {DECODE_CHECK_STEPS} steps after a "
+              f"{S0}-token prefill, B=2, full width: first {ncheck} layers fp32 rel "
+              f"{rel:.3e} (tol {DECODE_FWD_REL_TOL:g}); all {nl} layers {cfg.dtype} rel {deep:.3e} "
+              f"(printed, not a gate)")
+        need(rel < DECODE_FWD_REL_TOL, f"{arch}: decode vs forward beyond the reference's bound")
+        res.update(decode_vs_forward_rel=rel, decode_vs_forward_rel_full_depth=deep)
+
+        prof = report.setdefault("profile", {})
+        name = f"{arch} prefill B={DENSE_B} S={S0}"
+        profile_fn(name, lambda: transformer.prefill_step(params, cfg, {"tokens": tokens}, S0 + DENSE_NEW),
+                   report)
+        res["prefill"] = prof[name]
+        name = f"{arch} decode contiguous B={DENSE_B} at {S0}"
+        profile_fn(name, lambda: transformer.decode_step(params, cfg, cache, step), report)
+        res["decode_contiguous"] = prof[name]
+        if paged:
+            name = f"{arch} decode contiguous B={DENSE_B} at {S0}, scan pinned to bs {DENSE_PAGE}"
+            with dispatch.block_override("decode_attention", bs=DENSE_PAGE):
+                profile_fn(name, lambda: transformer.decode_step(params, cfg, cache, step), report)
+            res["decode_contiguous_bs16"] = prof[name]
+            name = f"{arch} decode paged B={DENSE_B} at {S0}, pages of {DENSE_PAGE}"
+            profile_fn(name, lambda: transformer.decode_step_paged(
+                params, cfg, pcache, dict(step, block_table=table)), report)
+            res["decode_paged"] = prof[name]
+    report.setdefault("dense", {})[arch] = res
+
+
+def dense_config_phase(report, arch, layers, why):
+    """``arch`` at full width (depth cut to ``layers`` where given, for
+    ``why``) with random weights from seed SEED, through
+    ``dense_generate_phase``; the weights are freed after."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config(arch)
+    full_layers = cfg.num_layers
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+        print(f"model {arch}: depth cut to {layers} of {full_layers} layers: {why}")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    leaves = [x for x in params.values() if torch.is_tensor(x)] + list(params["layers"].values())
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"model {arch} full width: layers={cfg.num_layers} d_model={cfg.d_model} "
+          f"heads={cfg.num_heads}x{cfg.resolved_head_dim()} kv_heads={cfg.num_kv_heads} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} {cfg.activation} qkv_bias={cfg.qkv_bias} "
+          f"qk_norm={cfg.qk_norm} parallel_block={cfg.parallel_block} {cfg.dtype} "
+          f"params={nbytes / 1e9:.2f} GB, init {time.perf_counter() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({'depth cut' if layers else 'depth not cut'})")
+    dense_generate_phase(report, arch, cfg, params)
+    report["dense"][arch].update(params_gb=nbytes / 1e9, full_layers=full_layers)
+    del params
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the recurrent families (rwkv6-3b, hymba-1.5b) and their chunked
 # linear-attention scan
 # ---------------------------------------------------------------------------
 
@@ -2461,7 +2792,7 @@ def recurrent_phase(report, arch, batch):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the sequence-parallel ring (remote_ring_hop's kernel, the flash
+# phase 12: the sequence-parallel ring (remote_ring_hop's kernel, the flash
 # KV ring, cache-sharded ring decode) at occamy-gptj's attention width
 # ---------------------------------------------------------------------------
 
@@ -2753,6 +3084,7 @@ def main() -> int:
         check_hgmma(paths)
         check_kernels(report)
         check_gcn_kernels(report)
+        check_gemm_accum(report)
         check_precision_kernels(report)
         gcn_phase(report)
         cases = _sparse_la_cases()
@@ -2763,6 +3095,10 @@ def main() -> int:
         gc.collect()  # occamy-gptj's weights went with serve()
         torch.cuda.empty_cache()
         print(f"after serving: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated on the card")
+        for arch, layers, why in DENSE_OTHERS:
+            dense_config_phase(report, arch, layers, why)
+            gc.collect()
+            torch.cuda.empty_cache()
         check_la_kernels(report)
         for arch, batch in RECURRENT:
             recurrent_phase(report, arch, batch)
@@ -2772,6 +3108,7 @@ def main() -> int:
         ring_phase(report)
         time_kernels(report)
         time_gcn_kernels(report)
+        time_gemm_accum(report)
         time_sparse_la_kernels(report, cases)
         time_precision_kernels(report)
         time_la_kernels(report)
@@ -2790,6 +3127,10 @@ def main() -> int:
         # device times (torch.profiler) beside the events' back-to-back ms
         "device_ms": t512["device_ms"], "library_device_ms": t512["library_device_ms"],
         "host_ms": t512["host_ms"],
+        # each dense config's generate (B=4, 512 + 16 tokens, contiguous
+        # cache), counted on its own: one launch a layer, all in the prefill
+        "dense_generate_launches": {a: r["launches"].get("flash_attention", 0)
+                                    for a, r in report["dense"].items()},
     }]
     for name, source, replaces in (("gemm", GEMM_SOURCE, GEMM_REPLACES),
                                    ("spmm", SPMM_SOURCE, SPMM_REPLACES)):
@@ -2803,6 +3144,10 @@ def main() -> int:
         })
         # device times (CUDA-graph replay) beside the events' ms
         kernels[-1].update(device_ms=t["device_ms"], library_device_ms=t["library_device_ms"])
+        if name == "gemm":  # ops.gemm(accum_dtype=bf16 / fp16): both routes, held per block
+            kernels[-1]["accum"] = {
+                key: dict(r, max_abs_err=report["gemm_accum_err"][key.split("/")[1]])
+                for key, r in report["gemm_accum_time"].items()}
         if name == "spmm":  # the sparse trio's ELL cases and the L2 probe
             kernels[-1].update(
                 trio_launches=report["sparse_la_launches"]["spmm"],

@@ -11,6 +11,14 @@
 // zero-fill the tile edges on load and mask the stores, so nothing is
 // padded in memory (the TPU kernel pads the operands to its blocks).
 //
+// A narrow accumulator (acc = 1: bf16, 2: fp16) is the TPU kernel's
+// `acc_ref` in that type: K is cut in blocks of `bk` (the reference's K
+// block), each block's fp32 partial is rounded to the accumulator type and
+// added into a running sum that is rounded after each add; the output is
+// the last sum. Both kernels keep their own K steps (16 and 32) and fold
+// the partial at every bk boundary, so bk must be a multiple of the step or
+// cover K; the partial's fp32 order inside a block is the kernel's own.
+//
 // fp32 (the GCN path): CUDA-core FFMA, exact fp32, not TF32 (the reference
 // computes exact fp32). Bound on this card: at the GCN shape (M = nodes,
 // K = N = 144) 2MNK operations over 67 TFLOP/s take about twice as long as
@@ -58,6 +66,7 @@
 // Offsets are 64-bit (long long) throughout.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,6 +81,7 @@ struct Params {
   void* c;
   int M, N, K;
   long long lda, ldb, ldc;  // row strides in elements
+  int block_steps;          // a narrow accumulator's K block, in the kernel's K steps
 };
 
 template <typename T>
@@ -80,6 +90,27 @@ template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
+
+// x rounded to the accumulator type ACC (0 fp32, 1 bf16, 2 fp16), as a float
+template <int ACC>
+__device__ __forceinline__ float to_acc(float x) {
+  if (ACC == 1) return __bfloat162float(__float2bfloat16_rn(x));
+  if (ACC == 2) return __half2float(__float2half_rn(x));
+  return x;
+}
+
+// A narrow accumulator's fold at the end of a K block: sum = acc(sum +
+// acc(partial)), and the partial starts again from zero.
+template <int ACC, int R, int C>
+__device__ __forceinline__ void fold_block(float (&sum)[R][C], float (&part)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      sum[i][j] = to_acc<ACC>(sum[i][j] + to_acc<ACC>(part[i][j]));
+      part[i][j] = 0.f;
+    }
+}
 
 // ---------------------------------------------------------------------------
 // fp32: CUDA cores, a persistent grid of whole-width tiles
@@ -228,7 +259,7 @@ __device__ __forceinline__ void f_issue(const Params& p, const Plan& q, float* p
   cp_async_commit();
 }
 
-template <int TM, typename OutT>
+template <int TM, typename OutT, int ACC>
 __global__ void __launch_bounds__(F_MAX_THREADS, 1) gemm_f32_kernel(const Params p, const Plan q) {
   extern __shared__ __align__(16) float smem[];
   const int BM = 8 * TM * q.wr, BN = 48 * q.wc, S = q.stages;
@@ -262,11 +293,12 @@ __global__ void __launch_bounds__(F_MAX_THREADS, 1) gemm_f32_kernel(const Params
     issue.next(nk, S);
   }
 
-  float acc[TM][F_TN];
+  float acc[TM][F_TN], sum[TM][F_TN];  // sum: a narrow accumulator's running sum
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < F_TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < F_TN; ++j) acc[i][j] = sum[i][j] = 0.f;
+  float (&res)[TM][F_TN] = ACC ? sum : acc;  // what a finished tile stores
 
   Cursor cur{0, 0, 0};
   for (int c = 0; c < total; ++c) {
@@ -300,6 +332,7 @@ __global__ void __launch_bounds__(F_MAX_THREADS, 1) gemm_f32_kernel(const Params
           }
         }
       }
+      if (ACC && ((cur.kc + 1) % p.block_steps == 0 || cur.kc == nk - 1)) fold_block<ACC>(sum, acc);
       if (cur.kc == nk - 1) {  // the tile is done: store it, start the next from zero
         OutT* C = static_cast<OutT*>(p.c);
 #pragma unroll
@@ -311,16 +344,16 @@ __global__ void __launch_bounds__(F_MAX_THREADS, 1) gemm_f32_kernel(const Params
             for (int j = 0; j < 3; ++j) {
               const int n = n0 + col0 + j * third;
               if (q.vec_out && n + 3 < p.N) {
-                store4(crow + n, acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]);
+                store4(crow + n, res[i][4 * j], res[i][4 * j + 1], res[i][4 * j + 2], res[i][4 * j + 3]);
               } else {
 #pragma unroll
                 for (int e = 0; e < 4; ++e)
-                  if (n + e < p.N) crow[n + e] = from_f32<OutT>(acc[i][4 * j + e]);
+                  if (n + e < p.N) crow[n + e] = from_f32<OutT>(res[i][4 * j + e]);
               }
             }
           }
 #pragma unroll
-          for (int j = 0; j < F_TN; ++j) acc[i][j] = 0.f;
+          for (int j = 0; j < F_TN; ++j) acc[i][j] = sum[i][j] = 0.f;
         }
       }
     }
@@ -353,7 +386,7 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
 // A (16 x 16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
 // a3 (g+8, 2t+8..). B (16 x 8, k-major pairs): b0 (k 2t..2t+1, n g), b1
 // (k 2t+8.., n g). C (16 x 8): c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..).
-template <typename OutT>
+template <typename OutT, int ACC>
 __global__ void __launch_bounds__(H_THREADS) gemm_bf16_kernel(const Params p) {
   __shared__ __align__(16) __nv_bfloat16 sA[H_BM * H_S];   // (BM, BK + 8)
   __shared__ __align__(16) __nv_bfloat16 sBt[H_BN * H_S];  // (BN, BK + 8): B transposed
@@ -368,13 +401,14 @@ __global__ void __launch_bounds__(H_THREADS) gemm_bf16_kernel(const Params p) {
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
   const int row0 = warp * 32;  // this warp's first row in the tile
 
-  float acc[2][8][4];
+  // acc (2 x 8 m16n8 tiles of 4) as 16 rows of 4 for fold_block; sum: a
+  // narrow accumulator's running sum
+  float acc[16][4], sum[16][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+  for (int i = 0; i < 16; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = sum[i][0] = sum[i][1] = sum[i][2] = sum[i][3] = 0.f;
+  float (&res)[16][4] = ACC ? sum : acc;
 
-  for (int k0 = 0; k0 < p.K; k0 += H_BK) {
+  for (int k0 = 0, step = 0; k0 < p.K; k0 += H_BK, ++step) {
     // A tile: a warp reads one row's 32 k values
 #pragma unroll 4
     for (int i = 0; i < H_BM * H_BK / H_THREADS; ++i) {
@@ -408,9 +442,10 @@ __global__ void __launch_bounds__(H_THREADS) gemm_bf16_kernel(const Params p) {
         const __nv_bfloat16* ap = sA + (row0 + mt * 16 + g) * H_S + ks * 16 + 2 * t;
         const uint32_t a0 = ld32(ap), a1 = ld32(ap + 8 * H_S), a2 = ld32(ap + 8), a3 = ld32(ap + 8 * H_S + 8);
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) mma_bf16(acc[mt][nt], a0, a1, a2, a3, b[nt][0], b[nt][1]);
+        for (int nt = 0; nt < 8; ++nt) mma_bf16(acc[mt * 8 + nt], a0, a1, a2, a3, b[nt][0], b[nt][1]);
       }
     }
+    if (ACC && ((step + 1) % p.block_steps == 0 || k0 + H_BK >= p.K)) fold_block<ACC>(sum, acc);
     __syncthreads();
   }
 
@@ -426,7 +461,7 @@ __global__ void __launch_bounds__(H_THREADS) gemm_bf16_kernel(const Params p) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int n = n0 + nt * 8 + 2 * t + e;
-          if (n < p.N) C[m * p.ldc + n] = from_f32<OutT>(acc[mt][nt][half * 2 + e]);
+          if (n < p.N) C[m * p.ldc + n] = from_f32<OutT>(res[mt * 8 + nt][half * 2 + e]);
         }
       }
     }
@@ -447,20 +482,32 @@ cudaError_t smem_attribute_once(Kernel kernel, std::atomic<unsigned long long>& 
   return err;
 }
 
-template <int TM, typename OutT>
+template <int TM, typename OutT, int ACC>
 cudaError_t launch_f32(const Params& p, const Plan& q, int grid, long long smem, cudaStream_t st) {
   static std::atomic<unsigned long long> ready{0};
-  cudaError_t err = smem_attribute_once(gemm_f32_kernel<TM, OutT>, ready);
+  cudaError_t err = smem_attribute_once(gemm_f32_kernel<TM, OutT, ACC>, ready);
   if (err != cudaSuccess) return err;
-  gemm_f32_kernel<TM, OutT><<<grid, 32 * q.wr * q.wc, static_cast<size_t>(smem), st>>>(p, q);
+  gemm_f32_kernel<TM, OutT, ACC><<<grid, 32 * q.wr * q.wc, static_cast<size_t>(smem), st>>>(p, q);
   return cudaGetLastError();
 }
 
-template <typename Kernel>
-cudaError_t launch_bf16(Kernel kernel, const Params& p, cudaStream_t st) {
+template <int TM, typename OutT>
+cudaError_t launch_f32_acc(int acc, const Params& p, const Plan& q, int grid, long long smem, cudaStream_t st) {
+  if (acc == 1) return launch_f32<TM, OutT, 1>(p, q, grid, smem, st);
+  if (acc == 2) return launch_f32<TM, OutT, 2>(p, q, grid, smem, st);
+  return launch_f32<TM, OutT, 0>(p, q, grid, smem, st);
+}
+
+template <typename OutT>
+cudaError_t launch_bf16(int acc, const Params& p, cudaStream_t st) {
   const dim3 grid(static_cast<unsigned>((static_cast<long long>(p.M) + H_BM - 1) / H_BM),
                   static_cast<unsigned>((static_cast<long long>(p.N) + H_BN - 1) / H_BN));
-  kernel<<<grid, H_THREADS, 0, st>>>(p);
+  if (acc == 1)
+    gemm_bf16_kernel<OutT, 1><<<grid, H_THREADS, 0, st>>>(p);
+  else if (acc == 2)
+    gemm_bf16_kernel<OutT, 2><<<grid, H_THREADS, 0, st>>>(p);
+  else
+    gemm_bf16_kernel<OutT, 0><<<grid, H_THREADS, 0, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -470,17 +517,23 @@ extern "C" {
 
 // in_dtype / out_dtype: 0 = float32, 1 = bfloat16. A (M, K), B (K, N) and
 // C (M, N) with unit column stride and the given row strides (elements).
+// acc: the accumulator, 0 = float32, 1 = bfloat16, 2 = float16; a narrow
+// one sums blocks of bk k values (a multiple of the kernel's K step, 16 for
+// fp32 inputs and 32 for bf16, or at least K), each rounded to it.
 // fp32 inputs take the plan of hopper/gemm.py `plan_f32`: register rows tm
 // (4 or 8), warps wr down and wc across, ring stages, B resident or
 // streamed, 16-byte copies (vec) and the persistent grid; bf16 inputs
 // ignore it. A plan that does not fit these shapes or the card is refused
 // (cudaErrorInvalidValue), as is vec with a row that is not 16-byte
 // aligned. Returns the launch's cudaError_t.
-int repro_gemm(const void* a, const void* b, void* c, int in_dtype, int out_dtype, int M, int N, int K,
-               long long lda, long long ldb, long long ldc, int tm, int wr, int wc, int stages, int resident,
+int repro_gemm(const void* a, const void* b, void* c, int in_dtype, int out_dtype, int acc, int bk, int M, int N,
+               int K, long long lda, long long ldb, long long ldc, int tm, int wr, int wc, int stages, int resident,
                int vec, int grid, void* stream) {
   if (M <= 0 || N <= 0 || K < 0) return cudaErrorInvalidValue;
   if ((in_dtype != 0 && in_dtype != 1) || (out_dtype != 0 && out_dtype != 1)) return cudaErrorInvalidValue;
+  if (acc < 0 || acc > 2) return cudaErrorInvalidValue;
+  const int step = in_dtype == 1 ? H_BK : F_BK;  // the kernel's K step
+  if (acc && (bk < 1 || (bk % step && bk < K))) return cudaErrorInvalidValue;
   Params p;
   p.a = a;
   p.b = b;
@@ -491,11 +544,12 @@ int repro_gemm(const void* a, const void* b, void* c, int in_dtype, int out_dtyp
   p.lda = lda;
   p.ldb = ldb;
   p.ldc = ldc;
+  p.block_steps = acc ? (bk >= K ? INT_MAX : bk / step) : INT_MAX;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_dtype == 1) {
     if ((static_cast<long long>(N) + H_BN - 1) / H_BN > 65535) return cudaErrorInvalidValue;  // grid.y
-    if (out_dtype == 0) return launch_bf16(gemm_bf16_kernel<float>, p, st);
-    return launch_bf16(gemm_bf16_kernel<__nv_bfloat16>, p, st);
+    if (out_dtype == 0) return launch_bf16<float>(acc, p, st);
+    return launch_bf16<__nv_bfloat16>(acc, p, st);
   }
 
   if (tm != 2 && tm != 4) return cudaErrorInvalidValue;
@@ -523,11 +577,11 @@ int repro_gemm(const void* a, const void* b, void* c, int in_dtype, int out_dtyp
   const long long smem = f_smem_bytes(tm, wr, wc, K, stages, q.resident);
   if (smem > F_SMEM_MAX) return cudaErrorInvalidValue;
   if (tm == 2) {
-    if (out_dtype == 0) return launch_f32<2, float>(p, q, grid, smem, st);
-    return launch_f32<2, __nv_bfloat16>(p, q, grid, smem, st);
+    if (out_dtype == 0) return launch_f32_acc<2, float>(acc, p, q, grid, smem, st);
+    return launch_f32_acc<2, __nv_bfloat16>(acc, p, q, grid, smem, st);
   }
-  if (out_dtype == 0) return launch_f32<4, float>(p, q, grid, smem, st);
-  return launch_f32<4, __nv_bfloat16>(p, q, grid, smem, st);
+  if (out_dtype == 0) return launch_f32_acc<4, float>(acc, p, q, grid, smem, st);
+  return launch_f32_acc<4, __nv_bfloat16>(acc, p, q, grid, smem, st);
 }
 
 const char* repro_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

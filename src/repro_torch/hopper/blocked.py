@@ -221,6 +221,21 @@ def gemm_blocked(a, b, *, out_dtype=None, accum_dtype=torch.float32,
     return gemm_ref(a, b, out_dtype=out_dtype, accum_dtype=accum_dtype)
 
 
+def gemm_accum_blocked(a, b, *, bk, accum_dtype, out_dtype=None):
+    """C = A @ B with the accumulator held in ``accum_dtype``, as the
+    reference's Pallas body keeps ``acc_ref``: for each K block of ``bk``
+    (the last one ragged), its fp32 product rounded to ``accum_dtype`` is
+    added into the running sum, which is rounded after each add; the sum
+    is cast to ``out_dtype`` (default ``a.dtype``). The plain version of
+    the GEMM kernel with a narrow accumulator."""
+    M, K = a.shape
+    acc = torch.zeros((M, b.shape[1]), dtype=accum_dtype, device=a.device)
+    for k0 in range(0, K, bk):
+        part = a[:, k0:k0 + bk].float() @ b[k0:k0 + bk].float()
+        acc = acc + part.to(accum_dtype)
+    return acc.to(out_dtype or a.dtype)
+
+
 def gemm_scaled_values_blocked(aq, bq, a_scale, b_scale, *, bk,
                                out_dtype=torch.float32):
     """Scaled GEMM on quantized operands: aq (M, K), bq (K, N) in a compute

@@ -14,6 +14,12 @@ stride is taken, so row slices go in without a copy. Ragged M, N, K are
 masked in the kernel. Inputs it does not take raise; nothing is copied to
 make them fit.
 
+``accum_dtype`` bf16 or fp16 is the reference kernel's accumulator in that
+type: each K block of ``bk`` (the reference's, 256 by default) is summed
+in fp32, rounded to it and added into a running sum rounded after each
+add. Its plain version is ``blocked.gemm_accum_blocked``; ``bk`` must be a
+multiple of the kernel's K step (``K_STEP``) or cover K.
+
 The fp32 kernel's tiles, ring and grid are chosen here, by ``plan_f32``
 (pure Python, so the CPU tests reach it): the kernel takes them at run
 time and refuses a plan that does not fit.
@@ -28,9 +34,11 @@ import torch
 
 from repro_torch.device import sm_count
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import LAUNCHES
+from repro_torch.hopper.dispatch import LAUNCHES, resolve_blocks
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ACCUM = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+K_STEP = {torch.float32: 16, torch.bfloat16: 32}  # each kernel's K step (csrc/gemm.cu)
 
 # csrc/gemm.cu's fp32 kernel and the H100's limits the plan must fit
 BK = 16                       # k values per ring stage
@@ -162,14 +170,14 @@ def _kernel():
         lib = build.load("gemm")
         fn = lib.repro_gemm
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i64, i64, i64,
+        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i64, i64, i64,
                        i32, i32, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
         _lib, _fn = lib, fn
     return _fn
 
 
-def _check(a, b, out_dtype):
+def _check(a, b, out_dtype, accum_dtype, bk):
     if not (a.is_cuda and b.device == a.device):
         raise ValueError(
             f"gemm: a and b must share one CUDA device, got {a.device}/{b.device}"
@@ -181,6 +189,8 @@ def _check(a, b, out_dtype):
         )
     if out_dtype not in DTYPES:
         raise TypeError(f"gemm kernel writes float32 or bfloat16, not {out_dtype}")
+    if accum_dtype not in ACCUM:
+        raise TypeError(f"gemm kernel accumulates in float32, bfloat16 or float16, not {accum_dtype}")
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(
             f"gemm: a (M, K) and b (K, N), got {tuple(a.shape)} {tuple(b.shape)}"
@@ -191,21 +201,28 @@ def _check(a, b, out_dtype):
                 f"gemm kernel: {name} must be unit-stride along its rows, got "
                 f"strides {x.stride()}"
             )
-
-
-def gemm_cuda(a, b, *, out_dtype=None, accum_dtype=torch.float32, **blocks):
-    """C = A @ B with fp32 accumulation. Launches the Hopper kernel for
-    CUDA tensors; runs ``blocked.gemm_blocked`` for CPU tensors
-    (``blocks`` — the plain form's ``bm``/``bk``/``bn`` — reach only that
-    form). Accumulators other than fp32 raise ``NotImplementedError``."""
-    if accum_dtype != torch.float32:
-        raise NotImplementedError(
-            f"gemm: accum_dtype={accum_dtype} is not ported; the kernel sums in float32"
+    if accum_dtype != torch.float32 and (bk < 1 or bk % K_STEP[a.dtype] and bk < a.shape[1]):
+        raise ValueError(
+            f"gemm kernel: a {accum_dtype} accumulator's K block bk={bk} must be a "
+            f"multiple of {K_STEP[a.dtype]} (the {a.dtype} kernel's K step) or cover K"
         )
+
+
+def gemm_cuda(a, b, *, out_dtype=None, accum_dtype=torch.float32, bm=None, bk=None, bn=None):
+    """C = A @ B, accumulated in ``accum_dtype``. Launches the Hopper kernel
+    for CUDA tensors; runs its plain version for CPU tensors:
+    ``blocked.gemm_blocked`` (``bm``/``bk``/``bn`` shape only that form)
+    for an fp32 accumulator, ``blocked.gemm_accum_blocked`` at K blocks of
+    ``bk`` for a narrow one. The kernel reads ``bk`` only for a narrow
+    accumulator (default: the block table's, at most K)."""
+    bk = min(bk or resolve_blocks("gemm")["bk"], max(a.shape[-1], 1))
     if a.device.type == "cpu":
-        return blocked.gemm_blocked(a, b, out_dtype=out_dtype, **blocks)
+        if accum_dtype == torch.float32:
+            return blocked.gemm_blocked(a, b, out_dtype=out_dtype, bm=bm, bk=bk, bn=bn)
+        return blocked.gemm_accum_blocked(a, b, bk=bk, accum_dtype=accum_dtype,
+                                          out_dtype=out_dtype)
     out_dtype = out_dtype or a.dtype
-    _check(a, b, out_dtype)
+    _check(a, b, out_dtype, accum_dtype, bk)
     M, K = a.shape
     N = b.shape[1]
     c = torch.empty((M, N), dtype=out_dtype, device=a.device)
@@ -218,7 +235,7 @@ def gemm_cuda(a, b, *, out_dtype=None, accum_dtype=torch.float32, **blocks):
         else:
             plan = (0,) * 7
         args = (a.data_ptr(), b.data_ptr(), c.data_ptr(), DTYPES[a.dtype], DTYPES[out_dtype],
-                M, N, K, a.stride(0), b.stride(0), c.stride(0), *plan)
+                ACCUM[accum_dtype], bk, M, N, K, a.stride(0), b.stride(0), c.stride(0), *plan)
         if torch.cuda.current_device() == dev:  # the usual case: no device switch
             err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
         else:

@@ -118,11 +118,16 @@ def decode_attention_paged_ref(q, k, v, block_table, position, *, window=0,
 
 
 def gemm_ref(a, b, out_dtype=None, accum_dtype=torch.float32):
-    """C = A @ B with widening accumulation: both operands in
-    ``accum_dtype`` (bf16 products are exact in fp32), one rounding to
-    ``out_dtype`` (default ``a.dtype``) at the end."""
+    """C = A @ B with widening accumulation: one matmul of both operands in
+    ``accum_dtype``, or in fp32 where ``accum_dtype`` is narrower (bf16
+    products are exact in fp32), whose sum is rounded once to
+    ``accum_dtype`` and then to ``out_dtype`` (default ``a.dtype``). This is
+    what the reference's ``jnp.matmul(..., preferred_element_type=)`` does on
+    the CPU, except for bf16 operands with an fp16 accumulator, where XLA
+    rounds the fp32 sum to bf16 first."""
     out_dtype = out_dtype or a.dtype
-    return torch.matmul(a.to(accum_dtype), b.to(accum_dtype)).to(out_dtype)
+    wide = accum_dtype if accum_dtype.itemsize >= 4 else torch.float32
+    return torch.matmul(a.to(wide), b.to(wide)).to(accum_dtype).to(out_dtype)
 
 
 def gemm_scaled_ref(a, b, precision, *, out_dtype=None,

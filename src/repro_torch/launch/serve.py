@@ -1,15 +1,17 @@
-"""Batched generation for the recurrent families (port of
-``repro.launch.serve``): feed the prompt through ``registry.decode_step``
-token by token, then decode greedily.
+"""Batched greedy generation (port of ``repro.launch.serve``): prefill a
+batch of prompts, then decode from the contiguous cache.
 
-On the card (full width, random weights from seed 0):
+The dense family prefills the prompt in one pass
+(``transformer.prefill_step``, attention through the FA kernel) and
+decodes through ``registry.decode_step`` at positions ``S0 + i``; the
+recurrent families (ssm, hybrid) feed the prompt through
+``registry.decode_step`` token by token. On the card (full width, random
+weights from seed 0):
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch occamy-gptj
 
 ``--reduced`` takes the family's REDUCED config; ``--device cpu`` runs on
-the CPU (the default is ``cuda``, which raises without a card). The dense
-family's generation needs the contiguous-cache ``transformer.decode_step``,
-which is not ported yet (the serving engine serves that family).
+the CPU (the default is ``cuda``, which raises without a card).
 """
 from __future__ import annotations
 
@@ -21,16 +23,16 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.device import resolve_device
-from repro_torch.models import registry
+from repro_torch.models import registry, transformer
 
 RECURRENT = ("ssm", "hybrid")
 
 
-def _check_family(cfg):
-    if cfg.family not in RECURRENT:
+def _check_family(cfg, families=RECURRENT):
+    if cfg.family not in families:
         raise NotImplementedError(
-            f"generate runs the recurrent families {RECURRENT}; {cfg.family!r} "
-            f"needs the contiguous-cache decode_step, not ported yet"
+            f"generate runs the families {families}; {cfg.family!r} waits for "
+            f"the remaining-families slice"
         )
 
 
@@ -55,11 +57,15 @@ def scan_prefill(params, cfg, cache, tokens):
 @torch.no_grad()
 def generate(cfg, params, tokens, gen_len: int, max_len: int):
     """tokens (B, S0) prompt on the params' device; returns (B, S0 + gen_len),
-    greedy."""
-    _check_family(cfg)
+    greedy. ``max_len`` sizes the cache (at least S0 + gen_len - 1)."""
+    _check_family(cfg, ("dense",) + RECURRENT)
     B, S0 = tokens.shape
-    cache = registry.init_cache(cfg, B, max_len, device=tokens.device)
-    logits, cache = scan_prefill(params, cfg, cache, tokens)
+    if cfg.family == "dense":
+        logits, cache = transformer.prefill_step(params, cfg, {"tokens": tokens}, max_len)
+        logits = logits[:, -1]
+    else:
+        cache = registry.init_cache(cfg, B, max_len, device=tokens.device)
+        logits, cache = scan_prefill(params, cfg, cache, tokens)
     last = logits[:, : cfg.vocab_size].argmax(-1)
     out = [last]
     for i in range(gen_len - 1):
@@ -72,11 +78,11 @@ def generate(cfg, params, tokens, gen_len: int, max_len: int):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="rwkv6-3b")
+    ap.add_argument("--arch", default="occamy-gptj")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default=None)
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     args = ap.parse_args(argv)
 
@@ -92,8 +98,9 @@ def main(argv=None):
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    how = "prefilled in one pass" if cfg.family == "dense" else "fed token by token"
     print(f"{cfg.name} on {where}: generated {tuple(out.shape)} in {dt:.2f} s = "
-          f"{args.batch * args.gen / dt:.1f} new tok/s (prompt fed token by token)")
+          f"{args.batch * args.gen / dt:.1f} new tok/s (prompt {how})")
     print("sample:", out[0, -args.gen:].tolist())
 
 

@@ -5,9 +5,12 @@ Parameters are a plain dict of tensors with the reference's layout: the
 per-layer leaves stacked on a leading ``num_layers`` axis (layer ``i`` is
 the view ``leaf[i]``). Covers GQA/MQA, qk-norm, QKV biases, gated/plain
 MLPs and the GPT-J parallel-residual block. Prefill attention goes through
-``ops.flash_attention`` (the Hopper FA-2 kernel on the card); paged decode,
-and the contiguous-cache ``attention_decode`` the hybrid family's decode
-calls, through ``ops.decode_attention``. Projections are ``torch.matmul``, as the
+``ops.flash_attention`` (the Hopper FA-2 kernel on the card); decode, from
+the contiguous cache (``decode_step``, which the hybrid family's decode
+shares through ``attention_decode``) or from paged pools
+(``decode_step_paged``), through ``ops.decode_attention``. Both decodes
+write the new token's k/v into the cache in place, where the reference's
+scan returns new caches. Projections are ``torch.matmul``, as the
 reference leaves them to XLA einsums. Prefill logits are cast to the
 activation dtype; decode logits stay fp32, as in the reference.
 """
@@ -28,7 +31,8 @@ from repro_torch.models import layers as L
 def _check_family(cfg):
     if cfg.family != "dense" or cfg.num_experts:
         raise NotImplementedError(
-            f"the port serves the dense transformer family, got {cfg.family!r}"
+            f"the port serves the dense transformer family, got {cfg.family!r}: "
+            f"the remaining-families slice brings MoE, vlm and audio"
         )
 
 
@@ -221,7 +225,7 @@ def prefill_step(params, cfg, batch, max_len: int):
 
 
 # ---------------------------------------------------------------------------
-# contiguous-cache decode attention (hybrid family)
+# contiguous-cache decode
 # ---------------------------------------------------------------------------
 
 
@@ -252,6 +256,55 @@ def attention_decode(p, cfg, x, cos, sin, k_cache, v_cache, position, *, window=
     v_cache[rows, :, pos] = v.to(v_cache.dtype)
     o = ops.decode_attention(q, k_cache, v_cache, position, window=window)
     return torch.matmul(o.reshape(B, H * hd), p["wo"]), k_cache, v_cache
+
+
+def cache_spec(cfg, batch: int, max_len: int):
+    """name -> (shape, dtype): k and v, each (nl, B, K, max_len, hd) in the
+    config's dtype."""
+    hd, K, nl = cfg.resolved_head_dim(), cfg.num_kv_heads, cfg.num_layers
+    kv = ((nl, batch, K, max_len, hd), getattr(torch, cfg.dtype))
+    return {"k": kv, "v": kv}
+
+
+def init_cache(cfg, batch: int, max_len: int, *, device=None):
+    """Zeros of ``cache_spec`` on ``device`` (default ``cuda``)."""
+    device = resolve_device(device)
+    return {n: torch.zeros(shape, dtype=dt, device=device)
+            for n, (shape, dt) in cache_spec(cfg, batch, max_len).items()}
+
+
+def _ffn_decode(p, cfg, x):
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "MoE decode is not ported yet: the remaining-families slice brings it"
+        )
+    return _mlp(p, cfg, x)
+
+
+def decode_step(params, cfg, cache, batch):
+    """batch {"token": (B,), "position": (B,)} -> (logits (B, V_pad) fp32,
+    cache). Walks the layers over the views ``cache["k"][i]``,
+    ``cache["v"][i]``: each layer's new k/v row is written **in place** at
+    ``position`` (the reference's scan returns new caches instead), and the
+    cache passed in is returned. A caller that needs the cache as it was
+    clones it first."""
+    _check_family(cfg)
+    position = batch["position"]
+    h = params["embed"][batch["token"].long()]
+    cos, sin = _rope(cfg, position)
+    for i in range(cfg.num_layers):
+        p = _layer(params, i)
+        n = L.rms_norm(h, p["attn_norm"], cfg.norm_eps)
+        a, _, _ = attention_decode(p, cfg, n, cos, sin, cache["k"][i], cache["v"][i],
+                                   position, window=cfg.sliding_window)
+        if cfg.parallel_block:
+            h = h + a + _ffn_decode(p, cfg, n)
+        else:
+            h = h + a
+            h = h + _ffn_decode(p, cfg, L.rms_norm(h, p["mlp_norm"], cfg.norm_eps))
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    # fp32 logits, as the reference's einsum with an fp32 result
+    return torch.matmul(h.float(), _head(params).float()), cache
 
 
 # ---------------------------------------------------------------------------
@@ -326,10 +379,10 @@ def decode_step_paged(params, cfg, cache, batch):
             policy=cache.policy, **scales,
         )
         if cfg.parallel_block:
-            h = h + a + _mlp(p, cfg, n)
+            h = h + a + _ffn_decode(p, cfg, n)
         else:
             h = h + a
-            h = h + _mlp(p, cfg, L.rms_norm(h, p["mlp_norm"], cfg.norm_eps))
+            h = h + _ffn_decode(p, cfg, L.rms_norm(h, p["mlp_norm"], cfg.norm_eps))
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     # fp32 logits, as the reference's einsum with an fp32 result
     return torch.matmul(h.float(), _head(params).float()), cache

@@ -9,8 +9,10 @@ fp32 ``rtol=atol=1e-5``, bf16 ``rtol=2e-2, atol=1e-2``. The port's
 launch. ``gcn.forward`` and the full-width webkb run of
 ``launch/gcn_inference.run`` take the reference's weights through
 ``params_from_jax`` and the reference example's adjacency and features
-from the same seed. The Hopper kernels themselves run only on the card:
-their tests here are marked ``cuda`` and skip without one.
+from the same seed. A narrow GEMM accumulator is held to both of the
+reference's forms (see ``ACCUM_PAIRS``). The Hopper kernels themselves run
+only on the card: their tests here are marked ``cuda`` and skip without
+one.
 """
 import importlib.util
 from pathlib import Path
@@ -75,8 +77,10 @@ def test_gemm_matches_jax_pallas_body(rng, m, k, n, dtype, out):
 
 def test_gemm_argument_checks(rng):
     a = torch.from_numpy(rng.standard_normal((8, 4)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="accum_dtype"):
-        ops.gemm(a, a.T, accum_dtype=torch.bfloat16)
+    # a narrow accumulator runs (one K block here), fp32 out by default
+    out = ops.gemm(a, a.T, accum_dtype=torch.bfloat16)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, (a @ a.T).to(torch.bfloat16).float())
     out = ops.gemm(a, a.T, precision="fp8")  # the precision slice runs, fp32 out
     assert out.dtype == torch.float32 and tuple(out.shape) == (8, 8)
     with pytest.raises(NotImplementedError, match="mesh"):
@@ -211,6 +215,86 @@ def test_cuda_gemm_kernel_matches_plain_version():
         got = ops.gemm(a, b, impl="cuda", out_dtype=out)
         want = ops.gemm(a, b, impl="torch", out_dtype=out)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# A narrow accumulator (ops.gemm accum_dtype=bf16 / fp16). The reference
+# has two forms: ``ref`` (and ``xla``) is one matmul with
+# preferred_element_type=accum_dtype, which XLA on the CPU computes as an fp32
+# dot rounded once to accum_dtype (for bf16 operands with an fp16
+# accumulator, rounded to bf16 first); the Pallas body (``interpret``) rounds
+# each K block's fp32 dot to accum_dtype and adds it into an accumulator
+# rounded after each add. The port's ``torch`` impl is the first
+# (``ref.gemm_ref``), the ``cuda`` wrapper's plain version the second
+# (``blocked.gemm_accum_blocked``). Two fp32 orders of a block's sum may
+# round to neighbouring values, and a running sum carries such a step on:
+# each entry is held within one step of the coarser of the operand and
+# accumulator types at max|C| per K block, and, where both sides round the
+# same fp32 sum once, at least 99% of the entries are equal bitwise.
+ACCUM_PAIRS = [("float32", "bfloat16"), ("float32", "float16"),
+               ("bfloat16", "bfloat16"), ("bfloat16", "float16")]
+
+
+def _accum_tol(dtype, accum, blocks, scale):
+    eps = max(torch.finfo(getattr(torch, dtype)).eps, torch.finfo(getattr(torch, accum)).eps)
+    return blocks * eps * scale
+
+
+@pytest.mark.parametrize("k,bk", [(700, None), (700, 128), (96, None)])
+@pytest.mark.parametrize("dtype,accum", ACCUM_PAIRS)
+def test_gemm_narrow_accumulator_matches_jax(rng, dtype, accum, k, bk):
+    m, n = 40, 56
+    jd, td = DTYPES[dtype]
+    ja = jnp.asarray(rng.standard_normal((m, k)), jd)
+    jb = jnp.asarray(rng.standard_normal((k, n)), jd)
+    ta = torch.from_numpy(np.array(ja.astype(jnp.float32))).to(td)
+    tb = torch.from_numpy(np.array(jb.astype(jnp.float32))).to(td)
+    blocks = -(-k // min(bk or 256, k))
+    forms = {}
+    for jimpl, timpl, nb in (("ref", "torch", 1), ("interpret", "cuda", blocks)):
+        want = _np32(jops.gemm(ja, jb, accum_dtype=getattr(jnp, accum), impl=jimpl, bk=bk))
+        got = ops.gemm(ta, tb, accum_dtype=getattr(torch, accum), impl=timpl, bk=bk)
+        assert got.dtype == td
+        got = forms[timpl] = _np32(got)
+        diff = np.abs(got - want)
+        assert diff.max() <= _accum_tol(dtype, accum, nb, np.abs(want).max()), (jimpl, diff.max())
+        if (dtype, accum) != ("bfloat16", "float16"):
+            assert np.mean(got == want) >= 0.99, jimpl
+    if blocks > 1:  # per block and once are different functions
+        assert (forms["cuda"] != forms["torch"]).any()
+
+
+def test_gemm_narrow_accumulator_sums_per_block():
+    """The per-block form, entry by entry: fp32 partials of K blocks of 2,
+    each rounded to bf16, added into a bf16 running sum."""
+    a = torch.tensor([[1.0, 2 ** -9, 2 ** -9, 2 ** -9]])
+    b = torch.ones((4, 1))
+    # one rounding of the whole sum: 1 + 3 * 2^-9 -> 1 + 2^-7 (nearest bf16)
+    assert ops.gemm(a, b, accum_dtype=torch.bfloat16, impl="torch").item() == 1 + 2 ** -7
+    # blocks [1, 2^-9] -> 1 (ties to even), then [2^-9, 2^-9] -> 2^-8; 1 + 2^-8 -> 1
+    assert ops.gemm(a, b, accum_dtype=torch.bfloat16, impl="cuda", bk=2).item() == 1.0
+    assert ops.gemm(a, b, accum_dtype=torch.float16, impl="cuda", bk=2).item() == 1 + 3 * 2 ** -9
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_narrow_accumulator_matches_per_block_plain_version():
+    """Both kernels (fp32 FFMA, bf16 mma) with bf16 and fp16 accumulators,
+    K blocks of 256 (ragged last block) and of 64, against the per-block
+    plain version at the CPU tests' tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper GEMM kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for dtype in ("float32", "bfloat16"):
+        for accum in ("bfloat16", "float16"):
+            for m, k, n, bk in ((257, 1000, 65, 256), (100, 70, 130, 256), (64, 512, 144, 64)):
+                a = torch.randn((m, k), generator=gen, device="cuda").to(getattr(torch, dtype))
+                b = torch.randn((k, n), generator=gen, device="cuda").to(getattr(torch, dtype))
+                kw = dict(accum_dtype=getattr(torch, accum), bk=bk, out_dtype=torch.float32)
+                got = ops.gemm(a, b, impl="cuda", **kw)
+                want = gemm_wrapper.blocked.gemm_accum_blocked(
+                    a, b, bk=min(bk, k), accum_dtype=kw["accum_dtype"], out_dtype=torch.float32)
+                tol = _accum_tol(dtype, accum, -(-k // min(bk, k)), float(want.abs().max()))
+                assert float((got - want.float()).abs().max()) <= tol
+                assert float((got == want.float()).float().mean()) >= 0.99
 
 
 @pytest.mark.cuda

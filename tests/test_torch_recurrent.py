@@ -250,10 +250,12 @@ def test_registry_covers_the_ported_families():
     assert torch.equal(got, want)
     loss = registry.loss_fn(params, dense, {"tokens": tokens, "labels": tokens})
     assert float(loss) > 0
-    with pytest.raises(NotImplementedError, match="dense decode_step"):
-        registry.decode_step(params, dense, {}, {})
-    with pytest.raises(NotImplementedError, match="generate"):
-        serve.generate(dense, params, tokens, 2, 8)
+    cache = registry.init_cache(dense, 1, 8, device="cpu")
+    step = {"token": tokens[:, 0], "position": torch.zeros(1, dtype=torch.int32)}
+    got, _ = registry.decode_step(params, dense, {k: v.clone() for k, v in cache.items()}, step)
+    want, _ = transformer.decode_step(params, dense, cache, step)
+    assert torch.equal(got, want)
+    assert tuple(serve.generate(dense, params, tokens, 2, 8).shape) == (1, 8)
     for family in ("moe", "vlm", "audio"):
         with pytest.raises(NotImplementedError, match="remaining-families slice"):
             registry.init_params(dense.replace(family=family), device="cpu")

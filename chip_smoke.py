@@ -116,7 +116,30 @@ Phases, in order; any failure exits non-zero:
      unsharded kernel, the ring with its last hop left out beyond 1e-2,
      ring decode bitwise ``ring_decode_reference``; then profiles of a
      warm ring call;
-  13. time every kernel against its plain version, the library call and
+  13. the partition layer (``hopper/partition.py``) on three meshes of
+     ranks, each rank a stream of the one card (or a card of its own where
+     the machine has them): pod2 x model2, data2 x model2 and pod2 x data2
+     x model2. For every op, the plan's levels and note, the launches of
+     one sharded call (counts zeroed just before and read just after)
+     equal to the plan's (every rank runs its part; replicas over an axis
+     the plan leaves out too), the hold against the unsharded call, and
+     the sharded and single walls: the GCN at 169,344 nodes (ogbn-arxiv's
+     size rounded up to a multiple of 8), 2 layers of 144, fp32, with
+     ``mesh=`` at 1e-4 (8 gemm and 8 spmm launches on pod2 x model2), under
+     ``use_mesh`` once, and the 169,343-node graph, whose spmm replicates
+     with one warning; phase 4's sparse trio (ELL SpMM and the five
+     stencils bitwise the unsharded call, the overlapped stencil bitwise
+     its sync schedule at 3 launches a rank against 1; BSR and SpMSpM at
+     1e-4); attention at occamy-gptj's width in bf16 (flash at B=4 S=2048
+     head x batch, B=1 S=16384 with the ring composed with heads and its
+     hops through the ring-hop kernel, the scaled FA under bf16, decode at
+     B=4 x 2048) and rwkv6-3b's scan shape, at the ring phase's
+     tolerances; the GEMM (2048, 4096) . (4096, 16384) in fp32 and under
+     ``precision="bf16"`` (the plan's bf16 psum). Then
+     ``launch.mesh_rows`` (the twin of ``benchmarks/bench_mesh.py``) on
+     pod2 x data2 x model2, every row within 1e-3 of its single call and
+     the overlap rows bitwise;
+  14. time every kernel against its plain version, the library call and
      its bound (CUDA events over back-to-back calls); the FA, BSR, SpMSpM,
      stencil, scan and both scaled kernels and their library calls also by
      device time (events around a CUDA graph's replay of 20 calls, which
@@ -133,7 +156,8 @@ Phases, in order; any failure exits non-zero:
      kernel with an fp32 accumulator and the per-block plain version.
 
 Prints the card's name and power limit, one JSON line of per-kernel
-numbers, and as its last line ``{"ok": true, "device": {...}}``. Imports
+numbers (each kernel's mesh-phase launches by mesh under
+``mesh_launches``), and as its last line ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of the reference package.
 """
 from __future__ import annotations
@@ -3019,6 +3043,327 @@ def ring_phase(report):
 
 
 # ---------------------------------------------------------------------------
+# the partition layer: every op over named-axis meshes of ranks on the
+# streams of one card (or one card a rank where the machine has them)
+# ---------------------------------------------------------------------------
+
+MESHES = (("pod2xmodel2", {"pod": 2, "model": 2}), ("data2xmodel2", {"data": 2, "model": 2}),
+          ("pod2xdata2xmodel2", {"pod": 2, "data": 2, "model": 2}))
+# ogbn-arxiv's size rounded up to a multiple of 8 so the row split engages
+# on every mesh; the 169,343-node graph walks spmm's ladder to replication
+MESH_GCN_NODES = 169344
+MESH_FLASH = (("flash B=4 S=2048", 4, 2048), ("flash B=1 S=16384 ring", 1, 16384))
+MESH_ATTN = (16, 16, 256)  # occamy-gptj's attention: heads, kv heads, head dim (bf16)
+MESH_DECODE = (4, 2048)  # B, cache length
+MESH_GEMM = (2048, 4096, 16384)  # the precision ladder's card GEMM: M, K, N (fp32)
+MESH_WALL_REPS = 3
+
+
+def _mesh_devices(n):
+    """One card a rank when the machine has ``n`` cards, else None (every
+    rank on cuda:0's streams)."""
+    import torch
+
+    return [torch.device("cuda", r) for r in range(n)] if torch.cuda.device_count() >= n else None
+
+
+def _wall_ms(fn, reps=MESH_WALL_REPS):
+    """Median host wall of ``fn`` over ``reps`` calls after a warm one, each
+    ended by a device sync."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return sorted(walls)[len(walls) // 2]
+
+
+def _mesh_launches(op, plan, mesh, **kw):
+    """The kernel launches one call of ``op`` makes by ``plan`` on ``mesh``:
+    every rank (replicas over an axis the plan leaves out included) runs
+    the local function; a plan of None is one unsharded call."""
+    kernel = {"gemm": "gemm_scaled" if kw.get("precision") else "gemm",
+              "flash_attention": "flash_attention_scaled" if kw.get("precision")
+              else "flash_attention"}.get(op, op)
+    if op == "decode_attention":
+        return {}  # no kernel (as in the reference)
+    if plan is None:
+        return {kernel: 1}
+    per_rank = {kernel: 1}
+    if op == "stencil" and plan.overlappable:
+        per_rank = {kernel: 3}  # the interior and two strips
+    if op == "flash_attention" and plan.hops:
+        zig = "zigzag" in plan.note
+        per_rank = {kernel: 1 + 2 * (plan.hops - 1) if zig else plan.hops}
+        if kw.get("remote_copy") and plan.hops > 1:
+            per_rank["ring_hop"] = 2 * (plan.hops - 1)  # k and v a send
+    return {k: v * mesh.n for k, v in per_rank.items()}
+
+
+def _hold_mesh_bf16(label, got, want):
+    """The ring phase's bf16 hold: Frobenius RING_BF16_REL, elementwise
+    RING_BF16_STEPS bf16 steps at max|want|."""
+    import torch
+
+    need(bool(torch.isfinite(got.float()).all()), f"mesh [{label}]: non-finite output")
+    rel = _frob(got, want)
+    err = float((got.float() - want.float()).abs().max())
+    step = float(_bf16_step(want.float().abs().max()))
+    print(f"mesh hold [{label}] (bf16): ||sharded - single|| / ||single|| {rel:.3e} (tol "
+          f"{RING_BF16_REL:g}), max_abs {err:.3e} ({RING_BF16_STEPS} steps at max|single| = "
+          f"{RING_BF16_STEPS * step:g})")
+    need(rel <= RING_BF16_REL and err <= RING_BF16_STEPS * step,
+         f"mesh [{label}]: sharded output off the single one")
+    return err
+
+
+def _hold_mesh_bitwise(label, got, want):
+    import torch
+
+    same = bool(torch.equal(got, want))
+    err = float((got.float() - want.float()).abs().max())
+    print(f"mesh hold [{label}]: bitwise {same} (max_abs {err:.3e})")
+    need(same, f"mesh [{label}]: not bitwise the single call")
+    return err
+
+
+def _mesh_plan(op, mesh, *args, **kw):
+    """``op``'s plan on ``mesh`` and the launches one call makes by it."""
+    from repro_torch.hopper import partition
+
+    plan = partition.plan_for(op, mesh, *args, **kw)
+    return plan, _mesh_launches(op, plan, mesh, **kw)
+
+
+def _mesh_row(report, mname, mesh, label, call, hold, plan, want):
+    """One call on ``mesh``: the launches of one sharded call (the counts
+    zeroed just before and read just after) against ``want``, the hold
+    against the unsharded call, and both walls. ``plan`` is the op's plan
+    (None: replicated), or a note for a call of several ops."""
+    import torch
+
+    from repro_torch.hopper import dispatch
+
+    with torch.no_grad():
+        single = call(None)
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        got = call(mesh)
+        torch.cuda.synchronize()
+        launches = dict(dispatch.LAUNCHES)
+        pairs = list(zip(got, single)) if isinstance(got, tuple) else [(got, single)]
+        err = max(hold(f"{mname} {label}" + (f" out {i}" if len(pairs) > 1 else ""), g, s)
+                  for i, (g, s) in enumerate(pairs))
+        del single, got, pairs
+        single_ms = _wall_ms(lambda: call(None))
+        sharded_ms = _wall_ms(lambda: call(mesh))
+    if isinstance(plan, str) or plan is None:
+        levels, note = "-", plan or "replicated"
+    else:
+        levels, note = "x".join(f"{a}={n}" for a, n in plan.levels), plan.note
+    print(f"mesh {mname} {label}: levels {levels}; {note}; launches {launches} (expected "
+          f"{want}); max_abs vs single {err:.3e}; wall sharded {sharded_ms:.3f} ms, single "
+          f"{single_ms:.3f} ms, sharded / single {sharded_ms / single_ms:.2f}")
+    need(launches == want, f"mesh {mname} {label}: launches {launches} != {want}")
+    per = report["mesh_launches"].setdefault(mname, {})
+    for k, v in launches.items():
+        per[k] = per.get(k, 0) + v
+    report["mesh_rows"].append(dict(mesh=mname, op=label, levels=levels, note=note,
+                                     launches=launches, max_abs_err=err,
+                                     sharded_ms=sharded_ms, single_ms=single_ms))
+
+
+def mesh_phase(report, cases):
+    """Every op of the partition layer on three meshes of ranks on one
+    card's streams (pod2 x model2, data2 x model2, pod2 x data2 x model2):
+    the GCN at ogbn-arxiv's scale (``mesh=`` on every mesh, ``use_mesh``
+    once, and the 169,343-node graph whose spmm replicates with one
+    warning), the sparse trio at card size (ELL SpMM and the stencils
+    bitwise; the overlapped stencil bitwise its sync schedule at 3 launches
+    a rank against 1), attention at occamy-gptj's width (flash head x
+    batch, the long ring composed with heads, decode, the scaled FA),
+    rwkv6-3b's scan shape and the ladder's GEMM in fp32 and under bf16.
+    Then ``launch.mesh_rows`` (the bench twin) on pod2 x data2 x model2."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.diagnostics import ReproDegradeWarning, reset_degrade_warnings
+    from repro_torch.hopper import dispatch, ops, partition
+    from repro_torch.launch import gcn_inference as gi, mesh_rows
+    from repro_torch.models import gcn
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.mesh import DeviceMesh
+
+    t0 = time.perf_counter()
+    report["mesh_launches"], report["mesh_rows"] = {}, []
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    rng = np.random.default_rng(SEED)
+    params = gcn.init_params([gi.FEATURES] * (gi.LAYERS + 1), seed=SEED, device="cuda")
+    adj = gi.adjacency(rng, MESH_GCN_NODES, OGBN_ARXIV[2]).to("cuda")
+    feats = torch.from_numpy(rng.standard_normal((MESH_GCN_NODES, gi.FEATURES))
+                             .astype(np.float32)).to("cuda")
+    adj_odd = gi.adjacency(rng, OGBN_ARXIV[1], OGBN_ARXIV[2]).to("cuda")
+    feats_odd = feats[:OGBN_ARXIV[1]].contiguous()
+    H, Kh, D = MESH_ATTN
+    flash_in = {label: tuple(torch.randn((B, h, S, D), generator=gen, device="cuda").bfloat16()
+                             for h in (H, Kh, Kh)) for label, B, S in MESH_FLASH}
+    Bd, Sd = MESH_DECODE
+    qd = torch.randn((Bd, H, D), generator=gen, device="cuda").bfloat16()
+    kd, vd = (torch.randn((Bd, Kh, Sd, D), generator=gen, device="cuda").bfloat16()
+              for _ in range(2))
+    pos = torch.randint(1, Sd, (Bd,), generator=gen, device="cuda", dtype=torch.int32)
+    la = _la_card_inputs("rwkv6-3b", RECURRENT_T, gen)[:5]
+    M, K, N = MESH_GEMM
+    ga, gb = (torch.randn(s, generator=gen, device="cuda") for s in ((M, K), (K, N)))
+
+    def rel(label, got, want):
+        return _hold_rel("mesh", label, got, want, 1e-4)
+
+    def fp32(label, got, want):
+        return _hold(f"mesh {label}", "sharded vs single", got, want, RING_F32_TOL)
+
+    def sparse(label, got, want):
+        return _hold(f"mesh {label}", "sharded vs single", got, want, SPARSE_TOL)
+
+    def gcn_rel(label, got, want):
+        return _hold_rel("mesh gcn", label, got, want, GCN_REL_TOL)
+
+    def scan(label, got, want):  # o in bf16, the final state in fp32
+        return (_hold_mesh_bf16 if got.dtype == torch.bfloat16 else fp32)(label, got, want)
+
+    for mname, shape in MESHES:
+        n = int(np.prod(list(shape.values())))
+        mesh = DeviceMesh(shape, devices=_mesh_devices(n))
+        # the GCN: per layer, gemm K-sharded with its psum, then spmm's rows
+        g_plan, g_want = _mesh_plan("gemm", mesh, feats, params[0])
+        s_plan, s_want = _mesh_plan("spmm", mesh, adj.values, adj.cols, feats)
+        want = {"gemm": gi.LAYERS * g_want["gemm"], "spmm": gi.LAYERS * s_want["spmm"]}
+        _mesh_row(report, mname, mesh, f"gcn forward n={MESH_GCN_NODES}",
+                  lambda m: gcn.forward(params, adj, feats, mesh=m), gcn_rel,
+                  f"gemm: {g_plan.note}; spmm: {s_plan.note}", want)
+        if mname == "pod2xmodel2":
+            need(want == {"gemm": 8, "spmm": 8}, f"gcn on {mname}: {want}, not 8 gemm + 8 spmm")
+            with torch.no_grad():
+                single = gcn.forward(params, adj, feats)
+                with sharding.use_mesh(mesh):
+                    need(sharding.kernel_mesh() is mesh, "use_mesh did not set the kernel mesh")
+                    dispatch.reset_launches()
+                    ctx = gcn.forward(params, adj, feats)
+                    torch.cuda.synchronize()
+                    ctx_launches = dict(dispatch.LAUNCHES)
+                need(sharding.kernel_mesh() is None, "use_mesh did not restore the kernel mesh")
+                gcn_rel(f"{mname} gcn under use_mesh", ctx, single)
+                print(f"mesh {mname} gcn under use_mesh: launches {ctx_launches} (expected {want})")
+                need(ctx_launches == want, f"gcn under use_mesh launched {ctx_launches}")
+                # 169,343 rows: spmm's ladder replicates with one warning; gemm shards
+                reset_degrade_warnings()
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    dispatch.reset_launches()
+                    odd = gcn.forward(params, adj_odd, feats_odd, mesh=mesh)
+                    torch.cuda.synchronize()
+                    odd_launches = dict(dispatch.LAUNCHES)
+                degraded = [str(w.message) for w in caught
+                            if issubclass(w.category, ReproDegradeWarning)]
+                gcn_rel(f"{mname} gcn n={OGBN_ARXIV[1]}, spmm replicated", odd,
+                        gcn.forward(params, adj_odd, feats_odd))
+                odd_plan = partition.plan_for("spmm", mesh, adj_odd.values, adj_odd.cols,
+                                              feats_odd)
+                odd_want = {"gemm": want["gemm"], "spmm": gi.LAYERS}
+                print(f"mesh {mname} gcn n={OGBN_ARXIV[1]}: spmm plan {odd_plan}; warnings "
+                      f"{degraded}; launches {odd_launches} (expected {odd_want})")
+                need(odd_plan is None and len(degraded) == 1 and "'spmm'" in degraded[0],
+                     f"the {OGBN_ARXIV[1]}-row spmm did not replicate with one warning")
+                need(odd_launches == odd_want, f"gcn n={OGBN_ARXIV[1]} launched {odd_launches}")
+                del single, ctx, odd
+            profile_fn(f"mesh {mname} gcn forward n={MESH_GCN_NODES}",
+                       lambda: gcn.forward(params, adj, feats, mesh=mesh), report)
+            profile_fn(f"mesh unsharded gcn forward n={MESH_GCN_NODES}",
+                       lambda: gcn.forward(params, adj, feats), report)
+
+        # the sparse trio at card size, on phase 4's operands
+        for case in cases:
+            A = case.args[0]
+            if case.op == "stencil":
+                grid, offs, w = case.args
+                for overlap in (False, True):
+                    plan, want = _mesh_plan("stencil", mesh, grid, offsets=offs, weights=w,
+                                            overlap=overlap)
+                    need(plan.overlappable == overlap, f"{case.name}: {plan.note}")
+                    _mesh_row(report, mname, mesh, f"{case.name} overlap={overlap}",
+                              lambda m, g=grid, o=offs, w_=w, ov=overlap: ops.stencil(
+                                  g, o, w_, mesh=m, overlap=ov),
+                              _hold_mesh_bitwise, plan, want)
+                with torch.no_grad():
+                    _hold_mesh_bitwise(f"{mname} {case.name} overlap vs sync",
+                                       ops.stencil(grid, offs, w, mesh=mesh, overlap=True),
+                                       ops.stencil(grid, offs, w, mesh=mesh, overlap=False))
+            elif case.op == "spmm":
+                dense = case.args[1]
+                _mesh_row(report, mname, mesh, case.name,
+                          lambda m, A=A, d=dense: ops.spmm(A, d, mesh=m), _hold_mesh_bitwise,
+                          *_mesh_plan("spmm", mesh, A.values, A.cols, dense))
+            elif case.op == "bsr_spmm":
+                dense = case.args[1]
+                _mesh_row(report, mname, mesh, case.name,
+                          lambda m, A=A, d=dense: ops.bsr_spmm(A, d, mesh=m), sparse,
+                          *_mesh_plan("bsr_spmm", mesh, A.tile_values, A.tile_rows,
+                                      A.tile_cols, dense, num_rows=A.shape[0]))
+            else:
+                B, Kc = case.args[1], case.args[2]
+                _mesh_row(report, mname, mesh, case.name,
+                          lambda m, A=A, B=B, k=Kc: ops.spmspm(A, B, k, mesh=m), sparse,
+                          *_mesh_plan("spmspm", mesh, A.values, A.cols, B.values, B.cols,
+                                      contraction_dim=Kc))
+
+        # attention at occamy-gptj's width (bf16): heads x batch, the long
+        # ring composed with heads (its hops through the ring-hop kernel),
+        # the scaled FA under bf16, decode
+        for label, B, S in MESH_FLASH:
+            q, k, v = flash_in[label]
+            kw = {"remote_copy": True} if B == 1 else {}
+            _mesh_row(report, mname, mesh, label,
+                      lambda m, q=q, k=k, v=v, kw=kw: ops.flash_attention(q, k, v, mesh=m, **kw),
+                      _hold_mesh_bf16, *_mesh_plan("flash_attention", mesh, q, k, v, **kw))
+        q, k, v = flash_in[MESH_FLASH[0][0]]
+        _mesh_row(report, mname, mesh, f"{MESH_FLASH[0][0]} precision=bf16",
+                  lambda m: ops.flash_attention(q, k, v, mesh=m, precision="bf16"), fp32,
+                  *_mesh_plan("flash_attention", mesh, q, k, v, precision="bf16"))
+        _mesh_row(report, mname, mesh, f"decode B={Bd} S={Sd}",
+                  lambda m: ops.decode_attention(qd, kd, vd, pos, mesh=m), _hold_mesh_bf16,
+                  *_mesh_plan("decode_attention", mesh, qd, kd, vd, pos))
+        _mesh_row(report, mname, mesh, f"linear_attention rwkv6-3b B=4 T={RECURRENT_T}",
+                  lambda m: ops.linear_attention(*la, mesh=m), scan,
+                  *_mesh_plan("linear_attention", mesh, *la))
+        # the ladder's GEMM: fp32 (K-split, fp32 psum) and bf16 (bf16 psum)
+        _mesh_row(report, mname, mesh, f"gemm {M}x{K}x{N} fp32",
+                  lambda m: ops.gemm(ga, gb, mesh=m), rel, *_mesh_plan("gemm", mesh, ga, gb))
+        plan, want = _mesh_plan("gemm", mesh, ga, gb, precision="bf16")
+        need(plan.note.endswith("bfloat16 reduce"), f"gemm bf16 plan: {plan.note}")
+        _mesh_row(report, mname, mesh, f"gemm {M}x{K}x{N} precision=bf16",
+                  lambda m: ops.gemm(ga, gb, mesh=m, precision="bf16"), _hold_mesh_bf16,
+                  plan, want)
+        del mesh
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    mesh = DeviceMesh({"pod": 2, "data": 2, "model": 2}, devices=_mesh_devices(8))
+    rows = mesh_rows.run(mesh, reps=MESH_WALL_REPS).json_rows
+    for r in rows:
+        need(r["max_err"] <= (0.0 if r["overlap"] else 1e-3), f"mesh_rows {r['name']}: {r}")
+    report["mesh_bench_rows"] = rows
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s; launches by mesh "
+          f"{report['mesh_launches']}")
+
+
+# ---------------------------------------------------------------------------
 
 
 def check_hgmma(paths):
@@ -3106,6 +3451,7 @@ def main() -> int:
             torch.cuda.empty_cache()
         check_ring_kernels(report)
         ring_phase(report)
+        mesh_phase(report, cases)
         time_kernels(report)
         time_gcn_kernels(report)
         time_gemm_accum(report)
@@ -3226,6 +3572,8 @@ def main() -> int:
                              for n, r in report["ring_hop_time"].items()},
         "ranks": RING_N, "cards": report["ring_cards"],
     })
+    for k in kernels:  # the mesh phase's launches of each kernel, by mesh
+        k["mesh_launches"] = {m: c.get(k["name"], 0) for m, c in report["mesh_launches"].items()}
     print(f"card: {card}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,9 @@
 
 A copy of the reference's ``repro/diagnostics.py``. Where the port
 degrades instead of failing (``remote_copy=True`` on CPU tensors takes the
-plain transport; the flash partition ladder replicates when its rule
-declines), it warns through ``warn_degrade`` with the
+plain transport; the partition ladder replicates when an op's rule
+declines every level; ``launch.mesh.host_device_mesh`` degrades a mesh
+that does not divide its ranks), it warns through ``warn_degrade`` with the
 ``ReproDegradeWarning`` category, so callers can filter on exactly the
 degraded-mode signal. Stdlib-only.
 """

@@ -20,11 +20,14 @@ selects a ``core.precision`` policy (fp32, bf16, fp8 = e4m3, fp8_e5m2):
 operands are quantized (per K-block for the GEMM, per row over the head
 dim for attention) and rescaled inside fp32 accumulation; it rides
 dispatch only when set, so ``precision=None`` is the legacy path, bitwise.
-``flash_attention(..., mesh=RingMesh(n))`` runs sharded over a ring of
-ranks (``hopper/partition.py``: the batch split or the sequence-parallel
-KV ring, whose hops go through the ring-hop kernel with
-``remote_copy=True``); ``mesh=`` on every other op raises
-``NotImplementedError``.
+Partitioning is the third dispatch axis (``hopper/partition.py``): every
+op takes ``mesh=`` (a ``parallel.mesh.DeviceMesh`` or ``RingMesh``) or
+picks the mesh up from ``parallel.sharding.use_mesh``, and ``_dispatch``
+resolves the op's PartitionRule once per call: each rank runs the
+selected impl on its own part, on its own stream, and the parts are
+stitched back by the plan's collectives (the flash ring's hops go through
+the ring-hop kernel with ``remote_copy=True``). An op whose rule declines
+every level runs once, unsharded, with one ``ReproDegradeWarning``.
 """
 from __future__ import annotations
 
@@ -46,12 +49,18 @@ from repro_torch.hopper import spmm as _spmm
 from repro_torch.hopper import spmspm as _spmspm
 from repro_torch.hopper import stencil as _stencil
 from repro_torch.hopper.dispatch import kernel_call, resolve_blocks
-from repro_torch.parallel.mesh import RingMesh
+from repro_torch.parallel import sharding
 
 
-def _no_mesh(mesh):
+def _dispatch(op, *args, mesh=None, impl=None, **kwargs):
+    """The one mesh-aware seam: an explicit ``mesh=``, else the
+    ``sharding.use_mesh`` context's, else the plain call, with the
+    plan-only schedule keywords (``partition.PLAN_KWARGS``) stripped."""
+    if mesh is None:
+        mesh = sharding.kernel_mesh()
     if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet")
+        return _partition.sharded_call(op, mesh, *args, impl=impl, **kwargs)
+    return kernel_call(op, *args, impl=impl, **_partition.strip_plan_kwargs(kwargs))
 
 
 def _precision_kwargs(precision):
@@ -76,11 +85,9 @@ def gemm(a, b, *, out_dtype=None, accum_dtype=torch.float32, precision=None,
     quantization block, so it reaches the kernel too) to the policy's
     compute dtype; each block's narrow product is rescaled by its fp32
     scales inside the fp32 accumulator, and the output defaults to fp32."""
-    _no_mesh(mesh)
     blocks = resolve_blocks("gemm", bm=bm, bk=bk, bn=bn)
-    return kernel_call("gemm", a, b, out_dtype=out_dtype,
-                       accum_dtype=accum_dtype, impl=impl,
-                       **_precision_kwargs(precision), **blocks)
+    return _dispatch("gemm", a, b, out_dtype=out_dtype, accum_dtype=accum_dtype,
+                     mesh=mesh, impl=impl, **_precision_kwargs(precision), **blocks)
 
 
 @dispatch.register_kernel("gemm", impl="cuda")
@@ -127,12 +134,13 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     scale per row); the scaled kernel rescales inside its fp32 block
     compute. Scaled attention always returns fp32.
 
-    ``mesh`` (a ``RingMesh``) shards the call over its ranks; ``overlap``,
-    ``zigzag`` and ``remote_copy`` are the ring's schedule knobs (no-ops
-    without a mesh): ``overlap`` issues hop t+1's transfer before hop t's
-    fold, ``zigzag`` balances causal Q ownership over head and tail
-    half-chunks, ``remote_copy`` sends each hop through the ring-hop
-    kernel instead of ``copy_``. Numerics are the same either way.
+    ``mesh`` shards the call (heads over ``pod``/``model``, the batch or
+    the sequence ring over ``data``); ``overlap``, ``zigzag`` and
+    ``remote_copy`` are the ring's schedule knobs (no-ops without a ring):
+    ``overlap`` issues hop t+1's transfer before hop t's fold, ``zigzag``
+    balances causal Q ownership over head and tail half-chunks,
+    ``remote_copy`` sends each hop through the ring-hop kernel instead of
+    ``copy_``. Numerics are the same either way.
     """
     if block_k is not None:
         if bk is not None and bk != block_k:
@@ -141,19 +149,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
             )
         bk = block_k
     blocks = resolve_blocks("flash_attention", bq=bq, bk=bk)
-    kwargs = dict(causal=causal, window=window, q_offset=q_offset, scale=scale,
-                  return_lse=return_lse, **_precision_kwargs(precision), **blocks)
-    if mesh is None:
-        return kernel_call("flash_attention", q, k, v, impl=impl, **kwargs)
-    if not isinstance(mesh, RingMesh):
-        raise NotImplementedError(
-            f"flash_attention: mesh= of type {type(mesh).__name__} is not ported; "
-            f"the port shards over a RingMesh"
-        )
-    return _partition.sharded_flash_attention(
-        mesh, q, k, v, impl=impl, overlap=overlap,
-        zigzag=zigzag, remote_copy=remote_copy, **kwargs,
-    )
+    return _dispatch("flash_attention", q, k, v, causal=causal, window=window,
+                     q_offset=q_offset, scale=scale, return_lse=return_lse, mesh=mesh,
+                     impl=impl, overlap=overlap, zigzag=zigzag, remote_copy=remote_copy,
+                     **_precision_kwargs(precision), **blocks)
 
 
 @dispatch.register_kernel("flash_attention", impl="cuda")
@@ -196,7 +195,6 @@ def decode_attention(q, k, v, position, *, window=0, scale=None,
     ``k_scale``/``v_scale`` ((P, K, bs, 1) fp32) are the scales of paged
     pools already held narrow; the contiguous path takes ``precision=``
     instead and raises ``TypeError`` on them."""
-    _no_mesh(mesh)
     if paged and block_table is None:
         raise TypeError("decode_attention: paged=True requires block_table")
     if block_table is not None and not paged:
@@ -218,10 +216,10 @@ def decode_attention(q, k, v, position, *, window=0, scale=None,
                 "paged path; the contiguous path quantizes via precision="
             )
         blocks = resolve_blocks("decode_attention", bs=bs)
-    return kernel_call(
+    return _dispatch(
         "decode_attention", q, k, v, position, window=window, scale=scale,
         block_table=block_table, pos_offset=pos_offset,
-        return_lse=return_lse, impl=impl, **_precision_kwargs(precision),
+        return_lse=return_lse, mesh=mesh, impl=impl, **_precision_kwargs(precision),
         **scales, **blocks,
     )
 
@@ -277,7 +275,6 @@ def linear_attention(r, k, v, w_log, u=None, s0=None, *, impl=None, mesh=None,
     ``w_log`` is floored at ``W_LOG_FLOOR`` first; a ``chunk`` whose span
     could overflow one fp32 exp raises ``ValueError`` (not for ``ref``,
     the exact per-token scan)."""
-    _no_mesh(mesh)
     chunk = resolve_blocks("linear_attention", chunk=chunk)["chunk"]
     if (dispatch.resolve_impl("linear_attention", impl) != "ref"
             and chunk * -W_LOG_FLOOR > _MAX_CHUNK_EXP):
@@ -286,8 +283,8 @@ def linear_attention(r, k, v, w_log, u=None, s0=None, *, impl=None, mesh=None,
             f"{chunk * -W_LOG_FLOOR} must stay <= {_MAX_CHUNK_EXP} "
             f"(max chunk {int(_MAX_CHUNK_EXP / -W_LOG_FLOOR)})"
         )
-    return kernel_call("linear_attention", r, k, v, _floor_decay(w_log), u, s0,
-                       chunk=chunk, impl=impl)
+    return _dispatch("linear_attention", r, k, v, _floor_decay(w_log), u, s0,
+                     chunk=chunk, mesh=mesh, impl=impl)
 
 
 dispatch.register_kernel("linear_attention", impl="cuda")(_la.linear_attention_cuda)
@@ -333,9 +330,8 @@ def spmm(values, cols=None, dense=None, *, impl=None, mesh=None, bm=None):
         values, cols = values.values, values.cols
     if cols is None or dense is None:
         raise TypeError("spmm: cols and dense operands are required")
-    _no_mesh(mesh)
     blocks = resolve_blocks("spmm", bm=bm)
-    return kernel_call("spmm", values, cols, dense, impl=impl, **blocks)
+    return _dispatch("spmm", values, cols, dense, mesh=mesh, impl=impl, **blocks)
 
 
 dispatch.register_kernel("spmm", impl="cuda")(_spmm.spmm_cuda)
@@ -369,10 +365,9 @@ def bsr_spmm(tile_values, tile_rows=None, tile_cols=None, dense=None,
         raise TypeError(
             "bsr_spmm: tile coordinates, dense operand and num_rows are required"
         )
-    _no_mesh(mesh)
     blocks = resolve_blocks("bsr_spmm", bf=bf)
-    return kernel_call("bsr_spmm", tile_values, tile_rows, tile_cols, dense,
-                       num_rows=num_rows, impl=impl, **blocks)
+    return _dispatch("bsr_spmm", tile_values, tile_rows, tile_cols, dense,
+                     num_rows=num_rows, mesh=mesh, impl=impl, **blocks)
 
 
 dispatch.register_kernel("bsr_spmm", impl="cuda")(_bsr.bsr_spmm_cuda)
@@ -414,10 +409,9 @@ def spmspm(a_values, a_cols, b_values=None, b_rows=None, contraction_dim=None,
         raise TypeError(
             "spmspm: b_values, b_rows and contraction_dim are required"
         )
-    _no_mesh(mesh)
     blocks = resolve_blocks("spmspm", bm=bm, bn=bn)
-    return kernel_call("spmspm", a_values, a_cols, b_values, b_rows,
-                       contraction_dim=contraction_dim, impl=impl, **blocks)
+    return _dispatch("spmspm", a_values, a_cols, b_values, b_rows,
+                     contraction_dim=contraction_dim, mesh=mesh, impl=impl, **blocks)
 
 
 dispatch.register_kernel("spmspm", impl="cuda")(_spmspm.spmspm_cuda)
@@ -439,14 +433,13 @@ def stencil(grid, offsets, weights, *, impl=None, mesh=None, bx=None,
             overlap=True):
     """Periodic stencil: grid (X, Y, Z), static offsets (P, 3), weights
     (P,); the output has the grid's dtype. ``overlap`` schedules the
-    sharded halo exchange in the reference and is a no-op on one device,
-    so it is accepted and ignored here. ``bx`` is the reference kernel's
-    x-block: the ``cuda`` impl keeps its limits (X % bx == 0, |dx| <= bx)."""
-    del overlap  # one device: no halo exchange to schedule
-    _no_mesh(mesh)
+    sharded halo exchange (the interior computed while the halo planes
+    fly; bitwise the synchronous schedule) and is a no-op without a mesh.
+    ``bx`` is the reference kernel's x-block: the ``cuda`` impl keeps its
+    limits (X % bx == 0, |dx| <= bx)."""
     blocks = resolve_blocks("stencil", bx=bx)
-    return kernel_call("stencil", grid, offsets=offsets, weights=weights,
-                       impl=impl, **blocks)
+    return _dispatch("stencil", grid, offsets=offsets, weights=weights, mesh=mesh,
+                     impl=impl, overlap=overlap, **blocks)
 
 
 dispatch.register_kernel("stencil", impl="cuda")(_stencil.stencil_cuda)

@@ -5,6 +5,11 @@ H' = act( Â (H W) ) with Â an ``EllMatrix``: the recombination runs
 through ``ops.gemm`` and the aggregation through ``ops.spmm``, so on the
 card each layer is one launch of each Hopper kernel. Parameters are a list
 of (f_in, f_out) weight tensors, as in the reference.
+
+Passing ``mesh=`` (or calling under ``sharding.use_mesh``) runs the whole
+forward sharded: each op follows its own PartitionRule (the GEMM
+K-sharded with its psum, the adjacency's rows split for the aggregation),
+one launch of each kernel per rank and layer.
 """
 from __future__ import annotations
 
@@ -40,15 +45,15 @@ def params_from_jax(np_params, *, device=None):
     return [torch.from_numpy(np.array(w)).to(device) for w in np_params]
 
 
-def gcn_layer(w, adj: EllMatrix, feats, *, activate=True):
+def gcn_layer(w, adj: EllMatrix, feats, *, activate=True, mesh=None):
     """One layer: recombine (dense GEMM) then aggregate (SpMM)."""
-    h = ops.gemm(feats, w)  # dense recombination
-    h = ops.spmm(adj, h)  # sparse aggregation
+    h = ops.gemm(feats, w, mesh=mesh)  # dense recombination
+    h = ops.spmm(adj, h, mesh=mesh)  # sparse aggregation (row-sharded)
     return torch.relu(h) if activate else h
 
 
-def forward(params, adj: EllMatrix, feats):
+def forward(params, adj: EllMatrix, feats, *, mesh=None):
     h = feats
     for i, w in enumerate(params):
-        h = gcn_layer(w, adj, h, activate=i < len(params) - 1)
+        h = gcn_layer(w, adj, h, activate=i < len(params) - 1, mesh=mesh)
     return h

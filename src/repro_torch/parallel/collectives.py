@@ -1,14 +1,17 @@
-"""The ring primitives behind sequence parallelism, single-controller.
+"""The collectives of the partition layer, single-controller.
 
-A port of the reference's ``repro/parallel/collectives.py`` ring family:
-``ring_schedule`` (the hop schedule as data), ``ring_scan`` (rotate a
-block through an n-rank ring, folding it into a carry at every hop) and
-``online_softmax_merge`` (fold one attention partial into a running
-accumulator). The reference runs them inside a ``shard_map``, one traced
-program for every rank; here one process drives every rank of a
-``parallel.mesh.RingMesh`` in turn, each on its own stream, so the rank
+A port of the reference's ``repro/parallel/collectives.py``: the ring
+family, ``ring_schedule`` (the hop schedule as data), ``ring_scan``
+(rotate a block through a ring of ranks, folding it into a carry at every
+hop) and ``online_softmax_merge`` (fold one attention partial into a
+running accumulator); ``hierarchical_psum`` (the per-level all-reduce of
+the partition plans); and ``ppermute``, the counterpart of
+``jax.lax.ppermute`` over one mesh axis (the stencil's halo exchange).
+The reference runs them inside a ``shard_map``, one traced program for
+every rank; here one process drives every rank of a
+``parallel.mesh.DeviceMesh`` in turn, each on its own stream, so the rank
 index ``me`` is a Python int and the reference's traced ``axis_index``
-branches become static.
+branches become static. Each takes and returns per-rank lists.
 
 A hop pushes each rank's resident block into a landing buffer owned by its
 right neighbour ``(me + 1) % n``. Two CUDA events stand in for the DMA
@@ -19,8 +22,7 @@ sender's stream after the push and waited on by the receiver's stream
 before it first reads the block. The controller records each event before
 any stream waits on it, so no wait can see an older generation of it.
 
-``ring_scan_carry``, ``hierarchical_psum`` and ``ep_expert_ffn`` are not
-ported yet.
+``ring_scan_carry`` and ``ep_expert_ffn`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,9 +39,10 @@ from repro_torch.hopper import ring_hop
 NEG_LSE = -1e30
 
 
-def _ring_fwd(n: int):
-    """The forward ring's (sender, receiver) pairs."""
-    return [(i, (i + 1) % n) for i in range(n)]
+def _rings(mesh, axis):
+    """The rings of ``axis`` (its groups, in axis order), or the one ring of
+    every rank in rank order when ``axis`` is None."""
+    return [list(range(mesh.n))] if axis is None else mesh.groups(axis)
 
 
 def _hop_send(mesh, remote_copy: bool):
@@ -145,18 +148,20 @@ def _push(mesh, send, block, me: int, to: int) -> _Resident:
 
 
 def ring_scan(step_fn, carries, blocks, mesh, *, hops: int | None = None,
-              overlap: bool = True, remote_copy: bool = False) -> list:
-    """Rotate every rank's block through the ring of ``mesh``, folding it
-    into that rank's carry at every hop.
+              overlap: bool = True, remote_copy: bool = False, axis: str | None = None) -> list:
+    """Rotate every rank's block through its ring, folding it into that
+    rank's carry at every hop.
 
     Args: ``step_fn(me, carry, block, t) -> carry`` — called once per rank
     and hop, under rank ``me``'s device and stream; at hop ``t`` the
-    resident block is the one rank ``(me - t) % n`` started with;
-    ``carries`` / ``blocks`` — per-rank lists (a block is a tuple of
-    tensors; every leaf hops); ``mesh`` — the ``RingMesh``;
-    ``hops`` — fold count (default ``n``); ``overlap`` — issue hop t+1's
-    transfers before hop t's folds (else after); ``remote_copy`` — the
-    transport of each send (``_hop_send``).
+    resident block is the one the rank ``t`` places behind ``me`` on its
+    ring started with; ``carries`` / ``blocks`` — per-rank lists (a block
+    is a tuple of tensors; every leaf hops); ``mesh`` — the ``DeviceMesh``;
+    ``hops`` — fold count (default the ring's length); ``overlap`` — issue
+    hop t+1's transfers before hop t's folds (else after); ``remote_copy``
+    — the transport of each send (``_hop_send``); ``axis`` — the rings are
+    the groups of this mesh axis (default: one ring of every rank, in rank
+    order).
 
     Replays ``ring_schedule(hops, overlap=overlap)`` event by event, as the
     reference does; each event is applied to every rank in turn. Fires
@@ -167,14 +172,16 @@ def ring_scan(step_fn, carries, blocks, mesh, *, hops: int | None = None,
     if len(carries) != n or len(blocks) != n:
         raise ValueError(f"ring_scan: {len(carries)} carries, {len(blocks)} blocks "
                          f"for {n} ranks")
-    hops = n if hops is None else hops
+    rings = _rings(mesh, axis)
+    hops = len(rings[0]) if hops is None else hops
+    pairs = [(g[i], g[(i + 1) % len(g)]) for g in rings for i in range(len(g))]
     send = _hop_send(mesh, remote_copy)
     carries = list(carries)
     buffers = [{0: _Resident(b)} for b in blocks]
     for ev in ring_schedule(hops, overlap=overlap):
         if ev.kind == "send":
             landed = [None] * n
-            for me, to in _ring_fwd(n):
+            for me, to in pairs:
                 block = buffers[me][ev.src].ready(mesh, me)
                 landed[to] = _push(mesh, send, block, me, to)
             for me in range(n):
@@ -185,6 +192,76 @@ def ring_scan(step_fn, carries, blocks, mesh, *, hops: int | None = None,
                 with mesh.on(me):
                     carries[me] = step_fn(me, carries[me], block, ev.hop)
     return carries
+
+
+def ppermute_start(parts, mesh, axis: str, perm) -> list:
+    """Issue ``ppermute``'s transfers and return each rank's ``_Resident``
+    landing without making any rank wait for it: a caller that has other
+    work for a rank's stream queues it first, then takes the part with
+    ``.ready(mesh, r)[0]``."""
+    out = [None] * mesh.n
+    for g in mesh.groups(axis):
+        for src, dst in perm:
+            out[g[dst]] = _push(mesh, ring_hop.ring_hop_plain, (parts[g[src]],),
+                                g[src], g[dst])
+    for r in range(mesh.n):
+        if out[r] is None:  # perm sends rank r nothing: zeros, as in the reference
+            with mesh.on(r):
+                out[r] = _Resident((torch.zeros_like(parts[r], device=mesh.devices[r]),))
+    return out
+
+
+def ppermute(parts, mesh, axis: str, perm) -> list:
+    """``jax.lax.ppermute`` over ``axis``: in every group of ``axis``, the
+    rank at axis index ``src`` sends its part to the rank at ``dst``, for
+    each ``(src, dst)`` of ``perm``. Returns the per-rank received parts,
+    each in a new allocation of its receiver (zeros where ``perm`` sends
+    it nothing). The transport is ``ring_hop.ring_hop_plain`` on the
+    sender's stream, fenced by the ring's free / landed events
+    (``_push``)."""
+    return [res.ready(mesh, r)[0] for r, res in enumerate(ppermute_start(parts, mesh, axis, perm))]
+
+
+def _to_rank(mesh, x, src: int, dst: int):
+    """Rank ``src``'s ``x`` copied into a new allocation of rank ``dst``,
+    fenced by the ring's events (``_push``), card to card or on one card."""
+    return _push(mesh, ring_hop.ring_hop_plain, (x,), src, dst).ready(mesh, dst)[0]
+
+
+def hierarchical_psum(parts, mesh, levels) -> list:
+    """Reduce the per-rank ``parts`` across a hierarchy of mesh axes,
+    innermost level first (the reference's ``hierarchical_psum``).
+
+    ``levels`` is an outer-to-inner tuple of ``(axis, size)`` pairs (a
+    ``PartitionPlan.levels``); size-1 levels are skipped. At each level,
+    every group of the axis sums its parts in increasing axis index, in
+    fp32, rounded once to the parts' dtype, on the stream of the group's
+    first rank (a part on another card is first copied there); every other
+    rank of the group then gets a copy of that sum in its own allocation,
+    so the group's results are bitwise equal. Returns the per-rank reduced
+    parts. Plain tensor code, as the reference's ``psum`` is XLA's
+    collective with no kernel of its own."""
+    parts = list(parts)
+    for axis, size in reversed(tuple(levels)):
+        if size <= 1:
+            continue
+        for g in mesh.groups(axis):
+            root = g[0]
+            terms = [parts[root]]
+            for r in g[1:]:
+                if parts[r].device == parts[root].device:
+                    mesh._handoff(parts[r], r, root)
+                    terms.append(parts[r])
+                else:
+                    terms.append(_to_rank(mesh, parts[r], r, root))
+            with mesh.on(root):
+                acc = terms[0].float() + terms[1].float()
+                for t in terms[2:]:
+                    acc += t.float()
+                parts[root] = acc.to(terms[0].dtype)
+            for r in g[1:]:
+                parts[r] = _to_rank(mesh, parts[root], root, r)
+    return parts
 
 
 def online_softmax_merge(o_acc, lse_acc, o, lse):

@@ -1,12 +1,14 @@
-"""A 1-D ring of ranks driven by one process: the port's counterpart of a
-``shard_map`` over one mesh axis.
+"""Named-axis meshes of ranks driven by one process: the port's counterpart
+of a ``jax.sharding.Mesh`` and the ``shard_map`` over it.
 
 The reference is single-controller: one Python process traces a
-``shard_map`` over every device of a mesh axis. ``RingMesh`` keeps that
-shape. Rank ``r`` has its own device (``devices[r]``), on CUDA its own
-``torch.cuda.Stream``, and its own buffers: ``shard`` hands every rank a
-separate allocation, so a ring hop really moves bytes from one rank's
-buffer into another's. The caller's code runs rank ``r``'s work inside
+``shard_map`` over every device of a mesh. ``DeviceMesh`` keeps that
+shape. Its ranks are numbered row-major over named axes (``{"pod": P,
+"data": D, "model": M}``: rank ``(p * D + d) * M + m``). Rank ``r`` has
+its own device (``devices[r]``), on CUDA its own ``torch.cuda.Stream``,
+and its own buffers: ``shard`` hands every rank a separate allocation, so
+a ring hop or a halo exchange really moves bytes from one rank's buffer
+into another's. The caller's code runs rank ``r``'s work inside
 ``mesh.on(r)``, which makes that rank's device and stream current, so the
 kernels of different ranks are free to overlap.
 
@@ -14,24 +16,35 @@ On one card all ranks share ``cuda:0`` and differ by stream; with one
 card per rank (``devices=[cuda:0, cuda:1, ...]``) a hop writes into a peer
 card's memory.
 
+A spec entry says how one dimension of a tensor splits over the mesh, as
+in a ``PartitionSpec``: ``None`` (every rank holds the whole dimension),
+an axis name (split over that axis), or a tuple of names (split jointly,
+the first axis major: ``("pod", "model")`` gives slab ``p * M + m`` to the
+ranks at pod ``p`` and model ``m``).
+
 Streams and the caching allocator: a tensor allocated under one stream and
 read on another could be handed out again while the other still reads it.
 ``shard``/``replicate`` make each rank's stream wait for the caller's
 stream and allocate each part under the rank's stream; ``collect`` makes
 the caller's stream wait for the rank's; every tensor that crosses
 streams is passed to ``record_stream``.
+
+``RingMesh(n)`` is the one-axis mesh ``{"data": n}`` (the sequence ring's).
 """
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
 from repro_torch.device import resolve_device
 
+_ALL = object()  # shard()'s default entry: every axis jointly, i.e. rank order
 
-class RingMesh:
-    """``n`` ranks on a ring (the reference's ``data`` axis).
+
+class DeviceMesh:
+    """Ranks on the named axes of ``shape`` (``{axis: size}``, in order).
 
     ``devices``: one device per rank; ``None`` puts every rank on
     ``device`` (``resolve_device``: ``cuda`` unless the caller passes
@@ -40,26 +53,79 @@ class RingMesh:
     every rank's work runs in program order.
     """
 
-    def __init__(self, n: int, *, devices=None, device=None):
-        if n < 1:
-            raise ValueError(f"RingMesh: n must be >= 1, got {n}")
+    def __init__(self, shape: dict, *, devices=None, device=None):
+        shape = {str(a): int(s) for a, s in dict(shape).items()}
+        if not shape or any(s < 1 for s in shape.values()):
+            raise ValueError(f"{type(self).__name__}: axis sizes must be >= 1, got {shape}")
+        n = math.prod(shape.values())
         if devices is None:
             dev = resolve_device(device)
             if dev.type == "cuda" and dev.index is None:
                 dev = torch.device("cuda", 0)
             devices = [dev] * n
         elif device is not None:
-            raise TypeError("RingMesh: pass devices= or device=, not both")
+            raise TypeError(f"{type(self).__name__}: pass devices= or device=, not both")
         devices = [torch.device(d) for d in devices]
         if len(devices) != n:
-            raise ValueError(f"RingMesh: {len(devices)} devices for {n} ranks")
+            raise ValueError(f"{type(self).__name__}: {len(devices)} devices for {n} ranks")
         if len({d.type for d in devices}) != 1:
-            raise ValueError(f"RingMesh: ranks on mixed device types {devices}")
+            raise ValueError(f"{type(self).__name__}: ranks on mixed device types {devices}")
+        self.shape = shape
+        self.axis_names = tuple(shape)
         self.n = n
         self.devices = devices
         self.is_cuda = devices[0].type == "cuda"
         self.streams = ([torch.cuda.Stream(device=d) for d in devices]
                         if self.is_cuda else [None] * n)
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.shape}, devices={len(set(self.devices))})"
+
+    # -- rank arithmetic ----------------------------------------------------
+
+    def coords(self, r: int) -> dict:
+        """Rank ``r``'s index on every axis, ``{axis: index}``."""
+        out = {}
+        for a in reversed(self.axis_names):
+            r, out[a] = divmod(r, self.shape[a])
+        return {a: out[a] for a in self.axis_names}
+
+    def rank(self, coords: dict) -> int:
+        """The rank at ``coords`` (``{axis: index}`` for every axis)."""
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + coords[a]
+        return r
+
+    def group(self, axis: str, r: int) -> list:
+        """The ranks that differ from ``r`` only on ``axis``, in axis order
+        (``r`` among them)."""
+        c = self.coords(r)
+        return [self.rank({**c, axis: i}) for i in range(self.shape[axis])]
+
+    def groups(self, axis: str) -> list:
+        """Every group of ``axis`` (``group(axis, r)``), each once."""
+        return [self.group(axis, r) for r in range(self.n) if self.coords(r)[axis] == 0]
+
+    def _entry(self, entry):
+        """A spec entry as a tuple of axis names (``()`` for ``None``)."""
+        if entry is _ALL:
+            return self.axis_names
+        names = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        for a in names:
+            if a not in self.shape:
+                raise ValueError(f"{type(self).__name__}: no axis {a!r} in {self.axis_names}")
+        return names
+
+    def chunk(self, entry, r: int) -> tuple[int, int]:
+        """``(index, count)``: which of the ``count`` slabs of a dimension
+        split by ``entry`` rank ``r`` holds (``(0, 1)`` for ``None``)."""
+        c, index, count = self.coords(r), 0, 1
+        for a in self._entry(entry):
+            index, count = index * self.shape[a] + c[a], count * self.shape[a]
+        return index, count
+
+    # -- streams and parts --------------------------------------------------
 
     @contextlib.contextmanager
     def on(self, r: int):
@@ -79,24 +145,50 @@ class RingMesh:
             if x.device == self.devices[r]:
                 x.record_stream(self.streams[r])
 
-    def _own(self, view, r: int):
+    def _handoff(self, x, src: int, dst: int):
+        """Rank ``dst``'s stream waits for rank ``src``'s, which produced
+        ``x``, and ``x`` is kept alive for it."""
+        if self.is_cuda:
+            self.streams[dst].wait_stream(self.streams[src])
+            if x.device == self.devices[dst]:
+                x.record_stream(self.streams[dst])
+
+    def _own(self, view, r: int, src: int | None = None):
         """A copy of ``view`` in a new allocation of rank ``r``, made under
-        rank ``r``'s stream."""
-        self._enter(view, r)
+        rank ``r``'s stream; ``view`` was produced on the caller's stream,
+        or on rank ``src``'s when given."""
+        if src is None:
+            self._enter(view, r)
+        else:
+            self._handoff(view, src, r)
         with self.on(r):
             part = torch.empty(view.shape, dtype=view.dtype, device=self.devices[r])
             part.copy_(view)
         return part
 
-    def shard(self, x, dim: int) -> list:
-        """``n`` per-rank parts of ``x`` split evenly along ``dim``, each its
-        own contiguous allocation on its rank's device."""
-        size = x.shape[dim]
-        if size % self.n:
-            raise ValueError(f"RingMesh.shard: dim {dim} of size {size} does not "
-                             f"split over {self.n} ranks")
-        c = size // self.n
-        return [self._own(x.narrow(dim, r * c, c), r) for r in range(self.n)]
+    def local(self, x, spec, r: int):
+        """The view of ``x`` that rank ``r`` holds under ``spec`` (one entry
+        per leading dimension; missing entries are ``None``). No copy."""
+        for dim, entry in enumerate(spec):
+            index, count = self.chunk(entry, r)
+            if count > 1:
+                size = x.shape[dim]
+                if size % count:
+                    raise ValueError(f"{type(self).__name__}: dim {dim} of size {size} does "
+                                     f"not split over {count} ranks ({entry!r})")
+                x = x.narrow(dim, index * (size // count), size // count)
+        return x
+
+    def shard_spec(self, x, spec) -> list:
+        """Every rank's part of ``x`` under ``spec``, each its own contiguous
+        allocation on its rank's device."""
+        return [self._own(self.local(x, spec, r), r) for r in range(self.n)]
+
+    def shard(self, x, dim: int, entry=_ALL) -> list:
+        """Every rank's part of ``x`` split along ``dim`` by ``entry`` (by
+        default every axis jointly: the ``n`` slabs in rank order), each
+        its own contiguous allocation on its rank's device."""
+        return self.shard_spec(x, (None,) * dim + (entry,))
 
     def replicate(self, x) -> list:
         """One copy of ``x`` per rank, each its own allocation."""
@@ -117,7 +209,38 @@ class RingMesh:
             part = part.to(device)
         return part
 
-    def gather(self, parts, dim: int, device=None):
-        """The per-rank ``parts`` concatenated along ``dim`` on ``device``
+    def gather_spec(self, parts, spec, device=None):
+        """The global tensor whose per-rank parts under ``spec`` are
+        ``parts``, on ``device`` (default: rank 0's device), on the
+        caller's stream. Axes ``spec`` does not name are replicas: the
+        ranks at index 0 on them supply the parts."""
+        used = {a for e in spec for a in self._entry(e)}
+        reps = [r for r in range(self.n)
+                if all(i == 0 for a, i in self.coords(r).items() if a not in used)]
+        grid = {tuple(self.chunk(e, r)[0] for e in spec): self.collect(parts[r], r, device)
+                for r in reps}
+
+        def cat(prefix, dim):
+            if dim == len(spec):
+                return grid[prefix]
+            count = self.chunk(spec[dim], 0)[1]
+            pieces = [cat(prefix + (i,), dim + 1) for i in range(count)]
+            return pieces[0] if count == 1 else torch.cat(pieces, dim=dim)
+
+        return cat((), 0)
+
+    def gather(self, parts, dim: int, device=None, entry=_ALL):
+        """The per-rank ``parts`` concatenated along ``dim`` by ``entry``
+        (by default every axis jointly, in rank order) on ``device``
         (default: rank 0's device), on the caller's stream."""
-        return torch.cat([self.collect(p, r, device) for r, p in enumerate(parts)], dim=dim)
+        return self.gather_spec(parts, (None,) * dim + (entry,), device)
+
+
+class RingMesh(DeviceMesh):
+    """``n`` ranks on a ring: the one-axis mesh ``{"data": n}`` (the
+    reference's ``data`` axis)."""
+
+    def __init__(self, n: int, *, devices=None, device=None):
+        if n < 1:
+            raise ValueError(f"RingMesh: n must be >= 1, got {n}")
+        super().__init__({"data": n}, devices=devices, device=device)

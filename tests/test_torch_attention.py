@@ -166,9 +166,9 @@ def test_decode_attention_argument_checks(rng):
         ops.decode_attention(q, k[..., 0], v[..., 0], pos, paged=True, block_table=table)
     out = ops.decode_attention(q, k, v, pos, precision="fp8")  # the precision slice runs
     assert out.shape == q.shape and bool(torch.isfinite(out).all())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         ops.decode_attention(q, k, v, pos, precision="fp8", mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="mesh"):
         ops.flash_attention(q[:, :, None], k, v, mesh=object())
     with pytest.raises(TypeError, match="disagree"):
         ops.flash_attention(q[:, :, None], k, v, bk=8, block_k=16)

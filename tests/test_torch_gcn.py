@@ -83,9 +83,9 @@ def test_gemm_argument_checks(rng):
     assert torch.equal(out, (a @ a.T).to(torch.bfloat16).float())
     out = ops.gemm(a, a.T, precision="fp8")  # the precision slice runs, fp32 out
     assert out.dtype == torch.float32 and tuple(out.shape) == (8, 8)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         ops.gemm(a, a.T, precision="fp8", mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         ops.gemm(a, a.T, mesh=object())
     meta = torch.empty((8, 4), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -124,7 +124,7 @@ def test_spmm_argument_checks(rng):
         ops.spmm(A)
     with pytest.raises(TypeError, match="required"):
         ops.spmm(A.values, A.cols)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         ops.spmm(A, D, mesh=object())
     meta = torch.empty((8, 2), device="meta")
     with pytest.raises(ValueError, match="CUDA"):

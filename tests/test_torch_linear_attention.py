@@ -209,7 +209,7 @@ def test_kernel_wrapper_raises_off_cpu_and_cuda():
     x = torch.empty((1, 2, 8, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         linear_attention_cuda(x, x, x, x)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         ops.linear_attention(x, x, x, x, mesh=object())
 
 

@@ -307,15 +307,15 @@ def test_scaled_argument_checks(rng):
         ops.gemm(a, a.T, precision="fp4")
     with pytest.raises(NotImplementedError, match="accum_dtype"):
         ops.gemm(a, a.T, precision="fp8", accum_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         ops.gemm(a, a.T, precision="fp8", mesh=object())
     q, kv = torch.zeros((1, 8, 16)), torch.zeros((1, 4, 16, 16))
     kq, ks, vq, vs = prec.quantize_kv_cache(kv, kv, "fp8")
     with pytest.raises(TypeError, match="k_scale"):
         ops.decode_attention(q, kq, vq, torch.tensor([3]), k_scale=ks, v_scale=vs)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         ops.decode_attention(q, kv, kv, torch.tensor([3]), precision="fp8", mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         ops.flash_attention(kv, kv, kv, precision="fp8", mesh=object())
 
 

@@ -293,11 +293,14 @@ def test_ring_mesh_parts_are_own_allocations():
 
 
 def test_flash_mesh_argument_errors():
+    """mesh= takes a mesh object; every op, gemm included, now shards over
+    a RingMesh (its one ``data`` axis is gemm's partition level)."""
     q = torch.zeros(1, 2, 8, 16)
-    with pytest.raises(NotImplementedError, match="RingMesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ops.flash_attention(q, q, q, mesh="data")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ops.gemm(q[0, 0], q[0, 0].T, mesh=RingMesh(2, device="cpu"))
+    a = torch.arange(32.0).reshape(8, 4)
+    got = ops.gemm(a, a.T, mesh=RingMesh(2, device="cpu"))
+    assert torch.equal(got, ops.gemm(a, a.T))
 
 
 def test_ring_hop_wrapper_on_cpu_takes_the_plain_version():

@@ -139,7 +139,32 @@ Phases, in order; any failure exits non-zero:
      ``launch.mesh_rows`` (the twin of ``benchmarks/bench_mesh.py``) on
      pod2 x data2 x model2, every row within 1e-3 of its single call and
      the overlap rows bitwise;
-  14. time every kernel against its plain version, the library call and
+  14. the training path at full width: (a) the two autograd Functions
+     (``hopper/grads.py``: the FA kernel's forward with the plain FA-2
+     backward, the scan kernel's forward with the plain form's backward)
+     against the torch impl's gradients on the same inputs and upstream
+     gradient, FA at hymba-1.5b's shapes (a window layer and a global one)
+     and gemma-2b's (MQA, D 256), the scan at rwkv6-3b's card shape (u)
+     and hymba's SSD read-out (broadcast inputs, s0), and small fp32 cases
+     (fp32 max rel 1e-4, bf16 Frobenius rel 1e-2), each backward timed;
+     (b) one hymba-1.5b step at full width and depth, B 1 x 2048, cuda
+     against torch: in bf16 the loss and the global gradient norm to 1e-2,
+     every leaf finite and nonzero, the leaves' cosines printed beside
+     those of two plain paths (FA key blocks of 128 and 64); in fp32 the
+     same and every leaf's cosine >= 0.99; (c) hymba-1.5b through
+     ``launch.train.main`` (bf16, remat full, B 2 x 2048): a straight 6-step
+     run, a run crashed at step 4 (exit 42, checkpoint at 3) and its
+     restart (resumes at 3, ends at opt.step 6, final loss within 1e-3 of
+     the straight run's), 64 FA and 64 scan launches a step (32 layers x
+     forward and recompute), then a profiled step (wall, busy, idle share,
+     top device operations, tokens/s, peak memory, 6 N T model FLOPs and
+     their share of the bf16 peak); (d) gemma-2b and rwkv6-3b the same way
+     at full width, 3 steps each; (e) the twin of ``examples/train_llm.py``
+     (gptj-100m, 60 steps, crash at 30, restart, the loss down by more
+     than 0.1), microbatched gradients against the full batch's (rtol /
+     atol 1e-3) and one full-width step each with ``--microbatches 2`` and
+     ``--grad-compression``;
+  15. time every kernel against its plain version, the library call and
      its bound (CUDA events over back-to-back calls); the FA, BSR, SpMSpM,
      stencil, scan and both scaled kernels and their library calls also by
      device time (events around a CUDA graph's replay of 20 calls, which
@@ -157,7 +182,8 @@ Phases, in order; any failure exits non-zero:
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers (each kernel's mesh-phase launches by mesh under
-``mesh_launches``), and as its last line ``{"ok": true, "device": {...}}``. Imports
+``mesh_launches``, FA's and the scan's training launches a step by model
+under ``train_launches_per_step``), and as its last line ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of the reference package.
 """
 from __future__ import annotations
@@ -2011,8 +2037,8 @@ def _union_ms(prof):
     return (total + hi - lo) / 1e3
 
 
-def profile_fn(name, fn, report):
-    """Warm wall time of ``fn`` (min of 3, host clock ended by a sync), the
+def profile_fn(name, fn, report, walls=3, cpu=True):
+    """Warm wall time of ``fn`` (min of ``walls``, host clock ended by a sync), the
     span of one more call on the device (CUDA events, no profiler), and a
     device-time breakdown of another (torch.profiler). The idle share is
     1 - device busy / wall, device busy being the union of the trace's
@@ -2020,14 +2046,16 @@ def profile_fn(name, fn, report):
     trace holds no device time it is None. The kernels' summed time is
     printed beside it. The span share (span / wall) is reported on its
     own: it comes from another call and counts the gaps between kernels as
-    busy, so it is not an idle share."""
+    busy, so it is not an idle share. ``cpu=False`` traces the device
+    alone (a training step's hundreds of thousands of host ops would take
+    minutes to collect; the host's ops add nothing to busy or wall)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    walls = []
-    for _ in range(3):
+    reps, walls = walls, []
+    for _ in range(reps):
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2039,7 +2067,8 @@ def profile_fn(name, fn, report):
     end.record()
     torch.cuda.synchronize()
     span_ms = start.elapsed_time(end)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
@@ -2363,7 +2392,7 @@ def _hold_rel(name, label, got, want, tol):
     return max_abs
 
 
-def _la_card_inputs(arch, T, gen):
+def _la_card_inputs(arch, T, gen, B=None):
     """The scan's inputs at ``arch``'s card shape, built the way the
     model builds them from random activations: rwkv6's transposed
     (B, S, H, N) views (bf16 r/k/v, fp32 Finch decay ``-exp(w0 + small)``,
@@ -2375,7 +2404,7 @@ def _la_card_inputs(arch, T, gen):
     from repro_torch.models import hybrid, layers as L, ssm
 
     cfg = get_config(arch)
-    B = dict(RECURRENT)[arch]
+    B = B or dict(RECURRENT)[arch]
     d = cfg.d_model
     if cfg.family == "ssm":
         N, H = cfg.resolved_head_dim(), ssm._num_heads(cfg)
@@ -3364,6 +3393,503 @@ def mesh_phase(report, cases):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the training path (launch/train.py -> runtime/train_loop.py,
+# AdamW, compression, checkpoint/restart, the synthetic data stream) with
+# gradients through the FA-2 and scan kernels (hopper/grads.py)
+# ---------------------------------------------------------------------------
+
+# (a) each Function's input gradients (kernel forward + plain backward)
+# against the same call's gradients through the torch impl (autograd of the
+# plain forms), same inputs and upstream gradient: fp32 inputs to max|diff|
+# <= 1e-4 max|torch| per gradient (fp32 sums in other orders); bf16 inputs
+# to a Frobenius |diff| <= 1e-2 |torch| per gradient (each side rounds its
+# forward to bf16 at other points, and the gradients carry it)
+GRAD_FP32_REL = 1e-4
+GRAD_BF16_FRO = 1e-2
+# (label, B, H, K, Sq, Sk, D, dtype, window, q_offset), all causal:
+# hymba-1.5b's attention (a window layer and a global one), gemma-2b's (MQA
+# at D 256), and small fp32 ones with GQA, a window and q_offset (Sq < Sk)
+GRAD_FA_CASES = [
+    ("hymba-1.5b window", 2, 25, 5, 2048, 2048, 64, "bfloat16", 1024, 0),
+    ("hymba-1.5b global", 2, 25, 5, 2048, 2048, 64, "bfloat16", 0, 0),
+    ("gemma-2b", 2, 8, 1, 2048, 2048, 256, "bfloat16", 0, 0),
+    ("small fp32 GQA q_offset", 2, 4, 2, 130, 200, 64, "float32", 0, 70),
+    ("small fp32 window", 2, 4, 1, 130, 130, 32, "float32", 50, 0),
+]
+# (b) one full-width hymba step, cuda against torch: the loss and the
+# global gradient norm to GRAD_NORM_REL of the torch path's; in fp32 also
+# every leaf's cosine >= GRAD_COSINE (in bf16 at full depth two correct
+# paths round at other points and their cosines fall near that bound, so
+# there they are printed beside two plain paths' own)
+GRAD_NORM_REL = 1e-2
+GRAD_COSINE = 0.99
+TRAIN_ARCH = "hymba-1.5b"
+TRAIN_B, TRAIN_S = 2, 2048
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 6, 3, 4
+TRAIN_RESUME_RTOL = 1e-3  # straight vs resumed final loss (CUDA's embedding atomics)
+# (d) the other two families: (arch, steps)
+TRAIN_OTHERS = (("gemma-2b", 3), ("rwkv6-3b", 3))
+# (e) the example's twin: gptj-100m, B 4 x 128, 60 steps, crash at 30
+LLM_STEPS, LLM_CRASH_AT = 60, 30
+TRAIN_CKPT_DIR = ROOT / "chip_scratch" / "train_ckpt"
+
+
+def _fro_rel(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+def _hold_grads(label, names, got, want, dtype_name):
+    for name, g, w in zip(names, got, want):
+        need(g is not None and w is not None, f"grad [{label}] {name}: missing gradient")
+        need(tuple(g.shape) == tuple(w.shape) and g.dtype == w.dtype,
+             f"grad [{label}] {name}: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
+        need(bool(g.isfinite().all()), f"grad [{label}] {name}: non-finite")
+        if dtype_name == "float32":
+            rel = _rel(g, w)
+            ok = rel <= GRAD_FP32_REL
+            print(f"grad [{label}] d{name}: max rel {rel:.3e} (tol {GRAD_FP32_REL:g}) "
+                  f"{'ok' if ok else 'FAIL'}")
+        else:
+            rel = _fro_rel(g, w)
+            ok = rel <= GRAD_BF16_FRO
+            print(f"grad [{label}] d{name}: Frobenius rel {rel:.3e} (tol {GRAD_BF16_FRO:g}), "
+                  f"max rel {_rel(g, w):.3e} {'ok' if ok else 'FAIL'}")
+        need(ok, f"grad [{label}] d{name}: kernel path disagrees with the torch path")
+    return max(_rel(g, w) for g, w in zip(got, want))
+
+
+def _bwd_ms(fn, inputs, upstream, reps=3):
+    """Device time of one backward of ``fn`` (CUDA events, warm)."""
+    import torch
+
+    outs = fn()
+    torch.autograd.grad(outs, inputs, upstream, retain_graph=True)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        torch.autograd.grad(outs, inputs, upstream, retain_graph=True)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_grad_functions(report):
+    """(a): both autograd Functions on the card at the training path's
+    shapes, against the torch impl's gradients."""
+    import torch
+
+    from repro_torch.hopper import dispatch, ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs, times = {}, {}
+    for label, B, H, K, Sq, S, D, dt, window, q_offset in GRAD_FA_CASES:
+        dtype = getattr(torch, dt)
+        # (B, S, H, D) -> (B, H, S, D) views, as the transformer passes them
+        q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+        k, v = (torch.randn((B, S, K, D), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+                for _ in range(2))
+        for x in (q, k, v):
+            x.requires_grad_(True)
+        do = torch.randn((B, H, Sq, D), generator=gen, device="cuda").to(dtype)
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        res = {}
+        for impl in ("cuda", "torch"):
+            dispatch.reset_launches()
+            o = ops.flash_attention(q, k, v, impl=impl, **kw)
+            res[impl] = torch.autograd.grad(o, (q, k, v), do)
+            torch.cuda.synchronize()
+            if impl == "cuda":
+                need(dict(dispatch.LAUNCHES) == {"flash_attention": 1},
+                     f"grad [{label}]: the Function's forward launched {dict(dispatch.LAUNCHES)}")
+        errs[f"fa {label}"] = _hold_grads(f"flash_attention {label}", "qkv", res["cuda"],
+                                          res["torch"], dt)
+        if label.startswith(TRAIN_ARCH):
+            times[f"fa {label}"] = _bwd_ms(
+                lambda: ops.flash_attention(q, k, v, impl="cuda", **kw), (q, k, v), do)
+        del q, k, v, do, res
+    # the scan: rwkv6-3b's card shape (u), hymba's SSD read-out (broadcast
+    # r/k/w, s0), and a small fp32 case with u and s0 at chunk 16
+    r, k, v, w, u, lab = _la_card_inputs("rwkv6-3b", RECURRENT_T, gen, TRAIN_B)
+    scan_cases = [(lab, (r, k, v, w, u, None), 32, "bfloat16")]
+    r, k, v, w, _, lab = _la_card_inputs(TRAIN_ARCH, RECURRENT_T, gen, TRAIN_B)
+    s0 = torch.randn((r.shape[0], r.shape[1], r.shape[3], v.shape[3]), generator=gen,
+                     device="cuda")
+    scan_cases.append((lab + " s0", (r, k, v, w, None, s0), 32, "bfloat16"))
+    small = [torch.randn((2, 3, 70, n), generator=gen, device="cuda") for n in (8, 8, 12)]
+    small_w = -torch.rand((2, 3, 70, 8), generator=gen, device="cuda") - 0.05
+    scan_cases.append(("small fp32 u s0 chunk 16",
+                       (*small, small_w, torch.randn((3, 8), generator=gen, device="cuda"),
+                        torch.randn((2, 3, 8, 12), generator=gen, device="cuda")), 16, "float32"))
+    for label, args, chunk, dt in scan_cases:
+        names = [n for n, x in zip(("r", "k", "v", "w_log", "u", "s0"), args) if x is not None]
+        leaves = [x.detach().requires_grad_(True) if x is not None else None for x in args]
+        wrt = [x for x in leaves if x is not None]
+        o_like = leaves[2]
+        do = torch.randn(o_like.shape, generator=gen, device="cuda").to(o_like.dtype)
+        dS = torch.randn((o_like.shape[0], o_like.shape[1], args[0].shape[3], o_like.shape[3]),
+                         generator=gen, device="cuda")
+        res = {}
+        for impl in ("cuda", "torch"):
+            dispatch.reset_launches()
+            o, S = ops.linear_attention(*leaves, impl=impl, chunk=chunk)
+            res[impl] = torch.autograd.grad((o, S), wrt, (do, dS))
+            torch.cuda.synchronize()
+            if impl == "cuda":
+                need(dict(dispatch.LAUNCHES) == {"linear_attention": 1},
+                     f"grad [{label}]: the Function's forward launched {dict(dispatch.LAUNCHES)}")
+        errs[f"scan {label}"] = _hold_grads(f"linear_attention {label}", names, res["cuda"],
+                                            res["torch"], dt)
+        if label.startswith(TRAIN_ARCH):
+            times[f"scan {TRAIN_ARCH}"] = _bwd_ms(
+                lambda: ops.linear_attention(*leaves, impl="cuda", chunk=chunk), wrt, (do, dS))
+        del leaves, wrt, res
+    for name, ms in times.items():
+        print(f"backward {name}: {ms:.3f} ms a layer (plain torch, CUDA events, warm)")
+    report["grad_err"] = errs
+    report["grad_bwd_ms"] = times
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _state_gb(state):
+    """'params P GB + AdamW moments M GB' of a train state."""
+    from repro_torch.core import tree
+
+    def gb(t):
+        return sum(x.numel() * x.element_size() for x in tree.leaves(t)) / 1e9
+
+    return (f"params {gb(state['params']):.2f} GB + AdamW moments "
+            f"{gb(state['opt']['m']) + gb(state['opt']['v']):.2f} GB")
+
+
+def _step_grads(cfg, params, batch, impl, want=None, **fa_blocks):
+    """One step's (loss, gradients) through ``impl`` (the FA plain form's
+    key block overridden by ``fa_blocks``), timed; with ``want``, the
+    kernels' launches are held to it."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.hopper import dispatch
+    from repro_torch.runtime import train_loop
+
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    t = time.perf_counter()
+    blocks = (dispatch.block_override("flash_attention", **fa_blocks) if fa_blocks
+              else contextlib.nullcontext())
+    with dispatch.default_impl(impl), blocks:
+        out = train_loop.loss_and_grads_fn(cfg)(params, batch)
+    torch.cuda.synchronize()
+    launches = dict(dispatch.LAUNCHES)
+    print(f"step grads {cfg.name} {cfg.dtype} B=1 T={TRAIN_S} impl={impl} {fa_blocks or ''}: "
+          f"loss {float(out[0]):.6f}, {(time.perf_counter() - t) * 1e3:.1f} ms, launches "
+          f"{launches}")
+    if want is not None:
+        need(launches == want, f"one {cfg.remat}-remat step launched {launches}, want {want}")
+    return out
+
+
+def _cosines(a, b):
+    """[(cosine, path)] of two gradient trees, worst first."""
+    import torch
+
+    from repro_torch.core import tree
+
+    paths, la = tree.flatten_with_paths(a)
+    out = []
+    for path, x, y in zip(paths, la, tree.leaves(b)):
+        x, y = x.float().flatten(), y.float().flatten()
+        need(bool(torch.isfinite(x).all()) and bool(x.abs().max() > 0),
+             f"grad {path}: non-finite or zero through the kernels")
+        out.append((float(torch.dot(x, y) / (x.norm() * y.norm()).clamp_min(1e-30)), path))
+    return sorted(out)
+
+
+def _hold_step(label, kernel, plain, *, cosine):
+    """The loss and the global gradient norm to GRAD_NORM_REL; with
+    ``cosine``, every leaf's cosine to GRAD_COSINE (else printed)."""
+    from repro_torch.optim import adamw
+
+    loss_rel = abs(float(kernel[0]) - float(plain[0])) / abs(float(plain[0]))
+    nk, npl = float(adamw.global_norm(kernel[1])), float(adamw.global_norm(plain[1]))
+    norm_rel = abs(nk - npl) / npl
+    cos = _cosines(kernel[1], plain[1])
+    print(f"step grads {label}: loss rel {loss_rel:.3e}, global grad norm {nk:.5f} vs {npl:.5f} "
+          f"(rel {norm_rel:.3e}, tol {GRAD_NORM_REL:g}), {len(cos)} leaves finite and nonzero, "
+          f"cosines worst {cos[0][0]:.6f} ({cos[0][1]}), median {cos[len(cos) // 2][0]:.6f}"
+          + (f" (tol {GRAD_COSINE})" if cosine else " (no bound)"))
+    need(loss_rel <= GRAD_NORM_REL, f"{label}: loss rel {loss_rel:.3e}")
+    need(norm_rel <= GRAD_NORM_REL, f"{label}: global grad norm rel {norm_rel:.3e}")
+    if cosine:
+        need(cos[0][0] >= GRAD_COSINE, f"{label}: grad {cos[0][1]} cosine {cos[0][0]:.5f}")
+    return dict(loss_rel=loss_rel, norm_rel=norm_rel, worst_cosine=cos[0][0],
+                median_cosine=cos[len(cos) // 2][0])
+
+
+def check_full_width_step(report):
+    """(b): one hymba-1.5b step at full width and depth, B 1 x 2048,
+    through the kernels (cuda) against the torch impl. In bf16, the
+    model's dtype, the loss and the global gradient norm are held, and the
+    leaves' cosines printed beside those of two plain paths that differ
+    only in FA's key block (128 against 64): at full depth bf16 rounding
+    at other points moves the gradients of two correct paths apart by
+    about as much as the bound. In fp32 every bound holds: the loss, the
+    norm, and every leaf's cosine >= GRAD_COSINE."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import tree
+    from repro_torch.models import registry
+
+    cfg = get_config(TRAIN_ARCH)
+    want = {"flash_attention": 2 * cfg.num_layers, "linear_attention": 2 * cfg.num_layers}
+    params = registry.init_params(cfg, seed=SEED, device="cuda")
+    rng = np.random.default_rng(SEED)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, TRAIN_S)).astype(np.int32))
+             .cuda() for k in ("tokens", "labels")}
+    kern = _step_grads(cfg, params, batch, "cuda", want)
+    plain = _step_grads(cfg, params, batch, "torch")
+    plain64 = _step_grads(cfg, params, batch, "torch", bk=64)
+    res = {"bfloat16": _hold_step(f"{TRAIN_ARCH} bf16 cuda vs torch", kern, plain, cosine=False),
+           "bfloat16 plain bk128 vs bk64": _hold_step(f"{TRAIN_ARCH} bf16 torch bk 128 vs 64",
+                                                      plain, plain64, cosine=False)}
+    del kern, plain, plain64
+    cfg32 = cfg.replace(dtype="float32")
+    params = tree.tree_map(lambda x: x.float(), params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kern = _step_grads(cfg32, params, batch, "cuda", want)
+    plain = _step_grads(cfg32, params, batch, "torch")
+    res["float32"] = _hold_step(f"{TRAIN_ARCH} fp32 cuda vs torch", kern, plain, cosine=True)
+    report["train_grad_check"] = res
+    del params, kern, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_run(argv):
+    """``launch.train.main(argv)`` with the launch counts zeroed just
+    before and read just after: (result or the exit code, launches, wall
+    seconds, peak GB)."""
+    import torch
+
+    from repro_torch.hopper import dispatch
+    from repro_torch.launch import train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    t = time.perf_counter()
+    try:
+        out = train.main(argv)
+    except SystemExit as e:  # the injected crash, and only it
+        need(e.code == train.CRASH_EXIT, f"train {argv}: exit {e.code}")
+        out = e.code
+    torch.cuda.synchronize()
+    return (out, dict(dispatch.LAUNCHES), time.perf_counter() - t,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _per_step(launches, steps, want_per_step, label):
+    got = {k: v // steps for k, v in launches.items()}
+    print(f"{label}: launches {launches} over {steps} steps = {got} a step, "
+          f"expected {want_per_step} a step")
+    need(launches == {k: v * steps for k, v in want_per_step.items()},
+         f"{label}: launches {launches} != {want_per_step} x {steps}")
+    return got
+
+
+def _profile_step(report, arch, cfg, state, steps_done):
+    """The warm step's wall, busy and idle share and top device operations
+    (``profile_fn``), tokens/s, and the model FLOPs (6 N T, the
+    reference's MODEL_FLOPS) with their share of the bf16 dense peak."""
+    import torch
+
+    from repro_torch.data.synthetic import batch_at_step
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.runtime import train_loop
+
+    step = train_loop.make_train_step(cfg)
+    host = batch_at_step(cfg, SHAPES["train_4k"], SEED, steps_done, TRAIN_B, TRAIN_S)
+    b = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    name = f"train {arch} step B={TRAIN_B} T={TRAIN_S}"
+    # a step takes seconds: one warm-up, one timed wall, one span, one trace
+    profile_fn(name, lambda: step(state, b), report, walls=1, cpu=False)
+    prof = report["profile"][name]
+    tokens = TRAIN_B * TRAIN_S
+    flops = 6 * cfg.num_params() * tokens
+    tok_s = tokens / (prof["wall_ms"] / 1e3)
+    mfu = flops / (prof["wall_ms"] / 1e3) / PEAK_OPS["bfloat16"]
+    print(f"{name}: {tok_s:.1f} tokens/s; model FLOPs 6*N*T = 6 x {cfg.num_params():,} x "
+          f"{tokens} = {flops:.4e} a step, {mfu:.4f} of the bf16 dense peak "
+          f"({PEAK_OPS['bfloat16']:.3g} FLOP/s)")
+    return dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
+                tokens_per_s=tok_s, model_flops=flops, mfu=mfu)
+
+
+def train_path_phase(report):
+    """(c) hymba-1.5b through ``launch/train.py``'s ``main`` at full width
+    and depth: a straight run, a crashed run (exit 42), the restart from
+    its checkpoint; launches a step, the two final losses, a profiled
+    step. (d) gemma-2b and rwkv6-3b the same way, 3 steps each."""
+    import math
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.runtime import checkpoint as ckpt
+
+    cfg = get_config(TRAIN_ARCH)
+    nl = cfg.num_layers
+    want = {"flash_attention": 2 * nl, "linear_attention": 2 * nl}  # forward and recompute
+    base = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+            "--steps", str(TRAIN_STEPS), "--seed", str(SEED), "--log-every", "1"]
+    print(f"train {TRAIN_ARCH}: full width and depth ({nl} layers, {cfg.num_params():,} "
+          f"parameters by cfg.num_params()), {cfg.dtype}, remat={cfg.remat}, "
+          f"B={TRAIN_B} x S={TRAIN_S}")
+    (state, straight, _), launches, wall, peak = _train_run(base)
+    per_step = _per_step(launches, TRAIN_STEPS, want, f"train {TRAIN_ARCH} straight run")
+    need(all(math.isfinite(x) for x in straight), f"non-finite loss {straight}")
+    print(f"train {TRAIN_ARCH} straight run: {TRAIN_STEPS} steps in {wall:.1f} s (init "
+          f"included), losses {straight}, peak allocated {peak:.2f} GB, {_state_gb(state)}")
+    del state
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    ck = ["--ckpt-dir", str(TRAIN_CKPT_DIR), "--ckpt-every", str(TRAIN_CKPT_EVERY)]
+    code, launches_crash, wall_crash, _ = _train_run(base + ck + ["--inject-crash-at",
+                                                                  str(TRAIN_CRASH_AT)])
+    need(code == 42, f"the crashed run exited {code}, not 42")
+    need(ckpt.latest_step(str(TRAIN_CKPT_DIR)) == TRAIN_CKPT_EVERY,
+         f"checkpoint after the crash: {ckpt.latest_step(str(TRAIN_CKPT_DIR))}")
+    _per_step(launches_crash, TRAIN_CRASH_AT, want, f"train {TRAIN_ARCH} crashed run")
+    print(f"train {TRAIN_ARCH} crashed run: exit 42 at step {TRAIN_CRASH_AT} after "
+          f"{wall_crash:.1f} s, latest checkpoint step {TRAIN_CKPT_EVERY}")
+    (state, resumed, _), launches_res, wall_res, peak_res = _train_run(base + ck)
+    resumed_steps = TRAIN_STEPS - TRAIN_CKPT_EVERY
+    _per_step(launches_res, resumed_steps, want, f"train {TRAIN_ARCH} resumed run")
+    need(len(resumed) == resumed_steps and int(state["opt"]["step"]) == TRAIN_STEPS,
+         f"resumed {len(resumed)} steps to opt.step {int(state['opt']['step'])}")
+    rel = abs(resumed[-1] - straight[-1]) / abs(straight[-1])
+    print(f"train {TRAIN_ARCH} resumed run: from step {TRAIN_CKPT_EVERY}, {len(resumed)} steps "
+          f"in {wall_res:.1f} s (restore included), opt.step {int(state['opt']['step'])}, "
+          f"final loss {resumed[-1]:.6f} vs straight {straight[-1]:.6f} (rel {rel:.3e}, rtol "
+          f"{TRAIN_RESUME_RTOL:g}), peak allocated {peak_res:.2f} GB")
+    need(rel <= TRAIN_RESUME_RTOL, "the resumed run's final loss is not the straight run's")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    prof = _profile_step(report, TRAIN_ARCH, cfg, state, TRAIN_STEPS)
+    train = {TRAIN_ARCH: dict(launches_per_step=per_step, losses=straight, resumed=resumed,
+                              resume_rel=rel, peak_gb=peak, **prof)}
+    # the plain backward's share: (a)'s warm backward times at this B and
+    # T, one a layer (window layers, global layers, the scan in every one)
+    bwd = report["grad_bwd_ms"]
+    n_global = cfg.num_global_layers
+    plain_bwd = (bwd[f"fa {TRAIN_ARCH} window"] * (nl - n_global)
+                 + bwd[f"fa {TRAIN_ARCH} global"] * n_global
+                 + sum(v for k, v in bwd.items() if k.startswith("scan")) * nl)
+    share = plain_bwd / prof["wall_ms"]
+    print(f"train {TRAIN_ARCH}: the plain FA and scan backward, from (a)'s times a layer, "
+          f"~{plain_bwd:.1f} ms a step = {share:.3f} of the step's wall")
+    prof.update(plain_bwd_ms=plain_bwd, plain_bwd_share=share)
+    del state
+    for arch, steps in TRAIN_OTHERS:
+        c = get_config(arch)
+        want_o = ({"linear_attention": 2 * c.num_layers} if c.family == "ssm"
+                  else {"flash_attention": 2 * c.num_layers})
+        (state, losses, _), launches, wall, peak = _train_run(
+            ["--arch", arch, "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--steps",
+             str(steps), "--seed", str(SEED), "--log-every", "1"])
+        per = _per_step(launches, steps, want_o, f"train {arch}")
+        need(all(math.isfinite(x) for x in losses), f"{arch}: non-finite loss {losses}")
+        print(f"train {arch}: full width and depth ({c.num_layers} layers, {c.num_params():,} "
+              f"parameters), {steps} steps in {wall:.1f} s, losses {losses}, peak allocated "
+              f"{peak:.2f} GB, {_state_gb(state)} (depth not cut)")
+        prof = _profile_step(report, arch, c, state, steps)
+        train[arch] = dict(launches_per_step=per, losses=losses, peak_gb=peak, **prof)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["train"] = train
+
+
+def train_options_phase(report):
+    """(e) the twin of examples/train_llm.py (gptj-100m, fp32) with its
+    crash and restart; microbatched gradients against the full batch's
+    (the reference's bar); one step each with --microbatches 2 and
+    --grad-compression at hymba-1.5b's full width."""
+    import math
+
+    import torch
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core import pipeline, tree
+    from repro_torch.data.synthetic import batch_at_step
+    from repro_torch.hopper import dispatch
+    from repro_torch.launch import train_llm
+    from repro_torch.runtime import train_loop
+
+    t = time.perf_counter()
+    dispatch.reset_launches()
+    llm_losses, state = train_llm.run(LLM_STEPS, 4, 128, LLM_CRASH_AT, device="cuda")
+    torch.cuda.synchronize()
+    first = train_llm.first_loss(4, 128, device="cuda")
+    resumed_from = (LLM_CRASH_AT // train_llm.CKPT_EVERY) * train_llm.CKPT_EVERY
+    print(f"train_llm {train_llm.CFG.name} ({train_llm.CFG.num_params() / 1e6:.0f}M, fp32): "
+          f"{time.perf_counter() - t:.1f} s, first loss {first:.4f}, resumed from step "
+          f"{resumed_from} for {len(llm_losses)} steps, last loss {llm_losses[-1]:.4f}, "
+          f"launches {dict(dispatch.LAUNCHES)}")
+    need(len(llm_losses) == LLM_STEPS - resumed_from and int(state["opt"]["step"]) == LLM_STEPS,
+         "train_llm did not resume and finish")
+    need(llm_losses[-1] < first - 0.1, f"train_llm loss {first} -> {llm_losses[-1]} did not descend")
+    cfg = train_llm.CFG
+    host = batch_at_step(cfg, SHAPES["train_4k"], SEED, 0, 4, 128)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    lg = train_loop.loss_and_grads_fn(cfg)
+    l_full, g_full = lg(state["params"], batch)
+    l_micro, g_micro = pipeline.microbatched(lg, 2)(state["params"], batch)
+    worst = 0.0
+    for a, b in zip(tree.leaves(g_full), tree.leaves(g_micro)):
+        diff = (a.float() - b).abs()
+        worst = max(worst, float((diff - 1e-3 * b.abs()).max()))
+        need(bool((diff <= 1e-3 + 1e-3 * b.abs()).all()), "microbatched grads != full batch's")
+    print(f"microbatches 2 vs 1 ({cfg.name}, fp32, B=4 x 128): loss {float(l_micro):.6f} vs "
+          f"{float(l_full):.6f}, every gradient within rtol 1e-3 / atol 1e-3 (largest "
+          f"|diff| - 1e-3 |full| = {worst:.3e})")
+    del state, g_full, g_micro
+    base = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--steps",
+            "1", "--seed", str(SEED), "--log-every", "1"]
+    for flag in (["--microbatches", "2"], ["--grad-compression"]):
+        (st, losses, _), launches, wall, peak = _train_run(base + flag)
+        need(len(losses) == 1 and math.isfinite(losses[0]), f"{flag}: loss {losses}")
+        if flag[0] == "--grad-compression":
+            need(all(bool(torch.isfinite(e).all()) for e in tree.leaves(st["grad_err"])),
+                 "non-finite compression residual")
+        print(f"train {TRAIN_ARCH} {' '.join(flag)}: 1 step, loss {losses[0]:.5f}, launches "
+              f"{launches}, {wall:.1f} s, peak allocated {peak:.2f} GB")
+        del st
+    report["train_llm"] = dict(first=first, last=llm_losses[-1])
+
+
+def _train_launches(report, kernel):
+    return {a: r["launches_per_step"][kernel] for a, r in report["train"].items()
+            if kernel in r["launches_per_step"]}
+
+
+def training_phase(report):
+    t0 = time.perf_counter()
+    for part in (check_grad_functions, check_full_width_step, train_path_phase,
+                 train_options_phase):
+        t = time.perf_counter()
+        part(report)
+        print(f"training phase: {part.__name__} {time.perf_counter() - t:.1f} s")
+    print(f"training phase: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 
 
 def check_hgmma(paths):
@@ -3452,6 +3978,9 @@ def main() -> int:
         check_ring_kernels(report)
         ring_phase(report)
         mesh_phase(report, cases)
+        gc.collect()
+        torch.cuda.empty_cache()
+        training_phase(report)
         time_kernels(report)
         time_gcn_kernels(report)
         time_gemm_accum(report)
@@ -3477,6 +4006,9 @@ def main() -> int:
         # cache), counted on its own: one launch a layer, all in the prefill
         "dense_generate_launches": {a: r["launches"].get("flash_attention", 0)
                                     for a, r in report["dense"].items()},
+        # the training phase (forward and remat recompute, launch.train's
+        # main at full width): launches a step, per model
+        "train_launches_per_step": _train_launches(report, "flash_attention"),
     }]
     for name, source, replaces in (("gemm", GEMM_SOURCE, GEMM_REPLACES),
                                    ("spmm", SPMM_SOURCE, SPMM_REPLACES)):
@@ -3550,6 +4082,7 @@ def main() -> int:
         "card_shapes": {a: {f: r[f] for f in ("shape", "device_ms", "bound_ms", "bound_by",
                                                 "launch_shares")}
                         for a, r in report["la_time"].items()},
+        "train_launches_per_step": _train_launches(report, "linear_attention"),
     })
     t = report["ring_hop_time"][4 << 20]
     kernels.append({

@@ -31,6 +31,10 @@ is the kernel's plain version.
 - ``linear_attention_blocked`` (``xla.linear_attention_xla``): T padded to
   the chunk, a loop over chunks carrying the fp32 state, batched products
   inside a chunk.
+
+The attention and scan forms compute in fp64 for fp64 inputs (and return
+fp64), so that ``torch.autograd.gradcheck`` can hold the gradients of
+``hopper/grads.py`` to them; every other input type computes in fp32.
 """
 from __future__ import annotations
 
@@ -54,6 +58,12 @@ def as_bytes(x):
     copies of fp8 values go through their bytes, which every device
     supports."""
     return x.view(torch.uint8) if x.dtype in FP8_DTYPES else x
+
+
+def compute_dtype(x):
+    """fp32, the plain forms' arithmetic, or fp64 for fp64 inputs (the
+    gradient checks differentiate the plain forms in fp64)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
 def _online_softmax_step(m, denom, acc, s, mask, vblk, pv_eq):
@@ -89,16 +99,17 @@ def flash_attention_blocked(q, k, v, *, causal=True, window=0, q_offset=0,
         v = F.pad(v, (0, 0, 0, pad))
     nb = (Sk + pad) // block_k
     dev = q.device
+    ct = compute_dtype(q)
 
-    qf = (q.float() * scale).reshape(B, K, G, Sq, D)
+    qf = (q.to(ct) * scale).reshape(B, K, G, Sq, D)
     q_pos = torch.arange(Sq, device=dev) + q_offset
-    m = torch.full((B, K, G, Sq), NEG, device=dev)
-    denom = torch.zeros((B, K, G, Sq), device=dev)
-    acc = torch.zeros((B, K, G, Sq, D), device=dev)
+    m = torch.full((B, K, G, Sq), NEG, dtype=ct, device=dev)
+    denom = torch.zeros((B, K, G, Sq), dtype=ct, device=dev)
+    acc = torch.zeros((B, K, G, Sq, D), dtype=ct, device=dev)
     for i in range(nb):
         sl = slice(i * block_k, (i + 1) * block_k)
-        kblk = k[:, :, sl].float()
-        vblk = v[:, :, sl].float()
+        kblk = k[:, :, sl].to(ct)
+        vblk = v[:, :, sl].to(ct)
         s = torch.einsum("bkgqd,bksd->bkgqs", qf, kblk)
         k_pos = i * block_k + torch.arange(block_k, device=dev)
         mask = (k_pos[None, :] < Sk).expand(Sq, block_k)
@@ -383,13 +394,14 @@ def linear_attention_blocked(r, k, v, w_log, u=None, s0=None, *, chunk=None):
     B, H, T, N = r.shape
     M = v.shape[-1]
     pad = (-T) % chunk
-    rf, kf, vf, wf = (F.pad(x.float(), (0, 0, 0, pad)) for x in (r, k, v, w_log))
+    ct = compute_dtype(v)
+    rf, kf, vf, wf = (F.pad(x.to(ct), (0, 0, 0, pad)) for x in (r, k, v, w_log))
     nc = (T + pad) // chunk
     ssd = u is None
     idx = torch.arange(chunk, device=v.device)
     mask = idx[:, None] >= idx[None, :] if ssd else idx[:, None] > idx[None, :]
-    S = (torch.zeros((B, H, N, M), dtype=torch.float32, device=v.device)
-         if s0 is None else s0.float())
+    S = (torch.zeros((B, H, N, M), dtype=ct, device=v.device)
+         if s0 is None else s0.to(ct))
     outs = []
     for c in range(nc):
         sl = slice(c * chunk, (c + 1) * chunk)
@@ -403,11 +415,11 @@ def linear_attention_blocked(r, k, v, w_log, u=None, s0=None, *, chunk=None):
         scores = torch.where(mask, scores, 0.0)
         o = o + torch.einsum("bhts,bhsm->bhtm", scores, vc)
         if not ssd:
-            o = o + (rc * u[None, :, None].float() * kc).sum(-1, keepdim=True) * vc
+            o = o + (rc * u[None, :, None].to(ct) * kc).sum(-1, keepdim=True) * vc
         k_tail = kc * torch.exp(total - inc)
         S = (torch.exp(total)[:, :, 0, :, None] * S
              + torch.einsum("bhsn,bhsm->bhnm", k_tail, vc))
         outs.append(o)
     o = (torch.cat(outs, 2)[:, :, :T] if outs
-         else torch.zeros((B, H, 0, M), dtype=torch.float32, device=v.device))
+         else torch.zeros((B, H, 0, M), dtype=ct, device=v.device))
     return o.to(v.dtype), S

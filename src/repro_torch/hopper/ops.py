@@ -28,8 +28,18 @@ selected impl on its own part, on its own stream, and the parts are
 stitched back by the plan's collectives (the flash ring's hops go through
 the ring-hop kernel with ``remote_copy=True``). An op whose rule declines
 every level runs once, unsharded, with one ``ReproDegradeWarning``.
+
+Gradients (``hopper/grads.py``): with grad enabled and an input that
+requires grad, the ``cuda`` impls of ``flash_attention`` and
+``linear_attention`` run their kernel forward inside an autograd Function
+whose backward is plain tensor code; every other ``cuda`` impl, the
+scaled attention form and the mesh path raise ``NotImplementedError``
+instead of returning a result cut off from the graph. The ``torch`` and
+``ref`` impls are plain tensor code, which autograd differentiates.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -42,6 +52,7 @@ from repro_torch.hopper import flash_attention as _fa
 from repro_torch.hopper import flash_attention_scaled as _fa_scaled
 from repro_torch.hopper import gemm as _gemm
 from repro_torch.hopper import gemm_scaled as _gemm_scaled
+from repro_torch.hopper import grads
 from repro_torch.hopper import linear_attention as _la
 from repro_torch.hopper import partition as _partition
 from repro_torch.hopper import ref as _ref
@@ -59,6 +70,9 @@ def _dispatch(op, *args, mesh=None, impl=None, **kwargs):
     if mesh is None:
         mesh = sharding.kernel_mesh()
     if mesh is not None:
+        if grads.needs_grad(*args, *kwargs.values()):
+            grads.no_backward(f"ops.{op}(mesh=)",
+                              "the mesh path's gradients wait for ROADMAP queue 1 item 2")
         return _partition.sharded_call(op, mesh, *args, impl=impl, **kwargs)
     return kernel_call(op, *args, impl=impl, **_partition.strip_plan_kwargs(kwargs))
 
@@ -91,6 +105,7 @@ def gemm(a, b, *, out_dtype=None, accum_dtype=torch.float32, precision=None,
 
 
 @dispatch.register_kernel("gemm", impl="cuda")
+@functools.partial(grads.forward_only, "gemm")
 def _gemm_cuda(a, b, *, precision=None, **kwargs):
     if precision is not None:
         return _gemm_scaled.gemm_scaled_cuda(a, b, precision, **kwargs)
@@ -158,7 +173,12 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
 @dispatch.register_kernel("flash_attention", impl="cuda")
 def _fa_cuda(q, k, v, *, precision=None, **kwargs):
     if precision is not None:
+        if grads.needs_grad(q, k, v):
+            grads.no_backward("flash_attention(precision=)",
+                              "the scaled form's gradient waits for ROADMAP queue 1 item 3")
         return _fa_scaled.flash_attention_scaled_cuda(q, k, v, precision, **kwargs)
+    if grads.needs_grad(q, k, v):  # the kernel forward, the plain FA-2 backward
+        return grads.flash_attention(q, k, v, **kwargs)
     return _fa.flash_attention_cuda(q, k, v, **kwargs)
 
 
@@ -287,7 +307,13 @@ def linear_attention(r, k, v, w_log, u=None, s0=None, *, impl=None, mesh=None,
                      chunk=chunk, mesh=mesh, impl=impl)
 
 
-dispatch.register_kernel("linear_attention", impl="cuda")(_la.linear_attention_cuda)
+@dispatch.register_kernel("linear_attention", impl="cuda")
+def _la_cuda(r, k, v, w_log, u=None, s0=None, *, chunk=None):
+    if grads.needs_grad(r, k, v, w_log, u, s0):  # the kernel forward, the plain backward
+        return grads.linear_attention(r, k, v, w_log, u, s0, chunk=chunk)
+    return _la.linear_attention_cuda(r, k, v, w_log, u, s0, chunk=chunk)
+
+
 dispatch.register_kernel("linear_attention", impl="torch")(_blocked.linear_attention_blocked)
 
 
@@ -334,7 +360,7 @@ def spmm(values, cols=None, dense=None, *, impl=None, mesh=None, bm=None):
     return _dispatch("spmm", values, cols, dense, mesh=mesh, impl=impl, **blocks)
 
 
-dispatch.register_kernel("spmm", impl="cuda")(_spmm.spmm_cuda)
+dispatch.register_kernel("spmm", impl="cuda")(grads.forward_only("spmm", _spmm.spmm_cuda))
 dispatch.register_kernel("spmm", impl="torch")(_blocked.spmm_blocked)
 
 
@@ -370,7 +396,7 @@ def bsr_spmm(tile_values, tile_rows=None, tile_cols=None, dense=None,
                      num_rows=num_rows, mesh=mesh, impl=impl, **blocks)
 
 
-dispatch.register_kernel("bsr_spmm", impl="cuda")(_bsr.bsr_spmm_cuda)
+dispatch.register_kernel("bsr_spmm", impl="cuda")(grads.forward_only("bsr_spmm", _bsr.bsr_spmm_cuda))
 dispatch.register_kernel("bsr_spmm", impl="torch")(_blocked.bsr_spmm_blocked)
 
 
@@ -414,7 +440,7 @@ def spmspm(a_values, a_cols, b_values=None, b_rows=None, contraction_dim=None,
                      contraction_dim=contraction_dim, mesh=mesh, impl=impl, **blocks)
 
 
-dispatch.register_kernel("spmspm", impl="cuda")(_spmspm.spmspm_cuda)
+dispatch.register_kernel("spmspm", impl="cuda")(grads.forward_only("spmspm", _spmspm.spmspm_cuda))
 dispatch.register_kernel("spmspm", impl="torch")(_blocked.spmspm_blocked)
 
 
@@ -442,7 +468,7 @@ def stencil(grid, offsets, weights, *, impl=None, mesh=None, bx=None,
                      impl=impl, overlap=overlap, **blocks)
 
 
-dispatch.register_kernel("stencil", impl="cuda")(_stencil.stencil_cuda)
+dispatch.register_kernel("stencil", impl="cuda")(grads.forward_only("stencil", _stencil.stencil_cuda))
 dispatch.register_kernel("stencil", impl="torch")(_blocked.stencil_blocked)
 
 

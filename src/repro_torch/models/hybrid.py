@@ -144,14 +144,16 @@ def block(p, cfg, h, cos, sin, is_global):
 
 def forward(params, cfg, batch, *, q_offset=0):
     """batch {"tokens": (B, S)} -> (logits (B, S, V_pad) in the activation
-    dtype, aux loss 0.0)."""
+    dtype, aux loss 0.0). Under grad each block runs through
+    ``transformer.remat_wrap``."""
     _check_family(cfg)
     h = params["embed"][batch["tokens"].long()]
     S = h.shape[1]
     cos, sin = L.rope_cos_sin(torch.arange(S, device=h.device) + q_offset,
                               cfg.resolved_head_dim(), cfg.rope_theta)
-    for i, is_global in enumerate(global_layer_mask(cfg)):
-        h = block(T._layer(params, i), cfg, h, cos, sin, bool(is_global))
+    blk = T.remat_wrap(cfg, block)
+    for p, is_global in zip(T.layer_views(params), global_layer_mask(cfg)):
+        h = blk(p, cfg, h, cos, sin, bool(is_global))
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return torch.matmul(h, params["lm_head"]), 0.0
 

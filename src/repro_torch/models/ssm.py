@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.hopper import ops
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.transformer import params_from_jax  # noqa: F401  (the family's API)
 
 LORA_RANK = 64
@@ -160,12 +161,14 @@ def block(p, cfg, h):
 def forward(params, cfg, batch, *, q_offset=0):
     """batch {"tokens": (B, S)} -> (logits (B, S, V_pad) in the activation
     dtype, aux loss 0.0). ``q_offset`` is accepted for the family API and
-    unused: the token shift carries no positions."""
+    unused: the token shift carries no positions. Under grad each block
+    runs through ``transformer.remat_wrap``."""
     del q_offset
     _check_family(cfg)
     h = params["embed"][batch["tokens"].long()]
-    for i in range(cfg.num_layers):
-        h = block(_layer(params, i), cfg, h)
+    blk = T.remat_wrap(cfg, block)
+    for p in T.layer_views(params):
+        h = blk(p, cfg, h)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return torch.matmul(h, params["lm_head"]), 0.0
 

@@ -16,10 +16,12 @@ activation dtype; decode logits stay fp32, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core import precision as prec
 from repro_torch.device import resolve_device
@@ -123,6 +125,52 @@ def _layer(params, i):
     return {k: v[i] for k, v in params["layers"].items()}
 
 
+def layer_views(params):
+    """Per-layer dicts of views of the stacked leaves, one ``unbind`` a
+    leaf: under autograd each leaf's gradient is stacked once from the
+    layers' (indexing layer by layer would add a zero-padded gradient of
+    the whole leaf for every layer). The values are ``_layer``'s."""
+    names = list(params["layers"])
+    columns = [params["layers"][n].unbind(0) for n in names]
+    return [dict(zip(names, vals)) for vals in zip(*columns)]
+
+
+# "dots": the outputs of the projections (products with no batch dims,
+# which reach aten as mm/addmm) are saved, everything else is recomputed:
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(cfg, fn):
+    """``fn`` (one block) under ``cfg.remat`` while grad is enabled:
+    ``"full"`` recomputes the block in the backward
+    (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` saves the
+    projections' outputs and recomputes the rest, ``"none"`` is the plain
+    call. With grad disabled (inference) it is always the plain call.
+    ``gather_save_policy`` saves the cross-device gathers in the
+    reference; one device gathers nothing, so it recomputes everything,
+    as ``"full"`` does."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots" and not cfg.gather_save_policy:
+        kw["context_fn"] = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                             _dots_policy)
+    elif cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}; one of full, dots, none")
+
+    def wrapped(*args, **kwargs):
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+
+    return wrapped
+
+
 def _rope(cfg, positions):
     if not cfg.rope_theta:
         return None, None
@@ -194,13 +242,15 @@ def _logits(params, cfg, h):
 
 
 def forward(params, cfg, batch, *, q_offset=0):
-    """batch {"tokens": (B, S)} -> (logits (B, S, V_pad), aux_loss 0.0)."""
+    """batch {"tokens": (B, S)} -> (logits (B, S, V_pad), aux_loss 0.0).
+    Under grad each block runs through ``remat_wrap``."""
     _check_family(cfg)
     h = params["embed"][batch["tokens"].long()]
     S = h.shape[1]
     cos, sin = _rope(cfg, torch.arange(S, device=h.device) + q_offset)
-    for i in range(cfg.num_layers):
-        h, _ = _block(_layer(params, i), cfg, h, cos, sin, q_offset=q_offset)
+    blk = remat_wrap(cfg, functools.partial(_block, cfg=cfg, q_offset=q_offset))
+    for p in layer_views(params):
+        h, _ = blk(p, h=h, cos=cos, sin=sin)
     return _logits(params, cfg, h), 0.0
 
 

@@ -25,8 +25,9 @@ that ``hopper/ops.py``'s ``cuda`` impl calls when an input requires grad:
 
 Each Function keeps its state in ``ctx`` only, so ``torch.utils.checkpoint``
 may run its forward again in the backward (each rerun launches the
-kernel again and counts in ``dispatch.LAUNCHES``). The forward is a
-parameter (``fwd``): the gradient checks plug in the plain form in fp64.
+kernel again and counts in ``dispatch.LAUNCHES``). On CPU tensors the
+kernels' wrappers run their plain forms (in fp64 for fp64 inputs), which is
+what the gradient checks hold the Functions' backward to.
 
 Every other kernel has no backward. ``forward_only`` wraps its ``cuda``
 impl so that an input requiring grad (with grad enabled) raises before
@@ -133,14 +134,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0, q_offset=
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _fa_kernel_fwd(q, k, v, **opts):
-    return _fa.flash_attention_cuda(q, k, v, return_lse=True, **opts)
-
-
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, opts, fwd):
-        o, lse = fwd(q, k, v, **opts)
+    def forward(ctx, q, k, v, opts):
+        o, lse = _fa.flash_attention_cuda(q, k, v, return_lse=True, **opts)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = {n: opts[n] for n in ("causal", "window", "q_offset", "scale")}
         return o
@@ -149,19 +146,18 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.opts)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, scale=None,
-                    return_lse=False, fwd=None, **blocks):
-    """``flash_attention_cuda`` (or ``fwd``, which returns (o, lse)) with
-    a gradient: o (B, H, Sq, D). ``return_lse`` raises (no gradient flows
-    through the lse)."""
+                    return_lse=False, **blocks):
+    """``flash_attention_cuda`` with a gradient: o (B, H, Sq, D).
+    ``return_lse`` raises (no gradient flows through the lse)."""
     if return_lse:
         no_backward("flash_attention(return_lse=True)",
                     "the lse output takes no gradient (ROADMAP queue 1 item 2, the ring path)")
     opts = dict(causal=causal, window=window, q_offset=q_offset, scale=scale, **blocks)
-    return _FlashAttention.apply(q, k, v, opts, fwd or _fa_kernel_fwd)
+    return _FlashAttention.apply(q, k, v, opts)
 
 
 # ---------------------------------------------------------------------------
@@ -187,8 +183,8 @@ def linear_attention_bwd(inputs, needs, do, dS, *, chunk):
 
 class _LinearAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, r, k, v, w_log, u, s0, chunk, fwd):
-        o, s_final = fwd(r, k, v, w_log, u, s0, chunk=chunk)
+    def forward(ctx, r, k, v, w_log, u, s0, chunk):
+        o, s_final = _la.linear_attention_cuda(r, k, v, w_log, u, s0, chunk=chunk)
         ctx.save_for_backward(r, k, v, w_log, u, s0)
         ctx.chunk = chunk
         return o, s_final
@@ -197,10 +193,9 @@ class _LinearAttention(torch.autograd.Function):
     def backward(ctx, do, dS):
         grads = linear_attention_bwd(ctx.saved_tensors, ctx.needs_input_grad[:6], do, dS,
                                      chunk=ctx.chunk)
-        return (*grads, None, None)
+        return (*grads, None)
 
 
-def linear_attention(r, k, v, w_log, u=None, s0=None, *, chunk=None, fwd=None):
-    """``linear_attention_cuda`` (or ``fwd``) with a gradient: (o, S_final)."""
-    return _LinearAttention.apply(r, k, v, w_log, u, s0, chunk,
-                                  fwd or _la.linear_attention_cuda)
+def linear_attention(r, k, v, w_log, u=None, s0=None, *, chunk=None):
+    """``linear_attention_cuda`` with a gradient: (o, S_final)."""
+    return _LinearAttention.apply(r, k, v, w_log, u, s0, chunk)

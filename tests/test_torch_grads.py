@@ -3,7 +3,8 @@
 - The two autograd Functions of ``hopper/grads.py`` (the FA kernel's
   forward with the plain FA-2 backward from the saved lse; the scan
   kernel's forward with the plain chunked form's autograd backward) pass
-  ``torch.autograd.gradcheck`` in fp64 with the plain forward plugged in,
+  ``torch.autograd.gradcheck`` in fp64 on CPU tensors, where the kernels'
+  wrappers run the plain forward,
   over causal and not, a window, ``q_offset`` and GQA; ``u`` given and
   None, ``s0``, the final state's gradient and hymba's stride-0 inputs.
   The FA backward's key blocks (and the blocks it skips) change nothing.
@@ -50,13 +51,6 @@ PORTED = ("occamy-gptj", "gemma-2b", "qwen1.5-4b", "qwen3-14b", "command-r-35b",
           "rwkv6-3b", "hymba-1.5b")
 
 
-def _fa_fwd64(q, k, v, *, causal, window, q_offset, scale, **blocks):
-    assert q.dtype == F64
-    return blocked.flash_attention_blocked(q, k, v, causal=causal, window=window,
-                                           q_offset=q_offset, scale=scale,
-                                           return_lse=True, **blocks)
-
-
 FA_CASES = [  # (H, K, Sq, Sk, causal, window, q_offset)
     (2, 2, 7, 7, True, 0, 0),
     (2, 2, 6, 9, False, 0, 0),
@@ -75,7 +69,7 @@ def test_flash_attention_function_gradcheck_fp64(case):
 
     def f(q, k, v):
         return grads.flash_attention(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset, fwd=_fa_fwd64)
+                                     q_offset=q_offset)
 
     assert torch.autograd.gradcheck(f, (q, k, v))
 
@@ -102,7 +96,7 @@ def test_flash_attention_bwd_key_blocks_change_nothing(block):
     v = torch.randn(2, 2, 13, 8, generator=g, dtype=F64, requires_grad=True)
     do = torch.randn(2, 4, 9, 8, generator=g, dtype=F64)
     kw = dict(causal=True, window=5, q_offset=3, scale=None)
-    o, lse = _fa_fwd64(q, k, v, **kw)
+    o, lse = blocked.flash_attention_blocked(q, k, v, return_lse=True, **kw)
     want = torch.autograd.grad(o, (q, k, v), do)
     got = grads.flash_attention_bwd(q, k, v, o.detach(), lse.detach(), do, block=block, **kw)
     for a, b in zip(got, want):
@@ -127,7 +121,7 @@ def test_linear_attention_function_gradcheck_fp64(with_u, with_s0):
     s0 = torch.randn(1, 2, 3, 4, generator=g, dtype=F64, requires_grad=True) if with_s0 else None
 
     def f(*args):
-        return grads.linear_attention(*args, chunk=4, fwd=blocked.linear_attention_blocked)
+        return grads.linear_attention(*args, chunk=4)
 
     assert torch.autograd.gradcheck(f, (r, k, v, w, u, s0))
 

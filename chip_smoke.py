@@ -83,6 +83,25 @@ Phases, in order; any failure exits non-zero:
      the cut and its reason printed) with random weights from seed 0, one
      after another through the same generate, launch counts, decode
      against the forward and profiles;
+  10b. with the dense models freed, the remaining families at full width
+     with random weights from seed 0, each freed before the next:
+     phi3.5-moe-42b-a6.6b (8 of 32 layers) through the paged engine
+     (serve()'s requests, slots and pool, so it preempts; one FA launch a
+     layer per prefill, no leak) and generate; grok-1-314b (2 of 64
+     layers) through generate; pixtral-12b (40 layers) through generate
+     with 64 patch embeddings before each 512-token prompt; whisper-large-v3
+     (32 + 32 layers) through a teacher-forced forward (B 4 x 448 tokens
+     against 1500 frames: 96 FA launches) and generate (the encoder once,
+     32 launches; the 64-token prompt through decode_step). Each depth cut
+     and its reason printed; launch counts zeroed just before and read
+     just after each run; a prefill and a decode step alone with their
+     counts; decode against the teacher-forced forward (2e-2 of
+     max|logits| in fp32 on the first layers, MoE at capacity_factor 8;
+     full depth in bf16 printed); the prefill (whisper: the forward and
+     the cross cache) and a decode step profiled (wall, busy, idle
+     share); the FA kernel first held to its plain version at the four
+     shapes these paths add (phase 2: D 64 at S 1500 and 448 x 1500
+     non-causal, GQA 48/8 and 32/8 at D 128);
   11. with the dense models freed, the recurrent families: the chunked
      linear-attention kernel first held against its plain version (the
      reference suite's fp32 cases, both read-outs, chunk 16 and 32; edge
@@ -148,8 +167,9 @@ Phases, in order; any failure exits non-zero:
      and hymba's SSD read-out (broadcast inputs, s0), and small fp32 cases
      (fp32 max rel 1e-4, bf16 Frobenius rel 1e-2), the scan's kernel
      forward (o, S_final) held to the plain one, each backward timed;
-     (b) one hymba-1.5b step at full width and depth, B 1 x 2048, cuda
-     against torch: the loss and the global gradient norm to 1e-2, every
+     hymba-1.5b below keeps 16 of its 32 layers at full width (since PR 25:
+     phase 10b's time is paid here; the cut and its reason printed);
+     (b) one hymba-1.5b step, B 1 x 2048, cuda against torch: the loss and the global gradient norm to 1e-2, every
      leaf finite and nonzero, every leaf's cosine >= 0.975 in bf16 (beside
      each kernel alone and plain controls that round as the kernels do)
      and >= 0.9999 in fp32; (c) hymba-1.5b through
@@ -157,14 +177,14 @@ Phases, in order; any failure exits non-zero:
      run, a run crashed at step 4 (exit 42, checkpoint at 3) and its
      restart (resumes at 3 and writes no checkpoint, ends at opt.step 6,
      final loss within 1e-3 of
-     the straight run's), 64 FA and 64 scan launches a step (32 layers x
+     the straight run's), 32 FA and 32 scan launches a step (16 layers x
      forward and recompute), then a profiled step (wall, busy, idle share,
      top device operations, tokens/s, peak memory, 6 N T model FLOPs and
      their share of the bf16 peak); (d) gemma-2b and rwkv6-3b the same way
      at full width, 3 steps each; (e) the twin of ``examples/train_llm.py``
      (gptj-100m, 60 steps, crash at 30, restart, the loss down by more
      than 0.1), microbatched gradients against the full batch's (rtol /
-     atol 1e-3) and one full-width step each with ``--microbatches 2`` and
+     atol 1e-3) and one hymba step each with ``--microbatches 2`` and
      ``--grad-compression``;
   15. time every kernel against its plain version, the library call and
      its bound (CUDA events over back-to-back calls); the FA, BSR, SpMSpM,
@@ -372,6 +392,16 @@ FA_CASES = [
     ("long non-causal gqa ragged bf16 D=32", 1, 16, 4, 555, 800, 32, "bfloat16", False, 0, 0, True,
      False),
     ("long window gqa bf16 D=64", 2, 8, 2, 640, 640, 64, "bfloat16", True, 100, 0, True, False),
+    # the remaining families' shapes (phase 10b): whisper's encoder and
+    # cross-attention, grok-1's and pixtral-12b's prefills
+    ("whisper encoder non-causal bf16 D=64", 1, 20, 20, 1500, 1500, 64, "bfloat16", False, 0, 0,
+     False, False),
+    ("whisper cross Sq=448 Sk=1500 bf16 D=64", 1, 20, 20, 448, 1500, 64, "bfloat16", False, 0, 0,
+     False, False),
+    ("grok prefill gqa 48/8 bf16 D=128", 1, 48, 8, 512, 512, 128, "bfloat16", True, 0, 0, False,
+     False),
+    ("pixtral prefill gqa 32/8 S=576 bf16 D=128", 1, 32, 8, 576, 576, 128, "bfloat16", True, 0, 0,
+     False, False),
 ]
 # |kernel - plain| <= ATOL + RTOL * |plain|. fp32: both sum in fp32 in
 # different orders (the reference suite's 1e-4). bf16: both round an fp32
@@ -1771,7 +1801,6 @@ def serve(report):
 
     from repro_torch.configs.base import get_config
     from repro_torch.models import transformer
-    from repro_torch.serving.engine import ServingEngine
 
     cfg = get_config("occamy-gptj")
     t0 = time.perf_counter()
@@ -1786,38 +1815,53 @@ def serve(report):
           f"init {time.perf_counter() - t0:.2f} s (depth not cut)")
 
     reqs = make_requests(cfg.vocab_size)
-    engine = ServingEngine.with_model(
-        cfg, params, num_blocks=NUM_BLOCKS, block_size=BLOCK_SIZE,
-        max_slots=SLOTS, max_blocks_per_seq=MAX_BLOCKS_PER_SEQ, device="cuda",
-    )
-    run = _drive(engine, reqs)
-    out, launches = run["out"], run["launches"]
-    fa = launches.get("flash_attention", 0)
-    print(f"serve: completed={len(out)}/{len(reqs)} steps={engine.step_count} "
-          f"preemptions={run['preempts']} prefills={run['prefills']} resumes={run['resumes']} "
-          f"leaked={engine.leaked_blocks()} wall={run['wall']:.3f} s")
-    print(f"serve: kernel launches during the run: {launches}; expected "
-          f"flash_attention = {cfg.num_layers} layers x {run['prefills']} prefills "
-          f"= {cfg.num_layers * run['prefills']}")
-    need(len(out) == len(reqs), "not every request completed")
-    need(all(len(out[r.rid]) == r.max_new_tokens for r in reqs), "short token stream")
-    need(engine.leaked_blocks() == 0, "leaked cache blocks")
-    need(run["preempts"] >= 1, "the pool never preempted")
-    need(fa == cfg.num_layers * run["prefills"], "flash_attention launch count != layers x prefills")
-
-    for n, ms in run["prefill_ms"]:
-        print(f"time prefill: prompt {n} tokens -> {ms:.2f} ms")
-    decode_step_ms, tok_s = _decode_rate(run)
-    print(f"time decode: {len(run['decode_ms'])} steps, mean {decode_step_ms:.2f} ms/step "
-          f"over {SLOTS} slots, {tok_s:.1f} tok/s (first step excluded)")
-    report["fa_launches"] = fa
-    report["serve"] = dict(prefill_ms=run["prefill_ms"], decode_tok_s=tok_s)
+    engine, run = _engine_run("serve", cfg, params, reqs)
+    out = run["out"]
+    report["fa_launches"] = run["launches"]["flash_attention"]
+    report["serve"] = dict(prefill_ms=run["prefill_ms"], decode_tok_s=run["tok_s"])
 
     check_prefill_logits(cfg, params, reqs, out)
     profile_steps(engine, reqs, report)
     serve_fp8(report, cfg, params, engine, run)
     del engine
     dense_generate_phase(report, "occamy-gptj", cfg, params, paged=True)
+
+
+def _engine_run(label, cfg, params, reqs):
+    """``reqs`` through ``ServingEngine.with_model`` over a pool tight
+    enough to preempt (NUM_BLOCKS of BLOCK_SIZE, SLOTS slots): every
+    request complete, no leaked block, at least one preemption, and one
+    FA launch per layer per prefill and no other launch, with the counts
+    zeroed just before and read just after. Returns (engine, the run with
+    its decode ``tok_s``)."""
+    from repro_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine.with_model(
+        cfg, params, num_blocks=NUM_BLOCKS, block_size=BLOCK_SIZE,
+        max_slots=SLOTS, max_blocks_per_seq=MAX_BLOCKS_PER_SEQ, device="cuda",
+    )
+    run = _drive(engine, reqs)
+    out, launches = run["out"], run["launches"]
+    expected = {"flash_attention": cfg.num_layers * run["prefills"]}
+    print(f"{label}: completed={len(out)}/{len(reqs)} steps={engine.step_count} "
+          f"preemptions={run['preempts']} prefills={run['prefills']} resumes={run['resumes']} "
+          f"leaked={engine.leaked_blocks()} wall={run['wall']:.3f} s")
+    print(f"{label}: kernel launches during the run: {launches}; expected {expected} "
+          f"({cfg.num_layers} layers x {run['prefills']} prefills)")
+    need(len(out) == len(reqs), f"{label}: not every request completed")
+    need(all(len(out[r.rid]) == r.max_new_tokens for r in reqs), f"{label}: short token stream")
+    need(all(0 <= t < cfg.vocab_size for s in out.values() for t in s),
+         f"{label}: token outside the vocab")
+    need(engine.leaked_blocks() == 0, f"{label}: leaked cache blocks")
+    need(run["preempts"] >= 1, f"{label}: the pool never preempted")
+    need(launches == expected, f"{label}: launch counts != one FA launch per layer per prefill")
+    for n, ms in run["prefill_ms"]:
+        print(f"{label} time prefill: prompt {n} tokens -> {ms:.2f} ms")
+    step_ms, run["tok_s"] = _decode_rate(run)
+    print(f"{label} time decode: {len(run['decode_ms'])} steps, mean {step_ms:.2f} ms/step "
+          f"over {SLOTS} slots, {run['tok_s']:.1f} tok/s (first step excluded)")
+    run["step_ms"] = step_ms
+    return engine, run
 
 
 def _drive(engine, reqs):
@@ -2130,35 +2174,56 @@ DECODE_FWD_REL_TOL = 2e-2
 
 
 def _layers_cut(params, cfg, layers, dtype_name):
-    """The first ``layers`` layers of ``params`` in ``dtype_name``."""
+    """The first ``layers`` decoder (and encoder) layers of ``params`` in
+    ``dtype_name``."""
     import torch
 
     dtype = getattr(torch, dtype_name)
-    cut = {k: v.to(dtype) for k, v in params.items() if k != "layers"}
-    cut["layers"] = {k: v[:layers].to(dtype) for k, v in params["layers"].items()}
-    return cut, cfg.replace(num_layers=layers, dtype=dtype_name)
+    cut = {}
+    for k, v in params.items():
+        if k in ("layers", "enc_layers"):
+            cut[k] = {n: x[:layers].to(dtype) for n, x in v.items()}
+        elif isinstance(v, dict):
+            cut[k] = {n: x.to(dtype) for n, x in v.items()}
+        else:
+            cut[k] = v.to(dtype)
+    kw = dict(num_layers=layers, dtype=dtype_name)
+    if cfg.encoder_layers:
+        kw["encoder_layers"] = layers
+    return cut, cfg.replace(**kw)
 
 
-def _decode_vs_forward(params, cfg, seq, S0, steps):
-    """Prefill ``seq[:, :S0]``, decode ``steps`` steps teacher-forced with
-    ``seq``'s tokens, and the forward of ``seq[:, :S0 + steps]``: the
-    largest |decode - forward| over those positions' logits, relative to
-    the forward's largest."""
+def _decode_vs_forward(params, cfg, seq, S0, steps, extra=None):
+    """``seq[:, :S0]`` prefilled (the vlm's patches first; the audio
+    family's prompt fed through decode_step after its cross cache), then
+    ``steps`` decode steps teacher-forced with ``seq``'s tokens, against
+    the forward of ``seq[:, :S0 + steps]``: max|decode - forward| over
+    those positions' logits, relative to the forward's largest."""
     import torch
 
-    from repro_torch.models import transformer
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import multimodal, registry, transformer
 
     B = seq.shape[0]
+    extra = {k: v[:B] for k, v in (extra or {}).items()}
+    P = cfg.num_patches if cfg.family == "vlm" else 0
     with torch.no_grad():
-        _, cache = transformer.prefill_step(params, cfg, {"tokens": seq[:, :S0]}, S0 + steps)
+        if cfg.family == "audio":
+            cache = registry.init_cache(cfg, B, S0 + steps, device="cuda")
+            cache["cross_k"], cache["cross_v"] = multimodal.build_cross_cache(
+                params, cfg, extra["frames"])
+            launch_serve.scan_prefill(params, cfg, cache, seq[:, :S0])
+        else:
+            _, cache = transformer.prefill_step(params, cfg, {"tokens": seq[:, :S0], **extra},
+                                                P + S0 + steps)
         dec = []
         for i in range(steps):
-            pos = torch.full((B,), S0 + i, dtype=torch.int32, device="cuda")
-            lg, cache = transformer.decode_step(params, cfg, cache, {"token": seq[:, S0 + i],
-                                                                     "position": pos})
+            pos = torch.full((B,), P + S0 + i, dtype=torch.int32, device="cuda")
+            lg, cache = registry.decode_step(params, cfg, cache, {"token": seq[:, S0 + i],
+                                                                  "position": pos})
             dec.append(lg)
-        full, _ = transformer.forward(params, cfg, {"tokens": seq[:, :S0 + steps]})
-    full = full[:, S0:S0 + steps].float()
+        full, _ = registry.forward(params, cfg, {"tokens": seq[:, :S0 + steps], **extra})
+    full = full[:, P + S0:P + S0 + steps].float()
     return float((torch.stack(dec, 1) - full).abs().max() / full.abs().max())
 
 
@@ -2313,6 +2378,214 @@ def dense_config_phase(report, arch, layers, why):
     dense_generate_phase(report, arch, cfg, params)
     report["dense"][arch].update(params_gb=nbytes / 1e9, full_layers=full_layers)
     del params
+
+
+# ---------------------------------------------------------------------------
+# phase 10b: the remaining families at full width: phi3.5-moe (the paged
+# engine, then generate), grok-1 (generate), pixtral-12b (generate with
+# patch embeddings), whisper-large-v3 (a teacher-forced forward against
+# 1500 frames, then generate)
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept or None, why, layers of the fp32 decode check)
+FAMILY_CONFIGS = (
+    ("phi3.5-moe-42b-a6.6b", 8,
+     "its 32 layers take ~84 GB in bf16, past the card's 80 GB, and layers.dense_init draws "
+     "each stacked leaf whole in fp32 (moe_wi at 8 layers, (8, 16, 4096, 6400), is 13.4 GB)", 2),
+    ("grok-1-314b", 2,
+     "its 64 layers take ~628 GB in bf16; 2 layers are ~22.9 GB, and the whole-leaf fp32 draw "
+     "of moe_wi (2, 8, 6144, 32768) adds 12.9 GB; the fp32 decode check takes 1 layer "
+     "(19.3 GB of fp32 experts)", 1),
+    ("pixtral-12b", None, None, 2),
+    ("whisper-large-v3", None, None, 2),
+)
+WHISPER_B, WHISPER_TOKENS = 4, 448  # the teacher-forced forward: B x 448 tokens vs 1500 frames
+WHISPER_PROMPT = 64
+MOE_CHECK_CAPACITY = 8.0  # decode vs forward with no token dropped (tests/test_models.py)
+
+
+def _family_extra(cfg, B, rng):
+    """The vlm's patch embeddings or the audio family's frames, standard
+    normal from ``rng``, on the card in the config's dtype (the stubbed
+    vision tower's and conv frontend's outputs)."""
+    import torch
+
+    if cfg.family == "vlm":
+        shape = (B, cfg.num_patches, cfg.d_model)
+        name = "patches"
+    elif cfg.family == "audio":
+        shape = (B, cfg.encoder_seq, cfg.d_model)
+        name = "frames"
+    else:
+        return None
+    x = torch.from_numpy(rng.standard_normal(shape).astype("float32"))
+    return {name: x.cuda().to(getattr(torch, cfg.dtype))}
+
+
+def _family_engine(arch, cfg, params):
+    """phi3.5-moe through the paged engine with serve()'s requests, slots
+    and pool (``_engine_run``); the prefill runs on the block-padded
+    bucket, so MoE capacity comes from it."""
+    engine, run = _engine_run(f"{arch} serve", cfg, params, make_requests(cfg.vocab_size))
+    return dict(serve_launches=run["launches"], serve_preempts=run["preempts"],
+                serve_leaked=engine.leaked_blocks(), serve_wall_s=run["wall"],
+                serve_decode_ms_per_step=run["step_ms"], serve_tok_s=run["tok_s"])
+
+
+def family_phase(report, arch, layers, why, check_layers):
+    """``arch`` at full width (depth cut to ``layers`` where given, for
+    ``why``) with random weights from seed SEED: phi3.5-moe through the
+    paged engine; every config through ``launch.serve.generate`` (MoE and
+    vlm: B x (prompt + new), the vlm's 64 patch embeddings first; whisper:
+    the encoder once, B x (64 + 16)) and whisper through a teacher-forced
+    forward, with the launch counts zeroed just before and read just
+    after; decode against the teacher-forced forward (fp32 on the first
+    ``check_layers`` layers, the gate; full depth in bf16, printed); the
+    prefill (whisper: the forward) and a decode step profiled. The weights
+    are freed after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.hopper import dispatch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import multimodal, registry, transformer
+
+    cfg = get_config(arch)
+    full_layers = cfg.num_layers
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+        print(f"model {arch}: depth cut to {layers} of {full_layers} layers: {why}")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = registry.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [x for v in params.values() for x in (v.values() if isinstance(v, dict) else [v])]
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"model {arch} full width: family={cfg.family} layers={cfg.num_layers} "
+          f"encoder_layers={cfg.encoder_layers} d_model={cfg.d_model} "
+          f"heads={cfg.num_heads}x{cfg.resolved_head_dim()} kv_heads={cfg.num_kv_heads} "
+          f"d_ff={cfg.d_ff} experts={cfg.num_experts} top{cfg.experts_per_token} "
+          f"vocab={cfg.vocab_size} {cfg.activation} {cfg.dtype} params={nbytes / 1e9:.2f} GB, "
+          f"init {init_s:.2f} s, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({'depth cut' if layers else 'depth not cut'})")
+    res = dict(params_gb=nbytes / 1e9, init_s=init_s, layers=cfg.num_layers,
+               full_layers=full_layers)
+    if arch.startswith("phi3.5"):
+        res.update(_family_engine(arch, cfg, params))
+
+    rng = np.random.default_rng(SEED)
+    audio = cfg.family == "audio"
+    S0 = WHISPER_PROMPT if audio else DENSE_PROMPT
+    B = DENSE_B
+    P = cfg.num_patches if cfg.family == "vlm" else 0
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S0))).cuda()
+    extra = _family_extra(cfg, B, rng)
+    fa_gen = cfg.encoder_layers if audio else cfg.num_layers
+    prof = report.setdefault("profile", {})
+    with torch.no_grad():
+        if audio:  # the teacher-forced forward: encoder + decoder self + cross
+            seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (WHISPER_B, WHISPER_TOKENS))).cuda()
+            batch = {"tokens": seq, "frames": extra["frames"][:WHISPER_B]}
+            want = {"flash_attention": cfg.encoder_layers + 2 * cfg.num_layers}
+            torch.cuda.synchronize()
+            dispatch.reset_launches()
+            t = time.perf_counter()
+            logits, _ = registry.forward(params, cfg, batch)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t
+            launches = dict(dispatch.LAUNCHES)
+            print(f"{arch} forward B={WHISPER_B} x {WHISPER_TOKENS} tokens vs {cfg.encoder_seq} "
+                  f"frames: {fwd_s:.3f} s (first call), kernel launches {launches}, expected "
+                  f"{want} ({cfg.encoder_layers} encoder + {cfg.num_layers} self + "
+                  f"{cfg.num_layers} cross)")
+            need(launches == want, f"{arch} forward launch counts != {want}")
+            need(tuple(logits.shape[:2]) == (WHISPER_B, WHISPER_TOKENS), f"{arch} forward shape")
+            need(bool(torch.isfinite(logits).all()), f"{arch}: non-finite forward logits")
+            res.update(forward_launches=launches, forward_s=fwd_s)
+            del logits
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t = time.perf_counter()
+        out = launch_serve.generate(cfg, params, tokens, DENSE_NEW, P + S0 + DENSE_NEW, extra)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t
+        launches = dict(dispatch.LAUNCHES)
+        want = {"flash_attention": fa_gen}
+        where = ("the encoder's, once; the prompt is fed through decode_step" if audio else
+                 "the prefill's, one a layer")
+        print(f"{arch} generate B={B} {f'{P} patches + ' if P else ''}prompt {S0} + {DENSE_NEW} "
+              f"new: {gen_s:.3f} s (first call), kernel launches {launches}, expected {want} "
+              f"({where}; none in the decode steps)")
+        need(launches == want, f"{arch} generate launch counts != {want}")
+        need(tuple(out.shape) == (B, S0 + DENSE_NEW), f"{arch} generate shape")
+        need(bool((out[:, :S0] == tokens).all()), f"{arch} generate changed the prompt")
+        new = out[:, S0:]
+        need(bool(((new >= 0) & (new < cfg.vocab_size)).all()), f"{arch}: token outside the vocab")
+        print(f"{arch} generate sample: {new[0].tolist()}")
+        res.update(launches=launches, gen_s=gen_s)
+
+        # one prefill (whisper: the cross cache) and one decode step alone
+        dispatch.reset_launches()
+        if audio:
+            cache = registry.init_cache(cfg, B, S0 + DENSE_NEW, device="cuda")
+            cache["cross_k"], cache["cross_v"] = multimodal.build_cross_cache(
+                params, cfg, extra["frames"])
+            pre_want = {"flash_attention": cfg.encoder_layers}
+        else:
+            _, cache = transformer.prefill_step(params, cfg, {"tokens": tokens, **(extra or {})},
+                                                P + S0 + DENSE_NEW)
+            pre_want = {"flash_attention": cfg.num_layers}
+        torch.cuda.synchronize()
+        pre = dict(dispatch.LAUNCHES)
+        step = {"token": new[:, 0],
+                "position": torch.full((B,), P + S0, dtype=torch.int32, device="cuda")}
+        dispatch.reset_launches()
+        registry.decode_step(params, cfg, {k: v.clone() for k, v in cache.items()}, step)
+        torch.cuda.synchronize()
+        dec = dict(dispatch.LAUNCHES)
+        print(f"{arch} launches: {'cross cache' if audio else 'prefill'} alone {pre}, one decode "
+              f"step alone {dec}")
+        need(pre == pre_want and dec == {}, f"{arch}: prefill / decode launch counts")
+
+        seq = out[:2, : S0 + DECODE_CHECK_STEPS]
+        check_cfg = cfg
+        if cfg.num_experts:
+            check_cfg = cfg.replace(capacity_factor=MOE_CHECK_CAPACITY)
+        cut, cut_cfg = _layers_cut(params, check_cfg, check_layers, "float32")
+        rel = _decode_vs_forward(cut, cut_cfg, seq, S0, DECODE_CHECK_STEPS, extra)
+        del cut
+        torch.cuda.empty_cache()
+        deep = _decode_vs_forward(params, check_cfg, seq, S0, DECODE_CHECK_STEPS, extra)
+        print(f"{arch} decode vs teacher-forced forward, {DECODE_CHECK_STEPS} steps after a "
+              f"{S0}-token prompt{f' ({P} patches first)' if P else ''}, B=2, "
+              f"full width{f', capacity_factor {MOE_CHECK_CAPACITY:g}' if cfg.num_experts else ''}: "
+              f"first {check_layers} layers fp32 rel {rel:.3e} (tol {DECODE_FWD_REL_TOL:g}); all "
+              f"{cfg.num_layers} layers {cfg.dtype} rel {deep:.3e} (printed, not a gate)")
+        need(rel < DECODE_FWD_REL_TOL, f"{arch}: decode vs forward beyond the reference's bound")
+        res.update(decode_vs_forward_rel=rel, decode_vs_forward_rel_full_depth=deep)
+
+        if audio:
+            name = f"{arch} forward B={WHISPER_B} x {WHISPER_TOKENS} vs {cfg.encoder_seq} frames"
+            profile_fn(name, lambda: registry.forward(params, cfg, batch), report)
+            res["forward"] = prof[name]
+            name = f"{arch} cross cache B={B} ({cfg.encoder_seq} frames)"
+            profile_fn(name, lambda: multimodal.build_cross_cache(
+                params, cfg, extra["frames"]), report)
+            res["cross_cache"] = prof[name]
+        else:
+            name = f"{arch} prefill B={B} S={P + S0}"
+            profile_fn(name, lambda: transformer.prefill_step(
+                params, cfg, {"tokens": tokens, **(extra or {})}, P + S0 + DENSE_NEW), report)
+            res["prefill"] = prof[name]
+        name = f"{arch} decode B={B} at {P + S0}"
+        profile_fn(name, lambda: registry.decode_step(params, cfg, cache, step), report)
+        res["decode"] = prof[name]
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"{arch} peak memory allocated {res['peak_gb']:.2f} GB")
+    report.setdefault("families", {})[arch] = res
+    del params, cache
 
 
 # ---------------------------------------------------------------------------
@@ -3440,6 +3713,14 @@ GRAD_COSINE_BF16 = 0.975
 TRAIN_ARCH = "hymba-1.5b"
 TRAIN_B, TRAIN_S = 2, 2048
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 6, 3, 4
+# hymba-1.5b trains at full width with 16 of its 32 layers in (b), (c) and
+# (e): the families phase (10b) took the script past PR 24's ~790 s, and
+# the hymba steps (host-bound, ~0.1 s a layer) are its largest cost; a
+# layer's shapes, kernels and launches do not change with depth
+TRAIN_LAYERS = 16
+TRAIN_CUT_WHY = ("phase 10b (the remaining families) added ~70 s to the script, and hymba's "
+                 "host-bound training steps are its largest cost; a layer's shapes, kernels and "
+                 "launches do not change with depth")
 TRAIN_RESUME_RTOL = 1e-3  # straight vs resumed final loss (CUDA's embedding atomics)
 # (d) the other two families: (arch, steps)
 TRAIN_OTHERS = (("gemma-2b", 3), ("rwkv6-3b", 3))
@@ -3722,7 +4003,7 @@ def _hold_step(label, got, want, bound=None):
 
 
 def check_full_width_step(report):
-    """(b): one hymba-1.5b step at full width and depth, B 1 x 2048,
+    """(b): one hymba-1.5b step at full width (TRAIN_LAYERS layers), B 1 x 2048,
     through the kernels (cuda) against the torch impl, in bf16 (the
     model's dtype) and in fp32: the loss, the global gradient norm and
     every leaf's cosine. In bf16 each kernel alone in the torch path, and
@@ -3736,8 +4017,10 @@ def check_full_width_step(report):
     from repro_torch.core import tree
     from repro_torch.models import registry
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=TRAIN_LAYERS)
     nl = cfg.num_layers
+    print(f"train {TRAIN_ARCH}: depth cut to {nl} of {get_config(TRAIN_ARCH).num_layers} layers "
+          f"(full width): {TRAIN_CUT_WHY}")
     want = {"flash_attention": 2 * nl, "linear_attention": 2 * nl}
     params = registry.init_params(cfg, seed=SEED, device="cuda")
     rng = np.random.default_rng(SEED)
@@ -3775,10 +4058,29 @@ def check_full_width_step(report):
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def _hymba_depth_cut():
+    """``launch.train``'s configs with TRAIN_ARCH cut to TRAIN_LAYERS layers
+    (full width); every other config as it is."""
+    from repro_torch.launch import train
+
+    real = train.get_config
+
+    def cut(arch, reduced=False):
+        cfg = real(arch, reduced)
+        return cfg.replace(num_layers=TRAIN_LAYERS) if arch == TRAIN_ARCH and not reduced else cfg
+
+    train.get_config = cut
+    try:
+        yield
+    finally:
+        train.get_config = real
+
+
 def _train_run(argv):
-    """``launch.train.main(argv)`` with the launch counts zeroed just
-    before and read just after: (result or the exit code, launches, wall
-    seconds, peak GB)."""
+    """``launch.train.main(argv)`` (TRAIN_ARCH at TRAIN_LAYERS layers) with
+    the launch counts zeroed just before and read just after: (result or
+    the exit code, launches, wall seconds, peak GB)."""
     import torch
 
     from repro_torch.hopper import dispatch
@@ -3791,7 +4093,8 @@ def _train_run(argv):
     dispatch.reset_launches()
     t = time.perf_counter()
     try:
-        out = train.main(argv)
+        with _hymba_depth_cut():
+            out = train.main(argv)
     except SystemExit as e:  # the injected crash, and only it
         need(e.code == train.CRASH_EXIT, f"train {argv}: exit {e.code}")
         out = e.code
@@ -3840,7 +4143,7 @@ def _profile_step(report, arch, cfg, state, steps_done):
 
 def train_path_phase(report):
     """(c) hymba-1.5b through ``launch/train.py``'s ``main`` at full width
-    and depth: a straight run, a crashed run (exit 42), the restart from
+    (TRAIN_LAYERS layers): a straight run, a crashed run (exit 42), the restart from
     its checkpoint; launches a step, the two final losses, a profiled
     step. (d) gemma-2b and rwkv6-3b the same way, 3 steps each."""
     import math
@@ -3851,13 +4154,14 @@ def train_path_phase(report):
     from repro_torch.configs.base import get_config
     from repro_torch.runtime import checkpoint as ckpt
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=TRAIN_LAYERS)
     nl = cfg.num_layers
     want = {"flash_attention": 2 * nl, "linear_attention": 2 * nl}  # forward and recompute
     base = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
             "--steps", str(TRAIN_STEPS), "--seed", str(SEED), "--log-every", "1"]
-    print(f"train {TRAIN_ARCH}: full width and depth ({nl} layers, {cfg.num_params():,} "
-          f"parameters by cfg.num_params()), {cfg.dtype}, remat={cfg.remat}, "
+    print(f"train {TRAIN_ARCH}: full width, depth cut to {nl} of "
+          f"{get_config(TRAIN_ARCH).num_layers} layers ({cfg.num_params():,} parameters by "
+          f"cfg.num_params()): {TRAIN_CUT_WHY}; {cfg.dtype}, remat={cfg.remat}, "
           f"B={TRAIN_B} x S={TRAIN_S}")
     (state, straight, _), launches, wall, peak = _train_run(base)
     per_step = _per_step(launches, TRAIN_STEPS, want, f"train {TRAIN_ARCH} straight run")
@@ -3931,7 +4235,7 @@ def train_options_phase(report):
     """(e) the twin of examples/train_llm.py (gptj-100m, fp32) with its
     crash and restart; microbatched gradients against the full batch's
     (the reference's bar); one step each with --microbatches 2 and
-    --grad-compression at hymba-1.5b's full width."""
+    --grad-compression at hymba-1.5b's full width (TRAIN_LAYERS layers)."""
     import math
 
     import torch
@@ -4081,6 +4385,10 @@ def main() -> int:
             dense_config_phase(report, arch, layers, why)
             gc.collect()
             torch.cuda.empty_cache()
+        for arch, layers, why, check_layers in FAMILY_CONFIGS:
+            family_phase(report, arch, layers, why, check_layers)
+            gc.collect()
+            torch.cuda.empty_cache()
         check_la_kernels(report)
         for arch, batch in RECURRENT:
             recurrent_phase(report, arch, batch)
@@ -4117,6 +4425,12 @@ def main() -> int:
         # cache), counted on its own: one launch a layer, all in the prefill
         "dense_generate_launches": {a: r["launches"].get("flash_attention", 0)
                                     for a, r in report["dense"].items()},
+        # the remaining families (phase 10b), each counted on its own:
+        # generate (one a layer in the prefill; whisper's encoder once),
+        # phi3.5-moe's engine run, whisper's teacher-forced forward
+        "families_launches": {a: {k: r[k].get("flash_attention", 0) for k in
+                                  ("launches", "serve_launches", "forward_launches") if k in r}
+                              for a, r in report["families"].items()},
         # the training phase (forward and remat recompute, launch.train's
         # main at full width): launches a step, per model
         "train_launches_per_step": _train_launches(report, "flash_attention"),

@@ -5,14 +5,15 @@ the stream resumes exactly where the checkpoint left it. Tokens follow a
 Zipf law (numpy's ``zipf(1.3)``), clipped to the vocabulary.
 ``batch_at_step`` draws with the reference's numpy calls in the
 reference's order, so one (seed, step) gives the reference's tokens and
-labels bit for bit.
+labels (and the vlm's ``patches``, the audio family's ``frames``) bit for
+bit.
 
 ``DataIterator`` prefetches on a host thread that builds numpy batches
 (pinned host tensors for a CUDA device); the consumer moves each batch to
 the device in ``__next__``, so no CUDA tensor is made on the side thread.
-The reference's ``shardings`` (a mesh's placement) and ``cast`` (for the
-float inputs of the vlm and audio families) have no counterpart yet: the
-port trains without a mesh, and those families are not ported.
+The reference's ``shardings`` (a mesh's placement) has no counterpart
+yet: the port trains without a mesh. Nor has its ``cast``: the float
+inputs stay fp32, and the models cast them to the activation dtype.
 """
 from __future__ import annotations
 
@@ -24,25 +25,39 @@ import torch
 
 from repro_torch.device import resolve_device
 
-_LATER = ("vlm", "audio")  # their float inputs come with the remaining-families slice
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 def batch_at_step(cfg, shape, seed: int, step: int,
                   batch_override: int | None = None,
                   seq_override: int | None = None) -> dict:
-    """The (seed, step) batch as numpy int32 arrays: ``tokens`` (B, S) and
-    ``labels`` (B, S), the tokens shifted by one."""
-    if cfg.family in _LATER:
+    """The (seed, step) batch as numpy arrays: ``tokens`` (B, S) and
+    ``labels`` (B, S) int32, the tokens shifted by one. The vlm's text is
+    S - num_patches tokens after its fp32 ``patches`` (B, num_patches, d),
+    whose label positions are -1; the audio family adds fp32 ``frames``
+    (B, encoder_seq, d). The float draws follow the tokens' Zipf draw."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"synthetic {cfg.family!r} batches are not ported yet: the "
-            f"remaining-families slice brings them"
+            f"no synthetic batches for family {cfg.family!r}: one of {FAMILIES}"
         )
     rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
     B = batch_override or shape.global_batch
     S = seq_override or shape.seq_len
+    d = cfg.d_model
     raw = rng.zipf(1.3, size=(B, S + 1)) - 1
     toks = np.minimum(raw, cfg.vocab_size - 1).astype(np.int32)
-    return {"tokens": toks[:, :S], "labels": toks[:, 1: S + 1].copy()}
+    out, s_text = {}, S
+    if cfg.family == "vlm":
+        s_text = S - cfg.num_patches
+        out["patches"] = rng.standard_normal((B, cfg.num_patches, d)).astype(np.float32)
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal((B, cfg.encoder_seq, d)).astype(np.float32)
+    out["tokens"] = toks[:, :s_text]
+    labels = toks[:, 1: S + 1].copy()
+    if cfg.family == "vlm":
+        labels[:, : cfg.num_patches] = -1
+    out["labels"] = labels
+    return out
 
 
 class DataIterator:

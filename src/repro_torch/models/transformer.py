@@ -1,13 +1,18 @@
-"""Decoder-only transformer LM, dense family (port of
+"""Decoder-only transformer LM: the dense, MoE and vlm families (port of
 ``repro.models.transformer``).
 
 Parameters are a plain dict of tensors with the reference's layout: the
 per-layer leaves stacked on a leading ``num_layers`` axis (layer ``i`` is
 the view ``leaf[i]``). Covers GQA/MQA, qk-norm, QKV biases, gated/plain
-MLPs and the GPT-J parallel-residual block. Prefill attention goes through
+MLPs, the GPT-J parallel-residual block, MoE layers (``models/moe.py``:
+``moe_mlp`` in forward and prefill, ``moe_mlp_decode`` in both decodes;
+each block's aux loss is summed into ``forward``'s second return value)
+and the vlm's patch embeddings, put through the connector and prepended to
+the tokens (``embed_inputs``). ``attention`` also serves the audio family's
+encoder and cross-attention (``kv_input``). Prefill attention goes through
 ``ops.flash_attention`` (the Hopper FA-2 kernel on the card); decode, from
-the contiguous cache (``decode_step``, which the hybrid family's decode
-shares through ``attention_decode``) or from paged pools
+the contiguous cache (``decode_step``, which the hybrid and audio families'
+decodes share through ``attention_decode``) or from paged pools
 (``decode_step_paged``), through ``ops.decode_attention``. Both decodes
 write the new token's k/v into the cache in place, where the reference's
 scan returns new caches. Projections are ``torch.matmul``, as the
@@ -28,13 +33,15 @@ from repro_torch.device import resolve_device
 from repro_torch.hopper import ops
 from repro_torch.hopper.blocked import as_bytes
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def _check_family(cfg):
-    if cfg.family != "dense" or cfg.num_experts:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the port serves the dense transformer family, got {cfg.family!r}: "
-            f"the remaining-families slice brings MoE, vlm and audio"
+            f"the transformer serves the families {FAMILIES}, got {cfg.family!r}"
         )
 
 
@@ -58,7 +65,7 @@ def init_params(cfg, *, seed: int = 0, device=None):
     H, K, nl = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
     vp = L.padded_vocab(cfg.vocab_size)
 
-    def dense(shape, scale=None):
+    def dense(shape, scale=None, dtype=dtype):
         return L.dense_init(gen, shape, scale=scale, dtype=dtype, device=device)
 
     def ones(*shape):
@@ -81,10 +88,13 @@ def init_params(cfg, *, seed: int = 0, device=None):
         layers.update(q_norm=ones(nl, hd), k_norm=ones(nl, hd))
     if not cfg.parallel_block:
         layers["mlp_norm"] = ones(nl, d)
-    layers["wi"] = dense((nl, d, f))
-    if L.is_gated(cfg.activation):
-        layers["wg"] = dense((nl, d, f))
-    layers["wo_mlp"] = dense((nl, f, d), scale=1.0 / math.sqrt(f))
+    if cfg.num_experts:
+        layers.update(M.init_moe_params(dense, cfg, nl, dtype))
+    else:
+        layers["wi"] = dense((nl, d, f))
+        if L.is_gated(cfg.activation):
+            layers["wg"] = dense((nl, d, f))
+        layers["wo_mlp"] = dense((nl, f, d), scale=1.0 / math.sqrt(f))
     params = {
         "embed": dense((vp, d), scale=0.02),
         "layers": layers,
@@ -92,6 +102,8 @@ def init_params(cfg, *, seed: int = 0, device=None):
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense((d, vp))
+    if cfg.family == "vlm":
+        params["connector"] = {"wi": dense((d, d)), "wo": dense((d, d))}
     return params
 
 
@@ -103,9 +115,10 @@ def _to_torch(x, device):
 
 
 def params_from_jax(np_params, *, device=None):
-    """Carry a reference parameter tree (``repro.models.transformer.
-    init_params``, as numpy arrays or anything ``np.asarray`` takes) over
-    to the port's dict of tensors on ``device`` (default ``cuda``)."""
+    """Carry a reference parameter tree (any family's ``init_params``, as
+    numpy arrays or anything ``np.asarray`` takes; nested dicts such as the
+    vlm's ``connector`` or the audio family's ``enc_layers`` stay nested)
+    over to the port's dict of tensors on ``device`` (default ``cuda``)."""
     device = resolve_device(device)
 
     def conv(node):
@@ -184,30 +197,47 @@ def _mlp(p, cfg, x):
     return L.mlp(q, x, cfg.activation)
 
 
+def _ffn(p, cfg, x):
+    """The block's feed-forward: (out, aux loss), MoE where the config has
+    experts."""
+    if cfg.num_experts:
+        return M.moe_mlp(p, x, cfg)
+    return _mlp(p, cfg, x), 0.0
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
 
 
 def attention(p, cfg, x, cos, sin, *, causal=True, window=0, q_offset=0,
-              return_kv=False):
-    """x (B, S, d) -> (B, S, d); with ``return_kv`` also the (B, K, S, hd)
-    k/v this layer caches."""
+              kv_input=None, kv_cos_sin=None, return_kv=False):
+    """x (B, S, d) -> (B, S, d); with ``return_kv`` also the (B, K, Skv, hd)
+    k/v this layer caches. ``kv_input`` (B, Skv, d) makes it
+    cross-attention: k/v come from it, with its own length. Rope (where
+    ``cos`` is given) turns q and, in self-attention, k; in
+    cross-attention k turns only by ``kv_cos_sin``, where given."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
     H, K = cfg.num_heads, cfg.num_kv_heads
-    q, k, v = (torch.matmul(x, p[w]) for w in ("wq", "wk", "wv"))
+    xkv = x if kv_input is None else kv_input
+    Skv = xkv.shape[1]
+    q = torch.matmul(x, p["wq"])
+    k, v = torch.matmul(xkv, p["wk"]), torch.matmul(xkv, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd)
+    k = k.reshape(B, Skv, K, hd)
+    v = v.reshape(B, Skv, K, hd)
     if "q_norm" in p:
         q = L.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
     if cos is not None:
         q = L.apply_rope(q, cos, sin)
-        k = L.apply_rope(k, cos, sin)
+        if kv_input is None:
+            k = L.apply_rope(k, cos, sin)
+        elif kv_cos_sin is not None:
+            k = L.apply_rope(k, *kv_cos_sin)
     # (B, S, H, hd) -> (B, H, S, hd) views: the kernel takes the strides
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     o = ops.flash_attention(qt, kt, vt, causal=causal, window=window,
@@ -219,16 +249,19 @@ def attention(p, cfg, x, cos, sin, *, causal=True, window=0, q_offset=0,
 
 
 def _block(p, cfg, h, cos, sin, *, q_offset=0, return_kv=False):
+    """One block: -> (h, the layer's k/v or None, the block's aux loss)."""
     n = L.rms_norm(h, p["attn_norm"], cfg.norm_eps)
     a = attention(p, cfg, n, cos, sin, window=cfg.sliding_window,
                   q_offset=q_offset, return_kv=return_kv)
     a, kv = a if return_kv else (a, None)
     if cfg.parallel_block:
-        h = h + a + _mlp(p, cfg, n)
+        m, aux = _ffn(p, cfg, n)
+        h = h + a + m
     else:
         h = h + a
-        h = h + _mlp(p, cfg, L.rms_norm(h, p["mlp_norm"], cfg.norm_eps))
-    return h, kv
+        m, aux = _ffn(p, cfg, L.rms_norm(h, p["mlp_norm"], cfg.norm_eps))
+        h = h + m
+    return h, kv, aux
 
 
 def _logits(params, cfg, h):
@@ -241,29 +274,49 @@ def _logits(params, cfg, h):
 # ---------------------------------------------------------------------------
 
 
-def forward(params, cfg, batch, *, q_offset=0):
-    """batch {"tokens": (B, S)} -> (logits (B, S, V_pad), aux_loss 0.0).
-    Under grad each block runs through ``remat_wrap``."""
-    _check_family(cfg)
+def embed_inputs(params, cfg, batch):
+    """Token embeddings (B, S, d); for the vlm, the patch embeddings
+    ``batch["patches"]`` (B, P, d) from the stubbed vision tower, put
+    through the connector ``gelu_tanh(patches @ wi) @ wo`` and prepended:
+    (B, P + S, d)."""
     h = params["embed"][batch["tokens"].long()]
+    if cfg.family == "vlm":
+        c = params["connector"]
+        patches = batch["patches"].to(h.dtype)
+        pe = torch.matmul(L.activation_fn("gelu")(torch.matmul(patches, c["wi"])), c["wo"])
+        h = torch.cat([pe.to(h.dtype), h], dim=1)
+    return h
+
+
+def forward(params, cfg, batch, *, q_offset=0):
+    """batch {"tokens": (B, S)} (+ ``patches`` for the vlm) -> (logits
+    (B, S_total, V_pad), aux loss: 0.0 for the dense family, the sum of the
+    blocks' MoE aux losses for the MoE one). Under grad each block runs
+    through ``remat_wrap``."""
+    _check_family(cfg)
+    h = embed_inputs(params, cfg, batch)
     S = h.shape[1]
     cos, sin = _rope(cfg, torch.arange(S, device=h.device) + q_offset)
     blk = remat_wrap(cfg, functools.partial(_block, cfg=cfg, q_offset=q_offset))
+    aux = 0.0
     for p in layer_views(params):
-        h, _ = blk(p, h=h, cos=cos, sin=sin)
-    return _logits(params, cfg, h), 0.0
+        h, _, a = blk(p, h=h, cos=cos, sin=sin)
+        aux = aux + a
+    return _logits(params, cfg, h), aux
 
 
 def prefill_step(params, cfg, batch, max_len: int):
-    """Process full prompts: -> (logits (B, S, V_pad) in the activation
-    dtype, cache {"k", "v"}: (nl, B, K, max_len, hd), zero past S)."""
+    """Process full prompts (+ ``patches`` for the vlm, prepended): ->
+    (logits (B, S_total, V_pad) in the activation dtype, cache {"k", "v"}:
+    (nl, B, K, max_len, hd), zero past S_total). The MoE aux loss is
+    dropped, as in the reference."""
     _check_family(cfg)
-    h = params["embed"][batch["tokens"].long()]
+    h = embed_inputs(params, cfg, batch)
     S = h.shape[1]
     cos, sin = _rope(cfg, torch.arange(S, device=h.device))
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        h, (k, v) = _block(_layer(params, i), cfg, h, cos, sin, return_kv=True)
+        h, (k, v), _ = _block(_layer(params, i), cfg, h, cos, sin, return_kv=True)
         ks.append(k)
         vs.append(v)
     pad = max_len - S
@@ -325,9 +378,7 @@ def init_cache(cfg, batch: int, max_len: int, *, device=None):
 
 def _ffn_decode(p, cfg, x):
     if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE decode is not ported yet: the remaining-families slice brings it"
-        )
+        return M.moe_mlp_decode(p, x, cfg)
     return _mlp(p, cfg, x)
 
 

@@ -18,8 +18,8 @@ One ``step()`` is one unit of virtual time, in the reference's order:
 
 The model half sits behind a small protocol (``prefill``/``decode``/
 ``save_blocks``/``restore_blocks``), so the scheduler runs against the
-host-only ``StubModel`` too. ``PagedModel`` serves the dense transformer
-on ``device`` (``cuda`` unless the caller passes another); with
+host-only ``StubModel`` too. ``PagedModel`` serves the transformer
+families the reference's engine serves, dense and MoE, on ``device`` (``cuda`` unless the caller passes another); with
 ``precision=`` its KV pools hold the cache narrow (values plus per-row fp32
 scales, dequantized at use in decode). Ring decode over several cards is
 not ported yet.
@@ -74,17 +74,23 @@ class StubModel:
 
 class PagedModel:
     """The real model half: bucketed paged prefill + all-slot paged decode
-    of the dense transformer over a ``PagedKVCache`` on ``device``; with a
-    ``precision`` policy the pools hold the cache quantized per row."""
+    of the dense or MoE transformer over a ``PagedKVCache`` on ``device``;
+    with a ``precision`` policy the pools hold the cache quantized per row.
+
+    The prefill runs on the prompt padded to its block bucket, as the
+    reference's does: causal attention keeps the real rows independent of
+    the padded tail, but an MoE layer's capacity is computed from the
+    padded length and the pad tokens sort after the real ones within each
+    expert. Both engines do this, so their MoE streams agree."""
 
     def __init__(self, cfg, params, *, num_blocks, block_size, max_slots,
                  max_blocks_per_seq, precision=None, device=None):
         from repro_torch.models import transformer
         from repro_torch.serving import paged_cache
 
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"PagedModel serves the dense transformer family, got {cfg.family!r}"
+                f"PagedModel serves the transformer families (dense, moe), got {cfg.family!r}"
             )
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:

@@ -208,17 +208,18 @@ def test_make_batch_is_the_reference_batch(arch, shape):
 
 
 def test_registry_raises_for_the_families_not_ported():
-    dense = get_config("gemma-2b", reduced=True)
-    for family in ("moe", "vlm", "audio"):
-        cfg = dense.replace(family=family)
-        for call in (lambda: registry.cache_spec(cfg, 1, 4),
-                     lambda: registry.make_batch(cfg, SHAPES["decode_32k"], device="cpu"),
-                     lambda: serve.generate(cfg, {}, torch.zeros((1, 2), dtype=torch.int32), 2, 4)):
-            with pytest.raises(NotImplementedError, match="remaining-families slice"):
-                call()
-    params = transformer.init_params(dense, device="cpu")
-    with pytest.raises(NotImplementedError, match="remaining-families slice"):
-        transformer.decode_step(params, dense.replace(num_experts=4), {}, {})
+    # every family of the reference is ported; a family the port does not
+    # know raises at each entry point instead of reaching a wrong module
+    cfg = get_config("gemma-2b", reduced=True).replace(family="diffusion")
+    for call in (lambda: registry.cache_spec(cfg, 1, 4),
+                 lambda: registry.make_batch(cfg, SHAPES["decode_32k"], device="cpu"),
+                 lambda: registry.init_params(cfg, device="cpu")):
+        with pytest.raises(NotImplementedError, match="not one the port knows"):
+            call()
+    with pytest.raises(NotImplementedError, match="families"):
+        serve.generate(cfg, {}, torch.zeros((1, 2), dtype=torch.int32), 2, 4)
+    with pytest.raises(NotImplementedError, match="transformer serves"):
+        transformer.decode_step({}, cfg.replace(family="ssm"), {}, {})
 
 
 def _bench_args(**kw):

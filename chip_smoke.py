@@ -186,7 +186,28 @@ Phases, in order; any failure exits non-zero:
      than 0.1), microbatched gradients against the full batch's (rtol /
      atol 1e-3) and one hymba step each with ``--microbatches 2`` and
      ``--grad-compression``;
-  15. time every kernel against its plain version, the library call and
+  15. training on a mesh, every rank a stream of the one card (bf16
+     parameters, fp32 AdamW, remat full, seed 0, the training phase's
+     stream at B 2 x 2048): (a) phi3.5-moe-42b-a6.6b at 2 of 32 layers on
+     data2 x model2 (``run_training``'s meshed step) against its unsharded
+     twin from the same state on the same batches, 3 steps: every placed
+     part of its spec's shard shape, each step's loss and grad norm within
+     1e-3, FA launches a step equal, the MoE dispatch once per data rank
+     and layer in the forward and the recompute (a no-grad forward: once
+     each, logits bitwise); then ``launch/train.py --mesh 2x2`` at 1
+     layer: a straight run, a crash at step 1 (checkpoint 1, gathered) and
+     the restart to the straight run's loss (1e-3); (b) rwkv6-3b at 8 of 32
+     layers with the halo shift on data1 x model4: logits bitwise with and
+     without the halo and unsharded, then 2 twin steps as in (a), scan
+     launches a step equal; (c) occamy-gptj at 4 of 28 layers in fp32
+     through ``ServingEngine.with_model(mesh={"data": 4})`` (ring decode)
+     against the unsharded engine: serve()'s requests, slots and pool with
+     tables of 36, streams equal, 4 decode-attention partials a layer a
+     step; (d) each twin's step walls, a profiled step (wall, busy, idle
+     share), launches, peak memory and the gathered bytes a step, the ring
+     engine's decode rate, and the phase's seconds. Each depth cut and its
+     reason printed;
+  16. time every kernel against its plain version, the library call and
      its bound (CUDA events over back-to-back calls); the FA, BSR, SpMSpM,
      stencil, scan and both scaled kernels and their library calls also by
      device time (events around a CUDA graph's replay of 20 calls, which
@@ -205,7 +226,8 @@ Phases, in order; any failure exits non-zero:
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers (each kernel's mesh-phase launches by mesh under
 ``mesh_launches``, FA's and the scan's training launches a step by model
-under ``train_launches_per_step``), and as its last line ``{"ok": true, "device": {...}}``. Imports
+under ``train_launches_per_step``, and a meshed step's under
+``mesh_train_launches_per_step``), and as its last line ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of the reference package.
 """
 from __future__ import annotations
@@ -4059,8 +4081,8 @@ def check_full_width_step(report):
 
 
 @contextlib.contextmanager
-def _hymba_depth_cut():
-    """``launch.train``'s configs with TRAIN_ARCH cut to TRAIN_LAYERS layers
+def _depth_cut(cut_arch, layers):
+    """``launch.train``'s configs with ``cut_arch`` cut to ``layers`` layers
     (full width); every other config as it is."""
     from repro_torch.launch import train
 
@@ -4068,7 +4090,7 @@ def _hymba_depth_cut():
 
     def cut(arch, reduced=False):
         cfg = real(arch, reduced)
-        return cfg.replace(num_layers=TRAIN_LAYERS) if arch == TRAIN_ARCH and not reduced else cfg
+        return cfg.replace(num_layers=layers) if arch == cut_arch and not reduced else cfg
 
     train.get_config = cut
     try:
@@ -4077,10 +4099,11 @@ def _hymba_depth_cut():
         train.get_config = real
 
 
-def _train_run(argv):
-    """``launch.train.main(argv)`` (TRAIN_ARCH at TRAIN_LAYERS layers) with
-    the launch counts zeroed just before and read just after: (result or
-    the exit code, launches, wall seconds, peak GB)."""
+def _train_run(argv, cut=(TRAIN_ARCH, TRAIN_LAYERS)):
+    """``launch.train.main(argv)`` (``cut``: an arch and the layers it keeps,
+    by default TRAIN_ARCH at TRAIN_LAYERS) with the launch counts zeroed
+    just before and read just after: (result or the exit code, launches,
+    wall seconds, peak GB)."""
     import torch
 
     from repro_torch.hopper import dispatch
@@ -4093,7 +4116,7 @@ def _train_run(argv):
     dispatch.reset_launches()
     t = time.perf_counter()
     try:
-        with _hymba_depth_cut():
+        with _depth_cut(*cut):
             out = train.main(argv)
     except SystemExit as e:  # the injected crash, and only it
         need(e.code == train.CRASH_EXIT, f"train {argv}: exit {e.code}")
@@ -4305,6 +4328,428 @@ def training_phase(report):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: training on a data x model mesh (run_training(mesh=),
+# launch/train.py --mesh), the model's explicit regions and the engine's
+# ring decode; every rank a stream of the one card
+# ---------------------------------------------------------------------------
+
+MT_B, MT_S = 2, 2048  # the training phase's batch
+MT_MOE = "phi3.5-moe-42b-a6.6b"
+MT_MOE_LAYERS, MT_MOE_MESH, MT_MOE_STEPS = 2, {"data": 2, "model": 2}, 3
+MT_MOE_WHY = ("~1.3 B parameters a layer: 2 layers are ~35 GB of parameters, gradients and "
+              "fp32 moments on the one card, beside the gathered copy and the unsharded twin "
+              "run before it; a layer's shapes, kernels and explicit regions do not change "
+              "with depth")
+# the crash and restart through launch/train.py --mesh 2x2: one layer, so
+# its checkpoint (written gathered, read back and placed) is ~15 GB, not
+# the 2-layer state's ~29 GB: the card machine's disk writes and reads a
+# checkpoint at well under 1 GB/s
+MT_CRASH_LAYERS, MT_CRASH_STEPS, MT_CRASH_AT = 1, 3, 1
+MT_CRASH_WHY = ("the checkpoint holds the whole state (bf16 parameters, fp32 moments): ~29 GB at "
+                "2 layers, ~15 GB at 1, written and read at the machine's disk rate")
+MT_RWKV = "rwkv6-3b"
+MT_RWKV_LAYERS, MT_RWKV_MESH, MT_RWKV_STEPS = 8, {"data": 1, "model": 4}, 2
+MT_RWKV_WHY = "a layer's shapes, its scan launch and its two halo exchanges do not change with depth"
+MT_ENGINE, MT_ENGINE_LAYERS, MT_RING = "occamy-gptj", 4, {"data": 4}
+MT_ENGINE_BLOCKS_PER_SEQ = 36  # the multiple of 4 at or above serve()'s 33
+MT_ENGINE_WHY = "ring decode's partials and merges are per layer; 4 of 28 layers hold them"
+# meshed step vs its unsharded twin, each step's loss and global gradient
+# norm: the forward is the same computation (the explicit regions are
+# bitwise) and the norm sums the same squares in another order, so the
+# first step's loss is equal; later steps differ by what CUDA's
+# nondeterministic embedding-gradient atomics move, which TRAIN_RESUME_RTOL
+# bounds for a restart
+MT_LOSS_RTOL = MT_NORM_RTOL = 1e-3
+
+
+def _mt_batch(cfg, step):
+    import torch
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.data.synthetic import batch_at_step
+
+    host = batch_at_step(cfg, SHAPES["train_4k"], SEED, step, MT_B, MT_S)
+    return {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+
+
+def _mt_steps(label, cfg, step_fn, state, steps):
+    """``steps`` steps of ``step_fn`` on the training phase's stream (steps
+    0..steps-1), each with the launch counts (and the MoE branch's per-rank
+    calls) zeroed just before and read just after, its wall (host clock
+    ended by a sync) and peak allocation. Returns the per-step records."""
+    import math
+
+    import torch
+
+    from repro_torch.hopper import dispatch
+    from repro_torch.models import moe
+
+    rows = []
+    for step in range(steps):
+        batch = _mt_batch(cfg, step)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launches()
+        moe.MESH_ROW_CALLS.clear()
+        t = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        rows.append(dict(loss=loss, grad_norm=norm, wall_ms=(time.perf_counter() - t) * 1e3,
+                         launches=dict(dispatch.LAUNCHES), rank_calls=dict(moe.MESH_ROW_CALLS),
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        print(f"{label} step {step}: loss {loss:.6f} grad norm {norm:.6f} wall "
+              f"{rows[-1]['wall_ms']:.1f} ms launches {rows[-1]['launches']} per-rank MoE calls "
+              f"{rows[-1]['rank_calls']} peak allocated {rows[-1]['peak_gb']:.2f} GB")
+        need(math.isfinite(loss) and math.isfinite(norm), f"{label}: non-finite step {step}")
+    return rows
+
+
+def _mt_sections(label, mode, cfg, mesh, state, batch):
+    """Where a step's wall goes, each piece run once more after the timed
+    steps and ended by a sync. Unsharded: the loss and gradients, the
+    global norm, and AdamW (``apply_updates``, its own norm included). On
+    the mesh: the parameters' gather; the loss and gradients under the
+    activation specs (the explicit regions run per rank) and, on the same
+    gathered parameters, without them; the gradients' split into parts;
+    the norm over the owned parts (``mesh_grad_norm``); the per-rank AdamW
+    (``mesh_apply_updates``). The updates advance the state one step."""
+    import torch
+
+    from repro_torch.core import tree
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime import train_loop
+
+    lg = train_loop.loss_and_grads_fn(cfg)
+    ms = {}
+
+    def timed(key, fn):
+        gc.collect()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[key] = (time.perf_counter() - t) * 1e3
+        return out
+
+    with torch.no_grad():
+        if mode == "mesh":
+            act = sh.default_activation_specs(cfg, mesh, "train")
+            params = timed("gather", lambda: tree.tree_map(lambda x: x.gather(),
+                                                            state["params"]))
+
+            def meshed():
+                with torch.enable_grad(), sh.activation_sharding(act):
+                    return lg(params, batch)
+
+            _, grads = timed("loss+grads", meshed)
+            with torch.enable_grad():
+                timed("loss+grads without the activation specs", lambda: lg(params, batch))
+            shardings = [x.sharding for x in tree.leaves(state["params"])]
+            gs = timed("split", lambda: [sh.Placed.of(g, s)
+                                         for g, s in zip(tree.leaves(grads), shardings)])
+            del params, grads
+            norm = timed("norm", lambda: train_loop.mesh_grad_norm(mesh, gs))
+            timed("AdamW", lambda: train_loop.mesh_apply_updates(cfg, mesh, state, gs, norm))
+            del gs
+        else:
+            with torch.enable_grad():
+                _, grads = timed("loss+grads", lambda: lg(state["params"], batch))
+            timed("norm", lambda: adamw.global_norm(grads))
+            timed("AdamW", lambda: adamw.apply_updates(cfg, state["params"], grads,
+                                                       state["opt"]))
+            ms["AdamW"] -= ms["norm"]  # apply_updates takes its own norm first
+            del grads
+    print(f"{label} {mode} step sections (ms, each once more, ended by a sync): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    return ms
+
+
+def _mt_twins(report, label, cfg, mesh, steps, kernel):
+    """The unsharded step and the meshed step from the same seeded state on
+    the same batches: the placed parts against their specs, each step's
+    loss and grad norm within MT_LOSS_RTOL / MT_NORM_RTOL, ``kernel``'s
+    launches a step equal, a warm profiled step of each and its sections
+    (``_mt_sections``). Returns the meshed rows."""
+    import math
+
+    import torch
+
+    from repro_torch.core import tree
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime import train_loop
+
+    res = {}
+    for mode in ("unsharded", "mesh"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = train_loop.init_train_state(cfg, SEED, device="cuda")
+        if mode == "mesh":
+            t = time.perf_counter()
+            shardings = train_loop.state_shardings(cfg, state, mesh)
+            sh.place_(state, shardings)
+            torch.cuda.synchronize()
+            placed = tree.leaves(state)
+            for leaf in placed:
+                want = leaf.sharding.shard_shape(leaf.shape)
+                need(all(tuple(p.shape) == want for p in leaf.parts),
+                     f"{label}: a part of {leaf} is not its spec's {want}")
+            split = sum(1 for x in placed if any(e is not None for e in x.sharding.spec))
+            gather_gb = sum(math.prod(x.shape) * x.parts[0].element_size()
+                            for x in tree.leaves(state["params"])) / 1e9
+            print(f"{label} mesh {mesh.shape}: {len(placed)} leaves placed in "
+                  f"{time.perf_counter() - t:.2f} s, {split} of them split (the rest replicated), "
+                  f"every part its spec's shard shape; the step gathers {gather_gb:.3f} GB of "
+                  f"parameters and splits as many gradient bytes")
+            step_fn = train_loop.make_mesh_train_step(cfg, mesh)
+        else:
+            step_fn = train_loop.make_train_step(cfg)
+        rows = _mt_steps(f"{label} {mode}", cfg, step_fn, state, steps)
+        b = _mt_batch(cfg, steps)
+        name = f"mesh train {label} {mode} step B={MT_B} T={MT_S}"
+        # the steps above warmed it: one timed wall, one span, one trace
+        profile_fn(name, lambda: step_fn(state, b), report, walls=1, cpu=False, warm=True)
+        res[mode] = dict(rows=rows, profile=report["profile"][name],
+                         sections=_mt_sections(label, mode, cfg, mesh, state, b))
+        if mode == "mesh":
+            res[mode]["gather_gb"] = gather_gb
+        del state, step_fn
+    plain, meshed = res["unsharded"]["rows"], res["mesh"]["rows"]
+    for i, (a, b) in enumerate(zip(plain, meshed)):
+        rl = abs(b["loss"] - a["loss"]) / abs(a["loss"])
+        rn = abs(b["grad_norm"] - a["grad_norm"]) / abs(a["grad_norm"])
+        print(f"{label} step {i}: mesh vs unsharded loss {b['loss']:.6f} vs {a['loss']:.6f} "
+              f"(rel {rl:.3e}, bitwise {b['loss'] == a['loss']}), grad norm {b['grad_norm']:.6f} "
+              f"vs {a['grad_norm']:.6f} (rel {rn:.3e}); rtol {MT_LOSS_RTOL:g} each; {kernel} "
+              f"launches {b['launches'].get(kernel)} vs {a['launches'].get(kernel)}")
+        need(rl <= MT_LOSS_RTOL and rn <= MT_NORM_RTOL, f"{label} step {i}: mesh != unsharded")
+        need(b["launches"].get(kernel, 0) == a["launches"].get(kernel, 0) == 2 * cfg.num_layers,
+             f"{label} step {i}: {kernel} launches {b['launches']} vs {a['launches']}, "
+             f"expected {2 * cfg.num_layers} (forward and recompute)")
+    for mode, r in res.items():
+        wall = sum(x["wall_ms"] for x in r["rows"][1:]) / max(len(r["rows"]) - 1, 1)
+        p = r["profile"]
+        print(f"time mesh train {label} {mode}: warm step wall {wall:.1f} ms (mean of steps 1..), "
+              f"profiled step wall {p['wall_ms']:.1f} ms busy {p['busy_ms']:.1f} ms idle share "
+              f"{p['idle_share']}, peak allocated {max(x['peak_gb'] for x in r['rows']):.2f} GB, "
+              f"launches a step {r['rows'][-1]['launches']}"
+              + (f", gathered {r['gather_gb']:.3f} GB a step" if mode == "mesh" else ""))
+    report.setdefault("mesh_train", {})[label] = res
+    return meshed
+
+
+def mesh_train_moe(report):
+    """(a) phi3.5-moe at MT_MOE_LAYERS layers on data2 x model2: the
+    twins, the MoE branch's per-data-rank calls, then a crash and restart
+    through ``launch/train.py --mesh 2x2`` (MT_CRASH_LAYERS layers)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe, registry
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.mesh import DeviceMesh
+    from repro_torch.runtime import checkpoint as ckpt
+
+    full = get_config(MT_MOE)
+    cfg = full.replace(num_layers=MT_MOE_LAYERS)
+    mesh = DeviceMesh(MT_MOE_MESH)
+    n_dp = mesh.shape["data"]
+    print(f"mesh train {MT_MOE}: full width, depth cut to {MT_MOE_LAYERS} of {full.num_layers} "
+          f"layers ({cfg.num_params():,} parameters): {MT_MOE_WHY}; {cfg.dtype} parameters, "
+          f"{cfg.optimizer_dtype} AdamW, remat={cfg.remat}, B={MT_B} x S={MT_S}, mesh "
+          f"{mesh.shape} on {len(set(mesh.devices))} card(s)")
+    rows = _mt_twins(report, MT_MOE, cfg, mesh, MT_MOE_STEPS, "flash_attention")
+    for i, r in enumerate(rows):
+        # forward and remat recompute each dispatch once per data rank; the
+        # recompute stops once the backward's saved tensors are back, so
+        # its combines may stop short
+        need(r["rank_calls"].get("dispatch") == 2 * n_dp * cfg.num_layers,
+             f"step {i}: per-rank dispatches {r['rank_calls']} != 2 x {n_dp} x {cfg.num_layers}")
+        need(r["rank_calls"].get("combine", 0) >= n_dp * cfg.num_layers,
+             f"step {i}: per-rank combines {r['rank_calls']} < {n_dp} x {cfg.num_layers}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = registry.init_params(cfg, seed=SEED, device="cuda")
+    batch = _mt_batch(cfg, 0)
+    with torch.no_grad():
+        want = registry.forward(params, cfg, batch)[0]
+        moe.MESH_ROW_CALLS.clear()
+        with sh.activation_sharding(sh.default_activation_specs(cfg, mesh, "train")):
+            got = registry.forward(params, cfg, batch)[0]
+        calls = dict(moe.MESH_ROW_CALLS)
+    print(f"mesh forward {MT_MOE}: per-rank calls {calls} (expected {n_dp} x {cfg.num_layers} "
+          f"each), logits bitwise the mesh-free forward's: {bool(torch.equal(got, want))}")
+    need(calls == {"dispatch": n_dp * cfg.num_layers, "combine": n_dp * cfg.num_layers},
+         f"mesh forward: per-rank calls {calls}")
+    need(bool(torch.equal(got, want)), "the MoE mesh branch is not bitwise the mesh-free one")
+    del params, batch, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = (MT_MOE, MT_CRASH_LAYERS)
+    base = ["--arch", MT_MOE, "--batch", str(MT_B), "--seq", str(MT_S), "--steps",
+            str(MT_CRASH_STEPS), "--seed", str(SEED), "--log-every", "1", "--mesh", "2x2"]
+    print(f"mesh train {MT_MOE} through launch/train.py --mesh 2x2: depth cut to "
+          f"{MT_CRASH_LAYERS} layer: {MT_CRASH_WHY}")
+    (state, straight, _), launches, wall, peak = _train_run(base, cut)
+    nl = state["params"]["layers"]["wq"].shape[0]
+    need(launches.get("flash_attention") == 2 * nl * MT_CRASH_STEPS,
+         f"straight --mesh run: launches {launches}, expected 2 x {nl} x {MT_CRASH_STEPS}")
+    print(f"mesh train {MT_MOE} straight --mesh run: {MT_CRASH_STEPS} steps in {wall:.1f} s (init "
+          f"included), losses {straight}, launches {launches}, peak allocated {peak:.2f} GB")
+    need(isinstance(state["params"]["embed"], torch.Tensor),
+         "the meshed run did not return the gathered state")
+    del state
+    ckdir = TRAIN_CKPT_DIR.parent / "mesh_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ck = ["--ckpt-dir", str(ckdir)]
+    code, _, wall_c, _ = _train_run(base + ck + ["--ckpt-every", "1", "--inject-crash-at",
+                                                 str(MT_CRASH_AT)], cut)
+    need(code == 42 and ckpt.latest_step(str(ckdir)) == MT_CRASH_AT,
+         f"crashed --mesh run: exit {code}, checkpoint {ckpt.latest_step(str(ckdir))}")
+    size = sum(f.stat().st_size for f in ckdir.rglob("*") if f.is_file()) / 1e9
+    print(f"mesh train {MT_MOE} crashed --mesh run: exit 42 at step {MT_CRASH_AT} after "
+          f"{wall_c:.1f} s, checkpoint step {MT_CRASH_AT} ({size:.2f} GB, gathered leaves)")
+    (state, resumed, _), launches_r, wall_r, peak_r = _train_run(
+        base + ck + ["--ckpt-every", str(MT_CRASH_STEPS + 1)], cut)
+    rel = abs(resumed[-1] - straight[-1]) / abs(straight[-1])
+    print(f"mesh train {MT_MOE} resumed --mesh run: from step {MT_CRASH_AT}, {len(resumed)} steps "
+          f"in {wall_r:.1f} s (restore and placement included), opt.step "
+          f"{int(state['opt']['step'])}, final loss {resumed[-1]:.6f} vs straight "
+          f"{straight[-1]:.6f} (rel {rel:.3e}, rtol {TRAIN_RESUME_RTOL:g}), peak allocated "
+          f"{peak_r:.2f} GB")
+    need(len(resumed) == MT_CRASH_STEPS - MT_CRASH_AT
+         and int(state["opt"]["step"]) == MT_CRASH_STEPS, "the --mesh restart did not finish")
+    need(rel <= TRAIN_RESUME_RTOL, "the resumed --mesh run's final loss is not the straight run's")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    report["mesh_train_crash"] = dict(straight=straight, resumed=resumed, rel=rel,
+                                      ckpt_gb=size, crash_s=wall_c, resume_s=wall_r)
+    del state
+
+
+def mesh_train_rwkv(report):
+    """(b) rwkv6-3b at MT_RWKV_LAYERS layers with the halo shift on data1 x
+    model4: the forward's logits bitwise with and without the halo on the
+    mesh and unsharded, then the twins."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import registry
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.mesh import DeviceMesh
+
+    full = get_config(MT_RWKV)
+    cfg = full.replace(num_layers=MT_RWKV_LAYERS, halo_shift=True)
+    mesh = DeviceMesh(MT_RWKV_MESH)
+    print(f"mesh train {MT_RWKV}: full width, depth cut to {MT_RWKV_LAYERS} of {full.num_layers} "
+          f"layers ({cfg.num_params():,} parameters): {MT_RWKV_WHY}; halo_shift, mesh "
+          f"{mesh.shape}, B={MT_B} x S={MT_S}")
+    params = registry.init_params(cfg, seed=SEED, device="cuda")
+    batch = _mt_batch(cfg, 0)
+    outs = {}
+    with torch.no_grad():
+        outs["unsharded"] = registry.forward(params, cfg, batch)[0]
+        for halo in (False, True):
+            c = cfg.replace(halo_shift=halo)
+            with sh.activation_sharding(sh.default_activation_specs(c, mesh, "train")):
+                outs[f"mesh halo={halo}"] = registry.forward(params, c, batch)[0]
+    torch.cuda.synchronize()
+    same = {k: bool(torch.equal(v, outs["unsharded"])) for k, v in outs.items()}
+    print(f"mesh forward {MT_RWKV}: logits bitwise the unsharded forward's: {same}")
+    need(all(same.values()), f"{MT_RWKV}: the meshed forwards are not bitwise the unsharded one")
+    del params, batch, outs
+    _mt_twins(report, MT_RWKV, cfg, mesh, MT_RWKV_STEPS, "linear_attention")
+
+
+def mesh_train_engine(report):
+    """(c) the engine's ring decode over {"data": 4}: occamy-gptj at
+    MT_ENGINE_LAYERS layers, fp32, serve()'s requests, slots and pool,
+    tables of MT_ENGINE_BLOCKS_PER_SEQ; token streams equal to the
+    unsharded engine's at the same depth and pool; 4 decode-attention
+    partials a layer a decode step."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer
+    from repro_torch.parallel.mesh import DeviceMesh
+    from repro_torch.serving import ring_decode
+    from repro_torch.serving.engine import ServingEngine
+
+    full = get_config(MT_ENGINE)
+    cfg = full.replace(num_layers=MT_ENGINE_LAYERS, dtype="float32")
+    params = transformer.init_params(cfg, seed=SEED, device="cuda")
+    reqs = make_requests(cfg.vocab_size)
+    print(f"ring engine {MT_ENGINE}: full width, fp32, depth cut to {MT_ENGINE_LAYERS} of "
+          f"{full.num_layers} layers: {MT_ENGINE_WHY}; {len(reqs)} requests, {SLOTS} slots, "
+          f"{NUM_BLOCKS} blocks of {BLOCK_SIZE}, tables of {MT_ENGINE_BLOCKS_PER_SEQ}")
+    counts = {"ring_decode": 0, "partials": 0}
+    real_ring, real_part = ring_decode.ring_decode, ring_decode._shard_partial
+
+    def ring(*a, **k):
+        counts["ring_decode"] += 1
+        return real_ring(*a, **k)
+
+    def part(*a, **k):
+        counts["partials"] += 1
+        return real_part(*a, **k)
+
+    runs = {}
+    for label, mesh in (("unsharded", None), ("ring", DeviceMesh(MT_RING))):
+        engine = ServingEngine.with_model(
+            cfg, params, num_blocks=NUM_BLOCKS, block_size=BLOCK_SIZE, max_slots=SLOTS,
+            max_blocks_per_seq=MT_ENGINE_BLOCKS_PER_SEQ, device="cuda", mesh=mesh)
+        ring_decode.ring_decode, ring_decode._shard_partial = ring, part
+        try:
+            runs[label] = _drive(engine, reqs)
+        finally:
+            ring_decode.ring_decode, ring_decode._shard_partial = real_ring, real_part
+        r = runs[label]
+        r["counts"] = dict(counts)
+        steps = len(r["decode_ms"])
+        print(f"ring engine {label}: completed {len(r['out'])}/{len(reqs)}, preemptions "
+              f"{r['preempts']}, prefills {r['prefills']}, {steps} decode steps, leaked "
+              f"{engine.leaked_blocks()}, wall {r['wall']:.3f} s, launches {r['launches']}, "
+              f"decode attention {counts}")
+        need(len(r["out"]) == len(reqs) and engine.leaked_blocks() == 0,
+             f"ring engine {label}: incomplete or leaking")
+        n = MT_RING["data"] if mesh is not None else 0
+        need(counts["ring_decode"] == (cfg.num_layers * steps if mesh is not None else 0)
+             and counts["partials"] == n * counts["ring_decode"],
+             f"ring engine {label}: decode attention {counts}, expected {n} partials a layer "
+             f"over {cfg.num_layers} layers x {steps} steps")
+        counts.update(ring_decode=0, partials=0)
+        del engine
+    same = runs["ring"]["out"] == runs["unsharded"]["out"]
+    print(f"ring engine: token streams equal to the unsharded engine's: {same}")
+    need(same, "ring engine: token streams differ from the unsharded engine's")
+    for label, r in runs.items():
+        step_ms, tok_s = _decode_rate(r)
+        print(f"time ring engine {label}: decode {step_ms:.2f} ms/step, {tok_s:.1f} tok/s "
+              f"(first step excluded), run wall {r['wall']:.3f} s")
+        runs[label]["step_ms"] = step_ms
+    report["ring_engine"] = {k: dict(step_ms=v["step_ms"], wall=v["wall"], counts=v["counts"])
+                             for k, v in runs.items()}
+    del params
+
+
+def mesh_train_phase(report):
+    import torch
+
+    t0 = time.perf_counter()
+    for part in (mesh_train_moe, mesh_train_rwkv, mesh_train_engine):
+        t = time.perf_counter()
+        part(report)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"mesh training phase: {part.__name__} {time.perf_counter() - t:.1f} s")
+    print(f"mesh training phase: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 
 
 def check_hgmma(paths):
@@ -4400,6 +4845,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         training_phase(report)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_train_phase(report)
         time_kernels(report)
         time_gcn_kernels(report)
         time_gemm_accum(report)
@@ -4532,6 +4980,10 @@ def main() -> int:
     })
     for k in kernels:  # the mesh phase's launches of each kernel, by mesh
         k["mesh_launches"] = {m: c.get(k["name"], 0) for m, c in report["mesh_launches"].items()}
+        # phase 15: a meshed training step's launches, by model
+        k["mesh_train_launches_per_step"] = {
+            a: r["mesh"]["rows"][-1]["launches"].get(k["name"], 0)
+            for a, r in report["mesh_train"].items()}
     print(f"card: {card}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -155,7 +155,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, scale=None,
     ``return_lse`` raises (no gradient flows through the lse)."""
     if return_lse:
         no_backward("flash_attention(return_lse=True)",
-                    "the lse output takes no gradient (ROADMAP queue 1 item 2, the ring path)")
+                    "the lse output takes no gradient (ROADMAP queue 1 item 2b, the ring path)")
     opts = dict(causal=causal, window=window, q_offset=q_offset, scale=scale, **blocks)
     return _FlashAttention.apply(q, k, v, opts)
 

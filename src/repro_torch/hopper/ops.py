@@ -72,7 +72,7 @@ def _dispatch(op, *args, mesh=None, impl=None, **kwargs):
     if mesh is not None:
         if grads.needs_grad(*args, *kwargs.values()):
             grads.no_backward(f"ops.{op}(mesh=)",
-                              "the mesh path's gradients wait for ROADMAP queue 1 item 2")
+                              "the mesh path's gradients wait for ROADMAP queue 1 item 2b")
         return _partition.sharded_call(op, mesh, *args, impl=impl, **kwargs)
     return kernel_call(op, *args, impl=impl, **_partition.strip_plan_kwargs(kwargs))
 

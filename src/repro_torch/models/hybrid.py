@@ -25,6 +25,7 @@ from repro_torch.hopper import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import params_from_jax  # noqa: F401  (the family's API)
+from repro_torch.parallel.sharding import constrain
 
 
 def ssm_heads(cfg) -> int:
@@ -53,7 +54,7 @@ def init_params(cfg, *, seed: int = 0, device=None):
     device is given) from a ``torch.Generator`` seeded with ``seed``."""
     _check_family(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = L.generator(device, seed)
     dtype = getattr(torch, cfg.dtype)
     d, f, nl = cfg.d_model, cfg.d_ff, cfg.num_layers
     hd = cfg.resolved_head_dim()
@@ -139,7 +140,7 @@ def block(p, cfg, h, cos, sin, is_global):
     m, _ = mamba_path(p, cfg, n)
     h = h + _fuse(p, cfg, a, m)
     n = L.rms_norm(h, p["mlp_norm"], cfg.norm_eps)
-    return h + T._mlp(p, cfg, n)
+    return constrain(h + T._mlp(p, cfg, n), "residual")
 
 
 def forward(params, cfg, batch, *, q_offset=0):
@@ -147,7 +148,7 @@ def forward(params, cfg, batch, *, q_offset=0):
     dtype, aux loss 0.0). Under grad each block runs through
     ``transformer.remat_wrap``."""
     _check_family(cfg)
-    h = params["embed"][batch["tokens"].long()]
+    h = constrain(params["embed"][batch["tokens"].long()], "residual")
     S = h.shape[1]
     cos, sin = L.rope_cos_sin(torch.arange(S, device=h.device) + q_offset,
                               cfg.resolved_head_dim(), cfg.rope_theta)
@@ -155,7 +156,7 @@ def forward(params, cfg, batch, *, q_offset=0):
     for p, is_global in zip(T.layer_views(params), global_layer_mask(cfg)):
         h = blk(p, cfg, h, cos, sin, bool(is_global))
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return torch.matmul(h, params["lm_head"]), 0.0
+    return constrain(torch.matmul(h, params["lm_head"]), "logits"), 0.0
 
 
 def loss_fn(params, cfg, batch, *, q_offset=0):

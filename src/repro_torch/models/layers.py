@@ -81,6 +81,15 @@ def mlp(p: dict, x, activation: str):
     return torch.matmul(h.to(x.dtype), p["wo"])
 
 
+def generator(device, seed: int):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; ``None`` on
+    the ``meta`` device, where draws carry only shapes (``registry.
+    param_shapes``)."""
+    if torch.device(device).type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def dense_init(gen, shape, scale=None, dtype=torch.bfloat16, device=None):
     """Normal(0, 1) * scale drawn in fp32 from ``gen`` on ``device``, cast
     to ``dtype``. ``scale`` defaults to 1/sqrt(shape[0])."""

@@ -13,11 +13,16 @@ on its own: the row's (token, choice) pairs are sorted by expert
 every dropped pair, as JAX's ``mode="drop"`` discards them); values move by
 gathers, and the combine gathers back through the inverse of the sort.
 
-The reference's ``shard_map`` branch keeps the dispatch local to each data
-shard when a mesh is current; the port's ``current_mesh()`` is ``None``
-until the model-level sharding rules land (ROADMAP queue 1 item 2), so
-only the mesh-free branch (``dispatch_rows``/``combine_rows`` over all
-rows) is ported.
+The dispatch and combine stay local to each data shard when a mesh is
+current (``parallel.sharding.current_mesh()``, set by
+``activation_sharding``) and the batch divides over its data axes: the
+reference's ``shard_map`` branch. Each data rank (at index 0 on ``model``)
+runs ``_dispatch`` and ``_combine`` on its own rows, in its own allocation
+and on its own stream (``DeviceMesh.on``), and the parts are collected
+into the global buffers the expert products take; ``MESH_ROW_CALLS``
+counts those per-rank calls. Every op is row-wise, so the branch is
+bitwise the mesh-free one. The expert products stay global, as the
+reference leaves them outside the ``shard_map`` for GSPMD.
 
 Numerics follow the dense port's treatment of ``preferred_element_type``:
 the expert products are ``torch.matmul``/``einsum`` in the activation
@@ -32,12 +37,18 @@ every expert for every token and weights them by the one-hot top-k.
 """
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.sharding import constrain
+
+# "dispatch" / "combine" -> the per-data-rank calls of the mesh branch
+MESH_ROW_CALLS: collections.Counter = collections.Counter()
 
 
 def init_moe_params(dense, cfg, num_layers: int, dtype) -> dict:
@@ -114,20 +125,58 @@ def _combine(y, slot, order, topv, k):
     return out.reshape(B, n // k, k, d).sum(2)
 
 
+def _data_ranks(mesh, B):
+    """(the data-axis spec, one rank per data index at ``model`` index 0)
+    when ``B`` splits over the mesh's data axes, else None."""
+    dp = sh.dp_axes(mesh)
+    if B % sh.axis_size(mesh, dp):
+        return None
+    return dp, [r for r in range(mesh.n)
+                if all(i == 0 for a, i in mesh.coords(r).items() if a not in dp)]
+
+
+def _per_data_rank(mesh, ranks, spec, fn, kind, *args):
+    """``fn`` on each data rank's rows of ``args`` (split on dim 0 by
+    ``spec``), in the rank's allocation and on its stream; the per-rank
+    outputs (a tuple) collected and joined on dim 0."""
+    outs = []
+    for r in ranks:
+        parts = [mesh._own(mesh.local(a, (spec,), r), r) for a in args]
+        with mesh.on(r):
+            out = fn(*parts)
+        MESH_ROW_CALLS[kind] += 1
+        outs.append([mesh.collect(o, r, args[0].device) for o in out])
+    return tuple(torch.cat(col, 0) for col in zip(*outs))
+
+
 def moe_mlp(p, x, cfg):
     """x (B, S, d) -> (out (B, S, d), aux_loss * router_aux_weight)."""
     E, k = cfg.num_experts, cfg.experts_per_token
     C = capacity(cfg, x.shape[1])
     act = L.activation_fn(cfg.activation)
+    x = constrain(x, "moe_tokens")
     topv, topi, aux = _route(p, x, cfg)
-    disp, slot, order = _dispatch(x, topi, E, C)
+    mesh = sh.current_mesh()
+    local = None if mesh is None else _data_ranks(mesh, x.shape[0])
+    if local is not None:
+        disp, slot, order = _per_data_rank(
+            mesh, local[1], local[0], lambda xr, ir: _dispatch(xr, ir, E, C), "dispatch", x, topi)
+    else:
+        disp, slot, order = _dispatch(x, topi, E, C)
+    disp = constrain(disp, "moe_dispatch")
     h_dt = x.dtype if cfg.tp_reduce_bf16 else torch.float32
-    h = torch.einsum("becd,edf->becf", disp, p["moe_wi"])
+    h = constrain(torch.einsum("becd,edf->becf", disp, p["moe_wi"]), "moe_hidden")
     if L.is_gated(cfg.activation):
-        g = torch.einsum("becd,edf->becf", disp, p["moe_wg"])
+        g = constrain(torch.einsum("becd,edf->becf", disp, p["moe_wg"]), "moe_hidden")
         h = act(g.float()).to(h_dt) * h.to(h_dt)
     y = torch.einsum("becf,efd->becd", h.to(x.dtype), p["moe_wo"])
-    out = _combine(y, slot, order, topv.to(x.dtype), k)
+    y = constrain(y, "moe_dispatch")
+    if local is not None:
+        (out,) = _per_data_rank(mesh, local[1], local[0],
+                                lambda *a: (_combine(*a, k),), "combine",
+                                y, slot, order, topv.to(x.dtype))
+    else:
+        out = _combine(y, slot, order, topv.to(x.dtype), k)
     return out, aux * cfg.router_aux_weight
 
 

@@ -27,6 +27,7 @@ from repro_torch.device import resolve_device
 from repro_torch.hopper import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.parallel.sharding import constrain
 
 
 def init_params(cfg, *, seed: int = 0, device=None):
@@ -34,7 +35,7 @@ def init_params(cfg, *, seed: int = 0, device=None):
     ``device`` (default ``cuda``) from a ``torch.Generator`` seeded with
     ``seed``, leaf by leaf in the reference's order."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = L.generator(device, seed)
     dtype = getattr(torch, cfg.dtype)
     d, f = cfg.d_model, cfg.d_ff
     hd = cfg.resolved_head_dim()
@@ -93,13 +94,14 @@ def _enc_block(lp, h, cfg, cos, sin):
     n = L.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     h = h + T.attention(lp, cfg, n, cos, sin, causal=False)
     n = L.rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    return h + T._mlp(lp, cfg, n)
+    return constrain(h + T._mlp(lp, cfg, n), "residual")
 
 
 def encode(params, cfg, frames):
     """frames (B, encoder_seq, d) from the stubbed conv frontend -> the
     encoder's output (B, encoder_seq, d) in the activation dtype."""
     h = torch.matmul(frames.to(getattr(torch, cfg.dtype)), params["frontend_proj"])
+    h = constrain(h, "residual")
     cos, sin = T._rope(cfg, torch.arange(h.shape[1], device=h.device))
     blk = T.remat_wrap(cfg, _enc_block)
     for lp in T.layer_views({"layers": params["enc_layers"]}):
@@ -113,7 +115,7 @@ def _dec_block(lp, h, enc, cfg, cos, sin, q_offset):
     n = L.rms_norm(h, lp["cross_norm"], cfg.norm_eps)
     h = h + T.attention(_cross_p(lp), cfg, n, None, None, causal=False, kv_input=enc)
     n = L.rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    return h + T._mlp(lp, cfg, n)
+    return constrain(h + T._mlp(lp, cfg, n), "residual")
 
 
 def forward(params, cfg, batch, *, q_offset=0):
@@ -121,12 +123,12 @@ def forward(params, cfg, batch, *, q_offset=0):
     (B, S, V_pad) in the activation dtype, aux loss 0.0): the encoder over
     the frames, then the decoder over the tokens, teacher-forced."""
     enc = encode(params, cfg, batch["frames"])
-    h = params["embed"][batch["tokens"].long()]
+    h = constrain(params["embed"][batch["tokens"].long()], "residual")
     cos, sin = T._rope(cfg, torch.arange(h.shape[1], device=h.device) + q_offset)
     blk = T.remat_wrap(cfg, _dec_block)
     for lp in T.layer_views(params):
         h = blk(lp, h, enc, cfg, cos, sin, q_offset)
-    return T._logits(params, cfg, h), 0.0
+    return constrain(T._logits(params, cfg, h), "logits"), 0.0
 
 
 def loss_fn(params, cfg, batch, *, q_offset=0):

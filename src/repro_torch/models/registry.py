@@ -2,6 +2,7 @@
 model families the port runs.
 
   init_params(cfg, seed=, device=)        -> params dict
+  param_shapes(cfg)                       -> the same dict on the meta device
   forward(params, cfg, batch)             -> (logits, aux)   [scoring / prefill]
   loss_fn(params, cfg, batch)             -> scalar
   cache_spec / init_cache                 -> decode state ((shape, dtype) / zeros)
@@ -37,6 +38,13 @@ def _family_mod(cfg):
 
 def init_params(cfg, *, seed: int = 0, device=None):
     return _family_mod(cfg).init_params(cfg, seed=seed, device=device)
+
+
+def param_shapes(cfg):
+    """The parameter tree of ``init_params`` with no storage: ``meta``
+    tensors carrying each leaf's shape and dtype (the reference's
+    ``jax.eval_shape``), so a full-width config costs no memory."""
+    return init_params(cfg, seed=0, device="meta")
 
 
 def forward(params, cfg, batch, **kw):

@@ -11,9 +11,10 @@ Parameters are a plain dict of tensors with the reference's layout (the
 per-layer leaves stacked on a leading ``num_layers`` axis). Projections are
 ``torch.matmul`` in the activation dtype, as ``models/layers.py`` says;
 the decay's low-rank projection runs on fp32 copies of its bf16 operands,
-which is the reference's fp32-result einsum exactly. The token shift is the
-reference's single-device form; its sharded halo exchange waits for the
-port's multi-GPU slice.
+which is the reference's fp32-result einsum exactly. The token shift takes
+the reference's halo exchange on a sequence-sharded mesh (``_shift``):
+each ``model`` rank shifts its own sequence chunk and receives only the
+previous rank's last column, through ``collectives.ppermute``.
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ from repro_torch.hopper import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import params_from_jax  # noqa: F401  (the family's API)
+from repro_torch.parallel import collectives
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.sharding import constrain
 
 LORA_RANK = 64
 
@@ -46,7 +50,7 @@ def init_params(cfg, *, seed: int = 0, device=None):
     device is given) from a ``torch.Generator`` seeded with ``seed``."""
     _check_family(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = L.generator(device, seed)
     dtype = getattr(torch, cfg.dtype)
     d, f, nl = cfg.d_model, cfg.d_ff, cfg.num_layers
     N, H = cfg.resolved_head_dim(), _num_heads(cfg)
@@ -85,9 +89,30 @@ def _layer(params, i):
     return {k: v[i] for k, v in params["layers"].items()}
 
 
-def _shift(x):
-    """Token shift (B, S, d): x_prev[t] = x[t - 1], zero at the start."""
-    return F.pad(x[:, :-1], (0, 0, 1, 0))
+def _shift(x, cfg=None):
+    """Token shift (B, S, d): x_prev[t] = x[t - 1], zero at the start.
+
+    With ``cfg.halo_shift`` under a current mesh, ``seq_shard_activations``
+    and S divisible by the ``model`` axis, the reference's halo exchange:
+    every rank holds its (B / data, S / model, d) chunk (the batch split
+    over the data axes where it divides, else whole), sends only its last
+    column to the next ``model`` rank (``collectives.ppermute``; rank 0
+    receives zeros, the sequence start) and shifts locally. The chunks are
+    gathered back into the global tensor: bitwise the plain shift."""
+    mesh = sh.current_mesh() if cfg is not None and cfg.halo_shift else None
+    if mesh is None or not cfg.seq_shard_activations or x.shape[1] % mesh.shape["model"]:
+        return F.pad(x[:, :-1], (0, 0, 1, 0))
+    n = mesh.shape["model"]
+    dp = sh.pick(mesh, x.shape[0], sh.dp_axes(mesh))
+    spec = sh.P(dp, "model", None)
+    parts = mesh.shard_spec(x, spec)
+    prev = collectives.ppermute([xl[:, -1:] for xl in parts], mesh, "model",
+                                [(i, i + 1) for i in range(n - 1)])
+    outs = []
+    for r, (xl, pl) in enumerate(zip(parts, prev)):
+        with mesh.on(r):
+            outs.append(torch.cat([pl, xl[:, :-1]], dim=1))
+    return mesh.gather_spec(outs, spec, x.device)
 
 
 def _heads(x, H, N):  # (B, S, H*N) -> (B, H, S, N), a view
@@ -152,10 +177,11 @@ def channel_mix(p, cfg, x, x_prev):
 
 def block(p, cfg, h):
     x = L.rms_norm(h, p["tm_norm"], cfg.norm_eps)
-    o, _ = time_mix(p, cfg, x, _shift(x))
+    o, _ = time_mix(p, cfg, x, _shift(x, cfg))
     h = h + o
     x = L.rms_norm(h, p["cm_norm"], cfg.norm_eps)
-    return h + channel_mix(p, cfg, x, _shift(x))
+    h = h + channel_mix(p, cfg, x, _shift(x, cfg))
+    return constrain(h, "residual")
 
 
 def forward(params, cfg, batch, *, q_offset=0):
@@ -165,12 +191,12 @@ def forward(params, cfg, batch, *, q_offset=0):
     runs through ``transformer.remat_wrap``."""
     del q_offset
     _check_family(cfg)
-    h = params["embed"][batch["tokens"].long()]
+    h = constrain(params["embed"][batch["tokens"].long()], "residual")
     blk = T.remat_wrap(cfg, block)
     for p in T.layer_views(params):
         h = blk(p, cfg, h)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return torch.matmul(h, params["lm_head"]), 0.0
+    return constrain(torch.matmul(h, params["lm_head"]), "logits"), 0.0
 
 
 def loss_fn(params, cfg, batch, *, q_offset=0):

@@ -34,6 +34,7 @@ from repro_torch.hopper import ops
 from repro_torch.hopper.blocked import as_bytes
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.parallel.sharding import constrain
 
 FAMILIES = ("dense", "moe", "vlm")
 
@@ -58,7 +59,7 @@ def init_params(cfg, *, seed: int = 0, device=None):
     ``params_from_jax``."""
     _check_family(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = L.generator(device, seed)
     dtype = getattr(torch, cfg.dtype)
     d, f = cfg.d_model, cfg.d_ff
     hd = cfg.resolved_head_dim()
@@ -238,6 +239,9 @@ def attention(p, cfg, x, cos, sin, *, causal=True, window=0, q_offset=0,
             k = L.apply_rope(k, cos, sin)
         elif kv_cos_sin is not None:
             k = L.apply_rope(k, *kv_cos_sin)
+    q = constrain(q, "attn_q")
+    k = constrain(k, "attn_kv")
+    v = constrain(v, "attn_kv")
     # (B, S, H, hd) -> (B, H, S, hd) views: the kernel takes the strides
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     o = ops.flash_attention(qt, kt, vt, causal=causal, window=window,
@@ -261,7 +265,7 @@ def _block(p, cfg, h, cos, sin, *, q_offset=0, return_kv=False):
         h = h + a
         m, aux = _ffn(p, cfg, L.rms_norm(h, p["mlp_norm"], cfg.norm_eps))
         h = h + m
-    return h, kv, aux
+    return constrain(h, "residual"), kv, aux
 
 
 def _logits(params, cfg, h):
@@ -285,7 +289,7 @@ def embed_inputs(params, cfg, batch):
         patches = batch["patches"].to(h.dtype)
         pe = torch.matmul(L.activation_fn("gelu")(torch.matmul(patches, c["wi"])), c["wo"])
         h = torch.cat([pe.to(h.dtype), h], dim=1)
-    return h
+    return constrain(h, "residual")
 
 
 def forward(params, cfg, batch, *, q_offset=0):
@@ -302,7 +306,7 @@ def forward(params, cfg, batch, *, q_offset=0):
     for p in layer_views(params):
         h, _, a = blk(p, h=h, cos=cos, sin=sin)
         aux = aux + a
-    return _logits(params, cfg, h), aux
+    return constrain(_logits(params, cfg, h), "logits"), aux
 
 
 def prefill_step(params, cfg, batch, max_len: int):
@@ -415,12 +419,15 @@ def decode_step(params, cfg, cache, batch):
 
 def attention_decode_paged(p, cfg, x, cos, sin, k_pool, v_pool, block_table,
                            position, *, window=0, k_scale=None, v_scale=None,
-                           policy=None):
+                           policy=None, attn_fn=None):
     """One layer's decode against paged pools ``k_pool``/``v_pool``
     (P, K, bs, hd). The new token's k/v is written **in place** into page
     ``block_table[b, pos // bs]`` at row ``pos % bs``, then attention runs
-    through the paged ``ops.decode_attention``. Inactive slots point at the
-    shared scratch page, which live prefixes never reference.
+    through the paged ``ops.decode_attention``, or through ``attn_fn(q,
+    k_pool, v_pool, k_scale, v_scale, block_table, position, window)`` where
+    the serving layer injects a distribution (the engine's ring decode).
+    Inactive slots point at the shared scratch page, which live prefixes
+    never reference.
 
     Under ``policy`` the pools hold the cache narrow: the new k/v row is
     quantized per row (``precision.quantize_kv_cache``) and written with
@@ -454,17 +461,21 @@ def attention_decode_paged(p, cfg, x, cos, sin, k_pool, v_pool, block_table,
     for pool, row in rows.values():
         as_bytes(pool)[phys[:, None], heads, offset[:, None]] = as_bytes(row.to(pool.dtype))
 
-    o = ops.decode_attention(q, k_pool, v_pool, position, paged=True,
-                             block_table=block_table, window=window,
-                             k_scale=k_scale, v_scale=v_scale)
+    if attn_fn is None:
+        o = ops.decode_attention(q, k_pool, v_pool, position, paged=True,
+                                 block_table=block_table, window=window,
+                                 k_scale=k_scale, v_scale=v_scale)
+    else:
+        o = attn_fn(q, k_pool, v_pool, k_scale, v_scale, block_table, position, window)
     return torch.matmul(o.reshape(B, H * hd), p["wo"])
 
 
-def decode_step_paged(params, cfg, cache, batch):
+def decode_step_paged(params, cfg, cache, batch, *, attn_fn=None):
     """batch {"token": (B,), "position": (B,), "block_table": (B, NB)};
     ``cache`` a ``serving.paged_cache.PagedKVCache`` (only its pools, their
-    scales and its policy are touched, and the pools are updated in place).
-    Returns (logits (B, V_pad) fp32, cache)."""
+    scales and its policy are touched, and the pools are updated in place);
+    ``attn_fn`` replaces each layer's paged ``decode_attention``
+    (``attention_decode_paged``). Returns (logits (B, V_pad) fp32, cache)."""
     _check_family(cfg)
     position, block_table = batch["position"], batch["block_table"]
     h = params["embed"][batch["token"].long()]
@@ -477,7 +488,7 @@ def decode_step_paged(params, cfg, cache, batch):
         a = attention_decode_paged(
             p, cfg, n, cos, sin, cache.k_pool[i], cache.v_pool[i],
             block_table, position, window=cfg.sliding_window,
-            policy=cache.policy, **scales,
+            policy=cache.policy, attn_fn=attn_fn, **scales,
         )
         if cfg.parallel_block:
             h = h + a + _ffn_decode(p, cfg, n)

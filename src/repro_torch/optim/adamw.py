@@ -6,8 +6,10 @@ own dtype. ``apply_updates`` works **in place**, one leaf at a time under
 ``torch.no_grad()``: the fp32 temporaries of the clip and the update
 exist for one leaf at a time, and the parameter and moment tensors passed
 in are the ones returned (the reference returns new trees). The
-reference's moments inherit each parameter's sharding; the port trains on
-one device.
+reference's moments inherit each parameter's sharding; on a mesh the
+training loop (``runtime/train_loop.py``) applies the same per-leaf update
+(``update_leaf``) to each rank's parts, with ``hyper`` and the global norm
+computed once.
 """
 from __future__ import annotations
 
@@ -56,25 +58,37 @@ def lr_schedule(cfg, step):
     return cfg.learning_rate * warm
 
 
+def hyper(cfg, norm, step):
+    """The step's shared scalars from the gradients' global ``norm`` and
+    the old step counter: (clip scale, new step, lr, bias corrections
+    bc1, bc2), fp32 tensors but the int step."""
+    step = step + 1
+    return (_clip_scale(norm, cfg.grad_clip), step, lr_schedule(cfg, step),
+            1.0 - torch.pow(cfg.beta1, step.float()), 1.0 - torch.pow(cfg.beta2, step.float()))
+
+
+def update_leaf(cfg, p, g, m, v, scale, lr, bc1, bc2):
+    """AdamW on one leaf, in place: the moments ``m``, ``v`` and the
+    parameter ``p`` (rounded back to its dtype), from the gradient ``g``
+    scaled by ``scale``."""
+    b1, b2, wd = cfg.beta1, cfg.beta2, cfg.weight_decay
+    gf = g.float() * scale
+    m.mul_(b1).add_((1.0 - b1) * gf)
+    v.mul_(b2).add_((1.0 - b2) * gf * gf)
+    pf = p.float()
+    delta = (m / bc1) / (torch.sqrt(v / bc2) + EPS) + wd * pf
+    p.copy_(pf - lr * delta)
+
+
 def apply_updates(cfg, params, grads, opt_state):
     """One AdamW step with global-norm clipping. Returns (params, opt_state,
     metrics {"grad_norm", "lr"}); ``params`` and the moments are updated in
     place and returned, the step counter is a new tensor."""
     with torch.no_grad():
         norm = global_norm(grads)
-        scale = _clip_scale(norm, cfg.grad_clip)
-        step = opt_state["step"] + 1
-        lr = lr_schedule(cfg, step)
-        b1, b2, wd = cfg.beta1, cfg.beta2, cfg.weight_decay
-        bc1 = 1.0 - torch.pow(b1, step.float())
-        bc2 = 1.0 - torch.pow(b2, step.float())
+        scale, step, lr, bc1, bc2 = hyper(cfg, norm, opt_state["step"])
         for p, g, m, v in zip(leaves(params), leaves(grads), leaves(opt_state["m"]),
                               leaves(opt_state["v"])):
-            gf = g.float() * scale
-            m.mul_(b1).add_((1.0 - b1) * gf)
-            v.mul_(b2).add_((1.0 - b2) * gf * gf)
-            pf = p.float()
-            delta = (m / bc1) / (torch.sqrt(v / bc2) + EPS) + wd * pf
-            p.copy_(pf - lr * delta)
+            update_leaf(cfg, p, g, m, v, scale, lr, bc1, bc2)
     return (params, {"m": opt_state["m"], "v": opt_state["v"], "step": step},
             {"grad_norm": norm, "lr": lr})

@@ -22,7 +22,10 @@ sender's stream after the push and waited on by the receiver's stream
 before it first reads the block. The controller records each event before
 any stream waits on it, so no wait can see an older generation of it.
 
-``ring_scan_carry`` and ``ep_expert_ffn`` are not ported yet.
+``ring_scan_carry`` threads a linear recurrence's carry along a ring:
+rank r re-scans its chunk with the true carry rank r - 1 produced. The
+expert-parallel ``ep_expert_ffn`` is not ported yet (ROADMAP queue 1,
+item 2b).
 """
 from __future__ import annotations
 
@@ -220,6 +223,49 @@ def ppermute(parts, mesh, axis: str, perm) -> list:
     sender's stream, fenced by the ring's free / landed events
     (``_push``)."""
     return [res.ready(mesh, r)[0] for r, res in enumerate(ppermute_start(parts, mesh, axis, perm))]
+
+
+def ring_scan_carry(chunk_fn, xs, s0, mesh, axis: str, *, overlap: bool = True):
+    """Sequence-parallel linear-recurrence carry over a ``ppermute`` ring
+    on ``axis``: rank ``r`` scans its chunk with the true carry rank
+    ``r - 1`` produced (the reference's ``ring_scan_carry``).
+
+    Args: ``chunk_fn(me, state, xs_local) -> (state_out, ys_local)`` — the
+    per-chunk scan, called under rank ``me``'s device and stream;
+    ``xs`` — the per-rank chunks; ``s0`` — the global initial state (only
+    the first rank of each ring consumes it); ``overlap`` — issue hop
+    ``t``'s transfer the moment ``chunk_fn`` produced its state, before
+    the ranks' outputs are taken; ``overlap=False`` takes them first (the
+    reference's synchronous order). The carry is a tensor.
+
+    The reference runs the ring SPMD: every rank evaluates ``chunk_fn`` at
+    every hop and keeps hop ``me``'s result. A single controller knows
+    ``me``, so only the kept evaluations run: at hop ``t`` the rank at axis
+    index ``t`` of each group scans with the carry that arrived from index
+    ``t - 1``, and sends its end state on (one ``ppermute`` a hop, plain
+    transport). Returns per-rank lists ``(ys, s_out)``; the last rank's
+    ``s_out`` of each group is that group's final state.
+    """
+    groups = mesh.groups(axis)
+    n = len(groups[0])
+    if len(xs) != mesh.n:
+        raise ValueError(f"ring_scan_carry: {len(xs)} chunks for {mesh.n} ranks")
+    ys, s_out = [None] * mesh.n, [None] * mesh.n
+    carry = {}  # rank -> the carry it scans with
+    for g in groups:
+        carry[g[0]] = mesh._own(s0, g[0])
+    for t in range(n):
+        for g in groups:
+            me = g[t]
+            with mesh.on(me):
+                s_out[me], y = chunk_fn(me, carry.pop(me), xs[me])
+            if not overlap:
+                ys[me] = y
+            if t + 1 < n:  # the hop: this rank's end state to the next rank
+                carry[g[t + 1]] = _to_rank(mesh, s_out[me], me, g[t + 1])
+            if overlap:
+                ys[me] = y
+    return ys, s_out
 
 
 def _to_rank(mesh, x, src: int, dst: int):

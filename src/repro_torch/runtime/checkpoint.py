@@ -11,6 +11,10 @@ bf16 leaves: numpy has no bf16 (and the card's machine has no
 ``bfloat16`` in the manifest's dtypes. ``restore`` takes each leaf's dtype
 from ``state_like``, so it also reads a checkpoint the reference wrote for
 the same state, whose bf16 leaves load from the npz as 2-byte void.
+
+A state placed on a mesh (``parallel.sharding.Placed`` leaves) is saved
+gathered, one leaf at a time: the files are an unsharded run's. The
+training loop restores the global leaves and places them again.
 """
 from __future__ import annotations
 
@@ -23,11 +27,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import flatten_with_paths, unflatten
+from repro_torch.parallel.sharding import Placed
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
     """A tensor leaf as the numpy array the npz stores (bf16 as its uint16
-    bits)."""
+    bits); a ``Placed`` leaf gathered first."""
+    if isinstance(x, Placed):
+        x = x.gather()
     t = x.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -89,7 +96,7 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def _leaf(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+def _leaf(arr: np.ndarray, like: torch.Tensor, device=None) -> torch.Tensor:
     arr = arr if arr.flags.c_contiguous else arr.copy()
     if like.dtype == torch.bfloat16:
         if arr.dtype.itemsize != 2:
@@ -97,14 +104,15 @@ def _leaf(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr).to(like.dtype)
-    return t.to(like.device)
+    return t.to(like.device if device is None else device)
 
 
-def restore(ckpt_dir: str, step: int, state_like):
+def restore(ckpt_dir: str, step: int, state_like, device=None):
     """The checkpoint ``step_<step>`` in ``state_like``'s structure, each
-    leaf in its ``state_like`` leaf's dtype and on its device."""
+    leaf in its ``state_like`` leaf's dtype and on its device, or on
+    ``device`` where given (``state_like`` may then be ``meta`` tensors)."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     paths, likes = flatten_with_paths(state_like)
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        leaves = [_leaf(data[key], like) for key, like in zip(paths, likes)]
+        leaves = [_leaf(data[key], like, device) for key, like in zip(paths, likes)]
     return unflatten(state_like, leaves)

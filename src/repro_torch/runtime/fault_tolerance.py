@@ -5,7 +5,8 @@
 than ``threshold`` times it; ``FailureInjector`` is a fixed schedule of
 faults for tests and examples. The reference's ``elastic_remesh`` and
 ``reshard_state`` rebuild a mesh and reshard the state onto it; they wait
-for the model-level sharding rules (ROADMAP queue 1 item 2).
+for ROADMAP queue 1 item 2b (the rules and training on a mesh are in
+``parallel/sharding.py`` and ``runtime/train_loop.py``).
 """
 from __future__ import annotations
 

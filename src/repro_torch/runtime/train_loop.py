@@ -6,11 +6,24 @@ the parameter leaves; the blocks recompute under ``cfg.remat``, and the
 attention and scan kernels carry their gradients through
 ``hopper/grads.py``), optionally accumulated over microbatches and
 round-tripped through gradient compression, then AdamW, which updates the
-state's tensors in place. ``run_training`` is the reference's loop
-without a mesh: restore, the prefetching data stream, the step, the
-straggler monitor, the failure injector and checkpoints, with the same
-log lines. A mesh, and the reference's ``train_state_struct`` (the dry
-run's shapes), wait for ROADMAP queue 1 items 2 and 3.
+state's tensors in place. ``run_training`` is the reference's loop:
+restore, the prefetching data stream, the step, the straggler monitor,
+the failure injector and checkpoints, with the same log lines.
+
+On a mesh (``run_training(mesh=)``, a ``parallel.mesh.DeviceMesh`` with
+``data`` and ``model`` axes) the state is placed as the reference's
+``device_put(state, sspec)`` places it: ``param_specs(cfg, params, mesh,
+"train")`` for the parameters, both moments and the compression residual,
+``opt.step`` replicated; each rank holds its parts as separate
+allocations (``sharding.Placed``). ``make_mesh_train_step`` gathers the
+parameters, runs the same loss and autograd as the unsharded step under
+``activation_sharding`` (so the MoE dispatch and the halo shift run per
+rank), splits each gradient by its spec, clips by a global norm that
+counts each element once, and applies AdamW per rank on its parts, on its
+stream. The forward is not split per data rank: the MoE aux loss
+``E * sum_e f_e p_e`` is not a mean over rows, so per-rank losses would not
+average to the global batch's. The reference's ``train_state_struct``
+(the dry run's shapes) waits for ROADMAP queue 1 item 3.
 """
 from __future__ import annotations
 
@@ -19,10 +32,11 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.tree import leaves, unflatten
+from repro_torch.core.tree import leaves, tree_map, unflatten
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.optim import adamw, compression
+from repro_torch.parallel import sharding as sh
 
 
 def init_train_state(cfg, seed: int = 0, *, device=None):
@@ -93,6 +107,103 @@ def make_train_step(cfg, microbatches: int | None = None, grad_compression: bool
     return train_step
 
 
+def state_shardings(cfg, state, mesh):
+    """The ``NamedSharding`` tree of a train state on ``mesh``: the
+    parameters' ``param_specs`` (mode ``train``) for ``params``, ``opt.m``,
+    ``opt.v`` and ``grad_err``; ``opt.step`` replicated."""
+    pspecs = sh.param_specs(cfg, state["params"], mesh, "train")
+    specs = {"params": pspecs, "opt": {"m": pspecs, "v": pspecs, "step": sh.P()}}
+    if "grad_err" in state:
+        specs["grad_err"] = pspecs
+    return sh.named(mesh, specs)
+
+
+def mesh_grad_norm(mesh, grads) -> torch.Tensor:
+    """The global norm of a list of ``Placed`` gradients, each element
+    counted once: rank by rank, the fp32 sum of squares of the parts it
+    owns (``Placed.owners``; a replicated part counts once), each on its
+    stream, summed on the caller's stream in leaf and rank order."""
+    total = None
+    for g in grads:
+        for r in g.owners:
+            with mesh.on(r):
+                part = torch.sum(torch.square(g.parts[r].float()))
+            part = mesh.collect(part, r, g.parts[0].device)
+            total = part if total is None else total + part
+    return torch.sqrt(total)
+
+
+def mesh_apply_updates(cfg, mesh, state, grads, norm):
+    """AdamW on ``mesh``, in place: the shared scalars (``adamw.hyper``)
+    from ``norm`` and the replicated step counter on the caller's stream,
+    then per rank, on its stream, ``adamw.update_leaf`` on every part it
+    holds of the parameters, the moments and ``grads`` (``Placed``, in the
+    parameters' order), and its copy of the counter advanced. Returns the
+    step's learning rate."""
+    ps, ms, vs = (leaves(state["params"]), leaves(state["opt"]["m"]),
+                  leaves(state["opt"]["v"]))
+    step = state["opt"]["step"]
+    scale, _, lr, bc1, bc2 = adamw.hyper(cfg, norm, mesh.collect(step.parts[0], 0))
+    for r in range(mesh.n):
+        for x in (scale, lr, bc1, bc2):
+            mesh._enter(x, r)
+        with mesh.on(r):
+            for p, g, m, v in zip(ps, grads, ms, vs):
+                adamw.update_leaf(cfg, p.parts[r], g.parts[r], m.parts[r], v.parts[r],
+                                  scale, lr, bc1, bc2)
+            step.parts[r] += 1
+    return lr
+
+
+def make_mesh_train_step(cfg, mesh, microbatches: int | None = None,
+                         grad_compression: bool = False):
+    """``make_train_step`` on ``mesh``: ``train_step(state, batch) ->
+    (state, metrics)`` over a state of ``sharding.Placed`` leaves
+    (``state_shardings``), updated in place.
+
+    1. gather the parameters (``Placed.gather``);
+    2. the loss and its gradients, as the unsharded step computes them,
+       under ``activation_sharding(default_activation_specs(cfg, mesh,
+       "train"))``;
+    3. each gradient split by its parameter's spec (the global gradient
+       freed as its parts are made);
+    4. with ``grad_compression``, the round trip per rank on its parts;
+    5. the global norm over the owned parts (``mesh_grad_norm``);
+    6. AdamW per rank on its parts, on its stream (``mesh_apply_updates``).
+    """
+    microbatches = microbatches if microbatches is not None else cfg.microbatches
+    loss_and_grads = loss_and_grads_fn(cfg)
+    if microbatches > 1:
+        from repro_torch.core.pipeline import microbatched
+
+        loss_and_grads = microbatched(loss_and_grads, microbatches)
+    act = sh.default_activation_specs(cfg, mesh, "train")
+
+    def train_step(state, batch):
+        params = tree_map(lambda x: x.gather(), state["params"])
+        with sh.activation_sharding(act):
+            loss, grads = loss_and_grads(params, batch)
+        del params
+        gs = leaves(grads)
+        del grads
+        for i, p in enumerate(leaves(state["params"])):  # each global gradient goes
+            gs[i] = sh.Placed.of(gs[i], p.sharding)      # as its parts come
+        with torch.no_grad():
+            if grad_compression:
+                errs = leaves(state["grad_err"])
+                for r in range(mesh.n):
+                    with mesh.on(r):
+                        cs, es = compression.compress_decompress(
+                            [g.parts[r] for g in gs], [e.parts[r] for e in errs])
+                    for g, e, c, ne in zip(gs, errs, cs, es):
+                        g.parts[r], e.parts[r] = c, ne
+            norm = mesh_grad_norm(mesh, gs)
+            lr = mesh_apply_updates(cfg, mesh, state, gs, norm)
+        return state, {"loss": loss, "grad_norm": norm, "lr": lr}
+
+    return train_step
+
+
 def make_prefill_step(cfg):
     def prefill_step(params, batch):
         with torch.no_grad():
@@ -139,31 +250,38 @@ def run_training(
     checkpoints every ``ckpt_every`` steps. Returns (state, losses,
     monitor). ``initial_state`` replaces the seeded initial state (the
     port's state tree, for example ``state_from_jax``'s; the loop updates
-    its tensors in place), ``device`` defaults to ``cuda``. An injected
-    ``"crash"`` raises ``RuntimeError``."""
+    its tensors in place), ``device`` defaults to the mesh's first device,
+    else ``cuda``. An injected ``"crash"`` raises ``RuntimeError``.
+
+    With ``mesh`` the state is placed on it (``state_shardings``; an
+    ``initial_state`` dict is placed in place) and trained by
+    ``make_mesh_train_step``; checkpoints hold the gathered leaves, and the
+    state is returned gathered, in the unsharded tree form."""
     from repro_torch.data.synthetic import DataIterator
     from repro_torch.runtime import checkpoint as ckpt
     from repro_torch.runtime.fault_tolerance import StragglerMonitor
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_training(mesh=...): training on a mesh waits for the model-level "
-            "sharding rules (ROADMAP queue 1 item 2)"
-        )
+    if device is None and mesh is not None:
+        device = mesh.devices[0]
     device = resolve_device(device)
-    state = (initial_state if initial_state is not None
-             else init_train_state(cfg, seed, device=device))
+    last = ckpt.latest_step(ckpt_dir) if ckpt_dir else None
+    if initial_state is not None:
+        state = initial_state
+    else:  # a restore needs only the tree's shapes and dtypes to read into
+        state = init_train_state(cfg, seed, device="meta" if last is not None else device)
     if grad_compression and "grad_err" not in state:
         state["grad_err"] = compression.init_error_state(state["params"])
     start_step = 0
-    if ckpt_dir:
-        last = ckpt.latest_step(ckpt_dir)
-        if last is not None:
-            state = ckpt.restore(ckpt_dir, last, state)
-            start_step = last
-            log_fn(f"[restore] resumed from step {last}")
+    if last is not None:
+        state = ckpt.restore(ckpt_dir, last, state, device=device)
+        start_step = last
+        log_fn(f"[restore] resumed from step {last}")
 
-    step_fn = make_train_step(cfg, microbatches, grad_compression)
+    if mesh is not None:
+        sh.place_(state, state_shardings(cfg, state, mesh))
+        step_fn = make_mesh_train_step(cfg, mesh, microbatches, grad_compression)
+    else:
+        step_fn = make_train_step(cfg, microbatches, grad_compression)
     data = DataIterator(cfg, shape, seed=seed, start_step=start_step,
                         batch_override=batch_override, seq_override=seq_override,
                         device=device)
@@ -195,4 +313,6 @@ def run_training(
                 log_fn(f"[ckpt] step {step + 1}")
     finally:
         data.close()
+    if mesh is not None:
+        sh.gather_(state)
     return state, losses, monitor

@@ -21,8 +21,8 @@ The model half sits behind a small protocol (``prefill``/``decode``/
 host-only ``StubModel`` too. ``PagedModel`` serves the transformer
 families the reference's engine serves, dense and MoE, on ``device`` (``cuda`` unless the caller passes another); with
 ``precision=`` its KV pools hold the cache narrow (values plus per-row fp32
-scales, dequantized at use in decode). Ring decode over several cards is
-not ported yet.
+scales, dequantized at use in decode); with ``mesh=`` its decode attention
+runs as ring decode over the mesh's ``ring_axis`` (``ring_attn_fn``).
 """
 from __future__ import annotations
 
@@ -32,6 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel.mesh import RingMesh
+from repro_torch.serving import ring_decode
 from repro_torch.serving import scheduler as sched
 from repro_torch.serving.scheduler import NULL_BLOCK, Request
 
@@ -72,6 +74,36 @@ class StubModel:
             raise RuntimeError(f"stub payload {payload} does not fit rid {seq.rid}")
 
 
+def ring_attn_fn(mesh, ring_axis: str = "data"):
+    """The paged decode's ``attn_fn`` as ring decode over ``mesh``'s
+    ``ring_axis`` (the ranks of its first group; other axes replicate).
+
+    ``ring_decode`` shards the pools by pages and wants each table column's
+    entries to index the owning rank's local pool (rank r owns every
+    sequence's columns ``[r NB_l, (r + 1) NB_l)``), but the scheduler hands
+    out global page ids from one pool. So each call gathers, per rank, the
+    pages its columns reference (every row's ``NB_l`` entries, null ones
+    included) into that rank's shard of a pool of ``n B NB_l`` pages, and
+    passes the local ids ``b NB_l + j``: the contract holds whatever pages
+    the allocator chose. (The reference's engine passes the global ids
+    through; its gather clamps those past a rank's slab, and its streams
+    leave the unsharded engine's.)"""
+    ranks = mesh.group(ring_axis, 0)
+    ring = RingMesh(len(ranks), devices=[mesh.devices[r] for r in ranks])
+    n = ring.n
+
+    def attn_fn(q, kp, vp, ks, vs, tbl, pos, window):
+        B, NB = tbl.shape
+        nb_l = NB // n
+        order = tbl.long().reshape(B, n, nb_l).transpose(0, 1).reshape(-1)
+        local = torch.arange(B * nb_l, dtype=tbl.dtype, device=tbl.device).reshape(B, nb_l)
+        pools = [None if x is None else x[order] for x in (kp, vp, ks, vs)]
+        return ring_decode.ring_decode(q, pools[0], pools[1], local.repeat(1, n), pos, ring,
+                                       window=window, k_scale=pools[2], v_scale=pools[3])
+
+    return attn_fn
+
+
 class PagedModel:
     """The real model half: bucketed paged prefill + all-slot paged decode
     of the dense or MoE transformer over a ``PagedKVCache`` on ``device``;
@@ -81,10 +113,16 @@ class PagedModel:
     reference's does: causal attention keeps the real rows independent of
     the padded tail, but an MoE layer's capacity is computed from the
     padded length and the pad tokens sort after the real ones within each
-    expert. Both engines do this, so their MoE streams agree."""
+    expert. Both engines do this, so their MoE streams agree.
+
+    ``mesh`` (a ``DeviceMesh`` with a ``ring_axis``): decode attention runs
+    as ring decode over that axis (``ring_attn_fn``); ``num_blocks`` and
+    ``max_blocks_per_seq`` must divide by its size, as in the reference.
+    The prefill stays unsharded."""
 
     def __init__(self, cfg, params, *, num_blocks, block_size, max_slots,
-                 max_blocks_per_seq, precision=None, device=None):
+                 max_blocks_per_seq, precision=None, device=None, mesh=None,
+                 ring_axis: str = "data"):
         from repro_torch.models import transformer
         from repro_torch.serving import paged_cache
 
@@ -108,6 +146,15 @@ class PagedModel:
         self.tables = np.full(
             (max_slots, max_blocks_per_seq), NULL_BLOCK, np.int32
         )
+        self.attn_fn = None
+        if mesh is not None:
+            n = mesh.shape[ring_axis]
+            if num_blocks % n or max_blocks_per_seq % n:
+                raise ValueError(
+                    "ring decode needs num_blocks and max_blocks_per_seq "
+                    f"divisible by the {ring_axis} axis ({n})"
+                )
+            self.attn_fn = ring_attn_fn(mesh, ring_axis)
 
     def _tensor(self, x, dtype=torch.long):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
@@ -155,7 +202,7 @@ class PagedModel:
             "block_table": self._tensor(slot_tables, torch.int32),
         }
         logits, self.cache = self._transformer.decode_step_paged(
-            self.params, self.cfg, self.cache, batch
+            self.params, self.cfg, self.cache, batch, attn_fn=self.attn_fn
         )
         return torch.argmax(logits[:, : self.vocab], dim=-1).cpu().numpy()
 
@@ -200,14 +247,15 @@ class ServingEngine:
     @classmethod
     def with_model(cls, cfg, params, *, num_blocks=64, block_size=16,
                    max_slots=8, max_blocks_per_seq=16, precision=None,
-                   device=None, eos_id=None):
+                   device=None, mesh=None, eos_id=None):
         """An engine over a ``PagedModel`` of ``cfg``/``params`` on
         ``device`` (default ``cuda``; raises without CUDA unless a device
-        is given); ``precision`` holds its KV pools narrow."""
+        is given); ``precision`` holds its KV pools narrow, ``mesh`` runs
+        its decode attention as ring decode over ``data``."""
         model = PagedModel(
             cfg, params, num_blocks=num_blocks, block_size=block_size,
             max_slots=max_slots, max_blocks_per_seq=max_blocks_per_seq,
-            precision=precision, device=device,
+            precision=precision, device=device, mesh=mesh,
         )
         return cls(model, num_blocks=num_blocks, block_size=block_size,
                    max_slots=max_slots, max_blocks_per_seq=max_blocks_per_seq,

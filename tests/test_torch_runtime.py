@@ -11,7 +11,8 @@ test_training_reduces_loss``, the launcher, and the slice as a whole.
   (``rtol = atol = 1e-3``, the reference's bar); compression still
   descends; gemma-2b REDUCED loses more than 0.1 in 30 steps.
 - ``launch.train.main`` on the CPU exits 42 at an injected crash, then
-  resumes; ``--mesh`` raises.
+  resumes, also onto a ``--mesh``; ``run_training(mesh=)`` on a 2x1 CPU
+  ``DeviceMesh`` gives the unsharded run's losses within 1e-4.
 - ``run_training`` of the port and of the reference, 5 steps from the same
   initial state (``state_from_jax``) on the same data stream: each step's
   loss within ``rtol = 1e-4, atol = 1e-5`` (occamy-gptj) or ``1e-3``
@@ -46,6 +47,7 @@ from repro_torch.core.sparse import BsrMatrix, EllMatrix, dense_to_bsr, random_e
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch import train_llm  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
+from repro_torch.parallel.mesh import DeviceMesh  # noqa: E402
 from repro_torch.runtime import checkpoint as ckpt  # noqa: E402
 from repro_torch.runtime import train_loop  # noqa: E402
 from repro_torch.runtime.fault_tolerance import FailureInjector, StragglerMonitor  # noqa: E402
@@ -204,10 +206,15 @@ def test_launch_train_crash_exits_42_then_resumes(tmp_path, capsys):
     assert len(losses) == 5 - 2 and int(state["opt"]["step"]) == 5
     out = capsys.readouterr().out
     assert "[restore] resumed from step 2" in out and "done: 3 steps" in out
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        train.main(argv + ["--mesh", "2x1"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        train_loop.run_training(CFG, SHAPES["train_4k"], mesh=object(), device="cpu")
+    # --mesh trains on a data x model mesh: from the step-4 checkpoint to 6
+    state, mesh_losses, _ = train.main(argv + ["--mesh", "2x1", "--steps", "6"])
+    assert len(mesh_losses) == 2 and int(state["opt"]["step"]) == 6
+    assert "[restore] resumed from step 4" in capsys.readouterr().out
+    mesh = DeviceMesh({"data": 2, "model": 1}, device="cpu")
+    kw = dict(num_steps=2, batch_override=2, seq_override=16, **QUIET)
+    _, meshed, _ = train_loop.run_training(CFG, SHAPES["train_4k"], mesh=mesh, **kw)
+    _, plain, _ = train_loop.run_training(CFG, SHAPES["train_4k"], device="cpu", **kw)
+    np.testing.assert_allclose(meshed, plain, rtol=1e-4, atol=1e-4)
 
 
 def test_train_llm_config_is_the_examples():

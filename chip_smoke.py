@@ -4355,11 +4355,20 @@ MT_ENGINE_BLOCKS_PER_SEQ = 36  # the multiple of 4 at or above serve()'s 33
 MT_ENGINE_WHY = "ring decode's partials and merges are per layer; 4 of 28 layers hold them"
 # meshed step vs its unsharded twin, each step's loss and global gradient
 # norm: the forward is the same computation (the explicit regions are
-# bitwise) and the norm sums the same squares in another order, so the
-# first step's loss is equal; later steps differ by what CUDA's
-# nondeterministic embedding-gradient atomics move, which TRAIN_RESUME_RTOL
-# bounds for a restart
-MT_LOSS_RTOL = MT_NORM_RTOL = 1e-3
+# bitwise) and the norm sums the same squares in another order. Read on
+# the card over four runs: every loss bitwise, grad norms within 3.3e-7
+MT_LOSS_RTOL = MT_NORM_RTOL = 1e-5
+# ... and the whole state after the twin steps, every rank's part of every
+# leaf (replicas included) against the twin's: the worst leaf's relative
+# Frobenius gap (``sharding.gap``) of the parameters, both moments and the
+# step counter. The warm-up's learning rates (3e-6, 6e-6, 9e-6) move few
+# bf16 parameters, so the fp32 moments carry what each rank's AdamW did.
+# The gradients are bf16: the meshed step's per-rank slices sum their
+# gradients in another order, which flips the rounding of a few elements
+# (read on the card: 7.5e-5, phi3.5-moe's m). Two controls on one rank's
+# part of one leaf must read past it: the part left as placed, and its
+# last update undone
+MT_STATE_GAP = 5e-4
 
 
 def _mt_batch(cfg, step):
@@ -4372,11 +4381,12 @@ def _mt_batch(cfg, step):
     return {k: torch.from_numpy(v).cuda() for k, v in host.items()}
 
 
-def _mt_steps(label, cfg, step_fn, state, steps):
+def _mt_steps(label, cfg, step_fn, state, steps, first=0):
     """``steps`` steps of ``step_fn`` on the training phase's stream (steps
-    0..steps-1), each with the launch counts (and the MoE branch's per-rank
-    calls) zeroed just before and read just after, its wall (host clock
-    ended by a sync) and peak allocation. Returns the per-step records."""
+    first..first+steps-1), each with the launch counts (and the MoE
+    branch's per-rank calls) zeroed just before and read just after, its
+    wall (host clock ended by a sync) and peak allocation. Returns (the
+    per-step records, the state)."""
     import math
 
     import torch
@@ -4385,7 +4395,7 @@ def _mt_steps(label, cfg, step_fn, state, steps):
     from repro_torch.models import moe
 
     rows = []
-    for step in range(steps):
+    for step in range(first, first + steps):
         batch = _mt_batch(cfg, step)
         gc.collect()
         torch.cuda.synchronize()
@@ -4403,7 +4413,56 @@ def _mt_steps(label, cfg, step_fn, state, steps):
               f"{rows[-1]['wall_ms']:.1f} ms launches {rows[-1]['launches']} per-rank MoE calls "
               f"{rows[-1]['rank_calls']} peak allocated {rows[-1]['peak_gb']:.2f} GB")
         need(math.isfinite(loss) and math.isfinite(norm), f"{label}: non-finite step {step}")
-    return rows
+    return rows, state
+
+
+def _at(tree_, path):
+    for k in path.split("/"):
+        tree_ = tree_[k]
+    return tree_
+
+
+def _mt_state_gaps(label, state, twin, path, rank, controls):
+    """Every leaf of the meshed ``state`` (params, opt.m, opt.v, opt.step;
+    ``Placed``) against the unsharded ``twin`` (the same tree on the host)
+    by ``sharding.gap``, the worst of each kind printed and held to
+    MT_STATE_GAP; then each of ``controls`` ({name: rank ``rank``'s parts
+    of the parameter and moments of leaf ``path``, by kind}) put in place
+    of the current parts, each of whose readings must be past the bound.
+    Returns (worst, {name: reading})."""
+    from repro_torch.core import tree
+    from repro_torch.parallel import sharding as sh
+
+    t = time.perf_counter()
+    paths, leaves = tree.flatten_with_paths(state)
+    gaps = {p: sh.gap(x, _at(twin, p)) for p, x in zip(paths, leaves)}
+    kinds = {}
+    for p, g in gaps.items():
+        kind = next(k for k in ("params", "opt/m", "opt/v", "opt/step") if p.startswith(k))
+        if g >= kinds.get(kind, ("", -1.0))[1]:
+            kinds[kind] = (p, g)
+    worst = max(g for _, g in kinds.values())
+    readings = {}
+    for name, parts in controls.items():
+        got = {}
+        for kind, old in parts.items():
+            leaf = _at(state, f"{kind}/{path}")
+            now, leaf.parts[rank] = leaf.parts[rank], old
+            got[kind] = sh.gap(leaf, _at(twin, f"{kind}/{path}"))
+            leaf.parts[rank] = now
+        readings[name] = max(got.values())
+        print(f"{label} control, rank {rank}'s part of {path} {name}: "
+              + ", ".join(f"{k} {g:.3e}" for k, g in got.items()))
+    print(f"{label} state after the twin steps, mesh vs unsharded, worst leaf by kind "
+          f"(relative Frobenius gap, every rank's part): "
+          + ", ".join(f"{k} {p} {g:.3e}" for k, (p, g) in kinds.items())
+          + f"; bound {MT_STATE_GAP:g}; controls "
+          + ", ".join(f"{k} {g:.3e}" for k, g in readings.items())
+          + f"; {len(gaps)} leaves compared in {time.perf_counter() - t:.1f} s")
+    need(worst <= MT_STATE_GAP, f"{label}: the meshed state left the unsharded twin's")
+    need(all(g > MT_STATE_GAP for g in readings.values()),
+         f"{label}: the state check does not see a wrong rank update {readings}")
+    return worst, readings
 
 
 def _mt_sections(label, mode, cfg, mesh, state, batch):
@@ -4470,9 +4529,11 @@ def _mt_sections(label, mode, cfg, mesh, state, batch):
 def _mt_twins(report, label, cfg, mesh, steps, kernel):
     """The unsharded step and the meshed step from the same seeded state on
     the same batches: the placed parts against their specs, each step's
-    loss and grad norm within MT_LOSS_RTOL / MT_NORM_RTOL, ``kernel``'s
-    launches a step equal, a warm profiled step of each and its sections
-    (``_mt_sections``). Returns the meshed rows."""
+    loss and grad norm within MT_LOSS_RTOL / MT_NORM_RTOL, the whole state
+    after the steps within MT_STATE_GAP with its control
+    (``_mt_state_gaps``), ``kernel``'s launches a step equal, a warm
+    profiled step of each and its sections (``_mt_sections``). Returns the
+    meshed rows."""
     import math
 
     import torch
@@ -4504,9 +4565,30 @@ def _mt_twins(report, label, cfg, mesh, steps, kernel):
                   f"every part its spec's shard shape; the step gathers {gather_gb:.3f} GB of "
                   f"parameters and splits as many gradient bytes")
             step_fn = train_loop.make_mesh_train_step(cfg, mesh)
+            # the controls' leaf: the last owner's part of the first split leaf
+            paths, ps = tree.flatten_with_paths(state["params"])
+            i = next(i for i, x in enumerate(ps) if any(e is not None for e in x.sharding.spec))
+            rank = ps[i].owners[-1]
+
+            def parts_now():
+                return {k: _at(state, f"{k}/{paths[i]}").parts[rank].clone()
+                        for k in ("params", "opt/m", "opt/v")}
+
+            controls = {"left as placed": parts_now()}
+            rows, state = _mt_steps(f"{label} {mode}", cfg, step_fn, state, steps - 1)
+            controls["with its last update undone"] = parts_now()
+            last, state = _mt_steps(f"{label} {mode}", cfg, step_fn, state, 1, first=steps - 1)
+            rows += last
+            gaps = _mt_state_gaps(label, state, twin, paths[i], rank, controls)
+            del twin, controls
         else:
             step_fn = train_loop.make_train_step(cfg)
-        rows = _mt_steps(f"{label} {mode}", cfg, step_fn, state, steps)
+            rows, state = _mt_steps(f"{label} {mode}", cfg, step_fn, state, steps)
+            t = time.perf_counter()
+            twin = tree.tree_map(lambda x: x.to("cpu", copy=True), state)
+            print(f"{label} unsharded state after {steps} steps copied to the host for the "
+                  f"comparison: {sum(x.nbytes for x in tree.leaves(twin)) / 1e9:.2f} GB in "
+                  f"{time.perf_counter() - t:.1f} s")
         b = _mt_batch(cfg, steps)
         name = f"mesh train {label} {mode} step B={MT_B} T={MT_S}"
         # the steps above warmed it: one timed wall, one span, one trace
@@ -4514,7 +4596,7 @@ def _mt_twins(report, label, cfg, mesh, steps, kernel):
         res[mode] = dict(rows=rows, profile=report["profile"][name],
                          sections=_mt_sections(label, mode, cfg, mesh, state, b))
         if mode == "mesh":
-            res[mode]["gather_gb"] = gather_gb
+            res[mode].update(gather_gb=gather_gb, state_gap=gaps[0], control_gap=gaps[1])
         del state, step_fn
     plain, meshed = res["unsharded"]["rows"], res["mesh"]["rows"]
     for i, (a, b) in enumerate(zip(plain, meshed)):
@@ -4671,6 +4753,8 @@ def mesh_train_engine(report):
     tables of MT_ENGINE_BLOCKS_PER_SEQ; token streams equal to the
     unsharded engine's at the same depth and pool; 4 decode-attention
     partials a layer a decode step."""
+    import math
+
     import torch
 
     from repro_torch.configs.base import get_config
@@ -4722,6 +4806,22 @@ def mesh_train_engine(report):
              f"ring engine {label}: decode attention {counts}, expected {n} partials a layer "
              f"over {cfg.num_layers} layers x {steps} steps")
         counts.update(ring_decode=0, partials=0)
+        if mesh is not None:
+            # ring_attn_fn's per-call page gather: every slot's table of
+            # pages (null ones included) copied into a new pool, which
+            # ring_decode then copies again into the ranks' shards
+            cache = engine.model.cache
+            page = math.prod(cache.k_pool.shape[2:]) * cache.k_pool.element_size()
+            pages = SLOTS * MT_ENGINE_BLOCKS_PER_SEQ
+            made = 2 * pages * page  # k and v
+            r["gather"] = dict(pages=pages, pool_pages=cache.num_blocks, made_mib=made / 2**20,
+                               moved_mib=4 * made / 2**20,
+                               run_gib=4 * made * cfg.num_layers * steps / 2**30)
+            print(f"ring engine gather: each layer-step copies {pages} pages ({SLOTS} slots x "
+                  f"{MT_ENGINE_BLOCKS_PER_SEQ}) against a pool of {cache.num_blocks}: "
+                  f"{made / 2**20:.1f} MiB made twice (the gathered pool, then its shards), "
+                  f"{4 * made / 2**20:.1f} MiB read and written a layer-step, "
+                  f"{r['gather']['run_gib']:.2f} GiB over the run's {steps} decode steps")
         del engine
     same = runs["ring"]["out"] == runs["unsharded"]["out"]
     print(f"ring engine: token streams equal to the unsharded engine's: {same}")
@@ -4731,8 +4831,8 @@ def mesh_train_engine(report):
         print(f"time ring engine {label}: decode {step_ms:.2f} ms/step, {tok_s:.1f} tok/s "
               f"(first step excluded), run wall {r['wall']:.3f} s")
         runs[label]["step_ms"] = step_ms
-    report["ring_engine"] = {k: dict(step_ms=v["step_ms"], wall=v["wall"], counts=v["counts"])
-                             for k, v in runs.items()}
+    report["ring_engine"] = {k: dict(step_ms=v["step_ms"], wall=v["wall"], counts=v["counts"],
+                                     gather=v.get("gather")) for k, v in runs.items()}
     del params
 
 

@@ -141,7 +141,7 @@ def _per_data_rank(mesh, ranks, spec, fn, kind, *args):
     outputs (a tuple) collected and joined on dim 0."""
     outs = []
     for r in ranks:
-        parts = [mesh._own(mesh.local(a, (spec,), r), r) for a in args]
+        parts = [mesh.own(mesh.local(a, (spec,), r), r) for a in args]
         with mesh.on(r):
             out = fn(*parts)
         MESH_ROW_CALLS[kind] += 1

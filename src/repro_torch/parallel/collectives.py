@@ -253,7 +253,7 @@ def ring_scan_carry(chunk_fn, xs, s0, mesh, axis: str, *, overlap: bool = True):
     ys, s_out = [None] * mesh.n, [None] * mesh.n
     carry = {}  # rank -> the carry it scans with
     for g in groups:
-        carry[g[0]] = mesh._own(s0, g[0])
+        carry[g[0]] = mesh.own(s0, g[0])
     for t in range(n):
         for g in groups:
             me = g[t]

@@ -153,7 +153,7 @@ class DeviceMesh:
             if x.device == self.devices[dst]:
                 x.record_stream(self.streams[dst])
 
-    def _own(self, view, r: int, src: int | None = None):
+    def own(self, view, r: int, src: int | None = None):
         """A copy of ``view`` in a new allocation of rank ``r``, made under
         rank ``r``'s stream; ``view`` was produced on the caller's stream,
         or on rank ``src``'s when given."""
@@ -182,7 +182,7 @@ class DeviceMesh:
     def shard_spec(self, x, spec) -> list:
         """Every rank's part of ``x`` under ``spec``, each its own contiguous
         allocation on its rank's device."""
-        return [self._own(self.local(x, spec, r), r) for r in range(self.n)]
+        return [self.own(self.local(x, spec, r), r) for r in range(self.n)]
 
     def shard(self, x, dim: int, entry=_ALL) -> list:
         """Every rank's part of ``x`` split along ``dim`` by ``entry`` (by
@@ -192,7 +192,7 @@ class DeviceMesh:
 
     def replicate(self, x) -> list:
         """One copy of ``x`` per rank, each its own allocation."""
-        return [self._own(x, r) for r in range(self.n)]
+        return [self.own(x, r) for r in range(self.n)]
 
     def collect(self, part, r: int, device=None):
         """Rank ``r``'s ``part`` handed to the caller's stream on ``device``

@@ -19,8 +19,7 @@ them single-controller over a ``parallel.mesh.DeviceMesh``:
     (``moe_mlp``'s per-data-rank dispatch, ``ssm._shift``'s halo).
     ``constrain(x, kind)`` returns ``x``: ``with_sharding_constraint`` is
     a layout hint with no effect on values, and between the explicit
-    regions the port holds global tensors. It counts the hints that would
-    apply (``CONSTRAINED``), so tests can see the call sites.
+    regions the port holds global tensors.
   - ``use_mesh(mesh)`` adds only the kernel key to the active dict, so
     every ``ops.*`` call inside partitions over ``mesh``
     (``hopper/partition.py``) and ``current_mesh()`` stays as it was.
@@ -30,7 +29,6 @@ The helpers take any object with ``.shape`` (``{axis: size}``) and
 """
 from __future__ import annotations
 
-import collections
 import dataclasses
 import math
 from contextlib import contextmanager
@@ -43,9 +41,6 @@ from repro_torch.hopper.partition import PartitionSpec
 
 _ACTIVE: dict | None = None
 
-# kind -> the constrain() calls whose spec applied (its rank fits x)
-CONSTRAINED: collections.Counter = collections.Counter()
-
 
 def P(*entries) -> PartitionSpec:
     """A ``PartitionSpec`` with one-axis tuples written as the axis name,
@@ -54,20 +49,10 @@ def P(*entries) -> PartitionSpec:
                            for e in entries))
 
 
-def _spec(sharding):
-    return sharding.spec if isinstance(sharding, NamedSharding) else sharding
-
-
 def constrain(x, kind: str):
     """``x`` itself: the layout hint ``kind`` of the active dict has no
-    effect on values. A spec longer than ``x``'s rank is skipped, as in the
-    reference; one that fits is counted in ``CONSTRAINED``."""
-    if _ACTIVE is None:
-        return x
-    sharding = _ACTIVE.get(kind)
-    if sharding is None or len(_spec(sharding)) > x.ndim:
-        return x
-    CONSTRAINED[kind] += 1
+    effect on values (the reference skips a spec longer than ``x``'s
+    rank)."""
     return x
 
 
@@ -427,3 +412,26 @@ def gather_(tree: dict, device=None) -> dict:
         elif isinstance(tree[k], Placed):
             tree[k] = tree[k].gather(device)
     return tree
+
+
+def gap(x, want) -> float:
+    """How far ``x`` (a ``Placed`` leaf, or a tensor) lies from the global
+    tensor ``want`` (on any device): every rank's part, replicas included,
+    against the slab of ``want`` that its spec gives that rank, as
+    ``sqrt(sum_r |x_r - want_r|^2 / sum_r |want_r|^2)`` (Frobenius norms in
+    fp32 on each part's device; the absolute gap where ``want`` is all
+    zero). A tensor is one part."""
+    import torch
+
+    if isinstance(x, Placed):
+        mesh, spec = x.sharding.mesh, x.sharding.spec
+        pairs = [(mesh.collect(p, r, p.device), mesh.local(want, spec, r))
+                 for r, p in enumerate(x.parts)]
+    else:
+        pairs = [(x, want)]
+    num = den = 0.0
+    for a, b in pairs:
+        b = b.to(a.device).float()
+        num += float(torch.linalg.vector_norm(a.float() - b)) ** 2
+        den += float(torch.linalg.vector_norm(b)) ** 2
+    return math.sqrt(num / den if den else num)

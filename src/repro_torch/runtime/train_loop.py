@@ -136,21 +136,19 @@ def mesh_grad_norm(mesh, grads) -> torch.Tensor:
 def mesh_apply_updates(cfg, mesh, state, grads, norm):
     """AdamW on ``mesh``, in place: the shared scalars (``adamw.hyper``)
     from ``norm`` and the replicated step counter on the caller's stream,
-    then per rank, on its stream, ``adamw.update_leaf`` on every part it
-    holds of the parameters, the moments and ``grads`` (``Placed``, in the
-    parameters' order), and its copy of the counter advanced. Returns the
-    step's learning rate."""
+    copied to each rank, then per rank, on its stream,
+    ``adamw.update_leaf`` on every part it holds of the parameters, the
+    moments and ``grads`` (``Placed``, in the parameters' order), and its
+    copy of the counter advanced. Returns the step's learning rate."""
     ps, ms, vs = (leaves(state["params"]), leaves(state["opt"]["m"]),
                   leaves(state["opt"]["v"]))
     step = state["opt"]["step"]
     scale, _, lr, bc1, bc2 = adamw.hyper(cfg, norm, mesh.collect(step.parts[0], 0))
     for r in range(mesh.n):
-        for x in (scale, lr, bc1, bc2):
-            mesh._enter(x, r)
+        shared = [mesh.own(x, r) for x in (scale, lr, bc1, bc2)]
         with mesh.on(r):
             for p, g, m, v in zip(ps, grads, ms, vs):
-                adamw.update_leaf(cfg, p.parts[r], g.parts[r], m.parts[r], v.parts[r],
-                                  scale, lr, bc1, bc2)
+                adamw.update_leaf(cfg, p.parts[r], g.parts[r], m.parts[r], v.parts[r], *shared)
             step.parts[r] += 1
     return lr
 

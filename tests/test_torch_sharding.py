@@ -34,6 +34,7 @@
   the reference's engine passes them) an id falls outside its rank's
   slab of the pool and the paged decode raises.
 """
+import collections
 import dataclasses
 import functools
 import os
@@ -60,7 +61,7 @@ from repro.models import transformer as jtr  # noqa: E402
 from repro.parallel import sharding as jsh  # noqa: E402
 from repro.serving import engine as jeng  # noqa: E402
 from repro_torch.configs.base import SHAPES, get_config  # noqa: E402
-from repro_torch.models import moe, registry, ssm, transformer  # noqa: E402
+from repro_torch.models import hybrid, moe, multimodal, registry, ssm, transformer  # noqa: E402
 from repro_torch.parallel import collectives, sharding  # noqa: E402
 from repro_torch.parallel.mesh import DeviceMesh, RingMesh  # noqa: E402
 from repro_torch.serving import engine as teng  # noqa: E402
@@ -108,6 +109,26 @@ def _ref_param_shapes(arch):
 
 def _meta(shape, dtype=torch.float32):
     return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.fixture
+def hints(monkeypatch):
+    """By kind, the ``constrain`` calls whose active spec fits the
+    tensor's rank (the hints the reference applies), seen at every call
+    site: ``sharding.constrain`` and the models' imported names wrapped."""
+    seen = collections.Counter()
+    real = sharding.constrain
+
+    def counting(x, kind):
+        active = sharding._ACTIVE
+        spec = None if active is None else active.get(kind)
+        if spec is not None and len(getattr(spec, "spec", spec)) <= x.ndim:
+            seen[kind] += 1
+        return real(x, kind)
+
+    for mod in (sharding, transformer, ssm, hybrid, multimodal, moe):
+        monkeypatch.setattr(mod, "constrain", counting)
+    return seen
 
 
 # ---------------------------------------------------------------------------
@@ -196,22 +217,21 @@ def test_pick_dp_axes_and_axis_size():
     assert sharding.P(("data",), ("pod", "data"), None) == tuple(JP(("data",), ("pod", "data"), None))
 
 
-def test_constrain_is_identity_and_counts_the_hints_that_fit():
+def test_constrain_is_identity_and_counts_the_hints_that_fit(hints):
     x = torch.ones(4, 4)
     assert sharding.constrain(x, "residual") is x  # the reference's no-context case
     m = DeviceMesh({"data": 2, "model": 2}, device="cpu")
     cfg = get_config("gemma-2b")
-    sharding.CONSTRAINED.clear()
     with sharding.activation_sharding(sharding.default_activation_specs(cfg, m, "train")):
         assert sharding.current_mesh() is m
         assert sharding.constrain(x, "residual") is x  # 3 entries > rank 2: skipped
         y = torch.ones(2, 4, 6)
         assert sharding.constrain(y, "residual") is y and sharding.constrain(y, "logits") is y
         assert sharding.constrain(y, "attn_q") is y  # no such key without explicit_attn_sharding
-    assert dict(sharding.CONSTRAINED) == {"residual": 1, "logits": 1}
+    assert dict(hints) == {"residual": 1, "logits": 1}
     with sharding.use_mesh(m):
         assert sharding.constrain(y, "residual") is y
-    assert dict(sharding.CONSTRAINED) == {"residual": 1, "logits": 1}
+    assert dict(hints) == {"residual": 1, "logits": 1}
 
 
 @pytest.mark.parametrize("outer", ["use_mesh", "activation_sharding"])
@@ -313,7 +333,7 @@ def test_halo_shift_is_bitwise_the_plain_shift():
     assert torch.equal(got[:, 4], x[:, 3])  # a chunk boundary: the halo column
 
 
-def test_forward_on_the_mesh_is_bitwise_the_unsharded_one():
+def test_forward_on_the_mesh_is_bitwise_the_unsharded_one(hints):
     batch = registry.make_batch(get_config("rwkv6-3b", reduced=True), SHAPES["train_4k"],
                                 batch_override=2, seq_override=16, device="cpu")
     m = DeviceMesh({"data": 2, "model": 4}, device="cpu")
@@ -322,12 +342,12 @@ def test_forward_on_the_mesh_is_bitwise_the_unsharded_one():
         params = registry.init_params(cfg, seed=0, device="cpu")
         with torch.no_grad():
             want = registry.forward(params, cfg, batch)
-            sharding.CONSTRAINED.clear()
+            hints.clear()
             with sharding.activation_sharding(sharding.default_activation_specs(cfg, m, "train")):
                 got = registry.forward(params, cfg, batch)
         assert torch.equal(got[0], want[0]) and float(got[1]) == float(want[1])
         nl = cfg.num_layers
-        assert sharding.CONSTRAINED["residual"] == nl + 1 and sharding.CONSTRAINED["logits"] == 1
+        assert hints["residual"] == nl + 1 and hints["logits"] == 1
 
 
 @pytest.mark.parametrize("overlap", [True, False])

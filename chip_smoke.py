@@ -207,7 +207,32 @@ Phases, in order; any failure exits non-zero:
      share), launches, peak memory and the gathered bytes a step, the ring
      engine's decode rate, and the phase's seconds. Each depth cut and its
      reason printed;
-  16. time every kernel against its plain version, the library call and
+  16. the card's roofline (``core/topology.py``, ``launch/roofline.py``,
+     ``launch/op_cases.py``, ``launch/shape_run.py``): (a) every op-roofline
+     cell on the 16 x 16 and 2 x 16 x 16 production meshes under no policy
+     and each of fp32, bf16, fp8 and fp8_e5m2 (the dominant term, the
+     per-level seconds); (b) each of the eight op cases unsharded on the
+     card at its shapes and dtypes (flash attention non-causal: the case
+     counts every (q, k) pair) with the launch counts zeroed just before
+     and read just after, each kernel's output held to its plain version
+     (flash attention to SDPA), timed warm and cold (the L2 flushed before
+     each call) beside its bound at its dtype's peak and the cell's bound;
+     the run fails where an op's cold time beats its bound by more than
+     the timing's noise; (c) ``parallel.collectives.ep_expert_ffn`` at
+     phi3.5-moe's full width (a prefill dispatch of 4 x 2048 tokens
+     through layer 0's router) on data2 x model2 and data1 x model4, held
+     to the TP path's three einsums in bf16, with its wall, busy, idle
+     share and the bytes its two all-to-alls exchange; (d) phi3.5-moe's
+     training state at 2 layers placed on data2 x model2, one data row
+     lost (``elastic_remesh``) and the state resharded onto data1 x model2
+     (``reshard_state``): every old part bitwise its slab of the new leaf,
+     and one meshed step there at the unsharded step's loss (1e-5); (e)
+     ``make_production_mesh(multi_pod=True)``: every op case's plan
+     resolves on it and on its ``MeshSpec`` alike; (f) phase 13's
+     ``mesh_rows`` carry their roofline columns, and the D2D rows
+     (``launch.d2d_rows``) print, the pod all-reduce measured over 4
+     ranks;
+  17. time every kernel against its plain version, the library call and
      its bound (CUDA events over back-to-back calls); the FA, BSR, SpMSpM,
      stencil, scan and both scaled kernels and their library calls also by
      device time (events around a CUDA graph's replay of 20 calls, which
@@ -227,7 +252,9 @@ Prints the card's name and power limit, one JSON line of per-kernel
 numbers (each kernel's mesh-phase launches by mesh under
 ``mesh_launches``, FA's and the scan's training launches a step by model
 under ``train_launches_per_step``, and a meshed step's under
-``mesh_train_launches_per_step``), and as its last line ``{"ok": true, "device": {...}}``. Imports
+``mesh_train_launches_per_step``, and phase 16's op cases' under
+``op_roofline_launches`` with each kernel's op case timed under
+``op_roofline``), and as its last line ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of the reference package.
 """
 from __future__ import annotations
@@ -242,12 +269,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and operations/s by type
-HBM_BYTES_PER_S = 3.35e12
-NVLINK_BYTES_PER_S = 450e9  # one way, card to card
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "float8_e4m3fn": 1979e12,
-            "float8_e5m2": 1979e12}
 
 # the serving run: requests, pool and slots (full-width occamy-gptj)
 SEED = 0
@@ -291,6 +312,20 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def bound_ms(nbytes, ops, dtype="float32"):
+    """Least time on the card for ``ops`` operations of ``dtype``'s kernels
+    (a torch dtype or its name) and ``nbytes`` read or written once, ``(ms,
+    "operations" | "bytes")``: ``launch.roofline.bound_ms`` at the port's
+    constants (``core.topology``, ``core.precision.peak_flops``)."""
+    import torch
+
+    from repro_torch.core import precision as prec
+    from repro_torch.launch import roofline
+
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    return roofline.bound_ms(ops, nbytes, prec.peak_flops_of(dtype))
 
 
 def time_ms(fn, iters=20):
@@ -373,9 +408,7 @@ def fa_bound_ms(B, H, K, Sq, Sk, D, dtype_name, *, causal, window=0,
     if window:
         mask &= k_pos > q_pos - window
     ops = 4 * B * H * D * int(mask.sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(nbytes, ops, dtype_name)
 
 
 # ---------------------------------------------------------------------------
@@ -873,9 +906,7 @@ def gemm_bound_ms(M, K, N, dt, odt):
     operations over the input type's peak."""
     esize = {"float32": 4, "bfloat16": 2}
     nbytes = (M * K + K * N) * esize[dt] + M * N * esize[odt]
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * M * N * K / PEAK_OPS[dt] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(nbytes, 2 * M * N * K, dt)
 
 
 def spmm_bound_ms(adj, dense):
@@ -887,9 +918,7 @@ def spmm_bound_ms(adj, dense):
     C, F = dense.shape
     nbytes = (R * L * (adj.values.element_size() + adj.cols.element_size())
               + (C + R) * F * dense.element_size())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * adj.nnz * F / PEAK_OPS["float32"] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(nbytes, 2 * adj.nnz * F)
 
 
 def time_gcn_kernels(report):
@@ -1234,12 +1263,6 @@ def sparse_la_phase(report, cases):
                                 for r in runs}
 
 
-def _bound(nbytes, ops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS["float32"] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def bsr_bound_ms(A, dense):
     """Least time for the BSR product on an H100: tiles, tile coordinates
     and dense read once and the fp32 out written once, over HBM bandwidth;
@@ -1249,7 +1272,7 @@ def bsr_bound_ms(A, dense):
     nnz = int((tv != 0).sum())
     nbytes = (tv.numel() * tv.element_size() + 8 * tv.shape[0]
               + dense.numel() * dense.element_size() + 4 * A.shape[0] * dense.shape[1])
-    return _bound(nbytes, 2 * nnz * dense.shape[1])
+    return bound_ms(nbytes, 2 * nnz * dense.shape[1])
 
 
 def spmspm_bound_ms(A, B):
@@ -1266,14 +1289,14 @@ def spmspm_bound_ms(A, B):
     matches = int((ca * cb).sum())
     nbytes = sum(x.numel() * x.element_size() for x in (A.values, A.cols, B.values, B.cols))
     nbytes += 4 * A.shape[0] * B.shape[0]
-    return _bound(nbytes, 2 * matches)
+    return bound_ms(nbytes, 2 * matches)
 
 
 def stencil_bound_ms(grid, points):
     """Least time for the stencil on an H100: the grid read once and out
     written once over HBM bandwidth, or 2 operations per point per output
     over the fp32 peak."""
-    return _bound(2 * grid.numel() * grid.element_size(), 2 * grid.numel() * points)
+    return bound_ms(2 * grid.numel() * grid.element_size(), 2 * grid.numel() * points)
 
 
 def _library(case):
@@ -1630,14 +1653,6 @@ def precision_ladder_phase(report):
                              bound_ms=r.bound_ms, max_err=r.max_err, rel_err=r.rel_err) for r in rows]
 
 
-def _narrow_bound(nbytes, ops, dtype):
-    """The larger of ``nbytes`` over HBM bandwidth and ``ops`` over the
-    compute dtype's peak."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[str(dtype).replace("torch.", "")] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def _nbytes(*xs):
     return sum(x.numel() * x.element_size() for x in xs)
 
@@ -1685,7 +1700,7 @@ def time_precision_kernels(report):
         call = lambda: gs.gemm_scaled_kernel(aq, bq, a_s, b_s, bk=bk)  # noqa: E731
         kern, plain = _in_turns(call, lambda: blocked.gemm_scaled_values_blocked(aq, bq, a_s, b_s, bk=bk), 3)
         dev = device_ms(call)
-        bound, by = _narrow_bound(_nbytes(aq, bq, a_s, b_s) + 4 * m * n, 2 * m * n * k, dt)
+        bound, by = bound_ms(_nbytes(aq, bq, a_s, b_s) + 4 * m * n, 2 * m * n * k, dt)
         lib = lib_dev = None
         lib_text = "none (no single call scales per K-block)"
         if dt in (torch.float32, torch.bfloat16):  # unit scales: the same function
@@ -1732,7 +1747,7 @@ def time_precision_kernels(report):
             sdpa = lambda: F.scaled_dot_product_attention(qq, kq, vq, is_causal=True)  # noqa: E731
             lib, lib_dev = time_ms(sdpa), device_ms(sdpa)
             lib_text = f"SDPA on the {pol} values {lib:.4f} ms, device {_ms(lib_dev)}"
-        bound, by = _narrow_bound(_nbytes(*ops_) + 4 * B * H * S * D,
+        bound, by = bound_ms(_nbytes(*ops_) + 4 * B * H * S * D,
                                   4 * B * H * D * S * (S + 1) // 2, dt)
         report.setdefault("fa_scaled_time", {})[pol] = dict(
             shape=label, route=route, ms=min(kern), device_ms=dev, plain_ms=min(plain), library_ms=lib,
@@ -2969,7 +2984,7 @@ def la_bound_ms(r, k, v, w, u, chunk=32):
         bonus = 0 if u is None else c * (3 * N + 2 * M)
         ops_ += 2 * pairs * (N + M) + 4 * c * N * M + bonus
     ops_ *= B * H
-    return _bound(nbytes, ops_)
+    return bound_ms(nbytes, ops_)
 
 
 def _launch_shares(fn):
@@ -3271,6 +3286,7 @@ def ring_phase(report):
     Then a profile of a warm zigzag ring call at each S."""
     import torch
 
+    from repro_torch.core import topology
     from repro_torch.hopper import dispatch, ops
     from repro_torch.launch import ring_attention as ra
     from repro_torch.parallel.mesh import RingMesh
@@ -3336,9 +3352,9 @@ def ring_phase(report):
     for row in out["hops"]:
         nbytes = row["bytes"]
         if cards == 1:  # read and written once in HBM
-            bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+            bound = bound_ms(2 * nbytes, 0)[0]
         else:  # one way over NVLink
-            bound = nbytes / NVLINK_BYTES_PER_S * 1e3
+            bound = nbytes / topology.NVLINK_BW * 1e3
         report["ring_hop_time"][nbytes] = dict(
             ms=row["hop_ms"], plain_ms=row["copy_ms"], bound_ms=bound,
             warm_ms=row["hop_warm_ms"], warm_plain_ms=row["copy_warm_ms"])
@@ -4141,8 +4157,9 @@ def _profile_step(report, arch, cfg, state, steps_done):
     reference's MODEL_FLOPS) with their share of the bf16 dense peak."""
     import torch
 
-    from repro_torch.data.synthetic import batch_at_step
     from repro_torch.configs.base import SHAPES
+    from repro_torch.core import precision as prec
+    from repro_torch.data.synthetic import batch_at_step
     from repro_torch.runtime import train_loop
 
     step = train_loop.make_train_step(cfg)
@@ -4156,10 +4173,11 @@ def _profile_step(report, arch, cfg, state, steps_done):
     tokens = TRAIN_B * TRAIN_S
     flops = 6 * cfg.num_params() * tokens
     tok_s = tokens / (prof["wall_ms"] / 1e3)
-    mfu = flops / (prof["wall_ms"] / 1e3) / PEAK_OPS["bfloat16"]
+    peak = prec.peak_flops("bf16")
+    mfu = flops / (prof["wall_ms"] / 1e3) / peak
     print(f"{name}: {tok_s:.1f} tokens/s; model FLOPs 6*N*T = 6 x {cfg.num_params():,} x "
           f"{tokens} = {flops:.4e} a step, {mfu:.4f} of the bf16 dense peak "
-          f"({PEAK_OPS['bfloat16']:.3g} FLOP/s)")
+          f"({peak:.4g} FLOP/s)")
     return dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
                 tokens_per_s=tok_s, model_flops=flops, mfu=mfu)
 
@@ -4850,6 +4868,366 @@ def mesh_train_phase(report):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the card's roofline (core/topology.py, launch/roofline.py, the
+# op cases and their cells), the expert-parallel FFN, the elastic re-mesh,
+# the production mesh and the bench twins' roofline columns
+# ---------------------------------------------------------------------------
+
+# each op case's kernel (its ``dispatch.LAUNCHES`` name); decode attention
+# has none (its blocked form is plain tensor code, as the reference's)
+OP_KERNELS = {"gemm": "gemm", "flash_attention": "flash_attention", "decode_attention": None,
+              "linear_attention": "linear_attention", "spmm": "spmm", "bsr_spmm": "bsr_spmm",
+              "spmspm": "spmspm", "stencil": "stencil"}
+# an op may not run faster than its bound by more than the timing's noise,
+# taken as 5 % of the bound plus 1 us (a CUDA event's resolution is ~0.5 us)
+ROOFLINE_NOISE_REL, ROOFLINE_NOISE_MS = 0.05, 1e-3
+OP_COLD_REPS = 5  # single calls, each after the L2 is flushed
+OP_FLUSH_BYTES = 256 << 20  # written before each cold call: five times the 50 MB L2
+# (c) the expert-parallel FFN at phi3.5-moe's width: a prefill dispatch of
+# EP_B rows of EP_S tokens through layer 0's router, on each mesh
+EP_B, EP_S = 4, 2048
+EP_MESHES = (("data2xmodel2", {"data": 2, "model": 2}), ("data1xmodel4", {"data": 1, "model": 4}))
+
+
+def _op_case_inputs(op, args, kw, gen):
+    """The case's operands on the card, at its shapes and dtypes: unit
+    normals; indices in range (ELL columns over the dense rows, BSR tiles
+    sorted by row over the tile grid, SpMSpM columns over the contraction
+    dim); the scan's log decays in [-1, -0.01]; decode at the cache's last
+    position (the whole cache read). The case counts every (q, k) pair
+    (4 B H Sq^2 D), so flash attention runs non-causal: the causal
+    default does half that work."""
+    import torch
+
+    def normal(a):
+        x = torch.randn(tuple(a.shape), generator=gen, device="cuda", dtype=torch.float32)
+        return x.to(a.dtype)
+
+    def ints(a, high):
+        return torch.randint(0, high, tuple(a.shape), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    if op == "decode_attention":
+        q, k, v, pos = args
+        return (normal(q), normal(k), normal(v),
+                torch.full(tuple(pos.shape), k.shape[2] - 1, dtype=torch.int32, device="cuda")), kw
+    if op == "flash_attention":
+        return tuple(normal(a) for a in args), dict(kw, causal=False)
+    if op == "linear_attention":
+        r, k, v, w = args
+        w_log = -(torch.rand(tuple(w.shape), generator=gen, device="cuda") * 0.99 + 0.01)
+        return (normal(r), normal(k), normal(v), w_log), kw
+    if op == "spmm":
+        values, cols, dense = args
+        return (normal(values), ints(cols, dense.shape[0]), normal(dense)), kw
+    if op == "bsr_spmm":
+        tv, tr, tc, dense = args
+        rows = torch.sort(ints(tr, kw["num_rows"] // tv.shape[1])).values
+        return (normal(tv), rows, ints(tc, dense.shape[0] // tv.shape[2]), normal(dense)), kw
+    if op == "spmspm":
+        av, ac, bv, br = args
+        k_dim = kw["contraction_dim"]
+        return (normal(av), ints(ac, k_dim), normal(bv), ints(br, k_dim)), kw
+    return tuple(normal(a) for a in args), kw  # gemm, stencil
+
+
+def _cold_ms(fn, flush, reps=OP_COLD_REPS):
+    """Per-call device ms of ``fn`` over ``reps`` single calls, each after
+    ``flush`` is written (the L2 holds none of the call's inputs), by CUDA
+    events around the call alone."""
+    import torch
+
+    fn()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sorted(s.elapsed_time(e) for s, e in pairs)
+
+
+def _op_case_hold(op, call, out, args, kw):
+    """The kernel's output at the case's shapes against its plain version
+    (impl ``torch``) at the suite's tolerances; flash attention against
+    SDPA (its plain form at Sq = 32768 would take minutes); decode
+    attention, which launches no kernel, finite. Returns max|diff|."""
+    import torch
+    import torch.nn.functional as F
+
+    if op == "decode_attention":
+        need(bool(torch.isfinite(out.float()).all()), "op case decode_attention: non-finite")
+        return 0.0
+    if op == "flash_attention":
+        want = F.scaled_dot_product_attention(*args, is_causal=False)
+        rel = _frob(out, want)
+        print(f"op case flash_attention: ||kernel - SDPA|| / ||SDPA|| {rel:.3e} (tol "
+              f"{RING_BF16_REL:g})")
+        need(rel <= RING_BF16_REL, "op case flash_attention: off SDPA")
+        return float((out.float() - want.float()).abs().max())
+    with torch.no_grad():
+        want = call(impl="torch")
+    if op == "linear_attention":
+        return _hold_rel("linear_attention", "op case", out[0], want[0], LA_REL_TOL)
+    tol = {"gemm": GEMM_TOL["bfloat16"], "spmm": SPMM_TOL["float32"], "bsr_spmm": SPARSE_TOL,
+           "spmspm": SPARSE_TOL, "stencil": STENCIL_TOL}[op]
+    return _hold(op, "op case", out, want, tol)
+
+
+def op_case_phase(report):
+    """(a) every op-roofline cell, (b) each op case on the card against its
+    bound."""
+    import functools
+
+    import torch
+
+    from repro_torch.core import precision as prec
+    from repro_torch.hopper import dispatch, ops
+    from repro_torch.launch import op_cases, roofline, shape_run
+
+    for multi_pod in (False, True):
+        for pol in (None, "fp32", "bf16", "fp8", "fp8_e5m2"):
+            for c in shape_run.op_roofline_cells(multi_pod, pol):
+                r = c["roofline"]
+                per = ", ".join(f"{a} {s * 1e6:.3f} us" for a, s in
+                                c["collective_s_per_level"].items()) or "none"
+                ov = (f"; overlapped {c['overlap']['overlapped_s'] * 1e6:.3f} us of serial "
+                      f"{c['overlap']['serial_s'] * 1e6:.3f} us" if "overlap" in c else "")
+                print(f"op roofline [{c['mesh']} {pol}] {c['op']}: {c['partition']}; dominant "
+                      f"{r['dominant']} (compute {r['compute_s'] * 1e6:.3f} us, memory "
+                      f"{r['memory_s'] * 1e6:.3f} us, d2d {r.get('d2d_s', 0.0) * 1e6:.3f} us); "
+                      f"per level {per}{ov}")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    flush = torch.empty(OP_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    cases = op_cases.op_roofline_cases()
+    inputs = {op: _op_case_inputs(op, args, kw, gen) for op, args, kw, _, _ in cases}
+    calls = {op: functools.partial(getattr(ops, op), *a, **kw) for op, (a, kw) in inputs.items()}
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    with torch.no_grad():
+        outs = {op: call() for op, call in calls.items()}
+    torch.cuda.synchronize()
+    launches = dict(dispatch.LAUNCHES)
+    print(f"op cases: one call each, launches {launches}")
+    for op, kernel in OP_KERNELS.items():
+        need(kernel is None or launches.get(kernel, 0) >= 1,
+             f"op case {op}: no {kernel} launch ({launches})")
+    report["op_roofline_launches"] = launches
+    rows = {}
+    for op, args, kw, flops, nbytes in cases:
+        real, kwr = inputs[op]
+        err = _op_case_hold(op, calls[op], outs[op], real, kwr)
+        dtype = args[0].dtype
+        cell = roofline.roofline_terms(flops, nbytes, 0.0)  # the cell at n = 1
+        cell_ms = max(cell["compute_s"], cell["memory_s"]) * 1e3
+        bound, by = bound_ms(nbytes, flops, dtype)
+        with torch.no_grad():
+            warm = time_ms(calls[op], iters=5 if flops > 1e12 else 20)
+            cold = _cold_ms(calls[op], flush)
+        med = cold[len(cold) // 2]
+        rows[op] = dict(shape=[list(a.shape) for a in args], dtype=str(dtype), flops=flops,
+                        bytes=nbytes, ms=med, cold_ms=cold, warm_ms=warm, bound_ms=bound,
+                        bound_by=by, cell_bound_ms=cell_ms, cell_dominant=cell["dominant"],
+                        share=bound / med, max_abs_err=err)
+        print(f"time op case {op} {rows[op]['shape']} {dtype}: cold {med:.5f} ms (median of "
+              f"{OP_COLD_REPS}, range {cold[0]:.5f}-{cold[-1]:.5f}), warm {warm:.5f} ms; bound "
+              f"{bound:.5f} ms ({by}, {dtype} peak {prec.peak_flops_of(dtype):.4g} FLOP/s, "
+              f"{roofline.HBM_BW:.4g} B/s), share of the bound {bound / med:.4f}; the cell's "
+              f"bound at n = 1 {cell_ms:.5f} ms ({cell['dominant']}, bf16 peak)")
+        need(med >= bound * (1 - ROOFLINE_NOISE_REL) - ROOFLINE_NOISE_MS,
+             f"op case {op}: {med:.5f} ms beats its bound {bound:.5f} ms: a wrong constant or count")
+    report["op_roofline"] = rows
+    del inputs, calls, outs, flush
+
+
+def production_mesh_phase(report):
+    """(e) every op case's plan on ``make_production_mesh(multi_pod=True)``
+    (512 ranks on the card's streams) and on its ``MeshSpec``."""
+    from repro_torch.hopper import partition
+    from repro_torch.launch import op_cases
+    from repro_torch.launch.mesh import make_production_mesh, production_mesh_spec
+
+    spec = production_mesh_spec(True)
+    mesh = make_production_mesh(True)
+    need(mesh.shape == spec.shape == {"pod": 2, "data": 16, "model": 16},
+         f"production mesh {mesh.shape} / {spec.shape}")
+    for op, args, kw, _, _ in op_cases.op_roofline_cases():
+        plan = partition.plan_for(op, spec, *args, **kw)
+        twin = partition.plan_for(op, mesh, *args, **kw)
+        need(plan is not None and twin is not None and plan.levels == twin.levels
+             and plan.note == twin.note, f"production mesh: {op} does not resolve")
+        print(f"production mesh {spec.shape}: {op} -> {plan.note} (levels {plan.levels})")
+
+
+def ep_phase(report):
+    """(c) ``ep_expert_ffn`` at phi3.5-moe's full width against the TP
+    path's three einsums (``models/moe.py``) on the same dispatch."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe, registry
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.collectives import ep_expert_ffn
+    from repro_torch.parallel.mesh import DeviceMesh
+
+    cfg = get_config(MT_MOE).replace(num_layers=1)
+    params = registry.init_params(cfg, seed=SEED, device="cuda")
+    p = {k: v[0] for k, v in params["layers"].items()}
+    del params
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(EP_B, EP_S, cfg.d_model, generator=gen, device="cuda").to(
+        getattr(torch, cfg.dtype))
+    act = L.activation_fn(cfg.activation)
+    E, C = cfg.num_experts, moe.capacity(cfg, EP_S)
+    with torch.no_grad():
+        _, topi, _ = moe._route(p, x, cfg)
+        disp = moe._dispatch(x, topi, E, C)[0]
+        wi, wg, wo = p["moe_wi"], p["moe_wg"], p["moe_wo"]
+
+        def tp():  # models/moe.py's einsums (h_dt fp32: tp_reduce_bf16 off)
+            h = torch.einsum("becd,edf->becf", disp, wi)
+            g = torch.einsum("becd,edf->becf", disp, wg)
+            h = act(g.float()).to(torch.float32) * h.to(torch.float32)
+            return torch.einsum("becf,efd->becd", h.to(disp.dtype), wo)
+
+        want = tp()
+    print(f"ep_expert_ffn {MT_MOE}: full width (d {cfg.d_model}, f {cfg.d_ff}, E {E}), layer 0's "
+          f"router over {EP_B} x {EP_S} tokens, disp {tuple(disp.shape)} {disp.dtype} "
+          f"(capacity {C})")
+    profile_fn("ep tp einsums", tp, report, walls=3)
+    res = {"tp_wall_ms": report["profile"]["ep tp einsums"]["wall_ms"]}
+    for mname, shape in EP_MESHES:
+        mesh = DeviceMesh(shape)
+        ns = sh.NamedSharding(mesh, sh.P("model", None, None))
+        placed = [sh.Placed.of(w, ns) for w in (wi, wg, wo)]
+
+        def ep(mesh=mesh, placed=placed):
+            return ep_expert_ffn(disp, *placed, act, mesh, "data")
+
+        with torch.no_grad():
+            got = ep()
+            err = _hold_mesh_bf16(f"ep_expert_ffn {mname} vs the TP einsums", got, want)
+            name = f"ep_expert_ffn {mname}"
+            profile_fn(name, ep, report, walls=3)
+        ep_n, n = mesh.shape["model"], mesh.n
+        part = disp.numel() // mesh.shape["data"] * disp.element_size()
+        off_rank = 2 * n * part * (ep_n - 1) // ep_n
+        prof = report["profile"][name]
+        print(f"ep_expert_ffn {mname}: wall {prof['wall_ms']:.3f} ms, busy {prof['busy_ms']:.3f} ms, "
+              f"idle share {prof['idle_share']}; exchanged {off_rank / 1e9:.4f} GB between ranks "
+              f"in two all-to-alls ({2 * n * part / 1e9:.4f} GB copied with each rank's own slab); "
+              f"TP einsums {res['tp_wall_ms']:.3f} ms")
+        res[mname] = dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],
+                          idle_share=prof["idle_share"], exchanged_gb=off_rank / 1e9,
+                          max_abs_err=err)
+        del placed, got, mesh
+    report["ep"] = res
+
+
+def elastic_phase(report):
+    """(d) phi3.5-moe at MT_MOE_LAYERS layers: the state placed on data2 x
+    model2, one data row lost (``elastic_remesh(2, 2, lost_ranks=1)``) and
+    the state resharded onto data1 x model2 (``reshard_state``): every old
+    part bitwise its slab of the new gathered leaf, every new part its
+    spec's shard shape; one meshed step there against the unsharded step's
+    loss from the same seeded state on the same batch."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import tree
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.mesh import DeviceMesh
+    from repro_torch.runtime import fault_tolerance as ft
+    from repro_torch.runtime import train_loop
+
+    cfg = get_config(MT_MOE).replace(num_layers=MT_MOE_LAYERS)
+    batch = _mt_batch(cfg, 0)
+    state = train_loop.init_train_state(cfg, SEED, device="cuda")
+    state, metrics = train_loop.make_train_step(cfg)(state, batch)
+    loss_u = float(metrics["loss"])
+    del state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = train_loop.init_train_state(cfg, SEED, device="cuda")
+    m22 = DeviceMesh(MT_MOE_MESH)
+    sh.place_(state, train_loop.state_shardings(cfg, state, m22))
+    m12, new_dp = ft.elastic_remesh(m22.shape["data"], m22.shape["model"], lost_ranks=1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    new = ft.reshard_state(state, cfg, m12)
+    torch.cuda.synchronize()
+    t_reshard = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t = time.perf_counter()
+    paths, old_leaves = tree.flatten_with_paths(state)
+    for path, old, leaf in zip(paths, old_leaves, tree.leaves(new)):
+        need(leaf.sharding.mesh is m12 and all(
+            tuple(q.shape) == leaf.sharding.shard_shape(leaf.shape) for q in leaf.parts),
+            f"elastic: {path} parts not of its spec's shard shape")
+        full = leaf.gather()
+        for r, part in enumerate(old.parts):
+            need(bool(torch.equal(part, m22.local(full, old.sharding.spec, r))),
+                 f"elastic: {path} rank {r} of the old mesh differs from the resharded leaf")
+        del full
+    t_check = time.perf_counter() - t
+    n_leaves = len(old_leaves)
+    del state, old_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    new, metrics = train_loop.make_mesh_train_step(cfg, m12)(new, batch)
+    loss_m = float(metrics["loss"])
+    rel = abs(loss_m - loss_u) / abs(loss_u)
+    print(f"elastic {MT_MOE} ({MT_MOE_LAYERS} layers): {n_leaves} leaves resharded from "
+          f"{m22.shape} onto {m12.shape} (new_dp {new_dp}) in {t_reshard:.2f} s, peak allocated "
+          f"{peak_gb:.2f} GB; every old part bitwise its slab of the new leaf (checked in "
+          f"{t_check:.2f} s); a meshed step on {m12.shape}: loss {loss_m:.6f} vs the unsharded "
+          f"step's {loss_u:.6f} (rel {rel:.3e}, bitwise {loss_m == loss_u}, rtol {MT_LOSS_RTOL:g})")
+    need(rel <= MT_LOSS_RTOL, "elastic: the resharded step's loss is not the unsharded step's")
+    report["elastic"] = dict(loss=loss_m, unsharded_loss=loss_u, rel=rel, reshard_s=t_reshard,
+                             leaves=n_leaves)
+    del new, metrics
+
+
+def bench_columns_phase(report):
+    """(f) the mesh rows' roofline columns (phase 13's run) and the D2D
+    rows, the pod all-reduce measured over 4 ranks."""
+    from repro_torch.launch import d2d_rows
+    from repro_torch.parallel.mesh import DeviceMesh
+
+    for r in report["mesh_bench_rows"]:
+        need("d2d_model_s" in r and ("model_overlapped_s" in r if r["overlap"] else
+                                     "coll_per_level_s" in r), f"mesh_rows {r['name']}: {r}")
+        extra = (f"model overlapped {r['model_overlapped_s'] * 1e6:.1f} us" if r["overlap"]
+                 else f"per level {r['coll_per_level_s']}")
+        print(f"mesh row {r['name']}: {r['us_per_call']:.1f} us, d2d model "
+              f"{r['d2d_model_s'] * 1e6:.2f} us, {extra}")
+    rows = d2d_rows.run(DeviceMesh({"pod": 4}, devices=_mesh_devices(4))).json_rows
+    need(sum(r["name"].startswith("fig13b_pod_allreduce") for r in rows) == 3,
+         "d2d rows: no measured all-reduce rows")
+    report["d2d_rows"] = rows
+
+
+def roofline_phase(report):
+    import torch
+
+    t0 = time.perf_counter()
+    print(f"roofline phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated at its start")
+    for part in (op_case_phase, ep_phase, elastic_phase, production_mesh_phase,
+                 bench_columns_phase):
+        t = time.perf_counter()
+        part(report)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"roofline phase: {part.__name__} {time.perf_counter() - t:.1f} s")
+    print(f"roofline phase: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 
 
 def check_hgmma(paths):
@@ -4948,6 +5326,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         mesh_train_phase(report)
+        gc.collect()
+        torch.cuda.empty_cache()
+        roofline_phase(report)
         time_kernels(report)
         time_gcn_kernels(report)
         time_gemm_accum(report)
@@ -5084,6 +5465,13 @@ def main() -> int:
         k["mesh_train_launches_per_step"] = {
             a: r["mesh"]["rows"][-1]["launches"].get(k["name"], 0)
             for a, r in report["mesh_train"].items()}
+        # phase 16: the op cases' launches, and the case this kernel runs
+        k["op_roofline_launches"] = report["op_roofline_launches"].get(k["name"], 0)
+        case = next((op for op, name in OP_KERNELS.items() if name == k["name"]), None)
+        if case is not None:
+            r = report["op_roofline"][case]
+            k["op_roofline"] = {f: r[f] for f in ("shape", "dtype", "ms", "warm_ms", "bound_ms",
+                                                  "bound_by", "share", "cell_bound_ms")}
     print(f"card: {card}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

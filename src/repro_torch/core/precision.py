@@ -19,8 +19,12 @@ x / scale cast to the compute dtype (round to nearest even), the ragged
 final block padded with zeros for its amax. Nothing clamps: an input the
 narrow format cannot hold gives what the cast gives.
 
-Left out: the reference's ``flop_multiplier`` and ``peak_flops``, which
-carry TPU peaks; the card's peaks live where a bound is computed.
+``flop_multiplier`` is a policy's peak rate against the card's bf16
+tensor-core peak (``core.topology.PEAK_FLOPS_BF16``), and ``peak_flops``
+the rate itself: 2.0 for fp8 (its tensor-core rate), 1.0 for bf16, and
+67 / 989.4 for fp32, whose kernels in the port run on the CUDA cores
+(FFMA, ``hopper/gemm.py``), not TF32. The reference's 0.5 for fp32 is a
+TPU's.
 """
 from __future__ import annotations
 
@@ -29,20 +33,27 @@ import math
 
 import torch
 
+from repro_torch.core.topology import PEAK_FLOPS_BF16
+
+# fp32 outside the tensor cores, FLOP/s (H100 SXM5 datasheet: 67 TFLOP/s)
+PEAK_FLOPS_FP32_FFMA = 67e12
+
 
 @dataclasses.dataclass(frozen=True)
 class Precision:
     name: str
     compute_dtype: torch.dtype
     accum_dtype: torch.dtype  # the expanding accumulator
+    flop_multiplier: float  # peak rate relative to the card's bf16 peak
     scale_block: int = 0  # per-block scale granularity; 0 = unit scales
 
 
 POLICIES = {
-    "fp32": Precision("fp32", torch.float32, torch.float32),
-    "bf16": Precision("bf16", torch.bfloat16, torch.float32),
-    "fp8": Precision("fp8", torch.float8_e4m3fn, torch.float32, 128),
-    "fp8_e5m2": Precision("fp8_e5m2", torch.float8_e5m2, torch.float32, 128),
+    "fp32": Precision("fp32", torch.float32, torch.float32,
+                      PEAK_FLOPS_FP32_FFMA / PEAK_FLOPS_BF16),
+    "bf16": Precision("bf16", torch.bfloat16, torch.float32, 1.0),
+    "fp8": Precision("fp8", torch.float8_e4m3fn, torch.float32, 2.0, 128),
+    "fp8_e5m2": Precision("fp8_e5m2", torch.float8_e5m2, torch.float32, 2.0, 128),
 }
 
 # the policies each op's scaled path takes; ops absent here run fp32 only
@@ -71,6 +82,20 @@ def resolve(policy) -> Precision | None:
         raise KeyError(
             f"unknown precision policy {policy!r}; known: {sorted(POLICIES)}"
         ) from None
+
+
+def peak_flops(policy) -> float:
+    """The card's peak FLOP/s for the kernels ``policy`` (a name or a
+    ``Precision``) runs on."""
+    return PEAK_FLOPS_BF16 * resolve(policy).flop_multiplier
+
+
+def peak_flops_of(dtype: torch.dtype) -> float:
+    """``peak_flops`` of the policy whose compute dtype is ``dtype``."""
+    for p in POLICIES.values():
+        if p.compute_dtype == dtype:
+            return peak_flops(p)
+    raise KeyError(f"no precision policy computes in {dtype}")
 
 
 def quantize_blockwise(x, policy, *, axis: int = -1, block: int | None = None):

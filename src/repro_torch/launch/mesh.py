@@ -3,7 +3,9 @@
 Axis mapping: ``model`` = the chiplet crossbar, ``data`` = the group
 level, ``pod`` = the D2D link. Meshes are ``parallel.mesh.DeviceMesh``
 objects: one rank per card, or ``n`` ranks on the streams of one card.
-``make_production_mesh`` (256/512 ranks) is not ported.
+The production mesh (16 x 16, or 2 x 16 x 16 with ``pod``) comes as a
+``DeviceMesh`` (``make_production_mesh``) and, for pricing a plan without
+a device, as a ``hopper.partition.MeshSpec`` (``production_mesh_spec``).
 """
 from __future__ import annotations
 
@@ -11,7 +13,26 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.diagnostics import warn_degrade
+from repro_torch.hopper.partition import MeshSpec
 from repro_torch.parallel.mesh import DeviceMesh
+
+
+def _production_shape(multi_pod: bool) -> dict:
+    return {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
+
+
+def make_production_mesh(multi_pod: bool = False, *, device=None, devices=None) -> DeviceMesh:
+    """The production mesh, 16 x 16 ``(data, model)`` or, with
+    ``multi_pod``, 2 x 16 x 16 ``(pod, data, model)``: every rank on
+    ``device``'s streams (default the first card), or one rank per entry of
+    ``devices`` (256 or 512 of them)."""
+    return DeviceMesh(_production_shape(multi_pod), device=device, devices=devices)
+
+
+def production_mesh_spec(multi_pod: bool = False) -> MeshSpec:
+    """``make_production_mesh``'s shape as a device-free ``MeshSpec``: what
+    a plan is priced on (``launch.shape_run``)."""
+    return MeshSpec(_production_shape(multi_pod))
 
 
 def make_mesh(shape: tuple, axes: tuple, *, device=None, devices=None) -> DeviceMesh:

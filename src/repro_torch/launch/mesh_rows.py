@@ -11,10 +11,12 @@ Two rows more flip only the schedule of the ops that overlap transfers
 with compute (the long-context flash ring and the halo stencil): overlap
 against sync.
 
-The reference's roofline columns (``d2d_model``, ``coll_per_level``,
-``model_overlapped_us``) need the card's own link constants
-(``launch/roofline.py``, ``core/topology.py``), which are not ported; the
-rows leave them out.
+Each sharded row also carries the reference's roofline columns at the
+card's link constants (``launch/roofline.py``): the plan's collective
+seconds in total (``d2d_model``) and per mesh level (``coll_per_level``);
+each overlap row the plan's total and the pipeline model's time
+(``model_overlapped_us``: the sync wall less the modelled transfers,
+overlapped over the plan's hops).
 
 On one card every rank is a stream of the same device: the ranks share
 its SMs and its memory, so a sharded call pays for its copies and
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch.core import sparse
 from repro_torch.hopper import dispatch, ops, partition
+from repro_torch.launch import roofline
 from repro_torch.launch.bench_rows import Rows, timeit
 from repro_torch.launch.mesh import host_device_mesh
 
@@ -119,6 +122,9 @@ def run(mesh, *, rows: Rows | None = None, reps: int = 3) -> Rows:
     for label, op, call, plan_args, plan_kwargs in _cases(rng, device):
         plan = partition.plan_for(op, mesh, *plan_args, **plan_kwargs)
         note = plan.note.replace(",", ";") if plan else "replicated"
+        by_level = roofline.plan_collective_seconds_by_level(plan)
+        d2d = sum(by_level.values())
+        per_level = "/".join(f"{ax}={s * 1e6:.2f}us" for ax, s in by_level.items()) or "none"
         with torch.no_grad():
             t_single = timeit(call, None, device=device, reps=reps)
             t_shard = timeit(call, mesh, device=device, reps=reps)
@@ -126,23 +132,29 @@ def run(mesh, *, rows: Rows | None = None, reps: int = 3) -> Rows:
         rows.row(
             f"mesh_{label}", t_shard,
             f"single_us={t_single * 1e6:.1f};speedup={t_single / t_shard:.2f}x;"
-            f"levels={levels_tag};{note};max_err={err:.1e}",
+            f"levels={levels_tag};{note};"
+            f"d2d_model={d2d * 1e6:.2f}us;coll_per_level={per_level};max_err={err:.1e}",
             op=op, mesh=levels_tag, impl=dispatch.resolve_impl(op), overlap=None,
-            single_us=t_single * 1e6, max_err=err, note=note,
+            single_us=t_single * 1e6, d2d_model_s=d2d, coll_per_level_s=by_level,
+            max_err=err, note=note,
         )
     for label, op, call, plan_args, plan_kwargs in _overlap_cases(rng, device):
         plan = partition.plan_for(op, mesh, *plan_args, **plan_kwargs)
         if plan is None or not plan.overlappable:
             continue
+        d2d = roofline.plan_collective_seconds(plan)
         with torch.no_grad():
             t_sync = timeit(call, mesh, False, device=device, reps=reps)
             t_ovl = timeit(call, mesh, True, device=device, reps=reps)
             err = _max_err(call(mesh, True), call(mesh, False))
+        ovl_s = roofline.overlapped_seconds(max(t_sync - d2d, 0.0), d2d, plan.hops)
         rows.row(
             f"mesh_overlap_{label}", t_ovl,
-            f"sync_us={t_sync * 1e6:.1f};hops={plan.hops};max_err={err:.1e}",
+            f"sync_us={t_sync * 1e6:.1f};hops={plan.hops};d2d_model={d2d * 1e6:.2f}us;"
+            f"model_overlapped_us={ovl_s * 1e6:.1f};max_err={err:.1e}",
             op=op, mesh=levels_tag, impl=dispatch.resolve_impl(op), overlap=True,
-            sync_us=t_sync * 1e6, hops=plan.hops, max_err=err,
+            sync_us=t_sync * 1e6, hops=plan.hops, d2d_model_s=d2d,
+            model_overlapped_s=ovl_s, max_err=err,
         )
     return rows
 

@@ -30,15 +30,10 @@ import torch
 from repro_torch.core import precision as prec
 from repro_torch.device import resolve_device
 from repro_torch.hopper import build, ops, ref
+from repro_torch.launch import roofline
 
 POLICY_NAMES = ("fp32", "bf16", "fp8", "fp8_e5m2")
 KERNELS = ("gemm_scaled", "flash_attention_scaled")  # csrc/ sources the sweep launches
-
-# H100 SXM (NVIDIA data sheet, dense): HBM bytes/s and peak operations/s
-# by compute dtype
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
-            torch.float8_e4m3fn: 1979e12, torch.float8_e5m2: 1979e12}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,9 +124,7 @@ def bound_ms(case: Case, policy) -> tuple[float, str]:
                  "flash_attention": case.operands[0].numel(),
                  "decode_attention": case.operands[0].numel()}[case.op]
     nbytes = sum(x.numel() * x.element_size() for x in case.operands) + 4 * out_elems
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = case.work_ops / PEAK_OPS[prec.resolve(policy).compute_dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return roofline.bound_ms(case.work_ops, nbytes, prec.peak_flops(policy))
 
 
 def errors(got, want) -> tuple[float, float]:

@@ -23,9 +23,10 @@ before it first reads the block. The controller records each event before
 any stream waits on it, so no wait can see an older generation of it.
 
 ``ring_scan_carry`` threads a linear recurrence's carry along a ring:
-rank r re-scans its chunk with the true carry rank r - 1 produced. The
-expert-parallel ``ep_expert_ffn`` is not ported yet (ROADMAP queue 1,
-item 2b).
+rank r re-scans its chunk with the true carry rank r - 1 produced.
+``all_to_all`` is ``jax.lax.all_to_all`` (untiled) over one mesh axis, and
+``ep_expert_ffn`` the expert-parallel FFN built on it: experts split over
+an axis, token rows exchanged to their experts' ranks and back.
 """
 from __future__ import annotations
 
@@ -308,6 +309,106 @@ def hierarchical_psum(parts, mesh, levels) -> list:
             for r in g[1:]:
                 parts[r] = _to_rank(mesh, parts[root], root, r)
     return parts
+
+
+def all_to_all(parts, mesh, axis: str, split_dim: int, concat_dim: int) -> list:
+    """``jax.lax.all_to_all(x, axis, split_dim, concat_dim, tiled=False)``:
+    in every group of ``axis`` (``n`` ranks), the rank at axis index ``i``
+    splits its part along ``split_dim`` (whose size must be ``n``) and
+    sends slab ``j`` to the rank at index ``j``, which stacks the ``n``
+    slabs it receives along a new ``concat_dim`` in the order of their
+    senders' indices. A part's shape becomes
+    ``insert(delete(shape, split_dim), concat_dim, n)``. Each slab is cut
+    on its sender's stream and goes through ``_to_rank`` (the ring's fenced
+    copy; a rank's own slab too); each result is a new allocation of its
+    rank."""
+    parts = list(parts)
+    out = [None] * mesh.n
+    for g in mesh.groups(axis):
+        n = len(g)
+        for r in g:
+            if parts[r].shape[split_dim] != n:
+                raise ValueError(f"all_to_all: dim {split_dim} of {tuple(parts[r].shape)} is "
+                                 f"not the {n} ranks of {axis!r}")
+        for j, dst in enumerate(g):
+            slabs = []
+            for src in g:
+                with mesh.on(src):  # the slab is cut on the stream that made the part
+                    slab = parts[src].select(split_dim, j).contiguous()
+                slabs.append(_to_rank(mesh, slab, src, dst))
+            with mesh.on(dst):
+                out[dst] = torch.stack(slabs, concat_dim)
+    return out
+
+
+def ep_expert_ffn(disp, wi, wg, wo, act, mesh, dp, *, ep_axis: str = "model"):
+    """Expert-parallel FFN on capacity-dispatched tokens (the reference's
+    ``ep_expert_ffn``).
+
+    ``disp`` (B, E, C, d) is split over the ``dp`` axes (a name or a tuple)
+    and whole on every rank of ``ep_axis``; the expert weights ``wi``,
+    ``wg`` (E, d, f; ``wg`` None for an ungated activation) and ``wo``
+    (E, f, d) are split over ``ep_axis`` on E: global tensors, or
+    ``sharding.Placed`` parts on ``mesh`` with that spec (placed once,
+    reused across calls). Each rank regroups its (b, E, C, d) rows as
+    (ep, b, E / ep, C, d) and exchanges them over ``ep_axis``
+    (``all_to_all``, split 0, concat 1), so that it holds every row of its
+    own experts; runs the FFN on them as the TP path does
+    (``act(x wg) * (x wi)`` in fp32 from products in ``disp``'s dtype,
+    rounded to it for ``wo``) and exchanges the results back the same
+    way. Returns the global (B, E, C, d) output, on ``disp``'s device.
+    With ``disp`` whole on ``ep_axis`` (the reference's in_specs), every
+    rank of a data group receives its group's rows from each of the ep
+    ranks: it runs its experts on ep copies of them.
+
+    The reference's return exchange (split 0, concat 0, then a reshape)
+    puts rows back in place only where a data rank holds one batch row
+    (B / |dp| = 1) or ``ep_axis`` has one rank; here every row returns to
+    where it came from at any batch. Raises ``ValueError`` where E does
+    not split over ``ep_axis``."""
+    from repro_torch.parallel import sharding as sh
+
+    ep = mesh.shape[ep_axis]
+    E = disp.shape[1]
+    if E % ep:
+        raise ValueError(f"ep_expert_ffn: {E} experts do not split over {ep_axis}={ep}")
+    e_loc = E // ep
+
+    def parts_of(w):
+        if w is None:
+            return [None] * mesh.n
+        if isinstance(w, sh.Placed):
+            if tuple(w.sharding.spec)[:1] != (ep_axis,) or w.sharding.mesh is not mesh:
+                raise ValueError(f"ep_expert_ffn: expert weights placed as "
+                                 f"{tuple(w.sharding.spec)}, not ({ep_axis!r}, ...) on this mesh")
+            return w.parts
+        return mesh.shard_spec(w, (ep_axis,))
+
+    wi_p, wg_p, wo_p = parts_of(wi), parts_of(wg), parts_of(wo)
+    spec = (dp,)
+    rows = []
+    for r, x in enumerate(mesh.shard_spec(disp, spec)):
+        b, _, C, d = x.shape
+        with mesh.on(r):
+            rows.append(x.reshape(b, ep, e_loc, C, d).transpose(0, 1))
+    xs = all_to_all(rows, mesh, ep_axis, 0, 1)  # (b, ep, e_loc, C, d): sender on dim 1
+    ys = []
+    for r, x in enumerate(xs):
+        b, _, _, C, d = x.shape
+        with mesh.on(r):
+            x = x.reshape(b * ep, e_loc, C, d)
+            h = torch.einsum("becd,edf->becf", x, wi_p[r]).float()
+            if wg_p[r] is not None:
+                h = act(torch.einsum("becd,edf->becf", x, wg_p[r]).float()) * h
+            y = torch.einsum("becf,efd->becd", h.to(x.dtype), wo_p[r])
+            ys.append(y.reshape(b, ep, e_loc, C, d).transpose(0, 1))
+    back = all_to_all(ys, mesh, ep_axis, 0, 1)  # (b, ep, e_loc, C, d): owner on dim 1
+    outs = []
+    for r, y in enumerate(back):
+        b, _, _, C, d = y.shape
+        with mesh.on(r):
+            outs.append(y.reshape(b, E, C, d))
+    return mesh.gather_spec(outs, spec, disp.device)
 
 
 def online_softmax_merge(o_acc, lse_acc, o, lse):

@@ -222,7 +222,7 @@ def _role_spec(role: str, dim: int, cfg, mesh, mode: str):
     if role == "ff":
         return pick(mesh, dim, tp)
     if role == "expert":
-        return None  # experts TP'd on ff; the EP variant is ep_expert_ffn's
+        return None  # experts TP'd on ff; the EP variant: collectives.ep_expert_ffn
     if role in ("heads_q", "heads_kv"):
         nh = dim // hd
         return tp if nh % axis_size(mesh, tp) == 0 else pick(mesh, dim, fsdp)

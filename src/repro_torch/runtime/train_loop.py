@@ -22,8 +22,8 @@ rank), splits each gradient by its spec, clips by a global norm that
 counts each element once, and applies AdamW per rank on its parts, on its
 stream. The forward is not split per data rank: the MoE aux loss
 ``E * sum_e f_e p_e`` is not a mean over rows, so per-rank losses would not
-average to the global batch's. The reference's ``train_state_struct``
-(the dry run's shapes) waits for ROADMAP queue 1 item 3.
+average to the global batch's. ``train_state_struct`` is the state's
+shapes and dtypes as ``meta`` tensors, with no storage (the dry run's).
 """
 from __future__ import annotations
 
@@ -45,6 +45,22 @@ def init_train_state(cfg, seed: int = 0, *, device=None):
     params = registry.init_params(cfg, seed=seed, device=device)
     return {"params": params,
             "opt": adamw.init_state(params, getattr(torch, cfg.optimizer_dtype))}
+
+
+def train_state_struct(cfg):
+    """The train state's shapes and dtypes as ``meta`` tensors (the
+    reference's ``ShapeDtypeStruct`` tree): ``registry.param_shapes`` for
+    the parameters, both moments in ``cfg.optimizer_dtype``, ``opt.step``
+    an int32 scalar. Allocates nothing."""
+    params = registry.param_shapes(cfg)
+    opt_dt = getattr(torch, cfg.optimizer_dtype)
+
+    def like(p):
+        return torch.empty(p.shape, dtype=opt_dt, device="meta")
+
+    return {"params": params,
+            "opt": {"m": tree_map(like, params), "v": tree_map(like, params),
+                    "step": torch.empty((), dtype=torch.int32, device="meta")}}
 
 
 def state_from_jax(np_state, *, device=None):

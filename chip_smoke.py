@@ -232,7 +232,26 @@ Phases, in order; any failure exits non-zero:
      ``mesh_rows`` carry their roofline columns, and the D2D rows
      (``launch.d2d_rows``) print, the pod all-reduce measured over 4
      ranks;
-  17. time every kernel against its plain version, the library call and
+  17. the dry run without XLA (``launch/step_count.py``,
+     ``launch/shape_run.py`` ``count_cell``, ``launch/shape_report.py``,
+     ``launch/shape_climb.py``, ``launch/op_doc.py``): (a) every config x
+     shape on the 16 x 16 mesh counted device-free, one line a cell (GB
+     per device, fits, FLOPs per device, the dominant term, the roofline
+     fraction, the useful-FLOPs ratio), a cell with an error failing the
+     run, and ``topology.HBM_BYTES`` beside the card's own memory size;
+     (b) the count held to the card on a 1 x 1 mesh in two cells cut to
+     one card, occamy-gptj prefill (B = 1, S = 4096, 4 layers) and a
+     gemma-2b train step (B = 1, S = 2048, all 18 layers), both at full
+     width: the counted argument bytes against the growth of
+     ``memory_allocated()`` from placing the parameters (or state) and the
+     batch (1 %), the counted aten-matmul FLOPs against
+     ``FlopCounterMode`` over the real step (1 %), the counted temp bytes
+     beside the step's peak, and the warm step no faster than the count's
+     bound (the 5 % + 1 us of phase 16), with the launch counts zeroed
+     just before the counted steps and read just after; (c) one
+     ``shape_climb`` override with its term deltas; (d) ``op_doc
+     --check``;
+  18. time every kernel against its plain version, the library call and
      its bound (CUDA events over back-to-back calls); the FA, BSR, SpMSpM,
      stencil, scan and both scaled kernels and their library calls also by
      device time (events around a CUDA graph's replay of 20 calls, which
@@ -254,7 +273,8 @@ numbers (each kernel's mesh-phase launches by mesh under
 under ``train_launches_per_step``, and a meshed step's under
 ``mesh_train_launches_per_step``, and phase 16's op cases' under
 ``op_roofline_launches`` with each kernel's op case timed under
-``op_roofline``), and as its last line ``{"ok": true, "device": {...}}``. Imports
+``op_roofline``, and phase 17's grounding steps' under
+``dryrun_launches``), and as its last line ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of the reference package.
 """
 from __future__ import annotations
@@ -5260,6 +5280,162 @@ def check_hgmma(paths):
                 need(not ops, f"{name}: warpgroup MMA outside the wgmma route ({fn})")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the dry run without XLA (launch/step_count.py, shape_run's
+# count_cell, shape_report, shape_climb, op_doc)
+# ---------------------------------------------------------------------------
+
+# (b) the two grounding cells, cut to one card: (arch, kind, B, S, layers)
+DRYRUN_GROUND = (("occamy-gptj", "prefill", 1, 4096, 4), ("gemma-2b", "train", 1, 2048, None))
+DRYRUN_ARG_REL = DRYRUN_FLOP_REL = 1e-2
+DRYRUN_CLIMB = ("phi3.5-moe-42b-a6.6b", "prefill_32k", {"tp_reduce_bf16": True})
+
+
+def dryrun_table_phase(report):
+    """(a) every config x shape on the 16 x 16 mesh, device-free."""
+    import torch
+
+    from repro_torch.configs.base import SHAPES, all_arch_ids
+    from repro_torch.core import topology
+    from repro_torch.launch import shape_report
+    from repro_torch.launch.shape_run import count_cell
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"dry run: topology.HBM_BYTES {topology.HBM_BYTES:.4g} B, the card's total_memory "
+          f"{total} B")
+    need(topology.HBM_BYTES <= total <= 1.1 * topology.HBM_BYTES,
+         f"dry run: the card holds {total} B, HBM_BYTES says {topology.HBM_BYTES:.4g}")
+    rows = {}
+    for arch in all_arch_ids():
+        for shape in SHAPES:
+            try:
+                r = count_cell(arch, shape, False)
+            except Exception as e:  # a failure here is a fault of the port
+                r = {"arch": arch, "shape": shape, "mesh": "16x16",
+                     "error": f"{type(e).__name__}: {e}"}
+            rows[(arch, shape, "16x16")] = r
+            need("error" not in r, f"dry run {arch} {shape}: {r.get('error')}")
+            if "skipped" in r:
+                print(f"dry run {arch} {shape} 16x16: skipped ({r['skipped']})")
+                continue
+            t = r["roofline"]
+            print(f"dry run {arch} {shape} 16x16: {r['memory']['total_per_device'] / 1e9:.2f} "
+                  f"GB/device, fits {r['fits']}, {r['flops_per_device']:.4g} FLOPs/device, "
+                  f"{t['dominant']}, roofline fraction {t['roofline_fraction']:.3f}, useful "
+                  f"FLOPs {r['useful_flops_ratio']:.3f}, count {r['count_s']} s")
+    print(shape_report.roofline_table(rows))
+    report["dryrun_cells"] = rows
+
+
+def _ground_cell(report, arch, kind, B, S, layers):
+    """(b) one cell counted on a 1 x 1 mesh and run on the card."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.hopper import dispatch
+    from repro_torch.hopper.partition import MeshSpec
+    from repro_torch.launch import roofline, step_count
+    from repro_torch.models import registry
+    from repro_torch.runtime import train_loop
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    shape = ShapeSpec(f"{kind}_{S}", kind, S, B)
+    label = f"dry run ground {arch} {kind} B={B} S={S} L={cfg.num_layers}"
+    c = step_count.count_step(cfg, shape, MeshSpec({"data": 1, "model": 1}))
+    mem = c["memory"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    if kind == "train":
+        state = train_loop.init_train_state(cfg, seed=0, device="cuda")
+    else:
+        params = registry.init_params(cfg, seed=0, device="cuda")
+    batch = registry.make_batch(cfg, shape, device="cuda")
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - m0
+    arg_rel = abs(grown - mem["argument_size_in_bytes"]) / mem["argument_size_in_bytes"]
+    print(f"{label}: argument bytes counted {mem['argument_size_in_bytes']}, "
+          f"memory_allocated grew {grown} (rel {arg_rel:.2e})")
+    need(arg_rel <= DRYRUN_ARG_REL, f"{label}: argument bytes off by {arg_rel:.3g}")
+    if kind == "train":
+        step = train_loop.make_train_step(cfg)
+
+        def run():
+            return step(state, batch)
+    else:
+        step = train_loop.make_prefill_step(cfg)
+
+        def run():
+            return step(params, batch)
+    run()  # warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    with FlopCounterMode(display=False) as fc:
+        out = run()
+    torch.cuda.synchronize()
+    launches = dict(dispatch.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    aten = fc.get_total_flops()
+    flop_rel = abs(aten - c["matmul_flops"]) / max(aten, 1)
+    print(f"{label}: aten matmul FLOPs counted {c['matmul_flops']:.6g}, FlopCounterMode "
+          f"{aten:.6g} (rel {flop_rel:.2e}); kernel ops by formula {c['kernel_flops']}; "
+          f"launches {launches}")
+    need(flop_rel <= DRYRUN_FLOP_REL, f"{label}: matmul FLOPs off by {flop_rel:.3g}")
+    need(launches.get("flash_attention", 0) >= cfg.num_layers,
+         f"{label}: the FA kernel launched {launches} in the counted step")
+    print(f"{label}: temp bytes counted {mem['temp_size_in_bytes']}, the step's peak above "
+          f"its arguments {peak} (counted / measured "
+          f"{mem['temp_size_in_bytes'] / max(peak, 1):.3f})")
+    ms = time_ms(run, iters=3)
+    terms = roofline.roofline_terms(c["flops"], c["hbm_bytes"], 0.0)
+    bound = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    print(f"{label}: warm step {ms:.3f} ms, the count's bound {bound:.3f} ms "
+          f"({terms['dominant']}; FLOPs {c['flops']:.4g}, HBM bytes {c['hbm_bytes']:.4g}), "
+          f"share {bound / ms:.3f}")
+    need(ms >= bound * (1 - ROOFLINE_NOISE_REL) - ROOFLINE_NOISE_MS,
+         f"{label}: {ms:.3f} ms beats its bound {bound:.3f} ms")
+    report.setdefault("dryrun_ground", {})[label] = {
+        "argument_bytes": mem["argument_size_in_bytes"], "allocated_growth": grown,
+        "matmul_flops": c["matmul_flops"], "flop_counter": aten,
+        "temp_bytes": mem["temp_size_in_bytes"], "peak_bytes": peak,
+        "ms": ms, "bound_ms": bound, "launches": launches}
+    counts = report.setdefault("dryrun_launches", {})
+    for name, n in launches.items():
+        counts[name] = counts.get(name, 0) + n
+
+
+def dryrun_phase(report):
+    import torch
+
+    from repro_torch.launch import op_doc, shape_climb
+
+    t0 = time.perf_counter()
+    dryrun_table_phase(report)
+    print(f"dry run: the 16 x 16 table in {time.perf_counter() - t0:.1f} s")
+    for row in DRYRUN_GROUND:
+        t = time.perf_counter()
+        _ground_cell(report, *row)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"dry run: {row[0]} {row[1]} grounded in {time.perf_counter() - t:.1f} s")
+    arch, shape, over = DRYRUN_CLIMB
+    r = shape_climb.climb(arch, shape, over)
+    print(f"dry run climb {arch} {shape} {over}: deltas "
+          + ", ".join(f"{k} {v:+.4g}" for k, v in r["deltas"].items()))
+    need(r["deltas"]["hbm_bytes_per_device"] < 0,
+         f"dry run climb: {over} did not lower {arch} {shape}'s HBM bytes: {r['deltas']}")
+    need(op_doc.main(["--check", "--out", str(ROOT / "docs" / "op-reference-torch.md")]) == 0,
+         "op_doc --check: docs/op-reference-torch.md is stale")
+    print(f"dry run phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -5329,6 +5505,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         roofline_phase(report)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dryrun_phase(report)
         time_kernels(report)
         time_gcn_kernels(report)
         time_gemm_accum(report)
@@ -5467,6 +5646,8 @@ def main() -> int:
             for a, r in report["mesh_train"].items()}
         # phase 16: the op cases' launches, and the case this kernel runs
         k["op_roofline_launches"] = report["op_roofline_launches"].get(k["name"], 0)
+        # phase 17: the grounding steps' launches
+        k["dryrun_launches"] = report["dryrun_launches"].get(k["name"], 0)
         case = next((op for op, name in OP_KERNELS.items() if name == k["name"]), None)
         if case is not None:
             r = report["op_roofline"][case]

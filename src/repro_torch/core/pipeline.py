@@ -56,7 +56,7 @@ def microbatched(step_fn: Callable, n_micro: int):
             loss, grads = step_fn(params, mb)
             loss_acc = loss.float() if loss_acc is None else loss_acc + loss.float()
             if acc is None:
-                acc = [torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+                acc = [torch.zeros_like(g, dtype=torch.float32)
                        for g in leaves(grads)]
             for a, g in zip(acc, leaves(grads)):
                 a.add_(g.float())

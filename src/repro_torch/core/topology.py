@@ -23,6 +23,8 @@ import dataclasses
 PEAK_FLOPS_BF16 = 989.4e12
 # HBM3 bandwidth, bytes/s (SXM5 datasheet: 3.35 TB/s)
 HBM_BW = 3.35e12
+# HBM3 capacity, bytes (SXM5 datasheet: 80 GB); a cell ``fits`` within it
+HBM_BYTES = 80e9
 # NVLink 4, bytes/s per direction (datasheet: 900 GB/s bidirectional)
 NVLINK_BW = 450e9
 # one NDR InfiniBand NIC per card (ConnectX-7, 400 Gb/s), bytes/s per direction

@@ -273,7 +273,9 @@ def gemm_scaled_blocked(a, b, precision, *, out_dtype=None,
     change no block's amax."""
     if accum_dtype != torch.float32:
         raise NotImplementedError(
-            f"gemm: accum_dtype={accum_dtype} is not ported; the scaled forms sum in float32"
+            f"gemm: accum_dtype={accum_dtype} with precision=: the scaled forms sum in "
+            f"float32, and the reference's kernel paths refuse a narrow accumulator too (its "
+            f"xla scan and its Pallas body raise); only impl='ref' computes it"
         )
     p = prec.resolve(precision)
     bk = min(resolve_blocks("gemm", bm=bm, bk=bk, bn=bn)["bk"], a.shape[1])

@@ -39,6 +39,7 @@ VALID_IMPLS = ("auto", "cuda", "torch", "ref")
 
 _REGISTRY: dict[str, dict[str, Callable]] = {}
 _default_impl: str | None = None
+_counter: Callable | None = None
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -52,6 +53,10 @@ def register_kernel(op: str, *, impl: str) -> Callable:
         return fn
 
     return deco
+
+
+def registered_ops() -> list[str]:
+    return sorted(_REGISTRY)
 
 
 def implementations(op: str) -> list[str]:
@@ -88,7 +93,10 @@ def resolve_impl(op: str, impl: str | None = None) -> str:
 
 
 def kernel_call(op: str, *args, impl: str | None = None, **kwargs):
-    """Run ``op`` through its resolved implementation."""
+    """Run ``op`` through its resolved implementation (or, inside
+    ``counting``, hand it to the counter)."""
+    if _counter is not None:
+        return _counter(op, *args, impl=impl, **kwargs)
     impl = resolve_impl(op, impl)
     fn = _REGISTRY[op].get(impl)
     if fn is None:
@@ -101,6 +109,19 @@ def kernel_call(op: str, *args, impl: str | None = None, **kwargs):
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+@contextlib.contextmanager
+def counting(counter: Callable):
+    """Inside, every ``kernel_call`` goes to ``counter(op, *args, impl=,
+    **kwargs)`` instead of an implementation: the dry run's count
+    (``launch.step_count``) prices each kernel op by formula there."""
+    global _counter
+    old, _counter = _counter, counter
+    try:
+        yield
+    finally:
+        _counter = old
 
 
 # ---------------------------------------------------------------------------

@@ -284,7 +284,9 @@ def gemm_scaled_cuda(a, b, precision, *, out_dtype=None, accum_dtype=torch.float
     fp32 raise ``NotImplementedError``."""
     if accum_dtype != torch.float32:
         raise NotImplementedError(
-            f"gemm: accum_dtype={accum_dtype} is not ported; the kernel sums in float32"
+            f"gemm: accum_dtype={accum_dtype} with precision=: the kernel sums in float32, "
+            f"and the reference's kernel paths refuse a narrow accumulator too (its xla "
+            f"scan and its Pallas body raise); only impl='ref' computes it"
         )
     if a.device.type == "cpu":
         return blocked.gemm_scaled_blocked(a, b, precision, out_dtype=out_dtype,

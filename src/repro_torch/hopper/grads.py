@@ -93,7 +93,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0, q_offset=
     the forward's q (B, H, Sq, D), k/v (B, K, Sk, D), o, its lse (B, H, Sq)
     and dO. Computes in fp32 (fp64 for fp64 inputs) over blocks of
     ``block`` keys (by default as many as keep B*H*Sq*block within
-    ``BWD_BLOCK_ELEMS``); a block that every query masks is skipped."""
+    ``BWD_BLOCK_ELEMS``); a block that every query masks is skipped, and so
+    are the query rows whose causal or window mask covers the whole block
+    (the rows' scores are all masked, so they would add exact zeros)."""
     B, H, Sq, D = q.shape
     K, Sk = k.shape[1], k.shape[2]
     G = H // K
@@ -116,20 +118,29 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0, q_offset=
             break  # every later key lies in every query's future
         if window and stop - 1 <= q_offset - window:
             continue  # every key lies outside every query's window
+        # the query rows this block reaches: q_pos >= start (causal) and
+        # q_pos - window < stop - 1 (window)
+        r0 = min(max(start - q_offset, 0), Sq) if (causal or window) else 0
+        r1 = min(max(stop - 1 + window - q_offset, 0), Sq) if window else Sq
+        if r0 >= r1:
+            continue
+        rows = slice(r0, r1)
         kb = k[:, :, start:stop].to(ct)
         vb = v[:, :, start:stop].to(ct)
-        s = torch.einsum("bkgqd,bksd->bkgqs", qs, kb)
+        qr, dor = qs[:, :, :, rows], dof[:, :, :, rows]
+        s = torch.einsum("bkgqd,bksd->bkgqs", qr, kb)
         k_pos = torch.arange(start, stop, device=dev)
-        mask = torch.ones((Sq, stop - start), dtype=torch.bool, device=dev)
+        qp = q_pos[rows]
+        mask = torch.ones((r1 - r0, stop - start), dtype=torch.bool, device=dev)
         if causal or window:
-            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+            mask = mask & (k_pos[None, :] <= qp[:, None])
         if window:
-            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
-        p = torch.where(mask, torch.exp(s - lsef[..., None]), 0.0)
-        dv[:, :, start:stop] = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
-        ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dof, vb) - delta[..., None])
-        dq += torch.einsum("bkgqs,bksd->bkgqd", ds, kb)
-        dk[:, :, start:stop] = torch.einsum("bkgqs,bkgqd->bksd", ds, qs)
+            mask = mask & (k_pos[None, :] > qp[:, None] - window)
+        p = torch.where(mask, torch.exp(s - lsef[:, :, :, rows, None]), 0.0)
+        dv[:, :, start:stop] = torch.einsum("bkgqs,bkgqd->bksd", p, dor)
+        ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dor, vb) - delta[:, :, :, rows, None])
+        dq[:, :, :, rows] += torch.einsum("bkgqs,bksd->bkgqd", ds, kb)
+        dk[:, :, start:stop] = torch.einsum("bkgqs,bkgqd->bksd", ds, qr)
     dq = (dq * scale).reshape(B, H, Sq, D)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 

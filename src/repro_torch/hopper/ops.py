@@ -174,8 +174,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
 def _fa_cuda(q, k, v, *, precision=None, **kwargs):
     if precision is not None:
         if grads.needs_grad(q, k, v):
-            grads.no_backward("flash_attention(precision=)",
-                              "the scaled form's gradient waits for ROADMAP queue 1 item 3")
+            grads.no_backward("flash_attention(precision=)'s cuda kernel",
+                              "the reference's Pallas body has none either (impl='torch' has "
+                              "the reference xla form's gradient)")
         return _fa_scaled.flash_attention_scaled_cuda(q, k, v, precision, **kwargs)
     if grads.needs_grad(q, k, v):  # the kernel forward, the plain FA-2 backward
         return grads.flash_attention(q, k, v, **kwargs)

@@ -52,7 +52,11 @@ def P(*entries) -> PartitionSpec:
 def constrain(x, kind: str):
     """``x`` itself: the layout hint ``kind`` of the active dict has no
     effect on values (the reference skips a spec longer than ``x``'s
-    rank)."""
+    rank). Under the dry run's count (``launch.step_count``, an active
+    ``__count__``) the hint seeds ``x``'s split."""
+    counter = _ACTIVE.get("__count__") if _ACTIVE else None
+    if counter is not None:
+        counter.constrain(x, _ACTIVE.get(kind))
     return x
 
 

@@ -96,12 +96,15 @@ def loss_and_grads_fn(cfg):
     return loss_and_grads
 
 
-def make_train_step(cfg, microbatches: int | None = None, grad_compression: bool = False):
+def make_train_step(cfg, microbatches: int | None = None, grad_compression: bool = False,
+                    grads_hook=None):
     """fwd + bwd + AdamW: ``train_step(state, batch) -> (state, metrics
     {"loss", "grad_norm", "lr"})``. ``microbatches > 1`` accumulates the
     gradients over batch tiles (``core.pipeline.microbatched``);
     ``grad_compression`` round-trips them through bf16 with fp32 error
-    feedback (``state["grad_err"]``). The state's tensors are updated in
+    feedback (``state["grad_err"]``). ``grads_hook(grads)`` runs between
+    the gradients and the update (the dry run's count settles each
+    gradient's partial sums there). The state's tensors are updated in
     place."""
     microbatches = microbatches if microbatches is not None else cfg.microbatches
     loss_and_grads = loss_and_grads_fn(cfg)
@@ -112,6 +115,8 @@ def make_train_step(cfg, microbatches: int | None = None, grad_compression: bool
 
     def train_step(state, batch):
         loss, grads = loss_and_grads(state["params"], batch)
+        if grads_hook is not None:
+            grads_hook(grads)
         if grad_compression:
             grads, err = compression.compress_decompress(grads, state["grad_err"])
         params, opt, metrics = adamw.apply_updates(cfg, state["params"], grads, state["opt"])

@@ -463,3 +463,64 @@ def test_cuda_scaled_kernels_match_plain_versions():
         got = flash_attention_scaled_kernel(qq, kq, kq, qs, ks, ks, **kw)
         want = blocked.flash_attention_scaled_values_blocked(qq, kq, kq, qs, ks, ks, **kw)
         assert _rel(got.cpu(), want.cpu()) < CROSS_IMPL_REL
+
+
+# ---------------------------------------------------------------------------
+# what the reference's kernel paths refuse: a narrow accumulator under
+# precision=, and the scaled attention's gradient through the Pallas body
+# ---------------------------------------------------------------------------
+
+# the narrow-accumulator oracles against each other: both round each
+# fp32 sum once to the accumulator, then widen to fp32
+NARROW_ACCUM_REF_TOL = 0.0
+# the torch impl's scaled-attention gradient against the reference's xla
+# form's: the cross-impl bound of the forward (Frobenius rel)
+SCALED_FA_GRAD_REL = CROSS_IMPL_REL
+
+
+@pytest.mark.parametrize("accum", ["bfloat16", "float16"])
+def test_narrow_accumulator_scaled_gemm_is_refused_as_the_reference_refuses(rng, accum):
+    a = rng.standard_normal((40, 300)).astype(np.float32)
+    b = rng.standard_normal((300, 24)).astype(np.float32)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    # the reference: its xla scan's carry and its Pallas body's store refuse
+    with pytest.raises(TypeError, match="carry input and carry output must have equal types"):
+        jops.gemm(ja, jb, precision="fp8", accum_dtype=getattr(jnp, accum), impl="xla", bk=64)
+    with pytest.raises(ValueError, match="Invalid dtype for `swap`"):
+        jops.gemm(ja, jb, precision="fp8", accum_dtype=getattr(jnp, accum), impl="interpret",
+                  bk=64)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    for impl in ("cuda", "torch"):
+        with pytest.raises(NotImplementedError, match="refuse a narrow accumulator too"):
+            ops.gemm(ta, tb, precision="fp8", accum_dtype=getattr(torch, accum), impl=impl, bk=64)
+    want = jops.gemm(ja, jb, precision="fp8", accum_dtype=getattr(jnp, accum), impl="ref", bk=64)
+    got = ops.gemm(ta, tb, precision="fp8", accum_dtype=getattr(torch, accum), impl="ref", bk=64)
+    assert got.dtype == torch.float32 and np.asarray(want).dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=NARROW_ACCUM_REF_TOL)
+
+
+@pytest.mark.parametrize("pol", ["bf16", "fp8"])
+def test_scaled_flash_attention_gradient_is_the_reference_xla_forms(rng, pol):
+    import jax
+
+    B, H, K, S, D = 1, 4, 2, 64, 32
+    q = rng.standard_normal((B, H, S, D)).astype(np.float32)
+    k = rng.standard_normal((B, K, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, K, S, D)).astype(np.float32)
+    do = rng.standard_normal((B, H, S, D)).astype(np.float32)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+
+    def jloss(impl):
+        return lambda q, k, v: jnp.sum(jops.flash_attention(q, k, v, precision=pol,
+                                                            impl=impl) * do)
+
+    want = jax.grad(jloss("xla"), argnums=(0, 1, 2))(jq, jk, jv)
+    with pytest.raises(AssertionError):  # the reference's Pallas body has no gradient
+        jax.grad(jloss("interpret"), argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    o = ops.flash_attention(tq, tk, tv, precision=pol, impl="torch")
+    got = torch.autograd.grad((o * torch.from_numpy(do)).sum(), (tq, tk, tv))
+    for g, w in zip(got, want):
+        assert _rel(g, w) < SCALED_FA_GRAD_REL
+    with pytest.raises(NotImplementedError, match="the reference's Pallas body has none"):
+        ops.flash_attention(tq, tk, tv, precision=pol, impl="cuda")

@@ -422,8 +422,12 @@ def test_shape_run_cli(capsys):
     cells = [json.loads(x) for x in lines]
     assert [c["op"] for c in cells] == [c["op"] for c in shape_run.op_roofline_cells(True, "fp8")]
     assert {c["mesh"] for c in cells} == {"2x16x16"}
-    with pytest.raises(SystemExit):
-        shape_run.main([])
+    with pytest.raises(SystemExit):  # argparse refuses a policy it does not know
+        shape_run.main(["--op-roofline", "--precision", "fp4"])
+    # since the dry run's cells are ported, a run without --op-roofline counts
+    # cells: one that cannot be counted is an error line and exit code 1
+    assert shape_run.main(["--arch", "no-such-arch", "--shape", "decode_32k"]) == 1
+    assert "error" in json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
 # ---------------------------------------------------------------------------

@@ -167,8 +167,9 @@ Phases, in order; any failure exits non-zero:
      and hymba's SSD read-out (broadcast inputs, s0), and small fp32 cases
      (fp32 max rel 1e-4, bf16 Frobenius rel 1e-2), the scan's kernel
      forward (o, S_final) held to the plain one, each backward timed;
-     hymba-1.5b below keeps 16 of its 32 layers at full width (since PR 25:
-     phase 10b's time is paid here; the cut and its reason printed);
+     hymba-1.5b below keeps 8 of its 32 layers at full width (its
+     host-bound steps are the phase's cost; the cut and its reason
+     printed);
      (b) one hymba-1.5b step, B 1 x 2048, cuda against torch: the loss and the global gradient norm to 1e-2, every
      leaf finite and nonzero, every leaf's cosine >= 0.975 in bf16 (beside
      each kernel alone and plain controls that round as the kernels do)
@@ -177,7 +178,7 @@ Phases, in order; any failure exits non-zero:
      run, a run crashed at step 4 (exit 42, checkpoint at 3) and its
      restart (resumes at 3 and writes no checkpoint, ends at opt.step 6,
      final loss within 1e-3 of
-     the straight run's), 32 FA and 32 scan launches a step (16 layers x
+     the straight run's), 16 FA and 16 scan launches a step (8 layers x
      forward and recompute), then a profiled step (wall, busy, idle share,
      top device operations, tokens/s, peak memory, 6 N T model FLOPs and
      their share of the bf16 peak); (d) gemma-2b and rwkv6-3b the same way
@@ -251,7 +252,27 @@ Phases, in order; any failure exits non-zero:
      just before the counted steps and read just after; (c) one
      ``shape_climb`` override with its term deltas; (d) ``op_doc
      --check``;
-  18. time every kernel against its plain version, the library call and
+  18. the block-geometry search on the card (``launch/block_search.py``,
+     ``launch/bench_run.py``, ``launch/quickstart.py``): (a) ``autotune``
+     over ``full_suite()`` at the card's shapes (``TUNE_BUDGET`` candidates
+     timed an entry, the default first and last), one line an entry
+     (candidates, pruned with their bytes, timed, mismatched, the
+     default's two readings, the winner and its time, the model's pick's
+     rank among the timed plans), a kernel plan whose output differs from
+     the model's pick failing the run; (b) the record saved, loaded and
+     applied: each entry's call launches the winner's plan (a plan
+     override hit at the planner's arguments, the planner returning the
+     winner) and gives the output it gave in the search (its fp64 sums),
+     with the launch counts zeroed just before and read just after, and
+     winner and default re-timed interleaved; (c) occamy-gptj's contiguous
+     decode step at full width (``TUNE_GPTJ_LAYERS`` layers) at the
+     default ``bs`` and with the ``decode_attention#decode`` winner: wall,
+     busy, launches; (d) ``bench_run --autotune-only`` on the record, then
+     every harness row on the card, the row names the reference
+     harness's; (e) the quickstart's four acts, each error under its
+     bound; (f) ``shape_climb --autotune-record`` on one cell, and a
+     record from another card refused;
+  19. time every kernel against its plain version, the library call and
      its bound (CUDA events over back-to-back calls); the FA, BSR, SpMSpM,
      stencil, scan and both scaled kernels and their library calls also by
      device time (events around a CUDA graph's replay of 20 calls, which
@@ -273,8 +294,9 @@ numbers (each kernel's mesh-phase launches by mesh under
 under ``train_launches_per_step``, and a meshed step's under
 ``mesh_train_launches_per_step``, and phase 16's op cases' under
 ``op_roofline_launches`` with each kernel's op case timed under
-``op_roofline``, and phase 17's grounding steps' under
-``dryrun_launches``), and as its last line ``{"ok": true, "device": {...}}``. Imports
+``op_roofline``, phase 17's grounding steps' under ``dryrun_launches``,
+and phase 18's tuned calls' under ``block_search_launches``), and as its
+last line ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of the reference package.
 """
 from __future__ import annotations
@@ -2198,7 +2220,8 @@ def profile_fn(name, fn, report, walls=3, cpu=True, warm=False):
     for e in top:
         print(f"profile {name}:   {dev(e) / 1e3:8.3f} ms x{e.count:5d}  {e.key[:90]}")
     report.setdefault("profile", {})[name] = dict(wall_ms=wall, busy_ms=busy_ms, idle_share=idle,
-                                                  span_ms=span_ms, span_share=span_ms / wall)
+                                                  span_ms=span_ms, span_share=span_ms / wall,
+                                                  launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -3771,14 +3794,15 @@ GRAD_COSINE_BF16 = 0.975
 TRAIN_ARCH = "hymba-1.5b"
 TRAIN_B, TRAIN_S = 2, 2048
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 6, 3, 4
-# hymba-1.5b trains at full width with 16 of its 32 layers in (b), (c) and
-# (e): the families phase (10b) took the script past PR 24's ~790 s, and
-# the hymba steps (host-bound, ~0.1 s a layer) are its largest cost; a
-# layer's shapes, kernels and launches do not change with depth
-TRAIN_LAYERS = 16
-TRAIN_CUT_WHY = ("phase 10b (the remaining families) added ~70 s to the script, and hymba's "
-                 "host-bound training steps are its largest cost; a layer's shapes, kernels and "
-                 "launches do not change with depth")
+# hymba-1.5b trains at full width with 8 of its 32 layers in (b), (c) and
+# (e): the hymba steps are host-bound (0.12-0.3 s a layer, by the host the
+# card sits on) and the phase's largest cost; on a slow host the whole
+# script came within 80 s of its 1200 s limit at 16 layers. A layer's
+# shapes, kernels and launches do not change with depth
+TRAIN_LAYERS = 8
+TRAIN_CUT_WHY = ("hymba's host-bound training steps are the phase's largest cost, and on a slow "
+                 "host the script came within 80 s of its time limit at 16 layers; a layer's "
+                 "shapes, kernels and launches do not change with depth")
 TRAIN_RESUME_RTOL = 1e-3  # straight vs resumed final loss (CUDA's embedding atomics)
 # (d) the other two families: (arch, steps)
 TRAIN_OTHERS = (("gemma-2b", 3), ("rwkv6-3b", 3))
@@ -5436,6 +5460,282 @@ def dryrun_phase(report):
     print(f"dry run phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the block-geometry search on the card (launch/block_search.py),
+# the harness twin (launch/bench_run.py), the quickstart and
+# shape_climb --autotune-record
+# ---------------------------------------------------------------------------
+
+TUNE_BUDGET = 8  # candidates timed a suite entry (the default always)
+TUNE_REPS = 5  # groups of ~10 ms of back-to-back calls a candidate
+TUNE_RECORD = ROOT / "chip_scratch" / "autotune_record.json"
+TUNE_GPTJ_LAYERS = 8
+TUNE_GPTJ_WHY = ("a decode step's attention and its launches repeat per layer; 8 of 28 layers "
+                 "keep the phase near its time")
+TUNE_CLIMB = ("occamy-gptj", "prefill_32k")
+# the kernels whose plans or knobs the suite tunes (bsr_spmm: the default alone)
+TUNE_KERNELS = ("gemm", "gemm_scaled", "flash_attention", "linear_attention", "spmm",
+                "bsr_spmm", "spmspm", "stencil")
+QUICKSTART_BOUNDS = {"gemm_err": 1e-3, "spmm_err": 1e-5, "fp32": 1e-6, "bf16": 1e-2, "fp8": 0.1}
+# benchmarks/run.py's row names, in its order
+REF_ROW_NAMES = (
+    ["fig9a_gemm_512"] + [f"fig10_gemm_{p}" for p in ("fp32", "bf16", "fp8")]
+    + ["fig9a_tiled_gemm_2048x512"]
+    + [f"precision_{op}_{p}_{i}" for op in ("gemm", "flash_attention", "decode_attention")
+       for p in ("fp32", "bf16", "fp8", "fp8_e5m2") for i in ("xla", "interpret")]
+    + [f"fig9b_{n}" for n in ("j2d5pt_64x64", "j2d9pt_64x64", "j3d7pt_16c", "j3d13pt_16c",
+                              "j3d27pt_16c")]
+    + [f"fig9c_spmm_{f}_d{d}pct" for d in ("0.12", "1.00", "2.80") for f in ("ell", "bsr")]
+    + [f"fig9d_spmspm_d{d}pct" for d in ("0.12", "1.00", "2.80")]
+    + [f"fig11_gcn_{g}" for g in ("webkb", "cora", "citeseer")]
+    + [f"fig12_gptj_prefill_s{s}" for s in (128, 256, 512, 1024)]
+    + [f"fig13a_d2d_disable_{d}" for d in (0, 8, 16, 24)]
+    + [f"fig13b_d2d_xfer_{n}B" for n in (1024, 4096, 16384, 65536, 262144, 1048576)]
+    + [f"fig13_pod_allreduce_{g}GB" for g in (0.1, 1.0, 2.45)])
+
+
+def _tune_line(name, key, e):
+    timed = e["timed"]
+    cands = len(timed) + len(e["pruned"]) + len(e["mismatched"]) + len(e["skipped_by_budget"])
+    pruned = ", ".join(f"{p['blocks']} {p['smem_bytes']} B ({p['why']})" for p in e["pruned"][:3])
+    more = f" +{len(e['pruned']) - 3} more" if len(e["pruned"]) > 3 else ""
+    readings = ", ".join(f"{r:.3f}" for r in e["default_readings_us"])
+    rank = (f"; the model's pick ranked {e['model_rank']} of {len(timed)} timed plans"
+            if e["knob"] == "plan" else "")
+    print(f"tune {name} [{e['knob']}]: {cands} candidates, {len(e['pruned'])} pruned"
+          f"{' (' + pruned + more + ')' if pruned else ''}, {len(timed)} timed, "
+          f"{len(e['mismatched'])} mismatched {[m['blocks'] for m in e['mismatched']]}, "
+          f"{len(e['skipped_by_budget'])} past the budget; default {e['default_blocks']} "
+          f"[{readings}] us; winner {e['blocks']} {e['us_per_call']:.3f} us{rank}"
+          + (f"; {e['note']}" if e.get("note") else ""))
+
+
+def _tuned_planner(plan_op, args):
+    """The planner's return at ``args`` (an override there, else its model)."""
+    from repro_torch.hopper import flash_attention, gemm, gemm_scaled, spmm, spmspm, stencil
+
+    fn = {"gemm": gemm.plan_f32, "gemm_scaled": gemm_scaled.plan, "spmm": spmm.plan,
+          "spmspm": spmspm.plan, "stencil": stencil.plan, "flash_attention": flash_attention.plan}
+    return fn[plan_op](*args)
+
+
+def tune_search_phase(report):
+    """(a) and (b): the search at the card's shapes, then its record
+    replayed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.hopper import dispatch
+    from repro_torch.launch import block_search as bs
+
+    t = time.perf_counter()
+    keys = {}  # suite name -> record key
+
+    def on_entry(name, key, e):
+        keys[name] = key
+        _tune_line(name, key, e)
+
+    try:
+        record = bs.autotune(suite=bs.full_suite(), reps=TUNE_REPS, trial_budget=TUNE_BUDGET,
+                             device="cuda", on_entry=on_entry)
+    except bs.SearchFault as e:
+        raise SmokeFailure(f"block search: {e}") from e
+    print(f"tune: the search over {len(record['entries'])} entries in "
+          f"{time.perf_counter() - t:.1f} s on {record['backend']}")
+    TUNE_RECORD.parent.mkdir(parents=True, exist_ok=True)
+    bs.save_record(record, str(TUNE_RECORD))
+    loaded = bs.load_record(str(TUNE_RECORD))
+    need(loaded == json.loads(json.dumps(record)), "tune: the saved record does not load back")
+    report["tune"] = {name: {f: e[f] for f in ("knob", "blocks", "us_per_call", "default_blocks",
+                                               "default_us", "default_readings_us")}
+                      | {"model_rank": e.get("model_rank"), "mismatched": len(e["mismatched"]),
+                         "pruned": len(e["pruned"]), "timed": len(e["timed"])}
+                      for name, e in ((n, record["entries"][k]) for n, k in keys.items())}
+
+    rng = np.random.default_rng(0)  # the search's operand stream, case by case
+    dispatch.reset_launches()
+    launches = {}
+    for name, factory in bs.full_suite().items():
+        e = loaded["entries"][keys[name]]
+        case = factory(rng, device="cuda", card=True)
+        with dispatch.saved_overrides():
+            applied = bs.apply_record(loaded, precision=case.precision, consumer=case.consumer)
+            need(e["knob"] == "fixed" or applied.get(case.op) == e["blocks"],
+                 f"tune {name}: apply_record gave {applied}, not {e['blocks']}")
+            hits = dict(dispatch.PLAN_HITS)
+            before = dict(dispatch.LAUNCHES)
+            with torch.no_grad():
+                out = case.fn(*case.args)
+            torch.cuda.synchronize()
+            for k, n in dispatch.LAUNCHES.items():
+                launches[k] = launches.get(k, 0) + n - before.get(k, 0)
+            if e["knob"] == "plan":
+                args = bs.decode_args(e["plan_args"])
+                want = bs.plan_of(e["plan_op"], args, e["blocks"])
+                need(dispatch.PLAN_HITS[e["plan_op"]] > hits.get(e["plan_op"], 0),
+                     f"tune {name}: the call did not reach the {e['plan_op']} plan override")
+                need(_tuned_planner(e["plan_op"], args) == want,
+                     f"tune {name}: the planner does not return the winner {e['blocks']}")
+            elif e["knob"] == "blocks":
+                need(dispatch.resolve_blocks(case.op) == e["blocks"],
+                     f"tune {name}: the block table does not hold the winner {e['blocks']}")
+            got = bs.checksum(out)
+            was = next(t["checksum"] for t in e["timed"] if t["blocks"] == e["blocks"])
+            rel = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(got, was))
+            exact = case.exact
+            print(f"tune {name}: the applied {e['blocks']} launched "
+                  f"({'a plan override hit, the planner returns it' if e['knob'] == 'plan' else e['knob']}); "
+                  f"output sums {got} against the search's {was} (rel {rel:.2e})")
+            need(rel == 0 if exact else rel < 1e-5,
+                 f"tune {name}: the applied winner's output differs from the search's")
+
+            def call():
+                with torch.no_grad():
+                    case.fn(*case.args)
+
+            if e["blocks"] != e["default_blocks"]:
+                tw = bs._time_call(call, torch.device("cuda"), reps=TUNE_REPS)
+                with dispatch.saved_overrides():
+                    dispatch.clear_plan_overrides()
+                    dispatch.clear_block_overrides()
+                    td = bs._time_call(call, torch.device("cuda"), reps=TUNE_REPS)
+                tw2 = bs._time_call(call, torch.device("cuda"), reps=TUNE_REPS)
+                print(f"tune {name}: re-timed interleaved, winner {tw * 1e6:.3f} / "
+                      f"{tw2 * 1e6:.3f} us, default {td * 1e6:.3f} us")
+                report["tune"][name].update(retimed_winner_us=[tw * 1e6, tw2 * 1e6],
+                                            retimed_default_us=td * 1e6)
+        del case, out
+        torch.cuda.empty_cache()
+    report["block_search_launches"] = launches
+    print(f"tune: the tuned calls' launches {launches}")
+    for k in TUNE_KERNELS:
+        need(launches.get(k, 0) > 0, f"tune: no {k} launch in the tuned calls")
+    return loaded
+
+
+def tune_decode_phase(report, record):
+    """(c) occamy-gptj's contiguous decode step at the default bs and
+    with the decode_attention#decode winner."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.hopper import dispatch
+    from repro_torch.launch import block_search as bs
+    from repro_torch.models import transformer
+
+    cfg = get_config("occamy-gptj")
+    full = cfg.num_layers
+    cfg = cfg.replace(num_layers=TUNE_GPTJ_LAYERS)
+    print(f"tune decode: occamy-gptj depth cut to {TUNE_GPTJ_LAYERS} of {full} layers: "
+          f"{TUNE_GPTJ_WHY}")
+    params = transformer.init_params(cfg, seed=SEED, device="cuda")
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (DENSE_B, DENSE_PROMPT))).cuda()
+    res = {}
+    with torch.no_grad():
+        _, cache = transformer.prefill_step(params, cfg, {"tokens": tokens},
+                                            DENSE_PROMPT + DENSE_NEW)
+        step = {"token": tokens[:, -1], "position": torch.full((DENSE_B,), DENSE_PROMPT,
+                                                               dtype=torch.int32, device="cuda")}
+        win = next(e for e in record["entries"].values()
+                   if e["op"] == "decode_attention" and e.get("consumer") == "decode")
+        for label in ("default", "tuned"):
+            with dispatch.saved_overrides():
+                if label == "tuned":
+                    bs.apply_record(record, consumer="decode")
+                bsz = dispatch.resolve_blocks("decode_attention")["bs"]
+                dispatch.reset_launches()
+                transformer.decode_step(params, cfg, {k: v.clone() for k, v in cache.items()},
+                                        step)
+                torch.cuda.synchronize()
+                kl = dict(dispatch.LAUNCHES)
+                name = f"tune decode occamy-gptj {label} bs={bsz}"
+                profile_fn(name, lambda: transformer.decode_step(params, cfg, cache, step), report)
+                res[label] = dict(report["profile"][name], bs=bsz, kernel_launches=kl)
+        print(f"tune decode: the #decode winner {win['blocks']} against the default "
+              f"{win['default_blocks']}: wall {res['tuned']['wall_ms']:.3f} / "
+              f"{res['default']['wall_ms']:.3f} ms, busy {res['tuned']['busy_ms']:.3f} / "
+              f"{res['default']['busy_ms']:.3f} ms, launches {res['tuned']['launches']} / "
+              f"{res['default']['launches']}")
+    report["tune_decode"] = res
+    del params, cache
+
+
+def tune_harness_phase(report):
+    """(d) bench_run on the card, (e) the quickstart, (f) shape_climb."""
+    import copy
+
+    import torch
+
+    from repro_torch.launch import bench_run, block_search, quickstart, shape_climb
+
+    t = time.perf_counter()
+    out_dir = ROOT / "chip_scratch"
+    bench_run.main(["--autotune-only", "--autotune-record", str(TUNE_RECORD),
+                    "--json", str(out_dir / "bench_autotune.json")])
+    rows = json.loads((out_dir / "bench_autotune.json").read_text())["rows"]
+    need(len(rows) == len(block_search.full_suite()) and all(
+         r["derived"].endswith(";loaded") for r in rows),
+         f"bench_run --autotune-only: {len(rows)} rows, not the record's entries loaded")
+    bench_run.main(["--json", str(out_dir / "bench_rows.json")])
+    names = [r["name"] for r in json.loads((out_dir / "bench_rows.json").read_text())["rows"]]
+    need(names == REF_ROW_NAMES, f"bench_run: row names differ from the reference harness's: "
+                                 f"{sorted(set(names) ^ set(REF_ROW_NAMES))}")
+    print(f"tune harness: bench_run's {len(names)} rows on the card, names the reference's, "
+          f"in {time.perf_counter() - t:.1f} s")
+    report["bench_rows"] = len(names)
+
+    t = time.perf_counter()
+    q = quickstart.main([])
+    for key in ("gemm_err", "spmm_err"):
+        need(q[key] <= QUICKSTART_BOUNDS[key], f"quickstart {key} {q[key]:.3e} past its bound")
+    for pol, rel in q["precision_rel"].items():
+        need(rel <= QUICKSTART_BOUNDS[pol], f"quickstart {pol} rel_err {rel:.3e} past its bound")
+    need(len(q["losses"]) == 10 and all(torch.isfinite(torch.tensor(q["losses"]))),
+         "quickstart act 4: losses")
+    print(f"tune quickstart: {q} in {time.perf_counter() - t:.1f} s")
+    report["quickstart"] = q
+
+    t = time.perf_counter()
+    arch, shape = TUNE_CLIMB
+    res = shape_climb.climb_with_record(arch, shape, {}, str(TUNE_RECORD))
+    need("autotune" in res and "error" not in res, f"shape_climb --autotune-record: {res}")
+    print(f"tune climb {arch} {shape} with the record: {len(res['autotune'])} entries' deltas "
+          f"{ {k: d['delta_pct'] for k, d in res['autotune'].items()} }, dominant "
+          f"{res['roofline']['dominant']}, in {time.perf_counter() - t:.1f} s")
+    foreign = copy.deepcopy(block_search.load_record(str(TUNE_RECORD)))
+    foreign["backend"] = "another card (114 SMs)"
+    path = out_dir / "autotune_foreign.json"
+    block_search.save_record(foreign, str(path))
+    try:
+        shape_climb.climb_with_record(arch, shape, {}, str(path))
+        need(False, "shape_climb took a record from another card")
+    except ValueError as e:
+        need("re-run the autotuner" in str(e), f"shape_climb refused with {e}")
+        print(f"tune climb: a record from another card refused: {str(e)[:120]}")
+
+
+def block_search_phase(report):
+    import torch
+
+    t0 = time.perf_counter()
+    record = tune_search_phase(report)
+    print(f"tune phase: (a, b) {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    tune_decode_phase(report, record)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tune phase: (c) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    tune_harness_phase(report)
+    print(f"tune phase: (d-f) {time.perf_counter() - t:.1f} s")
+    print(f"tune phase: {time.perf_counter() - t0:.1f} s")
+    report["tune_phase_s"] = time.perf_counter() - t0
+
+
 def main() -> int:
     try:
         import torch
@@ -5508,6 +5808,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         dryrun_phase(report)
+        gc.collect()
+        torch.cuda.empty_cache()
+        block_search_phase(report)
+        gc.collect()
+        torch.cuda.empty_cache()
         time_kernels(report)
         time_gcn_kernels(report)
         time_gemm_accum(report)
@@ -5648,6 +5953,8 @@ def main() -> int:
         k["op_roofline_launches"] = report["op_roofline_launches"].get(k["name"], 0)
         # phase 17: the grounding steps' launches
         k["dryrun_launches"] = report["dryrun_launches"].get(k["name"], 0)
+        # phase 18: the tuned calls' launches, and the entries' tuned times
+        k["block_search_launches"] = report["block_search_launches"].get(k["name"], 0)
         case = next((op for op, name in OP_KERNELS.items() if name == k["name"]), None)
         if case is not None:
             r = report["op_roofline"][case]

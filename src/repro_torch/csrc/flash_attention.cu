@@ -540,17 +540,23 @@ cudaError_t launch_wgmma(const Params& p, int B, cudaStream_t st) {
 }
 
 template <int D>
-cudaError_t launch_d(const Params& p, int B, int dtype, cudaStream_t st) {
+cudaError_t launch_d(const Params& p, int B, int dtype, int nwg, cudaStream_t st) {
   if (dtype == 1) {
-    // One warpgroup a CTA while 64-row CTAs fit in one wave (the S = 512
-    // prefill: the most SMs at work); two, sharing each K/V tile, once
-    // they do not (the ring's blocks, long prompts): each SM scheduler
-    // then holds two warps, one's softmax hiding behind the other's
-    // products, and a tile's loads serve twice the rows.
-    const long long ctas = static_cast<long long>((p.Sq + WG_BQ - 1) / WG_BQ) * p.H * B;
-    if (ctas > sm_count()) return launch_wgmma<D, 2>(p, B, st);
-    return launch_wgmma<D, 1>(p, B, st);
+    // nwg 0: one warpgroup a CTA while 64-row CTAs fit in one wave (the
+    // S = 512 prefill: the most SMs at work); two, sharing each K/V tile,
+    // once they do not (the ring's blocks, long prompts): each SM
+    // scheduler then holds two warps, one's softmax hiding behind the
+    // other's products, and a tile's loads serve twice the rows. 1 or 2
+    // takes that many (a tuned plan, hopper/flash_attention.py).
+    if (nwg == 0) {
+      const long long ctas = static_cast<long long>((p.Sq + WG_BQ - 1) / WG_BQ) * p.H * B;
+      nwg = ctas > sm_count() ? 2 : 1;
+    }
+    if (nwg == 2) return launch_wgmma<D, 2>(p, B, st);
+    if (nwg == 1) return launch_wgmma<D, 1>(p, B, st);
+    return cudaErrorInvalidValue;
   }
+  if (nwg != 0) return cudaErrorInvalidValue;  // the fp32 kernel has no warpgroups
   static std::atomic<unsigned long long> ready_f32{0};
   cudaError_t err = smem_attribute_once(fa_fwd_f32_kernel<D>, f32_smem_bytes<D>(), ready_f32);
   if (err != cudaSuccess) return err;
@@ -565,10 +571,12 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (bf16 pointers 16-byte aligned and
 // (b, h, s) strides multiples of 8). strides: 12 element strides, (b, h, s)
-// for q, k, v and o in that order. Returns the launch's cudaError_t.
+// for q, k, v and o in that order. nwg: the bf16 kernel's warpgroups a
+// CTA, 1 or 2, or 0 for the rule in launch_d (fp32: 0). Returns the
+// launch's cudaError_t.
 int repro_fa_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int B, int H,
                  int K, int Sq, int Sk, int D, const long long* strides, float scale, int causal, int window,
-                 int q_offset, void* stream) {
+                 int q_offset, int nwg, void* stream) {
   if (B <= 0 || H <= 0 || K <= 0 || H % K != 0 || Sq <= 0 || Sk < 0) return cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   Params p;
@@ -593,11 +601,11 @@ int repro_fa_fwd(const void* q, const void* k, const void* v, void* o, float* ls
   p.q_offset = q_offset;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_d<16>(p, B, dtype, st);
-    case 32: return launch_d<32>(p, B, dtype, st);
-    case 64: return launch_d<64>(p, B, dtype, st);
-    case 128: return launch_d<128>(p, B, dtype, st);
-    case 256: return launch_d<256>(p, B, dtype, st);
+    case 16: return launch_d<16>(p, B, dtype, nwg, st);
+    case 32: return launch_d<32>(p, B, dtype, nwg, st);
+    case 64: return launch_d<64>(p, B, dtype, nwg, st);
+    case 128: return launch_d<128>(p, B, dtype, nwg, st);
+    case 256: return launch_d<256>(p, B, dtype, nwg, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -21,6 +21,18 @@ compile-time constants of its source, with one exception: the linear
 attention kernel takes ``chunk`` at run time, since the chunk bounds the
 span one fp32 ``exp`` covers (``ops.linear_attention``'s overflow guard).
 
+The kernels' other run-time geometry comes from their planners
+(``gemm.plan_f32``, ``gemm_scaled.plan``, ``spmm.plan``, ``spmspm.plan``,
+``stencil.plan``, ``flash_attention.plan``). Each planner asks
+``lookup_plan(op, args)`` first: a plan set with ``set_plan_override`` /
+``plan_override`` for exactly those planner arguments (shapes, dtype,
+alignment, SMs), else its cost model's pick. Block overrides are op-wide;
+a plan override holds at one shape only, since a plan that fits one shape
+says nothing of another. ``PLAN_HITS`` counts the planner calls an
+override answered, by op. ``PlanCandidate`` is one entry of a planner's
+``candidates(...)``: every plan its model weighs, with the model's cost,
+its shared memory, threads and registers, and whether it fits the card.
+
 ``LAUNCHES`` counts kernel launches per kernel: a wrapper adds one where it
 launches its kernel, and nowhere else. The scaled kernels count under
 their own keys (``gemm_scaled``, ``flash_attention_scaled``), apart from
@@ -33,7 +45,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
-from typing import Callable
+from typing import Any, Callable, NamedTuple
 
 VALID_IMPLS = ("auto", "cuda", "torch", "ref")
 
@@ -81,6 +93,11 @@ def default_impl(impl: str | None):
         yield
     finally:
         set_default_impl(old)
+
+
+def current_default_impl() -> str | None:
+    """The impl ``set_default_impl`` set, or None."""
+    return _default_impl
 
 
 def resolve_impl(op: str, impl: str | None = None) -> str:
@@ -151,6 +168,22 @@ def _known_blocks(op: str, names) -> dict[str, int]:
     return known
 
 
+def block_defaults(op: str, *, overrides: bool = True) -> dict[str, int]:
+    """``op``'s plain-form block sizes: the static table, merged with any
+    override unless ``overrides=False``."""
+    if not overrides:
+        return dict(_BLOCK_DEFAULTS.get(op, {}))
+    return {**_BLOCK_DEFAULTS.get(op, {}), **_block_overrides.get(op, {})}
+
+
+def clear_block_overrides(op: str | None = None) -> None:
+    """Drop ``op``'s block overrides, or every op's."""
+    if op is None:
+        _block_overrides.clear()
+    else:
+        _block_overrides.pop(op, None)
+
+
 def set_block_override(op: str, **sizes: int) -> None:
     """Override the plain form's default block sizes for ``op``."""
     _known_blocks(op, sizes)
@@ -179,3 +212,94 @@ def block_override(op: str, **sizes: int):
             _block_overrides[op] = old
         else:
             _block_overrides.pop(op, None)
+
+
+# ---------------------------------------------------------------------------
+# Run-time plans of the kernels
+# ---------------------------------------------------------------------------
+
+_plan_overrides: dict[tuple, Any] = {}
+PLAN_HITS: collections.Counter = collections.Counter()
+
+
+class PlanCandidate(NamedTuple):
+    """One plan a planner's model weighs: ``knobs`` are its tunable fields
+    (ints), ``cost`` the model's cost (lower is better; ``key`` orders
+    ties), ``smem``/``threads``/``regs`` what a CTA of it takes, and
+    ``why`` is empty where it fits the card, else the limit it passes."""
+
+    plan: Any
+    knobs: dict
+    cost: float
+    key: tuple
+    smem: int
+    threads: int
+    regs: int
+    why: str = ""
+
+    @property
+    def feasible(self) -> bool:
+        return not self.why
+
+
+def model_pick(candidates) -> PlanCandidate:
+    """The least-``key`` feasible candidate (the first of equal keys)."""
+    return min((c for c in candidates if c.feasible), key=lambda c: c.key)
+
+
+def _plan_key(op: str, args) -> tuple:
+    return (op, tuple(args))
+
+
+def set_plan_override(op: str, args, plan) -> None:
+    """Make ``op``'s planner return ``plan`` when called with exactly
+    ``args`` (its positional arguments, in order)."""
+    _plan_overrides[_plan_key(op, args)] = plan
+
+
+def clear_plan_overrides(op: str | None = None) -> None:
+    """Drop ``op``'s plan overrides, or every op's."""
+    for key in [k for k in _plan_overrides if op is None or k[0] == op]:
+        del _plan_overrides[key]
+
+
+@contextlib.contextmanager
+def plan_override(op: str, args, plan):
+    """Scoped ``set_plan_override``: the previous entry (or none) returns
+    on exit."""
+    key = _plan_key(op, args)
+    had, old = key in _plan_overrides, _plan_overrides.get(key)
+    _plan_overrides[key] = plan
+    try:
+        yield
+    finally:
+        if had:
+            _plan_overrides[key] = old
+        else:
+            _plan_overrides.pop(key, None)
+
+
+def lookup_plan(op: str, args):
+    """The plan overriding ``op``'s planner at ``args``, or None. A hit
+    adds one to ``PLAN_HITS[op]``."""
+    if not _plan_overrides:
+        return None
+    plan = _plan_overrides.get(_plan_key(op, args))
+    if plan is not None:
+        PLAN_HITS[op] += 1
+    return plan
+
+
+@contextlib.contextmanager
+def saved_overrides():
+    """Inside, block and plan overrides may be set freely: both tables
+    return to what they held on exit."""
+    blocks = {op: dict(sizes) for op, sizes in _block_overrides.items()}
+    plans = dict(_plan_overrides)
+    try:
+        yield
+    finally:
+        _block_overrides.clear()
+        _block_overrides.update(blocks)
+        _plan_overrides.clear()
+        _plan_overrides.update(plans)

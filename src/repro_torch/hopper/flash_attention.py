@@ -10,7 +10,9 @@ them, it runs the plain version ``blocked.flash_attention_blocked``.
 The kernel takes element strides, so the transformer's (B, S, H, D) ->
 (B, H, S, D) transposed views go in without a copy; the head dim must be
 unit-stride. Inputs it does not take raise; nothing is copied to make
-them fit. The output has q's strides.
+them fit. The output has q's strides. The bf16 kernel's warpgroups a CTA
+(1 or 2) are a run-time argument: 0, the kernel's own rule, unless a plan
+override is set at the call's arguments (``plan``, ``candidates``).
 
 ``zigzag_indices`` / ``zigzag_inverse`` are the port's copies of the
 reference's sequence permutation for the causal KV ring
@@ -24,11 +26,23 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import LAUNCHES
+from repro_torch.hopper.dispatch import LAUNCHES, PlanCandidate, lookup_plan, model_pick
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's compiled head dims
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# csrc/flash_attention.cu's bf16 kernel: NWG warpgroups a CTA, each 64 q rows
+WG_BQ = 64
+WG_THREADS = 128
+SMEM_PER_CTA = 232448  # 227 KB of shared memory a CTA may use
+# The warpgroup model (the kernel's host rule, launch_d): a wave of 64-row
+# CTAs costs 1; with two warpgroups a CTA, each wave past the first costs
+# TWO_WG_WAVE (one's softmax hides behind the other's products), and the
+# pair's shared tiles TWO_WG_SETUP more.
+TWO_WG_WAVE = 0.5
+TWO_WG_SETUP = 0.25
 
 _fn = None
 
@@ -55,6 +69,45 @@ def zigzag_inverse(S: int, d: int) -> np.ndarray:
     return np.argsort(zigzag_indices(S, d), kind="stable")
 
 
+def wg_smem_bytes(D: int, nwg: int) -> int:
+    """The bf16 kernel's shared memory (csrc/flash_attention.cu
+    ``wg_smem_bytes<D, NWG>``): Q of each warpgroup and two stages of K
+    and V, 64 x D bf16 each, and 1 KB of alignment."""
+    return (nwg + 4) * 64 * D * 2 + 1024
+
+
+def candidates(B: int, H: int, Sq: int, D: int, dtype: torch.dtype, sms: int, *,
+               smem_budget: int = SMEM_PER_CTA) -> list[PlanCandidate]:
+    """The warpgroups a CTA (1 or 2) of the bf16 kernel for q (B, H, Sq, D)
+    on a card of ``sms`` SMs, each pruned where ``wg_smem_bytes`` passes
+    ``smem_budget``; the fp32 kernel has one plan (0). The model: one
+    warpgroup a CTA costs its waves of 64-row CTAs, w = ceil(ctas / sms);
+    two cost 1 + TWO_WG_SETUP + TWO_WG_WAVE (w - 1). So one wins while
+    the CTAs fit in one wave, two once they do not: the kernel's own rule
+    (nwg 0)."""
+    if dtype != torch.bfloat16:
+        return [PlanCandidate(0, {"nwg": 0}, 0.0, (0.0,), 0, 0, 0)]
+    waves = -(-(-(-Sq // WG_BQ) * H * B) // sms)
+    out = []
+    for nwg in (1, 2):
+        smem = wg_smem_bytes(D, nwg)
+        cost = float(waves) if nwg == 1 else 1 + TWO_WG_SETUP + TWO_WG_WAVE * (waves - 1)
+        why = "shared memory" if smem > smem_budget else ""
+        out.append(PlanCandidate(nwg, {"nwg": nwg}, float("inf") if why else cost,
+                                 (float("inf"),) if why else (cost,), smem,
+                                 nwg * WG_THREADS, 0, why))
+    return out
+
+
+def plan(B: int, H: int, Sq: int, D: int, dtype: torch.dtype, sms: int) -> int:
+    """The warpgroups a CTA the kernel takes at these arguments: a plan
+    override at exactly them (``dispatch.lookup_plan("flash_attention",
+    ...)``), else ``candidates``' least-cost entry, which is the rule the
+    kernel applies itself when the wrapper passes 0."""
+    hit = lookup_plan("flash_attention", (B, H, Sq, D, dtype, sms))
+    return hit if hit is not None else model_pick(candidates(B, H, Sq, D, dtype, sms)).plan
+
+
 def _kernel():
     global _fn
     if _fn is None:
@@ -63,7 +116,7 @@ def _kernel():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                       i32, i32, i32, ptr]
+                       i32, i32, i32, i32, ptr]
         fn.restype = i32
         _fn = (lib, fn)
     return _fn
@@ -129,6 +182,10 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0,
            if return_lse else None)
     if Sq:
         lib, fn = _kernel()
+        # warpgroups a CTA: a tuned plan at exactly this call's arguments,
+        # else 0, the kernel's own rule (``plan``'s model)
+        nwg = lookup_plan("flash_attention",
+                          (B, H, Sq, D, q.dtype, sm_count(q.device.index))) or 0
         strides = (ctypes.c_longlong * 12)(
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]
         )
@@ -138,7 +195,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr() if lse is not None else None,
                 DTYPES[q.dtype], B, H, K, Sq, Sk, D, strides, float(scale),
-                int(bool(causal)), int(window), int(q_offset), stream,
+                int(bool(causal)), int(window), int(q_offset), int(nwg), stream,
             )
         build.check(lib, err, "flash_attention kernel launch")
         LAUNCHES["flash_attention"] += 1

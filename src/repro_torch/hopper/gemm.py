@@ -21,8 +21,9 @@ add. Its plain version is ``blocked.gemm_accum_blocked``; ``bk`` must be a
 multiple of the kernel's K step (``K_STEP``) or cover K.
 
 The fp32 kernel's tiles, ring and grid are chosen here, by ``plan_f32``
-(pure Python, so the CPU tests reach it): the kernel takes them at run
-time and refuses a plan that does not fit.
+(pure Python, so the CPU tests reach it; ``candidates`` lists every plan
+its model weighs): the kernel takes them at run time and refuses a plan
+that does not fit.
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ import torch
 
 from repro_torch.device import sm_count
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import LAUNCHES, resolve_blocks
+from repro_torch.hopper.dispatch import (LAUNCHES, PlanCandidate, lookup_plan, model_pick,
+                                        resolve_blocks)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACCUM = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -93,27 +95,26 @@ def vec16(a, b) -> bool:
     return all(x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0 for x in (a, b))
 
 
-@functools.lru_cache(maxsize=256)
-def plan_f32(M: int, N: int, K: int, sms: int, vec: bool) -> F32Plan:
-    """The fp32 kernel's tiles, ring and grid for C (M, N) = A (M, K) B (K, N)
-    on a card of ``sms`` SMs.
-
-    Candidates: tm in {4, 2}, wr, wc in 1..4 (within the kernel's thread
-    bound), B resident or streamed, and 1.. CTAs an SM (as shared memory,
-    threads and registers allow; the ring takes as many stages as then fit,
-    at most MAX_STAGES). The grid is col_tiles x groups, each group an even
-    share of the row units (8 tm rows), as many groups as the CTAs an SM
-    allow. The model: the busiest scheduler of the busiest SM runs its
-    warps with work, each for its warp row's units; a unit costs (tm x 12
-    FFMA + tm / 4 + 3 shared loads) issue slots per k, plus CHUNK_SLOTS and
-    COPY_SLOTS per cp.async a thread issues per K chunk, over EFF (by the
-    warps with work a scheduler holds), times 1 + COL_TILE_COST for each
-    column tile past the first and STREAMED_COST when B streams through
-    more than one tile. Least cost wins; ties go to less padded work, fewer
-    column tiles (A read fewer times), B resident, then the larger register
-    tile and the deeper ring."""
+def candidates(M: int, N: int, K: int, sms: int, vec: bool, *,
+               smem_budget: int = SMEM_PER_CTA) -> list[PlanCandidate]:
+    """Every fp32 plan ``plan_f32``'s model weighs for C (M, N) = A (M, K)
+    B (K, N) on a card of ``sms`` SMs, in its order: tm in {4, 2}, wc and
+    wr in 1..4, B resident or streamed, 8..1 CTAs an SM. The ring takes
+    the deepest stages (2..MAX_STAGES) that fit the shared memory a CTA
+    gets (``smem_budget``, and the SM's share). A plan is pruned where its
+    CTAs an SM pass the SM's 2048 threads or, at ``REGS`` registers a
+    thread, its 64K registers, where not even two stages fit, or where the
+    grid has no group. The model: the busiest scheduler of the busiest SM
+    runs its warps with work, each for its warp row's units; a unit costs
+    (tm x 12 FFMA + tm / 4 + 3 shared loads) instruction slots per k,
+    plus CHUNK_SLOTS and COPY_SLOTS per cp.async a thread starts per K chunk,
+    over EFF (by the warps with work a scheduler holds), times 1 +
+    COL_TILE_COST for each column tile past the first and STREAMED_COST
+    when B streams through more than one tile. Least cost wins; ties go to
+    less padded work, fewer column tiles (A read fewer times), B resident,
+    then the larger register tile and the deeper ring."""
     nk = max(1, -(-K // BK))
-    best = None
+    out = []
     for tm in (4, 2):
         ffma = (tm * TN + tm / 4 + 3) * BK  # FFMA and shared loads per K chunk
         units = -(-M // (8 * tm))
@@ -122,20 +123,33 @@ def plan_f32(M: int, N: int, K: int, sms: int, vec: bool) -> F32Plan:
             col_tiles = -(-N // bn)
             for wr in range(1, 5):
                 threads = 32 * wr * wc
-                if threads > MAX_THREADS:
-                    continue
                 bm = 8 * tm * wr
                 for resident in (True, False):
-                    top = min(2048 // threads, 65536 // (threads * REGS), 8)
-                    for ctas in range(top, 0, -1):
-                        room = min(SMEM_PER_CTA, SMEM_PER_SM // ctas - 1024)
+                    for ctas in range(8, 0, -1):
+                        room = min(smem_budget, SMEM_PER_SM // ctas - 1024)
                         stages = max((s for s in range(2, MAX_STAGES + 1)
                                       if smem_bytes(tm, wr, wc, K, s, resident) <= room),
                                      default=0)
+                        smem = smem_bytes(tm, wr, wc, K, max(stages, 2), resident)
                         groups = min(units, sms * ctas // col_tiles)
-                        if not stages or groups < 1:
+                        grid = max(groups, 1) * col_tiles
+                        knobs = {"tm": tm, "wr": wr, "wc": wc, "resident": int(resident),
+                                 "ctas": ctas}
+                        why = ""
+                        if threads > MAX_THREADS or threads * ctas > 2048:
+                            why = "threads"
+                        elif threads * ctas * REGS > 65536:
+                            why = "registers"
+                        elif not stages:
+                            why = "shared memory"
+                        elif groups < 1:
+                            why = "grid"
+                        plan = F32Plan(tm, wr, wc, max(stages, 2), resident, vec, grid, bm, bn,
+                                       units, col_tiles, threads, smem, ctas)
+                        if why:
+                            out.append(PlanCandidate(plan, knobs, float("inf"), (float("inf"),),
+                                                     smem, threads, REGS, why))
                             continue
-                        grid = groups * col_tiles
                         most = -(-units // groups)  # units of the busiest CTA
                         used = -(-grid // sms)  # CTAs on the busiest SM
                         # warps with work on the busiest scheduler, each
@@ -152,12 +166,27 @@ def plan_f32(M: int, N: int, K: int, sms: int, vec: bool) -> F32Plan:
                                 * (STREAMED_COST if not resident and most > wr else 1.0))
                         padded = -(-most // wr) * wr * groups * bm * col_tiles * bn
                         key = (round(cost, 3), padded, col_tiles, not resident, -tm, -stages)
-                        if best is None or key < best[0]:
-                            best = (key, F32Plan(
-                                tm, wr, wc, stages, resident, vec, grid, bm, bn, units,
-                                col_tiles, threads, smem_bytes(tm, wr, wc, K, stages, resident),
-                                ctas))
-    return best[1]
+                        out.append(PlanCandidate(plan, knobs, cost, key, smem, threads, REGS))
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _model_f32(M: int, N: int, K: int, sms: int, vec: bool) -> F32Plan:
+    return model_pick(candidates(M, N, K, sms, vec)).plan
+
+
+def plan_f32(M: int, N: int, K: int, sms: int, vec: bool) -> F32Plan:
+    """The fp32 kernel's tiles, ring and grid for C (M, N) = A (M, K) B (K, N)
+    on a card of ``sms`` SMs: a plan override at exactly these arguments
+    (``dispatch.lookup_plan("gemm", ...)``), else the least-cost feasible
+    entry of ``candidates`` (cached; an override is looked up before the
+    cache, so a cached pick never masks one). The grid is col_tiles x
+    groups, each group an even share of the row units (8 tm rows), as many
+    groups as the CTAs an SM allow."""
+    return lookup_plan("gemm", (M, N, K, sms, vec)) or _model_f32(M, N, K, sms, vec)
+
+
+plan_f32.cache_clear = _model_f32.cache_clear
 
 
 _fn = None

@@ -38,7 +38,8 @@ import torch
 from repro_torch.core import precision as prec
 from repro_torch.device import sm_count
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import LAUNCHES, resolve_blocks
+from repro_torch.hopper.dispatch import (LAUNCHES, PlanCandidate, lookup_plan, model_pick,
+                                        resolve_blocks)
 from repro_torch.hopper.gemm import CHUNK_SLOTS, COPY_SLOTS, EFF, SMEM_PER_CTA
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
@@ -69,6 +70,8 @@ F_BK = 32                     # k values per ring stage
 F_AS = F_BK + 4               # floats per A row in a ring stage
 F_TN = 12                     # columns per thread
 F_MAX_THREADS = 384           # acc, part and scales need up to 168 registers
+F_REGS = 168                  # the ffma kernel's registers a thread, at most
+W_THREADS = 384               # the wgmma kernel's CTA: a producer and two consumer warpgroups
 F_MAX_STAGES = 8
 
 
@@ -114,31 +117,37 @@ def rows16(*xs) -> bool:
                for x in xs)
 
 
-def _plan_ffma(M, N, K, bk, sms, vec) -> Plan:
-    """The ffma kernel's register tile, warps, ring and grid. Candidates: tm
-    in {4, 2}, wr and wc with at most 12 warps, the deepest ring that fits;
-    the grid is min(tiles, sms) persistent CTAs walking 8 tm wr x 48 wc
-    tiles. The model (gemm.py ``plan_f32``'s constants): the busiest
+def _ffma_candidates(M, N, K, bk, sms, vec, smem_budget) -> list[PlanCandidate]:
+    """The ffma kernel's register tiles, warps, ring and grid. Candidates:
+    tm in {4, 2}, wr and wc in 1..4 (pruned past F_MAX_THREADS threads),
+    the deepest ring that fits ``smem_budget`` (pruned where two stages do
+    not); the grid is min(tiles, sms) persistent CTAs walking 8 tm wr x 48
+    wc tiles. The model (gemm.py ``plan_f32``'s constants): the busiest
     scheduler runs ceil(warps / 4) warps for each of ``rounds`` tiles, each
     issuing (tm x 12 FFMA + tm / 4 + 3 shared loads) slots per k, plus
     CHUNK_SLOTS and COPY_SLOTS per cp.async per chunk of F_BK k, over EFF.
     Least cost wins; ties go to less padded work, then the larger tile."""
     nk = -(-K // bk)
     chunks = (nk - 1) * -(-bk // F_BK) + -(-(K - (nk - 1) * bk) // F_BK)
-    best = None
+    out = []
     for tm in (4, 2):
         for wr in range(1, 5):
             for wc in range(1, 5):
                 threads = 32 * wr * wc
-                if threads > F_MAX_THREADS:
-                    continue
                 bm, bn = 8 * tm * wr, 48 * wc
                 stages = max((s for s in range(2, F_MAX_STAGES + 1)
-                              if ffma_smem_bytes(tm, wr, wc, s) <= SMEM_PER_CTA), default=0)
-                if not stages:
-                    continue
+                              if ffma_smem_bytes(tm, wr, wc, s) <= smem_budget), default=0)
+                smem = ffma_smem_bytes(tm, wr, wc, max(stages, 2))
                 tiles = -(-M // bm) * -(-N // bn)
                 grid = min(tiles, sms)
+                plan = Plan("ffma", max(stages, 2), 0, grid, tm, wr, wc, vec, smem)
+                knobs = {"tm": tm, "wr": wr, "wc": wc}
+                why = ("threads" if threads > F_MAX_THREADS
+                       else "shared memory" if not stages else "")
+                if why:
+                    out.append(PlanCandidate(plan, knobs, float("inf"), (float("inf"),), smem,
+                                             threads, F_REGS, why))
+                    continue
                 rounds = -(-tiles // grid)
                 per_sched = -(-(wr * wc) // 4)
                 copies = (bm * F_BK / 4 + F_BK * bn / 4) / threads
@@ -146,37 +155,88 @@ def _plan_ffma(M, N, K, bk, sms, vec) -> Plan:
                 cost = rounds * chunks * per_sched * slots / EFF[min(per_sched, 3)]
                 padded = rounds * grid * bm * bn
                 key = (round(cost / 1e3), padded, -bm * bn, -stages)
-                if best is None or key < best[0]:
-                    best = (key, Plan("ffma", stages, 0, grid, tm, wr, wc, vec,
-                                      ffma_smem_bytes(tm, wr, wc, stages)))
-    return best[1]
+                out.append(PlanCandidate(plan, knobs, cost, key, smem, threads, F_REGS))
+    return out
+
+
+def _wgmma_candidates(M, N, K, bk, dtype, sms, smem_budget) -> list[PlanCandidate]:
+    """The wgmma kernel's ring depth (2..W_MAX_STAGES, pruned where it
+    passes ``smem_budget``, or below 5 stages where a partial spans 8
+    k-steps: the kernel refuses that) and persistent grid (min(tiles, sms) CTAs, or
+    as few as keep the same rounds of tiles). ``PROMOTE``'s interval is
+    held: it sets what the fp8 sum rounds. The model: each CTA walks
+    ``rounds`` output tiles, each streaming ceil(K / stage k) stages, and a
+    ring shallower than W_MAX_STAGES exposes (W_MAX_STAGES - stages) /
+    W_MAX_STAGES of a load's latency a stage. Least cost wins; ties go to
+    the larger grid."""
+    tiles = -(-M // W_TILE) * -(-N // W_TILE)
+    nks = -(-K // STAGE_K[dtype])
+    grids = []
+    for rounds in (-(-tiles // sms), -(-tiles // sms) + 1):
+        g = -(-tiles // rounds)
+        if g not in grids:
+            grids.append(g)
+    grids[0] = min(tiles, sms)
+    promote = math.gcd(PROMOTE[dtype], bk)
+    units = promote // (STAGE_K[dtype] // 4)  # wgmma k-steps a partial
+    out = []
+    for stages in range(W_MAX_STAGES, 1, -1):
+        smem = wgmma_smem_bytes(stages)
+        for grid in grids:
+            rounds = -(-tiles // grid)
+            cost = rounds * nks * (1 + (W_MAX_STAGES - stages) / W_MAX_STAGES)
+            plan = Plan("wgmma", stages, promote, grid, smem=smem)
+            # a partial of 8 k-steps keeps two units of two stages in flight
+            why = ("shared memory" if smem > smem_budget
+                   else "ring" if units == 8 and stages < 5 else "")
+            out.append(PlanCandidate(plan, {"stages": stages, "grid": grid},
+                                     float("inf") if why else cost,
+                                     (float("inf"),) if why else (cost, -grid), smem,
+                                     W_THREADS, 0, why))
+    return out
+
+
+def candidates(M: int, N: int, K: int, bk: int, dtype: torch.dtype, aligned: bool,
+               sms: int = 132, *, smem_budget: int = SMEM_PER_CTA) -> list[PlanCandidate]:
+    """Every plan ``plan``'s model weighs at these arguments: the ffma
+    kernel's tiles for fp32, the wgmma kernel's ring and grid where bf16
+    and fp8 take that route (bk held: it is the quantization block), and
+    the mma kernel alone (no run-time geometry) at every other shape."""
+    if dtype == torch.float32:
+        return _ffma_candidates(M, N, K, bk, sms, aligned and bk % 4 == 0, smem_budget)
+    if dtype not in STAGE_K:
+        raise TypeError(f"gemm_scaled: no route for {dtype}")
+    if (K == 0 or bk % STAGE_K[dtype] or not aligned or min(M, N) < MIN_MN
+            or (dtype in FP8 and N % 16)):  # B's transpose moves 16-byte chunks of its rows
+        return [PlanCandidate(Plan("mma"), {}, 0.0, (0.0,), 0, 0, 0)]
+    return _wgmma_candidates(M, N, K, bk, dtype, sms, smem_budget)
 
 
 @functools.lru_cache(maxsize=256)
+def _model(M, N, K, bk, dtype, aligned, sms) -> Plan:
+    return model_pick(candidates(M, N, K, bk, dtype, aligned, sms)).plan
+
+
 def plan(M: int, N: int, K: int, bk: int, dtype: torch.dtype, aligned: bool,
          sms: int = 132) -> Plan:
     """The route, and its ring and grid, for C (M, N) = A (M, K) B (K, N)
     per K-block of ``bk`` with values of ``dtype`` on a card of ``sms``
     SMs; ``aligned``: both operands' rows start on 16 bytes (``rows16``).
+    A plan override at exactly these arguments
+    (``dispatch.lookup_plan("gemm_scaled", ...)``) comes first; else the
+    least-cost feasible entry of ``candidates`` (cached behind the
+    lookup).
 
     fp32 takes ``ffma``. bf16 and fp8 take ``wgmma`` where bk is a
     multiple of a stage's k (64 bf16, 128 fp8 values), the rows are
     aligned, M and N are at least 64 and (fp8) N is a multiple of 16, with the deepest ring that fits,
     ``PROMOTE``'s interval and one CTA an SM; at every other shape they
     take ``mma``."""
-    if dtype == torch.float32:
-        return _plan_ffma(M, N, K, bk, sms, aligned and bk % 4 == 0)
-    if dtype not in STAGE_K:
-        raise TypeError(f"gemm_scaled: no route for {dtype}")
-    if K == 0 or bk % STAGE_K[dtype] or not aligned or min(M, N) < MIN_MN:
-        return Plan("mma")
-    if dtype in FP8 and N % 16:  # B's transpose moves 16-byte chunks of its rows
-        return Plan("mma")
-    stages = max(s for s in range(2, W_MAX_STAGES + 1)
-                 if wgmma_smem_bytes(s) <= SMEM_PER_CTA)
-    tiles = -(-M // W_TILE) * -(-N // W_TILE)
-    return Plan("wgmma", stages, math.gcd(PROMOTE[dtype], bk), min(tiles, sms),
-                smem=wgmma_smem_bytes(stages))
+    return (lookup_plan("gemm_scaled", (M, N, K, bk, dtype, aligned, sms))
+            or _model(M, N, K, bk, dtype, aligned, sms))
+
+
+plan.cache_clear = _model.cache_clear
 
 
 _fn = None

@@ -20,12 +20,13 @@ slabs whose slice of dense fits the L2, the grid slab-major.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import LAUNCHES
+from repro_torch.hopper.dispatch import LAUNCHES, PlanCandidate, lookup_plan, model_pick
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -35,6 +36,8 @@ MAX_LANES = 64            # threads a row, at most
 L2_SLAB_BYTES = 32 << 20  # dense's slice a slab may hold (of the H100's 50 MB L2)
 LINE_BYTES = 128          # slabs of several go in whole lines of this many bytes
 BATCHES = (8, 16)         # slots a thread loads together: 16 where a row has as many
+L2_MISS_COST = 4          # the plan model: a gather from HBM against one from the L2
+BATCH_COST = 1.05         # the plan model: the batch the rule does not pick
 
 _fn = None
 
@@ -53,27 +56,64 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(R: int, L: int, C: int, F: int, esize: int, vec_ok: bool) -> Plan:
-    """Tiles for R ELL rows of L slots times dense (C, F) of ``esize``-byte
-    elements. ``vec_ok``: F, dense's row stride and its pointer allow
-    16-byte loads. F goes in one slab where it fits ``L2_SLAB_BYTES`` and
-    ``MAX_LANES`` vectors, else in the fewest slabs of whole 128-byte lines
-    that do (5 slabs of 32 columns at ogbn-arxiv's size: faster than 3 of
-    48 or 6 of 24 on an H100); a block holds as many whole rows of a slab
-    as fit ``THREADS``; a thread loads 16 slots at once where L >= 16,
-    else 8."""
+def candidates(R: int, L: int, C: int, F: int, esize: int, vec_ok: bool) -> list[PlanCandidate]:
+    """Every plan ``plan``'s model weighs for R ELL rows of L slots times
+    dense (C, F) of ``esize``-byte elements (``vec_ok``: F, dense's row
+    stride and its pointer allow 16-byte loads): F whole in one slab, or
+    slabs of whole 128-byte lines, each with 8 or 16 slots a load batch.
+    A slab wider than ``MAX_LANES`` vectors is pruned (a block's
+    ``THREADS``). The model counts bytes: each slab reads the rows' values
+    and indices again (at dense's element size; a row costs one slot at
+    least), the gathers read R L F
+    elements, ``L2_MISS_COST`` times over where a slab's slice of dense
+    passes ``L2_SLAB_BYTES`` (a one-line slab always counts as fitting);
+    the batch other than the rule's (16 where L >= 16, else 8, the faster
+    on an H100) costs ``BATCH_COST`` times more. Ties go to the narrower
+    slab. The pick: F in one slab where it fits, else the fewest slabs of
+    whole lines that do (5 slabs of 32 columns at ogbn-arxiv's size)."""
     vec = 16 // esize if vec_ok else 1
     line = LINE_BYTES // esize  # a multiple of vec, and MAX_LANES * vec of it
-    widest = min(max(line, L2_SLAB_BYTES // max(1, C * esize) // line * line), MAX_LANES * vec)
-    if F <= widest:
-        slab = _cdiv(F, vec) * vec
-    else:
-        slab = _cdiv(_cdiv(F, _cdiv(F, widest)), line) * line  # <= widest
-    lanes = slab // vec
-    rows = max(1, THREADS // lanes)
-    row_blocks = _cdiv(R, rows)
-    batch = BATCHES[1] if L >= BATCHES[1] else BATCHES[0]
-    return Plan(vec, batch, slab, lanes, rows, row_blocks, row_blocks * _cdiv(F, slab))
+    fit = max(line, L2_SLAB_BYTES // max(1, C * esize) // line * line)
+    whole = _cdiv(F, vec) * vec
+    widths = sorted({whole, *(line * j for j in range(1, MAX_LANES * vec // line + 1))})
+    rule_batch = BATCHES[1] if L >= BATCHES[1] else BATCHES[0]
+    out = []
+    for slab in widths:
+        lanes = slab // vec
+        rows = max(1, THREADS // lanes)
+        row_blocks = _cdiv(R, rows)
+        slabs = _cdiv(F, slab)
+        for batch in BATCHES:
+            plan = Plan(vec, batch, slab, lanes, rows, row_blocks, row_blocks * slabs)
+            knobs = {"slab": slab, "batch": batch}
+            if lanes > MAX_LANES:
+                out.append(PlanCandidate(plan, knobs, float("inf"), (float("inf"),), 0,
+                                         lanes * rows, 0, "threads"))
+                continue
+            slots = R * max(L, 1)
+            cost = (slabs * slots * (4 + esize)
+                    + slots * F * esize * (1 if slab <= fit else L2_MISS_COST) + R * F * esize)
+            cost *= 1.0 if batch == rule_batch else BATCH_COST
+            out.append(PlanCandidate(plan, knobs, cost, (cost, slab), 0, lanes * rows, 0))
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _model(R, L, C, F, esize, vec_ok) -> Plan:
+    return model_pick(candidates(R, L, C, F, esize, vec_ok)).plan
+
+
+def plan(R: int, L: int, C: int, F: int, esize: int, vec_ok: bool) -> Plan:
+    """Tiles for R ELL rows of L slots times dense (C, F) of ``esize``-byte
+    elements: a plan override at exactly these arguments
+    (``dispatch.lookup_plan("spmm", ...)``), else the least-cost entry of
+    ``candidates``. F goes in one slab where it fits ``L2_SLAB_BYTES`` and
+    ``MAX_LANES`` vectors, else in the fewest slabs of whole 128-byte lines
+    that do (faster than 3 of 48 or 6 of 24 at ogbn-arxiv's size on an
+    H100); a block holds as many whole rows of a slab as fit ``THREADS``;
+    a thread loads 16 slots at once where L >= 16, else 8."""
+    return (lookup_plan("spmm", (R, L, C, F, esize, vec_ok))
+            or _model(R, L, C, F, esize, vec_ok))
 
 
 def vec16(dense) -> bool:

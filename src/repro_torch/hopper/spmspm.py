@@ -20,16 +20,18 @@ tiles of at most 4096. Its four launches count as one.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import LAUNCHES
+from repro_torch.hopper.dispatch import LAUNCHES, PlanCandidate, lookup_plan, model_pick
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CT_MAX = 4096  # csrc/spmspm.cu CT_MAX: output columns a warp sums in shared memory
 WARPS = 4  # csrc/spmspm.cu WARPS: (row, tile) items of a CTA
+MAX_TILES = 64  # the tile counts ``candidates`` weighs
 
 _fn = None
 
@@ -42,16 +44,48 @@ class Plan(NamedTuple):
     scratch: int  # bytes: tiles * K + 1 counts and offsets (each to 4), C * Lb (n, b) pairs
 
 
-def plan(R: int, C: int, Lb: int, K: int) -> Plan:
-    """The output's column tiles and the scratch for A (R rows) times B
-    (C columns of Lb entries) over K (csrc/spmspm.cu
-    ``repro_spmspm_scratch_bytes``): one tile where C fits in ``CT_MAX``,
-    else the fewest tiles of even width, rounded up to 4."""
-    tiles = -(-C // CT_MAX)
-    ct = (-(-C // tiles) + 3) // 4 * 4
+def _plan(R: int, C: int, Lb: int, K: int, ct: int) -> Plan:
     tiles = -(-C // ct)
     offsets = -(-(tiles * K + 1) // 4) * 4
     return Plan(ct, tiles, 4 * WARPS * ct, -(-R * tiles // WARPS), 8 * offsets + 8 * C * Lb)
+
+
+def candidates(R: int, C: int, Lb: int, K: int) -> list[PlanCandidate]:
+    """Every column tile ``plan``'s model weighs for A (R rows) times B (C
+    columns of Lb entries) over K: C cut evenly into t tiles (each rounded
+    up to 4 columns), t from one below the fewest that fit ``CT_MAX`` to
+    ``MAX_TILES`` more, or until a tile holds 4 columns; a tile wider than
+    ``CT_MAX`` is pruned (a warp's shared memory). The model: each (row, tile) item walks its row
+    of A's entries, and each tile scans its K offsets, so the cost is tiles
+    x (R + K); ties go to the wider tile. The pick: one tile where C fits
+    in ``CT_MAX``, else the fewest tiles of even width."""
+    out, seen = [], set()
+    fewest = -(-C // CT_MAX)
+    for t in range(max(1, fewest - 1), min(-(-C // 4), fewest + MAX_TILES - 1) + 1):
+        ct = (-(-C // t) + 3) // 4 * 4
+        if ct in seen:
+            continue
+        seen.add(ct)
+        pl = _plan(R, C, Lb, K, ct)
+        why = "shared memory" if ct > CT_MAX else ""
+        cost = float("inf") if why else float(pl.tiles * (R + K))
+        out.append(PlanCandidate(pl, {"ct": ct}, cost, (cost, -ct), pl.smem, 32 * WARPS, 0, why))
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _model(R: int, C: int, Lb: int, K: int) -> Plan:
+    return model_pick(candidates(R, C, Lb, K)).plan
+
+
+def plan(R: int, C: int, Lb: int, K: int) -> Plan:
+    """The output's column tiles and the scratch for A (R rows) times B (C
+    columns of Lb entries) over K (csrc/spmspm.cu
+    ``repro_spmspm_scratch_bytes``): a plan override at exactly these
+    arguments (``dispatch.lookup_plan("spmspm", ...)``), else
+    ``candidates``' least-cost entry: one tile where C fits in ``CT_MAX``,
+    else the fewest tiles of even width, rounded up to 4."""
+    return lookup_plan("spmspm", (R, C, Lb, K)) or _model(R, C, Lb, K)
 
 
 def _kernel():

@@ -27,6 +27,7 @@ window.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -34,7 +35,8 @@ import torch
 
 from repro_torch.device import sm_count
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import LAUNCHES, resolve_blocks
+from repro_torch.hopper.dispatch import (LAUNCHES, PlanCandidate, lookup_plan, model_pick,
+                                        resolve_blocks)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_POINTS = 64  # csrc/stencil.cu MAX_POINTS: offsets travel in the launch's parameters
@@ -59,29 +61,78 @@ class Plan(NamedTuple):
     smem: int    # bytes of shared memory a block
 
 
+def _reach(red):
+    red = np.asarray(red, dtype=np.int64).reshape(-1, 3)
+    return tuple(int(np.abs(red[:, a]).max(initial=0)) for a in range(3))
+
+
+def plan_args(shape, red, sms: int) -> tuple:
+    """``plan``'s arguments as the hashable key a plan override takes."""
+    red = np.asarray(red, dtype=np.int64).reshape(-1, 3)
+    return (tuple(int(d) for d in shape), tuple(map(tuple, red.tolist())), int(sms))
+
+
+def candidates(shape, red, sms: int, *, smem_budget: int = MAX_SMEM) -> list[PlanCandidate]:
+    """Every plan ``plan``'s model weighs for a grid of ``shape`` (X, Y, Z)
+    and offsets ``red`` (P, 3), reduced to (-dim/2, dim/2]: ``direct``,
+    and ``march`` with each run length x can be cut into (runs of ``XR``
+    planes a block). ``march`` is pruned where the tile plus its halo
+    passes ``CELLS_PER_THREAD`` cells a thread or the window of ``XR + 2
+    rx`` planes passes ``smem_budget`` (at most ``MAX_SMEM``). The model:
+    a cut of x into s parts costs s (each re-reads 2 rx halo planes), and
+    each block the grid falls short of ``BLOCKS_PER_SM`` an SM costs more
+    than every cut (nruns + 1); a run length takes its best s. ``direct``
+    reads each point from L2 and costs more than any march."""
+    X, Y, Z = shape
+    rx, ry, rz = _reach(red)
+    tz = min(Z, 32)
+    ty = THREADS // tz
+    cells = (ty + 2 * ry) * (tz + 2 * rz)
+    smem = 4 * PITCH * (XR + 2 * rx)
+    nruns = -(-X // XR)
+    tiles = -(-Y // ty) * -(-Z // tz)
+    target = BLOCKS_PER_SM * sms
+    miss = nruns + 1  # a block short of the target outweighs every cut
+    why = ("cells a thread" if cells > CELLS_PER_THREAD * ty * tz
+           else "shared memory" if smem > min(MAX_SMEM, smem_budget) else "")
+    best_s = min(nruns, max(1, -(-target // tiles)))
+    out = []
+    spans = {}  # run length -> the cuts of x that give it
+    for s_ in range(1, nruns + 1):
+        spans.setdefault(-(-nruns // s_), []).append(s_)
+    for runs, cuts in spans.items():
+        s_ = min(max(best_s, cuts[0]), cuts[-1])
+        cost = max(0, target - tiles * s_) * miss + s_
+        pl = Plan("march", ty, tz, runs, tiles * -(-nruns // runs), smem)
+        out.append(PlanCandidate(pl, {"route": 0, "runs": runs},
+                                 float("inf") if why else float(cost),
+                                 (float("inf"),) if why else (float(cost),), smem, THREADS, 0,
+                                 why))
+    direct = float(target * miss + nruns + 1)
+    out.append(PlanCandidate(
+        Plan("direct", 0, 0, 0, -(-(Y * Z) // THREADS) * min(X, 65535), 0),
+        {"route": 1, "runs": 0}, direct, (direct,), 0, THREADS, 0))
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _model(shape: tuple, red: tuple, sms: int) -> Plan:
+    return model_pick(candidates(shape, red, sms)).plan
+
+
 def plan(shape, red, sms: int) -> Plan:
     """Route and tiles for a grid of ``shape`` (X, Y, Z) and offsets ``red``
-    (P, 3), already reduced to (-dim/2, dim/2]. ``march`` where the tile
-    plus its halo stays within ``CELLS_PER_THREAD`` cells a thread and the
+    (P, 3), already reduced to (-dim/2, dim/2]: a plan override at exactly
+    these arguments (``dispatch.lookup_plan("stencil", plan_args(...))``),
+    else ``candidates``' least-cost entry. ``march`` where the tile plus
+    its halo stays within ``CELLS_PER_THREAD`` cells a thread and the
     window of ``XR + 2 rx`` planes within ``MAX_SMEM``; else ``direct``.
     Lanes run along z (tz = min(Z, 32)), or along y when Z < 32, so a 2-D
     grid (Z = 1) keeps 256 lanes along y. x is cut into ``runs`` of ``XR``
     planes a block until the grid has about ``BLOCKS_PER_SM`` blocks an
     SM."""
-    X, Y, Z = shape
-    red = np.asarray(red, dtype=np.int64).reshape(-1, 3)
-    rx, ry, rz = (int(np.abs(red[:, a]).max(initial=0)) for a in range(3))
-    tz = min(Z, 32)
-    ty = THREADS // tz
-    cells = (ty + 2 * ry) * (tz + 2 * rz)
-    smem = 4 * PITCH * (XR + 2 * rx)
-    if cells > CELLS_PER_THREAD * ty * tz or smem > MAX_SMEM:
-        return Plan("direct", 0, 0, 0, -(-(Y * Z) // THREADS) * min(X, 65535), 0)
-    nruns = -(-X // XR)
-    tiles = -(-Y // ty) * -(-Z // tz)
-    xsplit = min(nruns, max(1, -(-BLOCKS_PER_SM * sms // tiles)))
-    runs = -(-nruns // xsplit)
-    return Plan("march", ty, tz, runs, tiles * -(-nruns // runs), smem)
+    args = plan_args(shape, red, sms)
+    return lookup_plan("stencil", args) or _model(*args)
 
 
 def _kernel():

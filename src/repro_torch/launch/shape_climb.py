@@ -10,9 +10,12 @@ Each ``--set k=v`` is a ``ModelConfig.replace`` keyword (ints, floats,
 on the 16 x 16 mesh; ``deltas`` holds, for each roofline term and each
 per-device count, the overridden cell's value less the baseline's.
 ``--skip-full`` leaves the memory section out (the reference skips its
-full-depth compile there; the port's count is one run either way). The
-reference's ``--autotune-record`` (apply a block-size tuning record first)
-waits for the port's autotuner and is refused here.
+full-depth compile there; the port's count is one run either way).
+``--autotune-record PATH`` applies a tuning record of
+``launch.block_search`` first (the count reads the block sizes through
+``dispatch.resolve_blocks``) and attaches its tuned-against-default
+deltas under ``autotune``; a record tuned for another backend, impl or
+mesh is refused.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import argparse
 import json
 
 from repro_torch.configs.base import get_config
+from repro_torch.hopper import dispatch
 from repro_torch.launch.shape_run import count_cell
 
 TERMS = ("compute_s", "memory_s", "collective_s")
@@ -54,6 +58,23 @@ def climb(arch: str, shape: str, overrides: dict, *, skip_full: bool = False) ->
     return res
 
 
+def climb_with_record(arch: str, shape: str, overrides: dict, record_path: str | None, *,
+                      skip_full: bool = False) -> dict:
+    """``climb`` with the tuning record at ``record_path`` applied (no
+    search) for the counts, and its ``record_deltas`` under ``autotune``;
+    the override tables return to what they held afterwards."""
+    if record_path is None:
+        return climb(arch, shape, overrides, skip_full=skip_full)
+    from repro_torch.launch import block_search
+
+    record = block_search.load_record(record_path)
+    with dispatch.saved_overrides():
+        block_search.apply_record(record)  # deterministic: no re-search
+        res = climb(arch, shape, overrides, skip_full=skip_full)
+    res["autotune"] = block_search.record_deltas(record)
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
@@ -63,13 +84,13 @@ def main(argv=None):
     ap.add_argument("--skip-full", action="store_true",
                     help="leave the memory section out")
     ap.add_argument("--autotune-record", default=None,
-                    help="not ported: waits for the autotuner")
+                    help="apply a tuning record (launch.block_search) before counting and "
+                         "attach its tuned-against-default deltas")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    if args.autotune_record:
-        ap.error("--autotune-record waits for the port's autotuner (ROADMAP item 3)")
     overrides = dict(parse_override(s) for s in args.set)
-    line = json.dumps(climb(args.arch, args.shape, overrides, skip_full=args.skip_full))
+    line = json.dumps(climb_with_record(args.arch, args.shape, overrides, args.autotune_record,
+                                        skip_full=args.skip_full))
     print(line)
     if args.out:
         with open(args.out, "a") as f:

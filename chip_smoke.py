@@ -272,7 +272,29 @@ Phases, in order; any failure exits non-zero:
      harness's; (e) the quickstart's four acts, each error under its
      bound; (f) ``shape_climb --autotune-record`` on one cell, and a
      record from another card refused;
-  19. time every kernel against its plain version, the library call and
+  19. the static checker on the card (``repro_torch.analysis``): (a)
+     ``python -m repro_torch.analysis --format json`` in a subprocess on
+     the card's host, which must exit 0, each rule's finding count and
+     each exploration's states printed, the states equal to the CPU
+     tests' (28,871 scheduler, 588 hop); (b) ``smem-budget`` with
+     ``device="cuda"``: the card's limits as read (SMs, opt-in shared
+     memory a block, threads, registers) beside the H100 constants, then
+     each planned suite case's pick launched once at its card shape
+     through its op under ``dispatch.plan_override`` at the planner's
+     arguments, each showing its kernel's launch and its plan hit; (c)
+     the accumulator of every ``KernelStreams`` declaration taking
+     sub-fp32 floats probed in the compiled kernel on a sum of 4096
+     terms, a large head then a tail whose every block (widths 1 to 256)
+     is below half a bf16 and an fp16 ulp of the head, so that only an
+     fp32 running sum takes the tail in; the script checks that before
+     each read (GEMM bf16 and the scaled GEMM: 256 rows of ones, then
+     2^-12, 256.9375; FA and the scaled FA: 32 keys 10 above the rest,
+     the row sum 32.1845 read from the log-sum-exp; the scan: state 256
+     plus 2^-12 a step, 257), each within 2^-10 of its exact sum, and the
+     GEMM with ``accum_dtype`` bf16 and fp16 as the controls outside it
+     (256); (d) the phase's time, which fails past 60 s. The launch
+     counts are zeroed before (b) and read after (c);
+  20. time every kernel against its plain version, the library call and
      its bound (CUDA events over back-to-back calls); the FA, BSR, SpMSpM,
      stencil, scan and both scaled kernels and their library calls also by
      device time (events around a CUDA graph's replay of 20 calls, which
@@ -295,8 +317,8 @@ under ``train_launches_per_step``, and a meshed step's under
 ``mesh_train_launches_per_step``, and phase 16's op cases' under
 ``op_roofline_launches`` with each kernel's op case timed under
 ``op_roofline``, phase 17's grounding steps' under ``dryrun_launches``,
-and phase 18's tuned calls' under ``block_search_launches``), and as its
-last line ``{"ok": true, "device": {...}}``. Imports
+phase 18's tuned calls' under ``block_search_launches``, and phase 19's
+picks and probes under ``analysis_launches``), and as its last line ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of the reference package.
 """
 from __future__ import annotations
@@ -5736,6 +5758,302 @@ def block_search_phase(report):
     report["tune_phase_s"] = time.perf_counter() - t0
 
 
+# phase 19: the static checker on the card
+ANALYSIS_STATES = {"scheduler-model": 28871, "overlap-interleavings": 588}  # the CPU tests' counts
+ANALYSIS_BUDGET_S = 60.0  # the phase fails past this many seconds
+# The probes' sums: a large head, then a long tail of terms each block of
+# which is below half a bf16 (and fp16) ulp of the head, so only an fp32
+# running sum takes the tail in; the script checks that for every block
+# width in PROBE_BLOCKS (``_narrow_readings``) before it reads the kernel.
+PROBE_K = 4096  # the terms of each probed sum
+PROBE_REL = 2.0 ** -10  # a probe of an fp32 accumulator reads its exact sum within this
+PROBE_BLOCKS = (1, 16, 32, 64, 128, 256)  # the narrow running sums' block widths
+PROBE_GEMM_HEAD = 256  # GEMM: K rows of ones, then rows of PROBE_GEMM_TAIL
+PROBE_GEMM_TAIL = 2.0 ** -12
+PROBE_FA_HOT = 32  # attention: these first keys score PROBE_FA_GAP above the rest
+PROBE_FA_GAP = 10.0
+PROBE_SCAN_S0 = 256.0  # the scan: the state entry (0, 0) starts here, each step adds
+PROBE_SCAN_STEP = 2.0 ** -12
+PROBE_PLANNED = ("gemm", "gemm_scaled", "flash_attention", "spmm", "spmspm", "stencil")
+
+
+def analysis_cli_phase(report):
+    """(a) ``python -m repro_torch.analysis --format json`` on the card's
+    host (the CPU tier): exit 0, each rule's finding count, each
+    exploration's states, the totals equal to the CPU tests'."""
+    import os
+
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--format", "json"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    need(proc.returncode == 0, f"analysis CLI exit {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                               f"{proc.stderr[-2000:]}")
+    rep = json.loads(proc.stdout)
+    counts = {r: sum(f["rule"] == r for f in rep["findings"]) for r in rep["rules"]}
+    print(f"analysis (a): the CLI exit 0 in {time.perf_counter() - t:.1f} s; findings per rule "
+          f"{counts}")
+    states = {}
+    for rule, want in ANALYSIS_STATES.items():
+        runs = rep["stats"][rule]
+        states[rule] = sum(s["states"] for s in runs.values())
+        print(f"analysis (a): {rule} {len(runs)} explorations, states "
+              f"{ {tag: s['states'] for tag, s in runs.items()} }")
+        need(states[rule] == want, f"analysis (a): {rule} explored {states[rule]} states, the "
+                                   f"CPU tests {want}")
+        need(not any(s["truncated"] for s in runs.values()), f"analysis (a): {rule} truncated")
+    report["analysis_cli"] = {"findings": counts, "states": states}
+
+
+def analysis_plans_phase(report, ctx):
+    """(b) ``smem-budget`` at the card's own limits and shapes, then each
+    planned case's pick launched once through its op under
+    ``dispatch.plan_override`` at the planner's arguments."""
+    import torch
+
+    from repro_torch.analysis import plan_rules
+    from repro_torch.hopper import dispatch
+    from repro_torch.launch.block_search import H100_SMS, SMEM_BUDGET_BYTES
+
+    findings = plan_rules.smem_budget(ctx)
+    need(findings == [], "analysis (b): smem-budget on the card: "
+                         + "; ".join(f.format() for f in findings))
+    stats = ctx.stats["smem-budget"]
+    limits = stats["limits"]
+    print(f"analysis (b): the card's limits as read: {limits['sms']} SMs, "
+          f"{limits['smem_per_block']} B opt-in shared memory a block, "
+          f"{limits['threads_per_block']} threads, {limits['regs_per_block']} registers "
+          f"({limits['source']}); the H100 constants: {H100_SMS} SMs, {SMEM_BUDGET_BYTES} B")
+    print(f"analysis (b): unplanned {stats['unplanned']}")
+    picks = {}
+    card = plan_rules.CardLimits(**limits)
+    for name, case, plan_op, plan_args, cands in plan_rules.suite_plans(ctx, card):
+        pick = dispatch.model_pick(cands)
+        with dispatch.plan_override(plan_op, plan_args, pick.plan):
+            hits = dispatch.PLAN_HITS[plan_op]
+            before = dict(dispatch.LAUNCHES)
+            with torch.no_grad():
+                out = case.fn(*case.args)
+            torch.cuda.synchronize()
+        delta = {k: n - before.get(k, 0) for k, n in dispatch.LAUNCHES.items()
+                 if n != before.get(k, 0)}
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        print(f"analysis (b) {name}: {plan_op} pick {pick.knobs} ({pick.smem} B, {pick.threads} "
+              f"threads, {pick.regs} registers a thread) at {plan_args}: launches {delta}, "
+              f"plan hits {dispatch.PLAN_HITS[plan_op] - hits}")
+        need(delta.get(plan_op, 0) >= 1, f"analysis (b) {name}: the pick did not launch {plan_op}")
+        need(dispatch.PLAN_HITS[plan_op] > hits,
+             f"analysis (b) {name}: the launch did not take the {plan_op} plan override")
+        need(all(bool(torch.isfinite(o.float()).all()) for o in outs),
+             f"analysis (b) {name}: non-finite output")
+        picks[name] = {"plan_op": plan_op, "pick": pick.knobs, "smem": pick.smem,
+                       "threads": pick.threads, "launches": delta}
+        del out, outs
+    need(sorted({p["plan_op"] for p in picks.values()}) == sorted(PROBE_PLANNED),
+         f"analysis (b): planned kernels {sorted(p['plan_op'] for p in picks.values())}")
+    report["analysis_limits"] = limits
+    report["analysis_picks"] = picks
+
+
+def _narrow_readings(terms, start=0.0):
+    """What a running sum rounded to bf16, and one rounded to fp16, would
+    read over ``terms`` (a 1-D float64 tensor) from ``start``, adding one
+    block of terms (summed exactly) at a time: ``{"bfloat16": [...],
+    "float16": [...]}``, one reading for each width of PROBE_BLOCKS."""
+    import torch
+
+    out = {}
+    for dt in (torch.bfloat16, torch.float16):
+        reads = []
+        for b in PROBE_BLOCKS:
+            s = torch.tensor(start, dtype=torch.float64).to(dt)
+            for part in terms.reshape(-1, b).sum(1):
+                s = (s.double() + part).to(dt)
+            reads.append(float(s))
+        out[str(dt).replace("torch.", "")] = reads
+    return out
+
+
+def _probe_sum(label, terms, start=0.0):
+    """The exact sum of one probe's terms, after showing that a narrow
+    running sum would read it farther than PROBE_REL off at every block
+    width, so the probe tells an fp32 accumulator from a bf16 or fp16 one."""
+    exact = float(start + terms.sum())
+    narrow = _narrow_readings(terms, start)
+    worst = min(abs(r - exact) / abs(exact) for rs in narrow.values() for r in rs)
+    print(f"analysis (c) {label}: exact sum {exact!r}; a narrow running sum reads "
+          f"{ {dt: sorted(set(rs)) for dt, rs in narrow.items()} } (rel >= {worst:.3e})")
+    need(worst > PROBE_REL, f"analysis (c) {label}: the input does not separate a narrow "
+                            f"running sum from the exact {exact} (rel {worst:.3e})")
+    return exact, narrow
+
+
+def _probe_reading(label, streams, got, exact, narrow, report):
+    """Hold one accumulator probe: within PROBE_REL of ``exact`` where the
+    declaration sums in fp32, beyond it where it declares a narrow sum."""
+    rel = abs(got - exact) / abs(exact)
+    wide = str(streams.accum) == "torch.float32"
+    print(f"analysis (c) {label}: declared {streams.name}, accum "
+          f"{str(streams.accum).replace('torch.', '')}; reads {got!r} against the exact "
+          f"{exact!r} (rel {rel:.3e}, bound {PROBE_REL:.3e}: "
+          f"{'within' if rel <= PROBE_REL else 'outside'})")
+    need(rel <= PROBE_REL if wide else rel > PROBE_REL,
+         f"analysis (c) {label}: a {'wide' if wide else 'narrow'} accumulator read {got} "
+         f"against {exact}")
+    report["analysis_probes"][label] = {"kernel": streams.name, "accum": str(streams.accum),
+                                        "reading": got, "exact": exact, "rel": rel,
+                                        "narrow": narrow}
+
+
+def _worst(t, exact):
+    """The entry of ``t`` farthest from ``exact``, as a float."""
+    t = t.double().flatten()
+    return float(t[(t - exact).abs().argmax()])
+
+
+def _narrow(streams):
+    return any(o.role == "value" and o.dtype.is_floating_point and o.dtype.itemsize < 4
+               for o in streams.operands)
+
+
+def analysis_probe_phase(report, ctx):
+    """(c) the accumulator of every declaration taking sub-fp32 floats,
+    probed in the compiled kernel on a sum whose tail only an fp32
+    running sum takes in (``_probe_sum`` shows that a bf16 or fp16 one
+    drops it at every block width); the GEMM with a bf16 and an fp16
+    ``accum_dtype`` are the controls that must read away."""
+    import math
+
+    import torch
+
+    from repro_torch.analysis import plan_rules
+    from repro_torch.core import precision as prec
+    from repro_torch.hopper import dispatch, ops
+
+    report["analysis_probes"] = {}
+    dev = torch.device("cuda")
+    K, bf = PROBE_K, torch.bfloat16
+
+    def declared(op, xs, policy=None, **kw):
+        s = dispatch.kernel_streams(op, [(tuple(x.shape), x.dtype) for x in xs], policy, **kw)
+        need(_narrow(s), f"analysis (c): {s.name} takes no sub-fp32 floats")
+        return s
+
+    probed = set()
+    with torch.no_grad():
+        # the GEMM: a is ones, b's first 256 rows ones and the rest 2^-12,
+        # so every entry of c sums a head of 256 and a tail of 15/16
+        a = torch.ones((128, K), dtype=bf, device=dev)
+        b = torch.full((K, 128), PROBE_GEMM_TAIL, dtype=bf, device=dev)
+        b[:PROBE_GEMM_HEAD] = 1.0
+        exact, narrow = _probe_sum("gemm", b[:, 0].double().cpu())
+        s = declared("gemm", (a, b))
+        c = ops.gemm(a, b, out_dtype=torch.float32, impl="cuda")
+        _probe_reading("gemm bf16", s, _worst(c, exact), exact, narrow, report)
+        probed.add(s.name)
+        # the scaled GEMM's routes under each narrow policy, on the same sum
+        a32, b32 = a.float(), b.float()
+        for pol in ("bf16", "fp8", "fp8_e5m2"):
+            p = prec.resolve(pol)
+            s = declared("gemm", (a32, b32), p)
+            c = ops.gemm(a32, b32, precision=p, impl="cuda")
+            _probe_reading(f"gemm@{pol}", s, _worst(c, exact), exact, narrow, report)
+            probed.add(s.name)
+        # the controls: the same sum in a declared bf16 or fp16 accumulator
+        for accum in (torch.float32, bf, torch.float16):
+            s = dispatch.kernel_streams("gemm", [(tuple(a.shape), bf), (tuple(b.shape), bf)],
+                                        accum_dtype=accum)
+            c = ops.gemm(a, b, out_dtype=torch.float32, accum_dtype=accum, impl="cuda")
+            got = float(c[0, 0])
+            need(bool((c == got).all()), f"analysis (c): the control's {accum} sums differ")
+            _probe_reading(f"gemm control accum {str(accum).replace('torch.', '')}", s, got,
+                           exact, narrow, report)
+        # attention: q is one-hot and the first 32 keys score 10 above the
+        # rest, so each row's softmax sum l is 32 after the first key block
+        # and every later key adds e^-10; l is read from the fp32 log-sum-exp
+        D = 64
+        q = torch.zeros((1, 1, 64, D), dtype=bf, device=dev)
+        q[..., 0] = 1.0
+        k = torch.zeros((1, 1, K, D), dtype=bf, device=dev)
+        k[:, :, :PROBE_FA_HOT, 0] = PROBE_FA_GAP * math.sqrt(D)
+        v = torch.randn((1, 1, K, D), device=dev).to(bf)
+        scores = k[0, 0, :, 0].double().cpu() / math.sqrt(D)
+        exact, narrow = _probe_sum("flash_attention", torch.exp(scores - PROBE_FA_GAP))
+
+        def row_sum(lse):
+            need(bool(torch.isfinite(lse).all()), "analysis (c): a non-finite log-sum-exp")
+            return _worst(torch.exp(lse.double() - PROBE_FA_GAP), exact)
+
+        s = declared("flash_attention", (q, k, v), return_lse=True)
+        o, lse = ops.flash_attention(q, k, v, causal=False, return_lse=True, impl="cuda")
+        need(bool(torch.isfinite(o.float()).all()), "analysis (c): a non-finite attention output")
+        _probe_reading("flash_attention bf16", s, row_sum(lse), exact, narrow, report)
+        probed.add(s.name)
+        for pol in ("bf16", "fp8", "fp8_e5m2"):
+            p = prec.resolve(pol)
+            s = declared("flash_attention", (q, k, v), p, return_lse=True)
+            o, lse = ops.flash_attention(q.float(), k.float(), v.float(), causal=False,
+                                         precision=p, return_lse=True, impl="cuda")
+            need(bool(torch.isfinite(o).all()), f"analysis (c): non-finite attention@{pol}")
+            _probe_reading(f"flash_attention@{pol}", s, row_sum(lse), exact, narrow, report)
+            probed.add(s.name)
+        # the scan (bf16 r/k/v, no decay): state entry (0, 0) starts at 256
+        # and k_t v_t^T adds 2^-12 to it every step
+        r = torch.zeros((1, 1, K, 64), dtype=bf, device=dev)
+        r[..., 0] = 1.0
+        kk = vv = r * 2.0 ** -6
+        w = torch.zeros((1, 1, K, 64), device=dev)
+        s0 = torch.zeros((1, 1, 64, 64), device=dev)
+        s0[0, 0, 0, 0] = PROBE_SCAN_S0
+        exact, narrow = _probe_sum("linear_attention",
+                                   torch.full((K,), PROBE_SCAN_STEP, dtype=torch.float64),
+                                   PROBE_SCAN_S0)
+        s = declared("linear_attention", (r, kk, vv, w))
+        _, S = ops.linear_attention(r, kk, vv, w, s0=s0, impl="cuda")
+        _probe_reading("linear_attention bf16 state", s, float(S[0, 0, 0, 0]), exact, narrow,
+                       report)
+        need(float(S.abs().sum()) == float(S[0, 0, 0, 0]),
+             "analysis (c): the scan's state holds other entries")
+        probed.add(s.name)
+    torch.cuda.synchronize()
+
+    # every card-suite declaration taking sub-fp32 floats was probed
+    narrow = {name: st.name for name, st, _ in plan_rules.suite_streams(ctx)
+              if st is not None and _narrow(st)}
+    print(f"analysis (c): the card suite's sub-fp32 declarations {narrow}; probed "
+          f"{sorted(probed)}")
+    need(set(narrow.values()) <= probed,
+         f"analysis (c): unprobed declarations {set(narrow.values()) - probed}")
+    report["analysis_narrow"] = narrow
+
+
+def analysis_phase(report):
+    """Phase 19: the static checker on the card, (a) to (d)."""
+    import torch
+
+    from repro_torch.analysis.base import Context, default_root
+    from repro_torch.hopper import dispatch
+
+    t0 = time.perf_counter()
+    analysis_cli_phase(report)
+    ctx = Context(default_root(), device="cuda")
+    dispatch.reset_launches()
+    analysis_plans_phase(report, ctx)
+    analysis_probe_phase(report, ctx)
+    report["analysis_launches"] = dict(dispatch.LAUNCHES)
+    print(f"analysis: launches in (b) and (c) {report['analysis_launches']}")
+    for k in PROBE_PLANNED + ("flash_attention_scaled", "linear_attention"):
+        need(report["analysis_launches"].get(k, 0) > 0, f"analysis: no {k} launch")
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["analysis_phase_s"] = time.perf_counter() - t0
+    print(f"analysis phase: {report['analysis_phase_s']:.1f} s (budget {ANALYSIS_BUDGET_S:.0f} s)")
+    need(report["analysis_phase_s"] <= ANALYSIS_BUDGET_S,
+         f"analysis phase: {report['analysis_phase_s']:.1f} s, past its {ANALYSIS_BUDGET_S} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -5813,6 +6131,7 @@ def main() -> int:
         block_search_phase(report)
         gc.collect()
         torch.cuda.empty_cache()
+        analysis_phase(report)
         time_kernels(report)
         time_gcn_kernels(report)
         time_gemm_accum(report)
@@ -5955,6 +6274,8 @@ def main() -> int:
         k["dryrun_launches"] = report["dryrun_launches"].get(k["name"], 0)
         # phase 18: the tuned calls' launches, and the entries' tuned times
         k["block_search_launches"] = report["block_search_launches"].get(k["name"], 0)
+        # phase 19: the checker's planned picks and accumulator probes
+        k["analysis_launches"] = report["analysis_launches"].get(k["name"], 0)
         case = next((op for op, name in OP_KERNELS.items() if name == k["name"]), None)
         if case is not None:
             r = report["op_roofline"][case]

@@ -26,11 +26,23 @@ import ctypes
 import torch
 
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import LAUNCHES
+from repro_torch.hopper.dispatch import LAUNCHES, KernelStreams, StreamOperand, register_streams
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _fn = None
+
+
+@register_streams("bsr_spmm", kernel="bsr_spmm")
+def streams(structs, policy=None, *, num_rows, **_):
+    """The kernel's streams for ``ops.bsr_spmm``: tile_values (T, bm, bk)
+    and dense (K, F) values, tile_rows and tile_cols (T,) int32 indices,
+    summed in fp32; the (num_rows, F) fp32 output."""
+    (t_shape, t_dtype), rows, cols, (d_shape, d_dtype) = structs[:4]
+    return KernelStreams(
+        "bsr_spmm", (StreamOperand("value", t_shape, t_dtype), StreamOperand("index", *rows),
+                     StreamOperand("index", *cols), StreamOperand("value", d_shape, d_dtype)),
+        torch.float32, (StreamOperand("value", (num_rows, d_shape[1]), torch.float32),))
 
 
 def _kernel():

@@ -36,7 +36,11 @@ build_logs: dict[str, str] = {}  # name -> nvcc/ptxas output of its last build
 
 def nvcc_path() -> str:
     """The CUDA compiler: ``nvcc`` on PATH, else under ``CUDA_HOME``
-    (default ``/usr/local/cuda``). Raises if neither exists."""
+    (default ``/usr/local/cuda``). Raises if neither exists.
+
+    The ``CUDA_HOME`` read is the kernel layer's one environment read,
+    the named exemption of the static checker's ``no-environ-in-kernels``
+    rule: it locates the toolchain and configures no kernel."""
     found = shutil.which("nvcc")
     if found:
         return found

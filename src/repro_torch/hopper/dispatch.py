@@ -33,6 +33,14 @@ override answered, by op. ``PlanCandidate`` is one entry of a planner's
 ``candidates(...)``: every plan its model weighs, with the model's cost,
 its shared memory, threads and registers, and whether it fits the card.
 
+``KernelStreams`` is a kernel's dataflow declaration: the operands it
+reads (values, scales with their block, indices), the dtype it sums in
+and the outputs it writes. Each kernel module registers one declaration
+function for its op (``register_streams``); ``kernel_streams`` finds the
+one that takes a call. The static checker's widening and dataflow rules
+read them, the CPU tests hold them to the plain forms' tensors, and the
+smoke run probes the accumulator on the card.
+
 ``LAUNCHES`` counts kernel launches per kernel: a wrapper adds one where it
 launches its kernel, and nowhere else. The scaled kernels count under
 their own keys (``gemm_scaled``, ``flash_attention_scaled``), apart from
@@ -288,6 +296,72 @@ def lookup_plan(op: str, args):
     if plan is not None:
         PLAN_HITS[op] += 1
     return plan
+
+
+# ---------------------------------------------------------------------------
+# The kernels' dataflow declarations
+# ---------------------------------------------------------------------------
+
+
+class StreamOperand(NamedTuple):
+    """One tensor a kernel reads or writes: ``role`` is ``"value"``,
+    ``"scale"`` (fp32 factors, each covering ``block`` elements of its
+    values along one axis) or ``"index"``; ``shape`` and ``dtype`` are the
+    tensor's as the kernel takes it."""
+
+    role: str
+    shape: tuple
+    dtype: Any
+    block: int = 0
+
+
+class KernelStreams(NamedTuple):
+    """What one kernel route reads, sums in and writes, for one call:
+    ``name`` (the kernel and its route), ``operands`` (``StreamOperand``s
+    in the kernel's argument order), ``accum`` (the dtype its running sums
+    are carried in; None for a copy or gather that sums nothing) and
+    ``outs`` (``StreamOperand``s of its outputs). The counterpart of the
+    reference's ``StreamProgram`` stream declarations, which its
+    widening and dataflow rules read."""
+
+    name: str
+    operands: tuple
+    accum: Any
+    outs: tuple
+
+
+_STREAMS: dict[str, list[tuple[str, Callable]]] = {}
+
+
+def register_streams(op: str, *, kernel: str) -> Callable:
+    """Decorator: ``@register_streams("gemm", kernel="gemm")`` registers
+    ``fn(structs, policy=None, **kwargs) -> KernelStreams | None``, the
+    declaration of ``kernel``'s routes for ``op``. ``structs`` are the
+    call's operands as ``(shape, dtype)`` pairs in the op's positional
+    order (None for an absent optional operand), ``policy`` its resolved
+    ``core.precision`` policy or None; the function returns None for a
+    call its kernel does not take (another kernel of the op declares it)."""
+
+    def deco(fn: Callable) -> Callable:
+        _STREAMS.setdefault(op, []).append((kernel, fn))
+        return fn
+
+    return deco
+
+
+def kernel_streams(op: str, structs, policy=None, **kwargs) -> KernelStreams:
+    """The one declaration of ``op``'s kernels that takes this call.
+    Raises ``LookupError`` where none does (or ``op`` has none) and
+    ``RuntimeError`` where two do."""
+    found = [s for _, fn in _STREAMS.get(op, ())
+             if (s := fn(tuple(structs), policy, **kwargs)) is not None]
+    if not found:
+        raise LookupError(f"no kernel of op {op!r} declares its streams for {structs} "
+                          f"under policy {getattr(policy, 'name', policy)!r}")
+    if len(found) > 1:
+        raise RuntimeError(f"op {op!r}: {len(found)} kernels declare one call: "
+                           f"{[s.name for s in found]}")
+    return found[0]
 
 
 @contextlib.contextmanager

@@ -28,7 +28,8 @@ import torch
 
 from repro_torch.device import sm_count
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import LAUNCHES, PlanCandidate, lookup_plan, model_pick
+from repro_torch.hopper.dispatch import (LAUNCHES, KernelStreams, PlanCandidate, StreamOperand,
+                                        lookup_plan, model_pick, register_streams)
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's compiled head dims
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -106,6 +107,23 @@ def plan(B: int, H: int, Sq: int, D: int, dtype: torch.dtype, sms: int) -> int:
     kernel applies itself when the wrapper passes 0."""
     hit = lookup_plan("flash_attention", (B, H, Sq, D, dtype, sms))
     return hit if hit is not None else model_pick(candidates(B, H, Sq, D, dtype, sms)).plan
+
+
+@register_streams("flash_attention", kernel="flash_attention")
+def streams(structs, policy=None, *, return_lse=False, **_):
+    """The kernel's streams for ``ops.flash_attention`` with no
+    ``precision``: q (B, H, Sq, D), k and v (B, K, Sk, D) values; the row
+    max, row sum and output block carried in fp32; o in q's shape and
+    dtype, and the (B, H, Sq) fp32 log-sum-exp with ``return_lse``."""
+    if policy is not None:
+        return None
+    (q_shape, dtype), (k_shape, _), (v_shape, _) = structs[:3]
+    outs = (StreamOperand("value", q_shape, dtype),)
+    if return_lse:
+        outs += (StreamOperand("value", q_shape[:3], torch.float32),)
+    return KernelStreams(
+        "flash_attention/" + ("ffma" if dtype == torch.float32 else "mma"),
+        tuple(StreamOperand("value", s, d) for s, d in structs[:3]), torch.float32, outs)
 
 
 def _kernel():

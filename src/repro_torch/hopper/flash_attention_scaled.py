@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.core import precision as prec
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import LAUNCHES
+from repro_torch.hopper.dispatch import LAUNCHES, KernelStreams, StreamOperand, register_streams
 from repro_torch.hopper.flash_attention import HEAD_DIMS  # compiled in both kernels
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
@@ -43,6 +43,26 @@ def route(dtype: torch.dtype) -> str:
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention_scaled: no route for {dtype}")
     return "ffma" if dtype == torch.float32 else "wgmma"
+
+
+@register_streams("flash_attention", kernel="flash_attention_scaled")
+def streams(structs, policy=None, *, return_lse=False, **_):
+    """The kernel's streams for ``ops.flash_attention(precision=policy)``:
+    q, k and v quantized per row over D to the policy's compute dtype,
+    each with its (..., S, 1) fp32 scales, summed in fp32; o (B, H, Sq, D)
+    fp32, and the (B, H, Sq) fp32 log-sum-exp with ``return_lse``."""
+    if policy is None:
+        return None
+    dtype = policy.compute_dtype
+    operands = tuple(StreamOperand("value", s, dtype) for s, _ in structs[:3])
+    operands += tuple(StreamOperand("scale", (*s[:3], 1), torch.float32, s[3])
+                      for s, _ in structs[:3])
+    q_shape = structs[0][0]
+    outs = (StreamOperand("value", q_shape, torch.float32),)
+    if return_lse:
+        outs += (StreamOperand("value", q_shape[:3], torch.float32),)
+    return KernelStreams(f"flash_attention_scaled/{route(dtype)}@{policy.name}", operands,
+                         torch.float32, outs)
 
 
 def _kernel():

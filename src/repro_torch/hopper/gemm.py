@@ -35,7 +35,8 @@ import torch
 
 from repro_torch.device import sm_count
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import (LAUNCHES, PlanCandidate, lookup_plan, model_pick,
+from repro_torch.hopper.dispatch import (LAUNCHES, KernelStreams, PlanCandidate, StreamOperand,
+                                        lookup_plan, model_pick, register_streams,
                                         resolve_blocks)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -187,6 +188,23 @@ def plan_f32(M: int, N: int, K: int, sms: int, vec: bool) -> F32Plan:
 
 
 plan_f32.cache_clear = _model_f32.cache_clear
+
+
+@register_streams("gemm", kernel="gemm")
+def streams(structs, policy=None, *, out_dtype=None, accum_dtype=torch.float32, **_):
+    """The kernel's streams for ``ops.gemm`` with no ``precision``: a
+    (M, K) and b (K, N) values, summed in ``accum_dtype`` (fp32, or the
+    narrow bf16/fp16 running sum), written as ``out_dtype`` (default a's
+    dtype). The route is ``ffma`` for fp32 values, ``mma`` for bf16."""
+    if policy is not None:
+        return None
+    (a_shape, dtype), (b_shape, b_dtype) = structs[:2]
+    name = "gemm/" + ("ffma" if dtype == torch.float32 else "mma")
+    if accum_dtype != torch.float32:
+        name += f"+{str(accum_dtype).replace('torch.', '')}-accum"
+    return KernelStreams(
+        name, (StreamOperand("value", a_shape, dtype), StreamOperand("value", b_shape, b_dtype)),
+        accum_dtype, (StreamOperand("value", (a_shape[0], b_shape[1]), out_dtype or dtype),))
 
 
 _fn = None

@@ -38,7 +38,8 @@ import torch
 from repro_torch.core import precision as prec
 from repro_torch.device import sm_count
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import (LAUNCHES, PlanCandidate, lookup_plan, model_pick,
+from repro_torch.hopper.dispatch import (LAUNCHES, KernelStreams, PlanCandidate, StreamOperand,
+                                        lookup_plan, model_pick, register_streams,
                                         resolve_blocks)
 from repro_torch.hopper.gemm import CHUNK_SLOTS, COPY_SLOTS, EFF, SMEM_PER_CTA
 
@@ -237,6 +238,33 @@ def plan(M: int, N: int, K: int, bk: int, dtype: torch.dtype, aligned: bool,
 
 
 plan.cache_clear = _model.cache_clear
+
+
+@register_streams("gemm", kernel="gemm_scaled")
+def streams(structs, policy=None, *, out_dtype=None, accum_dtype=torch.float32, bk=None, **_):
+    """The kernel's streams for ``ops.gemm(precision=policy)``: a (M, K)
+    and b (K, N) quantized to the policy's compute dtype per K-block of
+    ``bk`` (the block table's, at most K), with fp32 scales (M, nk) and
+    (nk, N), summed in fp32 and written as ``out_dtype`` (default fp32).
+    The route (``ffma``, ``wgmma`` or ``mma``) is the model's at these
+    shapes with 16-byte rows. A narrow ``accum_dtype`` is no call of this
+    kernel (it raises)."""
+    if policy is None or accum_dtype != torch.float32:
+        return None
+    (M, K), _ = structs[0]
+    N = structs[1][0][1]
+    dtype = policy.compute_dtype
+    bk = min(resolve_blocks("gemm", bk=bk)["bk"], K)
+    nk = math.ceil(K / bk)
+    esize = torch.empty((), dtype=dtype).element_size()
+    aligned = K * esize % 16 == 0 and N * esize % 16 == 0
+    route = model_pick(candidates(M, N, K, bk, dtype, aligned)).plan.route
+    return KernelStreams(
+        f"gemm_scaled/{route}@{policy.name}",
+        (StreamOperand("value", (M, K), dtype), StreamOperand("value", (K, N), dtype),
+         StreamOperand("scale", (M, nk), torch.float32, bk),
+         StreamOperand("scale", (nk, N), torch.float32, bk)),
+        torch.float32, (StreamOperand("value", (M, N), out_dtype or torch.float32),))
 
 
 _fn = None

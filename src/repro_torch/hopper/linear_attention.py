@@ -26,13 +26,31 @@ import ctypes
 import torch
 
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import LAUNCHES, resolve_blocks
+from repro_torch.hopper.dispatch import (LAUNCHES, KernelStreams, StreamOperand, register_streams,
+                                        resolve_blocks)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 34  # csrc/linear_attention.cu MAX_CHUNK: ops.linear_attention's overflow guard
 MAX_N = 128  # csrc/linear_attention.cu MAX_N
 
 _fn = None
+
+
+@register_streams("linear_attention", kernel="linear_attention")
+def streams(structs, policy=None, **_):
+    """The kernel's streams for ``ops.linear_attention``: r, k (B, H, T,
+    N) and v (B, H, T, M) values of one dtype, w_log fp32, and where given
+    u (H, N) and s0 (B, H, N, M), both read as fp32; the state carried in
+    fp32; o (B, H, T, M) in v's dtype and S_final (B, H, N, M) fp32."""
+    (r, rd), (k, kd), (v, vd), (w, wd) = structs[:4]
+    u, s0 = (tuple(structs[4:6]) + (None, None))[:2]
+    operands = (StreamOperand("value", r, rd), StreamOperand("value", k, kd),
+                StreamOperand("value", v, vd), StreamOperand("value", w, wd))
+    operands += tuple(StreamOperand("value", x[0], torch.float32) for x in (u, s0) if x)
+    B, H, N, M = r[0], r[1], r[3], v[3]
+    return KernelStreams("linear_attention", operands, torch.float32,
+                         (StreamOperand("value", (B, H, r[2], M), vd),
+                          StreamOperand("value", (B, H, N, M), torch.float32)))
 
 
 def _kernel():

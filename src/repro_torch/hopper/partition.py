@@ -205,9 +205,9 @@ def partition_levels(mesh) -> tuple:
 
 
 def attention_levels(mesh) -> tuple:
-    """``partition_levels`` with the ``data`` axis slotted between ``pod``
-    and the chiplet axis (the attention family's batch or sequence level).
-    Size-1 axes are dropped."""
+    """``partition_levels`` of ``mesh`` with the ``data`` axis slotted
+    between ``pod`` and the chiplet axis (the attention family's batch or
+    sequence level). Size-1 axes are dropped."""
     return _stack(mesh, True)
 
 
@@ -296,10 +296,12 @@ def strip_plan_kwargs(kwargs: dict) -> dict:
 
 def plan_for(op: str, mesh, *args, impl: str | None = None, **kwargs):
     """Resolve ``op``'s PartitionRule against ``mesh`` (a ``DeviceMesh`` or
-    a ``MeshSpec``) for these operands (tensors, or anything with
+    a ``MeshSpec``) for the operands ``args`` (tensors, or anything with
     ``.shape`` and ``.dtype``: ``device="meta"`` tensors plan without
-    memory) and keywords. Walks the replication ladder; returns the plan,
-    or None (replication), warning once when a non-trivial stack was
+    memory) and the op's keywords ``kwargs`` (plan-only schedule keywords
+    reach only the rules that declare them); ``impl`` is the dispatch impl
+    each rank's part will run. Walks the replication ladder; returns the
+    plan, or None (replication), warning once when a non-trivial stack was
     exhausted."""
     rule = _RULES.get(op)
     if rule is None:
@@ -323,8 +325,10 @@ def plan_for(op: str, mesh, *args, impl: str | None = None, **kwargs):
 
 
 def flash_plan(mesh, q, k, v, *, impl: str | None = None, **kwargs):
-    """``plan_for("flash_attention", ...)``: the flash rule against
-    ``mesh``."""
+    """``plan_for("flash_attention", mesh, q, k, v, impl=impl, **kwargs)``:
+    the flash rule against ``mesh`` for q (B, H, Sq, D) and k, v
+    (B, K, Sk, D), with ``impl`` and the op's keywords ``kwargs`` as
+    ``plan_for`` takes them."""
     return plan_for("flash_attention", mesh, q, k, v, impl=impl, **kwargs)
 
 
@@ -334,9 +338,9 @@ def plan_collective_bytes(plan: PartitionPlan | None) -> int:
 
 
 def local_operand_structs(plan: PartitionPlan | None, mesh, args) -> tuple:
-    """``(shape, dtype)`` of each live operand's per-rank part under
-    ``plan`` (``None`` operands skipped; replication passes shapes
-    whole)."""
+    """``(shape, dtype)`` of each live operand of ``args`` as one rank of
+    ``mesh`` holds it under ``plan`` (``None`` operands skipped;
+    replication passes shapes whole)."""
     out = []
     for i, a in enumerate(args):
         if a is None:
@@ -351,10 +355,11 @@ def local_operand_structs(plan: PartitionPlan | None, mesh, args) -> tuple:
 
 
 def sharded_call(op: str, mesh, *args, impl: str | None = None, **kwargs):
-    """Run ``op`` over ``mesh`` by its plan through the selected impl, or
-    once, unsharded, when the plan is None. Returns exactly what the
-    unsharded op returns, on the operands' device. A ``MeshSpec`` plans
-    but cannot run a plan (``TypeError``)."""
+    """Run ``op`` on the operands ``args`` and keywords ``kwargs`` over
+    ``mesh`` by its plan through the selected ``impl``, or once,
+    unsharded, when the plan is None. Returns exactly what the unsharded
+    op returns, on the operands' device. A ``MeshSpec`` plans but cannot
+    run a plan (``TypeError``)."""
     if not isinstance(mesh, (DeviceMesh, MeshSpec)):
         raise TypeError(f"mesh= takes a DeviceMesh (or RingMesh); got {type(mesh).__name__}")
     impl = dispatch.resolve_impl(op, impl)

@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.device import sm_count
 from repro_torch.hopper import build
-from repro_torch.hopper.dispatch import LAUNCHES
+from repro_torch.hopper.dispatch import LAUNCHES, KernelStreams, StreamOperand, register_streams
 
 THREADS = 256             # csrc/ring_hop.cu's words kernel: threads a CTA
 CTAS_PER_SM = 2           # either kernel's grid: at most this many CTAs an SM
@@ -34,6 +34,15 @@ BULK_MIN_BYTES = 4 << 20  # from this size on one card, the bulk kernel (at 4 Mi
 _fn = None
 _lib = None
 _peers: set = set()  # (src card, dst card) pairs with peer access enabled
+
+
+@register_streams("ring_hop", kernel="ring_hop")
+def streams(structs, policy=None, **_):
+    """The kernel's streams for one hop: the sender's block, copied byte
+    for byte into the receiver's landing buffer; no accumulator."""
+    (shape, dtype), = structs[:1]
+    return KernelStreams("ring_hop", (StreamOperand("value", shape, dtype),), None,
+                         (StreamOperand("value", shape, dtype),))
 
 
 def _kernel():

@@ -26,7 +26,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import LAUNCHES, PlanCandidate, lookup_plan, model_pick
+from repro_torch.hopper.dispatch import (LAUNCHES, KernelStreams, PlanCandidate, StreamOperand,
+                                        lookup_plan, model_pick, register_streams)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -40,6 +41,18 @@ L2_MISS_COST = 4          # the plan model: a gather from HBM against one from t
 BATCH_COST = 1.05         # the plan model: the batch the rule does not pick
 
 _fn = None
+
+
+@register_streams("spmm", kernel="spmm")
+def streams(structs, policy=None, **_):
+    """The kernel's streams for ``ops.spmm``: values (R, L) and dense
+    (C, F) values, cols (R, L) int32 indices, summed in fp32; the (R, F)
+    output in dense's dtype."""
+    (v_shape, v_dtype), (c_shape, c_dtype), (d_shape, d_dtype) = structs[:3]
+    return KernelStreams(
+        "spmm", (StreamOperand("value", v_shape, v_dtype), StreamOperand("index", c_shape, c_dtype),
+                 StreamOperand("value", d_shape, d_dtype)),
+        torch.float32, (StreamOperand("value", (v_shape[0], d_shape[1]), d_dtype),))
 
 
 class Plan(NamedTuple):

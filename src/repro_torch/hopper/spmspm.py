@@ -26,7 +26,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import LAUNCHES, PlanCandidate, lookup_plan, model_pick
+from repro_torch.hopper.dispatch import (LAUNCHES, KernelStreams, PlanCandidate, StreamOperand,
+                                        lookup_plan, model_pick, register_streams)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CT_MAX = 4096  # csrc/spmspm.cu CT_MAX: output columns a warp sums in shared memory
@@ -34,6 +35,18 @@ WARPS = 4  # csrc/spmspm.cu WARPS: (row, tile) items of a CTA
 MAX_TILES = 64  # the tile counts ``candidates`` weighs
 
 _fn = None
+
+
+@register_streams("spmspm", kernel="spmspm")
+def streams(structs, policy=None, **_):
+    """The kernel's streams for ``ops.spmspm``: a_values (R, La) and
+    b_values (C, Lb) values, a_cols and b_rows int32 indices, summed in
+    fp32; the (R, C) fp32 output."""
+    (av, avd), ac, (bv, bvd), br = structs[:4]
+    return KernelStreams(
+        "spmspm", (StreamOperand("value", av, avd), StreamOperand("index", *ac),
+                   StreamOperand("value", bv, bvd), StreamOperand("index", *br)),
+        torch.float32, (StreamOperand("value", (av[0], bv[0]), torch.float32),))
 
 
 class Plan(NamedTuple):

@@ -35,7 +35,8 @@ import torch
 
 from repro_torch.device import sm_count
 from repro_torch.hopper import blocked, build
-from repro_torch.hopper.dispatch import (LAUNCHES, PlanCandidate, lookup_plan, model_pick,
+from repro_torch.hopper.dispatch import (LAUNCHES, KernelStreams, PlanCandidate, StreamOperand,
+                                        lookup_plan, model_pick, register_streams,
                                         resolve_blocks)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,6 +51,16 @@ MAX_SMEM = 100 * 1024  # the window's shared memory, at most
 BLOCKS_PER_SM = 8     # the grid's target: x is cut until the card has this many blocks an SM
 
 _fn = None
+
+
+@register_streams("stencil", kernel="stencil")
+def streams(structs, policy=None, **_):
+    """The kernel's streams for ``ops.stencil``: the grid's values (its
+    weights travel in the launch's parameters, in fp32), each point's
+    weighted sum in fp32; the output in the grid's shape and dtype."""
+    (shape, dtype), = structs[:1]
+    return KernelStreams("stencil", (StreamOperand("value", shape, dtype),), torch.float32,
+                         (StreamOperand("value", shape, dtype),))
 
 
 class Plan(NamedTuple):

@@ -97,7 +97,8 @@ class SearchFault(RuntimeError):
 
 
 def mesh_tag(mesh) -> str | None:
-    """``"2x4"`` / ``"2x2x2"`` (axis sizes in axis order), or None."""
+    """``mesh``'s tag: ``"2x4"`` / ``"2x2x2"`` (axis sizes in axis order),
+    or None without a mesh."""
     if mesh is None:
         return None
     return "x".join(str(int(mesh.shape[a])) for a in mesh.axis_names)
@@ -110,8 +111,8 @@ def _structs(arrays) -> tuple:
 def local_case_shapes(case: TuneCase, impl: str | None = None) -> tuple:
     """``(shape, dtype)`` of each operand that keys ``case``'s entry: the
     operands themselves without a mesh, else the per-rank parts under the
-    op's partition plan (``partition.local_operand_structs``); a plan that
-    replicates keys as the unmeshed case."""
+    op's partition plan (``partition.local_operand_structs``) for the
+    dispatch ``impl``; a plan that replicates keys as the unmeshed case."""
     if case.mesh is None:
         return _structs(case.args)
     from repro_torch.hopper import partition
@@ -198,8 +199,9 @@ def _time_call(call, device, *, reps: int, warmup: int = 2, group_ms: float = 10
 
 
 def candidate_prior_seconds(case: TuneCase, blocks: dict) -> float:
-    """The warm-start prior of a block dict: ``roofline.bound_ms`` of the
-    bytes the plain form moves at it (``case.traffic``), in seconds."""
+    """The warm-start prior of the block dict ``blocks``:
+    ``roofline.bound_ms`` of the bytes the plain form moves at it
+    (``case.traffic``), in seconds."""
     from repro_torch.launch import roofline
 
     return roofline.bound_ms(0.0, case.traffic(blocks))[0] / 1e3
@@ -210,7 +212,8 @@ def _outputs(out) -> tuple:
 
 
 def checksum(out) -> list[float]:
-    """Each output's sum in fp64: what a replayed winner is held to."""
+    """Each output of ``out`` (a tensor or a tuple of them) summed in
+    fp64: what a replayed winner is held to."""
     return [float(o.double().sum()) for o in _outputs(out)]
 
 
@@ -246,7 +249,8 @@ def _sms(device) -> int:
 
 
 def encode_args(args) -> list:
-    """A planner's arguments as JSON: dtypes as ``{"dtype": name}``."""
+    """A planner's arguments ``args`` as JSON: dtypes as ``{"dtype":
+    name}``, tuples as lists."""
     def enc(x):
         if isinstance(x, torch.dtype):
             return {"dtype": _dtype_name(x)}
@@ -257,7 +261,8 @@ def encode_args(args) -> list:
 
 
 def decode_args(args) -> tuple:
-    """``encode_args`` undone: lists back to tuples, dtypes to torch's."""
+    """``encode_args`` undone on ``args``: lists back to tuples, dtypes to
+    torch's."""
     def dec(x):
         if isinstance(x, dict):
             return getattr(torch, x["dtype"])
@@ -301,7 +306,8 @@ def autotune_case(case: TuneCase, *, smem_budget: int = SMEM_BUDGET_BYTES, reps:
     runs (default: its operands'), which decides the knob unless ``knob``
     (``"plan"``, ``"blocks"`` or ``"fixed"``) is given: off the card a plan
     search is planned for an H100's ``H100_SMS`` and its outputs are the
-    plain form's.
+    plain form's; ``impl`` — the dispatch impl whose partition plan keys
+    a meshed case's shapes.
 
     Warm start: block dicts by ``candidate_prior_seconds``, plans by their
     planner's cost; ties keep the list order (the default first)."""
@@ -827,10 +833,14 @@ def autotune(ops_subset=None, *, smem_budget: int = SMEM_BUDGET_BYTES, reps: int
     """Search every suite case; returns the record (version, backend, impl,
     mesh tag, entries). Winners are not applied: call ``apply_record``.
 
+    ``ops_subset`` — suite names to search (None: all of ``suite``, by
+    default ``DEFAULT_SUITE``); ``seed`` — the operands' random seed;
+    ``mesh`` — tune through the sharded dispatch on this mesh;
     ``device`` — where the cases run (default ``cuda``; raises without a
     card unless given); ``card`` — the card's shapes (default: on a card)
     or the reference's; ``on_entry(name, key, entry)`` — called after each
-    case. The rest as ``autotune_case`` and the reference's ``autotune``."""
+    case. ``smem_budget``, ``reps``, ``trial_budget``, ``time_candidate``
+    and ``run_candidate`` as ``autotune_case`` takes them."""
     from repro_torch.device import resolve_device
 
     suite = DEFAULT_SUITE if suite is None else suite
@@ -881,8 +891,9 @@ def load_record(path: str) -> dict:
 
 
 def record_matches_environment(record: dict, *, mesh: Any = None, device=None) -> bool:
-    """Was ``record`` tuned on this backend (the CPU, or a card of this
-    name and SM count), under this session's impl and for ``mesh``?"""
+    """Was ``record`` tuned on the backend of ``device`` (the CPU, or a
+    card of this name and SM count; default as ``backend_name``), under
+    this session's impl and for ``mesh``?"""
     return (record.get("backend") == backend_name(device)
             and record.get("impl") == session_impl()
             and record.get("mesh") == mesh_tag(mesh))
@@ -895,8 +906,8 @@ def apply_record(record: dict, *, force: bool = False, mesh: Any = None,
     entries (None: the untagged ones) through ``dispatch``: a block dict
     with ``set_block_override``, a plan with ``set_plan_override`` at the
     planner arguments it was tuned at. Raises where the record was tuned
-    for another backend, impl or mesh, unless ``force``. Returns ``{op:
-    blocks}`` applied."""
+    for another backend (``device``'s), impl or mesh, unless ``force``.
+    Returns ``{op: blocks}`` applied."""
     if not force and not record_matches_environment(record, mesh=mesh, device=device):
         raise ValueError(
             f"tuning record is for backend={record.get('backend')!r} "
@@ -923,7 +934,7 @@ def apply_record(record: dict, *, force: bool = False, mesh: Any = None,
 
 
 def record_deltas(record: dict) -> dict[str, dict]:
-    """Tuned against default per entry: ``{op[@policy][#consumer]:
+    """Tuned against default per entry of ``record``: ``{op[@policy][#consumer]:
     {blocks, default_blocks, us_per_call, default_us, delta_pct,
     non_default}}``, None times kept (an all-pruned entry has none)."""
     out = {}
@@ -942,6 +953,9 @@ def record_deltas(record: dict) -> dict[str, dict]:
 
 
 def main(argv=None) -> None:
+    """The command line: search ``full_suite()`` (or ``--ops``) on the
+    device and write the record to ``--out``; ``argv`` defaults to
+    ``sys.argv``. Prints each entry's winner against its default."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="autotune_record.json")
     ap.add_argument("--ops", default=None,

@@ -149,16 +149,16 @@ def run(*, device=None, seed=0, cases=None, impl=None) -> list[Row]:
     """Every case under every policy on ``device`` (default ``cuda``; raises
     without CUDA unless a device is given). ``cases`` default to
     ``make_cases(BENCH, seed)``; their operands move to the device and the
-    kernels are built and loaded. Each op is called once untimed (paying
-    its first-launch costs) before its timed call, whose output the errors
+    kernels are built (each kernel module loads its own library at its
+    first launch). Each op is called once untimed (paying its first-launch
+    costs, the load included) before its timed call, whose output the errors
     are read from; the fp32 oracle runs with TF32 off."""
     device = resolve_device(device)
     cases = make_cases(BENCH, seed) if cases is None else cases
     cases = [dataclasses.replace(c, operands=tuple(x.to(device) for x in c.operands))
              for c in cases]
     if device.type == "cuda":
-        for name in KERNELS:
-            build.load(name)
+        build.build(KERNELS)
 
     def sync():
         if device.type == "cuda":

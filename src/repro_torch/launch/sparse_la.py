@@ -154,14 +154,15 @@ def run(*, device=None, seed=0, cases=None) -> list[CaseRun]:
     """Each case once warm through ``hopper.ops`` on ``device`` (default
     ``cuda``; raises without CUDA unless a device is given). ``cases``
     default to ``make_cases(seed)`` at card size; their operands move to
-    the device, the kernels are built and loaded, and each case is called
-    once untimed (paying its first-launch costs) before its timed call.
+    the device, the kernels are built (each kernel module loads its own
+    library at its first launch), and each case is called once untimed
+    (paying its first-launch costs, the load included) before its timed
+    call.
     Returns one ``CaseRun`` per case."""
     device = resolve_device(device)
     cases = cases_to(make_cases(seed) if cases is None else cases, device)
     if device.type == "cuda":
-        for name in KERNELS:
-            build.load(name)
+        build.build(KERNELS)
     runs = []
     for c in cases:
         fn = getattr(ops, c.op)

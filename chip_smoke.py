@@ -8,21 +8,26 @@ Phases, in order; any failure exits non-zero:
   1. build every Hopper kernel from ``src/repro_torch/csrc`` (one ``nvcc``
      per source, started together) and print ptxas's registers, shared
      memory and spills (every instantiation of the redesigned kernels);
-     check in the scaled libraries' disassembly that every wgmma-route
-     kernel issues the warpgroup MMA (HGMMA, QGMMA for fp8) and no other
-     kernel does;
+     check in the GEMM's and the scaled libraries' disassembly that every
+     wgmma-route kernel issues the warpgroup MMA (HGMMA, QGMMA for fp8)
+     and no other kernel does;
   2. hold each kernel against its plain version on the card: the FA kernel
      at the shapes the serving path gives it (bf16, full width), at every
      bf16 head dim with GQA, window, q_offset, ragged Sk and return_lse,
      on zigzag half views, at grids of more 64-row tiles than SMs (its
-     two-warpgroup CTAs), and at small fp32 shapes; the GEMM at the GCN shapes and at ragged fp32/bf16 ones;
+     two-warpgroup CTAs), and at small fp32 shapes; the GEMM at the GCN shapes and at ragged fp32/bf16 ones,
+     its bf16 cases through both routes (wgmma: M and N of 64, K below 64,
+     ragged, an aligned strided slice, K = 0; mma: unaligned rows, a row
+     stride TMA refuses), each hold printing its route and each bf16 call
+     repeated bitwise;
      the ELL SpMM at the GCN adjacencies, at wider random ELL matrices and
      at edge shapes (F of 1, 33, 144, 300, also in slabs of a shrunk L2
      budget; L of 0, 1, 9, 37; strided rows; every type pair; sorted and
      unsorted rows with repeats; fp32 bitwise; a repeated call equal);
      the GEMM with a narrow accumulator (``accum_dtype`` bf16 and fp16,
-     both routes, K blocks of 256 and 64, a ragged last block, one block)
-     against its per-block plain version;
+     every route, K blocks of 256, 96, 64 and 32 (folds inside a wgmma
+     stage), a ragged last block, one block, K below 64) against its
+     per-block plain version;
      the scaled GEMM and scaled FA-2 (phase 5's kernels) at their shapes,
      the GEMM through each of its three routes (wgmma, ffma, mma) and the
      fp8 wgmma route at both promotion intervals it offers;
@@ -640,7 +645,15 @@ GEMM_CASES = [
     ("gcn width bf16 -> f32", 3327, 144, 144, "bfloat16", "float32"),
     ("gcn width bf16 -> bf16", 2708, 144, 144, "bfloat16", "bfloat16"),
     ("f32 -> bf16", 300, 64, 96, "float32", "bfloat16"),
+    # the bf16 wgmma route (hopper/gemm.py plan_bf16): M and N of exactly
+    # 64, K below 64 and not a multiple of 64, ragged M, N and K
+    ("M N 64 bf16 -> f32", 64, 64, 64, "bfloat16", "float32"),
+    ("ragged K < 64 bf16 -> f32", 200, 40, 136, "bfloat16", "float32"),
+    ("ragged K < 64 bf16", 200, 40, 136, "bfloat16", "bfloat16"),
+    ("ragged bf16 -> f32, 16 stages", 257, 1000, 72, "bfloat16", "float32"),
+    ("ragged bf16, 16 stages", 257, 1000, 72, "bfloat16", "bfloat16"),
 ]
+BF16_ROUTES = {"wgmma", "mma"}  # phase 2 holds both bf16 routes of the GEMM
 # Drawn with B / sqrt(K), so that C is of unit scale as the GCN's layers
 # give it: B's (2048, 1024) panel is far above the shared memory, so the
 # kernel streams it. With unit-variance B at K = 2048 the sums reach ~200,
@@ -711,6 +724,10 @@ GEMM_ACCUM_CASES = [
     ("ragged, 4 blocks", 257, 1000, 65, "bfloat16", 256),
     ("one block", 100, 70, 130, "bfloat16", 256),
     ("bk 64", 64, 512, 144, "bfloat16", 64),
+    ("ragged, bk 32: folds inside a stage", 257, 1000, 72, "bfloat16", 32),
+    ("ragged, bk 96: folds inside a stage", 257, 1000, 72, "bfloat16", 96),
+    ("ragged, 4 blocks", 257, 1000, 72, "bfloat16", 256),
+    ("K < 64, one block", 200, 40, 136, "bfloat16", 256),
     ("timed", 4096, 4096, 4096, "float32", 256),
     ("timed", 4096, 4096, 4096, "bfloat16", 256),
 ]
@@ -718,21 +735,39 @@ ACCUMS = ("bfloat16", "float16")
 ACCUM_EQUAL = 0.99
 
 
+def gemm_route(a, b, accum_dtype=None):
+    """The GEMM kernel's route for these operands: ``ffma`` for fp32, else
+    ``hopper/gemm.py`` ``plan_bf16``'s (``wgmma`` or ``mma``)."""
+    import torch
+
+    from repro_torch.device import sm_count
+    from repro_torch.hopper import gemm
+
+    if a.dtype == torch.float32:
+        return "ffma"
+    narrow = accum_dtype not in (None, torch.float32)
+    return gemm.plan_bf16(a.shape[0], b.shape[1], a.shape[1], gemm.rows16(a, b),
+                          sm_count(a.device.index or 0), narrow).route
+
+
 def check_gemm_accum(report):
-    """Phase 2 for ``ops.gemm(accum_dtype=)``: the GEMM kernel (both routes)
-    with each narrow accumulator against its per-block plain version."""
+    """Phase 2 for ``ops.gemm(accum_dtype=)``: the GEMM kernel (every
+    route) with each narrow accumulator against its per-block plain
+    version; both bf16 routes must be held."""
     import torch
 
     from repro_torch.hopper import blocked, ops
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    errs = {}
+    errs, routes = {}, set()
     for label, M, K, N, dt, bk in GEMM_ACCUM_CASES:
         dtype = getattr(torch, dt)
         a = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
         b = torch.randn((K, N), generator=gen, device="cuda").to(dtype)
         for acc in ACCUMS:
             adt = getattr(torch, acc)
+            route = gemm_route(a, b, adt)
+            routes.add(route)
             got = ops.gemm(a, b, impl="cuda", accum_dtype=adt, bk=bk, out_dtype=torch.float32)
             want = blocked.gemm_accum_blocked(a, b, bk=min(bk, K), accum_dtype=adt,
                                               out_dtype=torch.float32)
@@ -743,12 +778,59 @@ def check_gemm_accum(report):
             err = float((got - want).abs().max())
             equal = float((got == want).float().mean())
             ok = bool(torch.isfinite(got).all()) and err <= tol and equal >= ACCUM_EQUAL
-            print(f"kernel gemm accum {acc} [{label} ({M},{K})x({K},{N}) {dt}, bk {bk}]: "
+            print(f"kernel gemm accum {acc} [{label} ({M},{K})x({K},{N}) {dt}, bk {bk}, {route} route]: "
                   f"max_abs={err:.3e} tol {tol:.3e} ({blocks} blocks x eps {eps:g} x max|C|), "
                   f"bitwise equal {equal:.5f} (>= {ACCUM_EQUAL}) {'ok' if ok else 'FAIL'}")
             need(ok, f"gemm accum {acc} kernel disagrees with its per-block plain version: {label} {dt}")
             errs[acc] = max(errs.get(acc, 0.0), err)
+    print(f"gemm accum: routes held {sorted(routes)}")
+    need(BF16_ROUTES <= routes, f"gemm accum: bf16 routes {sorted(BF16_ROUTES - routes)} not held")
     report["gemm_accum_err"] = errs
+
+
+def _matmul_no_reduced_bf16(a, b):
+    """``torch.matmul``'s device time on bf16 operands, bf16 out, with
+    cuBLAS's bf16 reduction of partial sums off (the GEMM kernel's
+    function: an fp32 sum, one rounding), restored afterwards."""
+    import torch
+
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return [device_ms(lambda: torch.matmul(a, b)) for _ in range(2)]
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+
+
+def time_gemm_bf16(report):
+    """The GEMM's bf16 route at the timed shape (4096^3) and at the GCN
+    width (3327 x 144 x 144): the kernel with bf16 and fp32 outputs and
+    ``torch.matmul`` on the same operands (bf16 out, no reduced-precision
+    reduction), by device time in turns, beside the bound."""
+    import torch
+
+    from repro_torch.hopper import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    out = {}
+    for label, M, K, N in (("timed", 4096, 4096, 4096), ("gcn width", 3327, 144, 144)):
+        a = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        b = torch.randn((K, N), generator=gen, device="cuda").to(torch.bfloat16)
+        kern = lambda: ops.gemm(a, b, impl="cuda")  # noqa: E731
+        dev = [device_ms(kern)]
+        lib = _matmul_no_reduced_bf16(a, b)
+        dev.append(device_ms(kern))
+        f32 = device_ms(lambda: ops.gemm(a, b, impl="cuda", out_dtype=torch.float32))
+        bound, by = gemm_bound_ms(M, K, N, "bfloat16", "bfloat16")
+        route = gemm_route(a, b)
+        out[label] = dict(shape=f"({M},{K})x({K},{N}) bfloat16", route=route,
+                          device_ms=min(dev), f32_out_device_ms=f32, library_device_ms=min(lib),
+                          bound_ms=bound, bound_by=by)
+        print(f"time gemm bf16 [{label} ({M},{K})x({K},{N}), {route} route]: device time in turns "
+              f"kernel {_ms(dev[0])}, torch.matmul {_ms(lib[0])}, {_ms(lib[1])}, kernel "
+              f"{_ms(dev[1])}; fp32 out {_ms(f32)}; bound {bound:.5f} ms ({by}), "
+              f"{bound / min(dev):.3f} of it; {2 * M * N * K / min(dev) / 1e9:.1f} TFLOP/s")
+    report["gemm_bf16_time"] = out
 
 
 def time_gemm_accum(report):
@@ -777,14 +859,17 @@ def time_gemm_accum(report):
             kern, plain = _in_turns(kern_fn, plain_fn, 5)
             dev = device_ms(kern_fn)
             out[f"{dt}/{acc}"] = dict(
-                shape=f"({M},{K})x({K},{N}) {dt} accum {acc}, bk 256", ms=min(kern),
+                shape=f"({M},{K})x({K},{N}) {dt} accum {acc}, bk 256",
+                route=gemm_route(a, b, adt), ms=min(kern),
                 plain_ms=min(plain), device_ms=dev, fp32_accum_device_ms=f32,
                 bound_ms=bound, bound_by=by, library_ms=None)
-            print(f"time gemm accum {acc} [({M},{K})x({K},{N}) {dt}]: kernel {kern} ms, per-block "
+            print(f"time gemm accum {acc} [({M},{K})x({K},{N}) {dt}, {gemm_route(a, b, adt)} route]: "
+                  f"kernel {kern} ms, per-block "
                   f"plain {plain} ms (events, back to back); device time {_ms(dev)}, the same "
                   f"kernel with an fp32 accumulator {_ms(f32)}; bound {bound:.5f} ms ({by}); no "
                   f"library call rounds per K block")
     report["gemm_accum_time"] = out
+    time_gemm_bf16(report)
 
 
 def _gcn_graphs():
@@ -810,23 +895,48 @@ def check_gcn_kernels(report):
     F = gi.FEATURES
     gemm_cases = [(f"gcn {name}", n, F, F, "float32", "float32")
                   for name, n, _ in _gcn_graphs()] + GEMM_CASES + GEMM_CASES_UNIT_SCALE
-    errs = []
+    errs, routes = [], set()
+
+    def hold(label, a, b, odt):
+        kw = dict(out_dtype=getattr(torch, odt))
+        got = ops.gemm(a, b, impl="cuda", **kw)
+        want = ops.gemm(a, b, impl="torch", **kw)
+        torch.cuda.synchronize()
+        route = gemm_route(a, b)
+        routes.add(route)
+        (M, K), N = a.shape, b.shape[1]
+        errs.append(_hold("gemm", f"{label} ({M},{K})x({K},{N}), {route} route", got, want,
+                          GEMM_TOL[odt]))
+        if a.dtype == torch.bfloat16:  # a repeated call is bitwise the first
+            need(torch.equal(ops.gemm(a, b, impl="cuda", **kw), got),
+                 f"gemm [{label}]: a repeated call differs")
+        return got
+
     for label, M, K, N, dt, odt in gemm_cases:
         a = torch.randn((M, K), generator=gen, device="cuda").to(getattr(torch, dt))
         b = torch.randn((K, N), generator=gen, device="cuda")
         if (label, M, K, N, dt, odt) in GEMM_CASES_UNIT_SCALE:
             b /= math.sqrt(K)
-        b = b.to(getattr(torch, dt))
-        kw = dict(out_dtype=getattr(torch, odt))
-        got = ops.gemm(a, b, impl="cuda", **kw)
-        want = ops.gemm(a, b, impl="torch", **kw)
-        torch.cuda.synchronize()
-        errs.append(_hold("gemm", f"{label} ({M},{K})x({K},{N})", got, want, GEMM_TOL[odt]))
+        hold(label, a, b.to(getattr(torch, dt)), odt)
     # a row slice of a wider matrix: row stride != K, no copy
     wide = torch.randn((500, 200), generator=gen, device="cuda")
     a, b = wide[:, 30:174], torch.randn((F, F), generator=gen, device="cuda")
-    errs.append(_hold("gemm", "strided rows f32", ops.gemm(a, b, impl="cuda"),
-                      ops.gemm(a, b, impl="torch"), GEMM_TOL["float32"]))
+    hold("strided rows f32", a, b, "float32")
+    # bf16 row slices: one whose rows TMA takes (16-byte base, 2192-byte
+    # stride), one whose 2200-byte stride it refuses
+    bf = torch.bfloat16
+    b = torch.randn((1000, 200), generator=gen, device="cuda").to(bf)
+    for cols, start in ((1096, 8), (1100, 0)):
+        wide = torch.randn((300, cols), generator=gen, device="cuda").to(bf)
+        for odt in ("float32", "bfloat16"):
+            hold(f"strided rows bf16 -> {odt}, stride {cols}", wide[:, start:start + 1000], b, odt)
+    # K = 0: an empty sum, zeros (a as a slice of aligned rows)
+    for odt in ("float32", "bfloat16"):
+        got = hold(f"K = 0 -> {odt}", torch.zeros((300, 64), dtype=bf, device="cuda")[:, :0],
+                   torch.zeros((0, 200), dtype=bf, device="cuda"), odt)
+        need(not got.any(), "gemm [K = 0]: not zeros")
+    print(f"gemm: routes held {sorted(routes)}")
+    need(BF16_ROUTES <= routes, f"gemm: bf16 routes {sorted(BF16_ROUTES - routes)} not held")
     report["gemm_err"] = max(errs)
 
     rng = np.random.default_rng(SEED + 2)
@@ -5297,13 +5407,14 @@ def roofline_phase(report):
 
 
 def check_hgmma(paths):
-    """The disassembly of the built scaled libraries: every wgmma kernel
-    (each instantiation of the GEMM's and the FA's wgmma route) issues the
-    warpgroup MMA (HGMMA for 16-bit inputs, QGMMA for fp8), and the other
-    routes' kernels do not."""
+    """The disassembly of the built GEMM and scaled libraries: every wgmma
+    kernel (each instantiation of the plain GEMM's bf16 wgmma route and of
+    the scaled GEMM's and scaled FA's wgmma routes) issues the warpgroup
+    MMA (HGMMA for 16-bit inputs, QGMMA for fp8), and the other routes'
+    kernels (the GEMM's ffma and mma kernels among them) do not."""
     import re
 
-    for name in ("gemm_scaled", "flash_attention_scaled"):
+    for name in ("gemm", "gemm_scaled", "flash_attention_scaled"):
         sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(paths[name])],
                               capture_output=True, text=True, check=True, timeout=120).stdout
         counts, fn = {}, None
@@ -5337,38 +5448,53 @@ DRYRUN_ARG_REL = DRYRUN_FLOP_REL = 1e-2
 DRYRUN_CLIMB = ("phi3.5-moe-42b-a6.6b", "prefill_32k", {"tp_reduce_bf16": True})
 
 
+DRYRUN_WORKERS = 4  # processes counting the table's cells: the card's host has 8 cores
+
+
+def _dryrun_cell(arch, shape):
+    """One cell of (a), counted in a worker process (spawned, so it holds
+    no CUDA context); a failure comes back as the cell's ``error``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.shape_run import count_cell
+
+    try:
+        return count_cell(arch, shape, False)
+    except Exception as e:  # a failure here is a fault of the port
+        return {"arch": arch, "shape": shape, "mesh": "16x16", "error": f"{type(e).__name__}: {e}"}
+
+
 def dryrun_table_phase(report):
-    """(a) every config x shape on the 16 x 16 mesh, device-free."""
+    """(a) every config x shape on the 16 x 16 mesh, device-free: the cells
+    are independent host work, counted in DRYRUN_WORKERS processes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import torch
 
     from repro_torch.configs.base import SHAPES, all_arch_ids
     from repro_torch.core import topology
     from repro_torch.launch import shape_report
-    from repro_torch.launch.shape_run import count_cell
 
     total = torch.cuda.get_device_properties(0).total_memory
     print(f"dry run: topology.HBM_BYTES {topology.HBM_BYTES:.4g} B, the card's total_memory "
           f"{total} B")
     need(topology.HBM_BYTES <= total <= 1.1 * topology.HBM_BYTES,
          f"dry run: the card holds {total} B, HBM_BYTES says {topology.HBM_BYTES:.4g}")
+    cells = [(arch, shape) for arch in all_arch_ids() for shape in SHAPES]
+    with ProcessPoolExecutor(DRYRUN_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        counted = list(pool.map(_dryrun_cell, *zip(*cells)))
     rows = {}
-    for arch in all_arch_ids():
-        for shape in SHAPES:
-            try:
-                r = count_cell(arch, shape, False)
-            except Exception as e:  # a failure here is a fault of the port
-                r = {"arch": arch, "shape": shape, "mesh": "16x16",
-                     "error": f"{type(e).__name__}: {e}"}
-            rows[(arch, shape, "16x16")] = r
-            need("error" not in r, f"dry run {arch} {shape}: {r.get('error')}")
-            if "skipped" in r:
-                print(f"dry run {arch} {shape} 16x16: skipped ({r['skipped']})")
-                continue
-            t = r["roofline"]
-            print(f"dry run {arch} {shape} 16x16: {r['memory']['total_per_device'] / 1e9:.2f} "
-                  f"GB/device, fits {r['fits']}, {r['flops_per_device']:.4g} FLOPs/device, "
-                  f"{t['dominant']}, roofline fraction {t['roofline_fraction']:.3f}, useful "
-                  f"FLOPs {r['useful_flops_ratio']:.3f}, count {r['count_s']} s")
+    for (arch, shape), r in zip(cells, counted):
+        rows[(arch, shape, "16x16")] = r
+        need("error" not in r, f"dry run {arch} {shape}: {r.get('error')}")
+        if "skipped" in r:
+            print(f"dry run {arch} {shape} 16x16: skipped ({r['skipped']})")
+            continue
+        t = r["roofline"]
+        print(f"dry run {arch} {shape} 16x16: {r['memory']['total_per_device'] / 1e9:.2f} "
+              f"GB/device, fits {r['fits']}, {r['flops_per_device']:.4g} FLOPs/device, "
+              f"{t['dominant']}, roofline fraction {t['roofline_fraction']:.3f}, useful "
+              f"FLOPs {r['useful_flops_ratio']:.3f}, count {r['count_s']} s")
     print(shape_report.roofline_table(rows))
     report["dryrun_cells"] = rows
 
@@ -6179,10 +6305,14 @@ def main() -> int:
         })
         # device times (CUDA-graph replay) beside the events' ms
         kernels[-1].update(device_ms=t["device_ms"], library_device_ms=t["library_device_ms"])
-        if name == "gemm":  # ops.gemm(accum_dtype=bf16 / fp16): both routes, held per block
+        if name == "gemm":  # ops.gemm(accum_dtype=bf16 / fp16): every route, held per block
             kernels[-1]["accum"] = {
                 key: dict(r, max_abs_err=report["gemm_accum_err"][key.split("/")[1]])
                 for key, r in report["gemm_accum_time"].items()}
+            # the bf16 route at 4096^3 and the GCN width: its route, device
+            # times, bound and torch.matmul's (bf16 out, no reduced-precision
+            # reduction); no main path launches it
+            kernels[-1]["bf16"] = report["gemm_bf16_time"]
         if name == "spmm":  # the sparse trio's ELL cases and the L2 probe
             kernels[-1].update(
                 trio_launches=report["sparse_la_launches"]["spmm"],

@@ -15,6 +15,8 @@ rows of sorted columns x (16384, 256)) and at the GCN's ogbn-arxiv size
 (j2d5pt and j2d9pt on 8192^2, j3d7pt, j3d13pt and j3d27pt on 512^3), the
 chunked scan at both recurrent models' card shapes, the
 fp32 GEMM at the GCN's ogbn-arxiv and cora sizes ((n, 144) x (144, 144)),
+the bf16 GEMM at 4096^3 (fp32 and bf16 out, and with the bf16 and fp16
+accumulators at bk 256) and at the GCN width ((3327, 144) x (144, 144)),
 and the
 precision ladder's two kernels at its card shapes under every policy (the
 scaled GEMM (2048, 4096) x (4096, 16384) with bk = 256, the scaled FA-2
@@ -177,6 +179,15 @@ def main(root, label):
         a = torch.randn((n, 144), generator=gen, device="cuda")
         w = torch.randn((144, 144), generator=gen, device="cuda") / 12
         out[name] = graph_ms(lambda: ops.gemm(a, w, impl="cuda"))
+    for name, (m, k, n) in (("4096", (4096, 4096, 4096)), ("gcn3327", (3327, 144, 144))):
+        a = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        w = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
+        out[f"gemm_bf16_{name}"] = graph_ms(lambda: ops.gemm(a, w, impl="cuda", out_dtype=torch.float32))
+        out[f"gemm_bf16_{name}_bf16out"] = graph_ms(lambda: ops.gemm(a, w, impl="cuda"))
+        if m == 4096:
+            for acc in (torch.bfloat16, torch.float16):
+                out[f"gemm_bf16_{name}_accum_{str(acc)[6:]}"] = graph_ms(
+                    lambda: ops.gemm(a, w, impl="cuda", out_dtype=torch.float32, accum_dtype=acc, bk=256))
     del a, w
     m, k, n = pl.CARD.gemm
     a = torch.randn((m, k), generator=gen, device="cuda")

@@ -15,9 +15,10 @@
 // `acc_ref` in that type: K is cut in blocks of `bk` (the reference's K
 // block), each block's fp32 partial is rounded to the accumulator type and
 // added into a running sum that is rounded after each add; the output is
-// the last sum. Both kernels keep their own K steps (16 and 32) and fold
-// the partial at every bk boundary, so bk must be a multiple of the step or
-// cover K; the partial's fp32 order inside a block is the kernel's own.
+// the last sum. Every kernel folds the partial at every bk boundary, so bk
+// must be a multiple of the kernels' K step (16 for fp32 inputs, 32 for
+// bf16) or cover K; the partial's fp32 order inside a block is the
+// kernel's own.
 //
 // fp32 (the GCN path): CUDA-core FFMA, exact fp32, not TF32 (the reference
 // computes exact fp32). Bound on this card: at the GCN shape (M = nodes,
@@ -58,20 +59,53 @@
 //  - The epilogue stores from registers (float4, or 4 bf16 as 8 bytes,
 //    when C's rows are aligned) while the next tile's loads are in flight.
 //
-// bf16: tensor cores through mma.sync m16n8k16 with fp32 accumulation.
-// 128 x 64 tiles, K tiles of 32, 4 warps of 32 rows x 64 columns each. A
-// is stored row-major and B transposed (n-major), both with rows padded by
-// 8 elements, so every fragment load of a warp hits 32 distinct banks.
+// bf16: the tensor cores, by one of two kernels that the wrapper's planner
+// (hopper/gemm.py `plan_bf16`) picks from shapes, strides and alignment
+// alone. Bound on this card: at 4096^3, 2MNK operations over 989 TFLOP/s
+// take 0.139 ms against 0.06 ms for A, B and C through HBM, so the product
+// is bound by operations, and only wgmma reaches that rate.
+//  - wgmma (16-byte aligned bases, row strides a multiple of 8 elements, M
+//    and N at least 64): a persistent grid of one CTA an SM walking 128 x BN
+//    output tiles in groups of 16 row tiles, so the CTAs at work share A's
+//    row panels and B's column panels in L2. One producer thread keeps a
+//    ring of stages full by TMA (64 k a stage: A in two boxes of 64 rows, B
+//    in BN / 64 boxes of 64 columns, 128B-swizzled as wgmma reads them and
+//    zero-filled by TMA past M, N and K), completed on mbarriers. Two
+//    consumer warpgroups each take 64 rows and issue wgmma m64nBNk16 from
+//    shared memory, B read MN-major through the descriptor's transpose bit,
+//    so B is never transposed in memory. A stage is released once the
+//    next one's products are issued and its own are complete. An fp32
+//    accumulator takes BN = 256 (one 128-float register tile a thread) or
+//    128 where the planner finds the narrower tile less padded. A narrow
+//    accumulator takes BN = 128 and two partial register tiles that
+//    alternate block by block: a K block's first products are issued
+//    (fresh, scale_d = 0) before the previous block's partial is folded,
+//    so the tensor cores work while the CUDA cores round. A block may end
+//    inside a stage (bk = 32 mod 64): the partial units are then half a
+//    stage (two k16 steps). Zero-filled k past K join the last block, so
+//    they add no fold. ptxas serialises every wgmma of a function when a
+//    branch it cannot prove warp-uniform sits among them, so the waits and
+//    releases are tma.cuh's PTX.
+//  - mma (every other shape: unaligned rows, a row stride TMA refuses, M
+//    or N below 64): mma.sync m16n8k16 with fp32 accumulation, 128 x 64
+//    tiles, K tiles of 32, 4 warps of 32 rows x 64 columns each. A is
+//    stored row-major and B transposed (n-major), both with rows padded by
+//    8 elements, so every fragment load of a warp hits 32 distinct banks.
 //
 // Offsets are 64-bit (long long) throughout.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <atomic>
 #include <climits>
+
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -468,6 +502,245 @@ __global__ void __launch_bounds__(H_THREADS) gemm_bf16_kernel(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, wgmma route: a TMA ring, a producer thread and two consumer
+// warpgroups, persistent 128 x BN output tiles
+// ---------------------------------------------------------------------------
+
+constexpr int W_BM = 128;
+constexpr int W_KEL = 64;         // k values a stage holds: 128 bytes of bf16, one swizzle row
+constexpr int W_BOX = 64 * 128;   // 8 KB: 64 rows of A, or 64 k-rows of 64 columns of B
+constexpr int W_THREADS = 384;    // warpgroup 0 produces, 1 and 2 consume
+constexpr int W_MAX_STAGES = 8;
+constexpr int W_GROUP = 16;       // row tiles a group of the tile order walks down before moving across
+
+// A stage: A's 128 rows (two boxes), then B's BN columns (BN / 64 boxes).
+__host__ __device__ constexpr int w_stage_bytes(int bn) { return (2 + bn / 64) * W_BOX; }
+// hopper/gemm.py `wgmma_smem_bytes` is the same formula: the stages, 1 KB
+// to align them for the swizzle, a full and an empty mbarrier a stage
+long long w_smem_bytes(int bn, int stages) {
+  return static_cast<long long>(stages) * w_stage_bytes(bn) + 1024 + 16LL * stages;
+}
+
+struct WPlan {
+  int stages;
+  int tiles_m, tiles_n, tiles;
+  int nkt;      // stages a tile takes: ceil(K / 64), 0 for K = 0
+  int units;    // partial units a tile takes: nkt x (4 / CK)
+  int upb;      // units a K block: bk / (16 CK), or `units` for one block
+  int nblocks;  // K blocks a tile folds: ceil(K / bk); 1 without a narrow accumulator or for bk >= K
+  int vec_out;  // C's rows take 2-element stores
+};
+
+// Output tile t in groups of W_GROUP row tiles: down M within a group, then
+// across N, so the 132 tiles at work share 16 of A's row panels and about
+// 8 of B's column panels in L2.
+__device__ __forceinline__ void w_tile(const WPlan& q, int t, int& tm, int& tn) {
+  const int per_group = W_GROUP * q.tiles_n;
+  const int g = t / per_group, r = t - g * per_group;
+  const int rows = min(W_GROUP, q.tiles_m - g * W_GROUP);
+  tm = g * W_GROUP + r % rows;
+  tn = r / rows;
+}
+
+template <int BN>
+__device__ __forceinline__ void w_mma(float (&d)[BN / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (BN == 256) {
+    wgmma::mma_ss_n256_bf16_tb(d, a, b, scale_d);
+  } else {
+    wgmma::mma_ss_n128_bf16_tb(d, a, b, scale_d);
+  }
+}
+
+// k16 steps first .. first + N - 1 of a stage into d: A (this warpgroup's
+// 64 rows of 128 bytes of k, 8-row groups 1 KB apart) at sa, B (64-column
+// boxes 8 KB apart, read MN-major: 8 k-rows 1 KB apart) at sb; `fresh`:
+// the first product overwrites d.
+template <int BN, int N>
+__device__ __forceinline__ void w_issue(float (&d)[BN / 2], uint32_t sa, uint32_t sb, int first, bool fresh) {
+#pragma unroll
+  for (int s = 0; s < N; ++s) {
+    const int ks = first + s;
+    const uint64_t da = wgmma::smem_desc(sa + 32 * ks, 16, 1024, wgmma::SWIZZLE_128B);
+    const uint64_t db = wgmma::smem_desc(sb + ks * 16 * 128, W_BOX, 1024, wgmma::SWIZZLE_128B);
+    w_mma<BN>(d, da, db, (fresh && s == 0) ? 0 : 1);
+  }
+}
+
+// A narrow accumulator's fold at the end of a K block, sum = acc(sum +
+// acc(part)); the next block's first product overwrites part.
+template <int ACC, int N>
+__device__ __forceinline__ void fold(float (&sum)[N], const float (&part)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) sum[i] = to_acc<ACC>(sum[i] + to_acc<ACC>(part[i]));
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// A warpgroup's 64 x 2NV tile from its wgmma fragment: d[4 j + e] is row
+// r0 + 8 (e >> 1), column 8 j + 2 t + (e & 1); rows past M and columns past
+// N are not stored.
+template <typename OutT, int NV>
+__device__ __forceinline__ void w_store(const Params& p, const WPlan& q, const float (&d)[NV], long long m0, int n0,
+                                        int r0, int t) {
+  OutT* C = static_cast<OutT*>(p.c);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long m = m0 + r0 + 8 * h;
+    if (m >= p.M) continue;
+    OutT* crow = C + m * p.ldc;
+#pragma unroll
+    for (int j = 0; j < NV / 4; ++j) {
+      const int n = n0 + 8 * j + 2 * t;
+      const float x = d[4 * j + 2 * h], y = d[4 * j + 2 * h + 1];
+      if (q.vec_out && n + 1 < p.N) {
+        store2(crow + n, x, y);
+      } else {
+        if (n < p.N) crow[n] = from_f32<OutT>(x);
+        if (n + 1 < p.N) crow[n + 1] = from_f32<OutT>(y);
+      }
+    }
+  }
+}
+
+// ACC: the accumulator (0 fp32, 1 bf16, 2 fp16); BN: the tile's columns
+// (256 or 128; 128 for a narrow accumulator); CK: k16 steps a partial unit
+// (4: a stage, 2: half a stage, where a K block ends inside a stage).
+template <typename OutT, int ACC, int BN, int CK>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+                           const Params p, const WPlan q) {
+  constexpr int UPS = 4 / CK;  // units a stage
+  constexpr int STAGE = w_stage_bytes(BN);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = base + q.stages * STAGE;  // full[0 .. S), then empty[0 .. S)
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < q.stages; ++s) {
+      tma::mbar_init(bars + 8 * s, 1);                // the producer's arrive + TMA's bytes
+      tma::mbar_init(bars + 8 * (q.stages + s), 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int stage = 0, phase = 0;
+      for (int tile = blockIdx.x; tile < q.tiles; tile += gridDim.x) {
+        int tm, tn;
+        w_tile(q, tile, tm, tn);
+        const int m0 = tm * W_BM, n0 = tn * BN;
+        for (int kt = 0; kt < q.nkt; ++kt) {
+          tma::mbar_wait(bars + 8 * (q.stages + stage), phase ^ 1);  // the consumers freed it
+          const uint32_t st = base + stage * STAGE, full = bars + 8 * stage;
+          tma::mbar_expect_tx(full, STAGE);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) tma::load_2d(st + h * W_BOX, &map_a, full, kt * W_KEL, m0 + h * 64);
+#pragma unroll
+          for (int h = 0; h < BN / 64; ++h)
+            tma::load_2d(st + (2 + h) * W_BOX, &map_b, full, n0 + h * 64, kt * W_KEL);
+          if (++stage == q.stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // two consumer warpgroups, 64 rows of the tile each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int r0 = warp * 16 + lane / 4, t = lane % 4;  // this thread's rows r0, r0 + 8 of the 64
+    int stage = 0, phase = 0;  // the next stage to wait for
+    int rstage = 0;            // the next stage to release
+    auto wait_stage = [&]() {
+      tma::mbar_wait(bars + 8 * stage, phase);
+      const int s = stage;
+      if (++stage == q.stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+      return base + s * STAGE;
+    };
+    auto release = [&]() {
+      tma::mbar_arrive_lane0(bars + 8 * (q.stages + rstage), lane);
+      if (++rstage == q.stages) rstage = 0;
+    };
+    for (int tile = blockIdx.x; tile < q.tiles; tile += gridDim.x) {
+      int tm, tn;
+      w_tile(q, tile, tm, tn);
+      const long long m0 = static_cast<long long>(tm) * W_BM + cw * 64;
+      const int n0 = tn * BN;
+      if constexpr (ACC == 0) {
+        float acc[BN / 2];
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+        for (int kt = 0; kt < q.nkt; ++kt) {
+          const uint32_t st = wait_stage();
+          wgmma::fence();
+          w_issue<BN, 4>(acc, st + cw * W_BOX, st + 2 * W_BOX, 0, false);
+          wgmma::commit();
+          wgmma::wait<1>();  // the previous stage's products are complete: free it
+          if (kt > 0) release();
+        }
+        wgmma::wait<0>();
+        if (q.nkt > 0) release();
+        wgmma::fence_operands(acc);
+        w_store<OutT>(p, q, acc, m0, n0, r0, t);
+      } else {
+        float sum[64], p0[64], p1[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+        int u = 0;  // the tile's next unit
+        // K block b's units into `part` (its first product overwrites it);
+        // once that first unit is issued, the previous block's partial
+        // `prev` is complete and folded into the sum
+        auto run_block = [&](float (&part)[64], float (&prev)[64], int b) {
+          const int n = b == q.nblocks - 1 ? q.units - b * q.upb : q.upb;
+          for (int i = 0; i < n; ++i, ++u) {
+            const int first = (u % UPS) * CK;  // the unit's first k16 step in its stage
+            const uint32_t st =
+                first == 0 ? wait_stage() : base + (stage == 0 ? q.stages - 1 : stage - 1) * STAGE;
+            wgmma::fence();
+            w_issue<BN, CK>(part, st + cw * W_BOX, st + 2 * W_BOX, first, i == 0);
+            wgmma::commit();
+            wgmma::wait<1>();                     // every unit but this one is complete
+            if (u > 0 && first == 0) release();  // the previous unit ended its stage
+            if (i == 0 && b > 0) {
+              wgmma::fence_operands(prev);
+              fold<ACC>(sum, prev);
+            }
+          }
+        };
+        for (int b = 0; b < q.nblocks; b += 2) {
+          run_block(p0, p1, b);
+          if (b + 1 < q.nblocks) run_block(p1, p0, b + 1);
+        }
+        wgmma::wait<0>();
+        if (q.units > 0) {  // the last stage is free and the last block's partial complete
+          release();
+          if ((q.nblocks - 1) & 1) {
+            wgmma::fence_operands(p1);
+            fold<ACC>(sum, p1);
+          } else {
+            wgmma::fence_operands(p0);
+            fold<ACC>(sum, p0);
+          }
+        }
+        w_store<OutT>(p, q, sum, m0, n0, r0, t);
+      }
+    }
+  }
+}
+
 // The dynamic shared memory above 48 KB is allowed once per device and
 // kernel, not on every launch (the call costs host time).
 template <typename Kernel>
@@ -499,7 +772,8 @@ cudaError_t launch_f32_acc(int acc, const Params& p, const Plan& q, int grid, lo
 }
 
 template <typename OutT>
-cudaError_t launch_bf16(int acc, const Params& p, cudaStream_t st) {
+cudaError_t launch_mma(int acc, const Params& p, cudaStream_t st) {
+  if ((static_cast<long long>(p.N) + H_BN - 1) / H_BN > 65535) return cudaErrorInvalidValue;  // grid.y
   const dim3 grid(static_cast<unsigned>((static_cast<long long>(p.M) + H_BM - 1) / H_BM),
                   static_cast<unsigned>((static_cast<long long>(p.N) + H_BN - 1) / H_BN));
   if (acc == 1)
@@ -511,6 +785,61 @@ cudaError_t launch_bf16(int acc, const Params& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+template <typename OutT, int ACC, int BN, int CK>
+cudaError_t launch_wgmma_t(const CUtensorMap& ma, const CUtensorMap& mb, const Params& p, const WPlan& q, int grid,
+                           cudaStream_t st) {
+  static std::atomic<unsigned long long> ready{0};
+  cudaError_t err = smem_attribute_once(gemm_bf16_wgmma_kernel<OutT, ACC, BN, CK>, ready);
+  if (err != cudaSuccess) return err;
+  gemm_bf16_wgmma_kernel<OutT, ACC, BN, CK>
+      <<<grid, W_THREADS, static_cast<size_t>(w_smem_bytes(BN, q.stages)), st>>>(ma, mb, p, q);
+  return cudaGetLastError();
+}
+
+// The wgmma route at the planner's (bn, stages, grid); a plan or an operand
+// the route does not take is refused.
+template <typename OutT>
+cudaError_t launch_wgmma(int acc, int bk, const Params& p, int bn, int stages, int grid, cudaStream_t st) {
+  if (p.M < 64 || p.N < 64) return cudaErrorInvalidValue;
+  if ((bn != 128 && bn != 256) || (acc && bn != 128)) return cudaErrorInvalidValue;
+  if (stages < 2 || stages > W_MAX_STAGES || w_smem_bytes(bn, stages) > F_SMEM_MAX) return cudaErrorInvalidValue;
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(p.a), pb = reinterpret_cast<uintptr_t>(p.b);
+  if (pa % 16 || pb % 16 || p.lda % 8 || p.ldb % 8) return cudaErrorInvalidValue;  // TMA's 16-byte rows
+  WPlan q;
+  q.stages = stages;
+  q.tiles_m = (p.M + W_BM - 1) / W_BM;
+  q.tiles_n = (p.N + bn - 1) / bn;
+  const long long tiles = static_cast<long long>(q.tiles_m) * q.tiles_n;
+  if (tiles > (1LL << 30) || grid < 1 || grid > tiles) return cudaErrorInvalidValue;
+  q.tiles = static_cast<int>(tiles);
+  q.nkt = (p.K + W_KEL - 1) / W_KEL;
+  const bool blocks = acc && bk < p.K;  // bk is then a multiple of 32
+  const int ck = blocks && bk % 64 ? 2 : 4;
+  q.units = q.nkt * (4 / ck);
+  q.nblocks = blocks ? (p.K + bk - 1) / bk : 1;
+  q.upb = blocks ? bk / (16 * ck) : q.units;
+  const uintptr_t pc = reinterpret_cast<uintptr_t>(p.c);
+  q.vec_out = (p.ldc % 2 == 0 && pc % (2 * sizeof(OutT)) == 0) ? 1 : 0;
+  CUtensorMap ma, mb;  // boxes of 64 k x 64 rows of A and 64 k-rows x 64 columns of B
+  memset(&ma, 0, sizeof(ma));
+  memset(&mb, 0, sizeof(mb));
+  if (p.K > 0) {  // K = 0: no stage is loaded, the tile stores zeros
+    if (!tma::tensor_map(&ma, p.a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.K, p.M, p.lda, W_KEL, 64) ||
+        !tma::tensor_map(&mb, p.b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.N, p.K, p.ldb, 64, W_KEL))
+      return cudaErrorInvalidValue;
+  }
+  if (acc == 0) {
+    if (bn == 256) return launch_wgmma_t<OutT, 0, 256, 4>(ma, mb, p, q, grid, st);
+    return launch_wgmma_t<OutT, 0, 128, 4>(ma, mb, p, q, grid, st);
+  }
+  if (acc == 1) {
+    if (ck == 2) return launch_wgmma_t<OutT, 1, 128, 2>(ma, mb, p, q, grid, st);
+    return launch_wgmma_t<OutT, 1, 128, 4>(ma, mb, p, q, grid, st);
+  }
+  if (ck == 2) return launch_wgmma_t<OutT, 2, 128, 2>(ma, mb, p, q, grid, st);
+  return launch_wgmma_t<OutT, 2, 128, 4>(ma, mb, p, q, grid, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -518,21 +847,24 @@ extern "C" {
 // in_dtype / out_dtype: 0 = float32, 1 = bfloat16. A (M, K), B (K, N) and
 // C (M, N) with unit column stride and the given row strides (elements).
 // acc: the accumulator, 0 = float32, 1 = bfloat16, 2 = float16; a narrow
-// one sums blocks of bk k values (a multiple of the kernel's K step, 16 for
+// one sums blocks of bk k values (a multiple of the kernels' K step, 16 for
 // fp32 inputs and 32 for bf16, or at least K), each rounded to it.
-// fp32 inputs take the plan of hopper/gemm.py `plan_f32`: register rows tm
-// (4 or 8), warps wr down and wc across, ring stages, B resident or
-// streamed, 16-byte copies (vec) and the persistent grid; bf16 inputs
-// ignore it. A plan that does not fit these shapes or the card is refused
-// (cudaErrorInvalidValue), as is vec with a row that is not 16-byte
-// aligned. Returns the launch's cudaError_t.
+// route and plan come from hopper/gemm.py: route 0 = ffma, fp32 inputs, at
+// `plan_f32`'s plan: register rows tm (4 or 2), warps wr down and wc
+// across, ring stages, B resident or streamed, 16-byte copies (vec) and the
+// persistent grid; route 1 = mma, bf16 inputs, no plan; route 2 = wgmma,
+// bf16 inputs, at `plan_bf16`'s (bn, stages, grid) in the first three plan
+// slots. A route or plan that does not fit the types, shapes, alignment or
+// the card is refused (cudaErrorInvalidValue), as is vec with a row that
+// is not 16-byte aligned. Returns the launch's cudaError_t.
 int repro_gemm(const void* a, const void* b, void* c, int in_dtype, int out_dtype, int acc, int bk, int M, int N,
-               int K, long long lda, long long ldb, long long ldc, int tm, int wr, int wc, int stages, int resident,
-               int vec, int grid, void* stream) {
+               int K, long long lda, long long ldb, long long ldc, int route, int tm, int wr, int wc, int stages,
+               int resident, int vec, int grid, void* stream) {
   if (M <= 0 || N <= 0 || K < 0) return cudaErrorInvalidValue;
   if ((in_dtype != 0 && in_dtype != 1) || (out_dtype != 0 && out_dtype != 1)) return cudaErrorInvalidValue;
   if (acc < 0 || acc > 2) return cudaErrorInvalidValue;
-  const int step = in_dtype == 1 ? H_BK : F_BK;  // the kernel's K step
+  if (in_dtype == 0 ? route != 0 : (route != 1 && route != 2)) return cudaErrorInvalidValue;
+  const int step = in_dtype == 1 ? H_BK : F_BK;  // the kernels' K step
   if (acc && (bk < 1 || (bk % step && bk < K))) return cudaErrorInvalidValue;
   Params p;
   p.a = a;
@@ -546,12 +878,14 @@ int repro_gemm(const void* a, const void* b, void* c, int in_dtype, int out_dtyp
   p.ldc = ldc;
   p.block_steps = acc ? (bk >= K ? INT_MAX : bk / step) : INT_MAX;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 1) {
-    if ((static_cast<long long>(N) + H_BN - 1) / H_BN > 65535) return cudaErrorInvalidValue;  // grid.y
-    if (out_dtype == 0) return launch_bf16<float>(acc, p, st);
-    return launch_bf16<__nv_bfloat16>(acc, p, st);
+  if (route == 1) {
+    if (out_dtype == 0) return launch_mma<float>(acc, p, st);
+    return launch_mma<__nv_bfloat16>(acc, p, st);
   }
-
+  if (route == 2) {  // plan: bn, stages, grid
+    if (out_dtype == 0) return launch_wgmma<float>(acc, bk, p, tm, wr, wc, st);
+    return launch_wgmma<__nv_bfloat16>(acc, bk, p, tm, wr, wc, st);
+  }
   if (tm != 2 && tm != 4) return cudaErrorInvalidValue;
   if (wr < 1 || wc < 1 || 32 * wr * wc > F_MAX_THREADS)
     return cudaErrorInvalidValue;

@@ -84,9 +84,16 @@
 
 #include <atomic>
 
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
+
+using tma::mbar_arrive_lane0;
+using tma::mbar_expect_tx;
+using tma::mbar_init;
+using tma::mbar_wait;
+using tma::tensor_map;
 
 enum ValueType { VT_F32 = 0, VT_BF16 = 1, VT_E4M3 = 2, VT_E5M2 = 3 };
 
@@ -391,56 +398,6 @@ struct WPlan {
   int nkt;        // stages a tile takes: ceil(K / stage k)
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-// Wait for the phase of parity `parity` to complete. The loop is PTX's own,
-// so the compiler sees no divergent branch around the wgmmas (a branch it
-// cannot prove uniform makes ptxas serialize every wgmma of the function).
-// A wait that has not ended after 2^26 tries (seconds) traps: a fault in
-// the ring's protocol then ends the launch with an error instead of hanging
-// the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      ".reg .u32 n;\n"
-      "mov.u32 n, 0;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra.uni DONE;\n"
-      "add.u32 n, n, 1;\n"
-      "setp.lt.u32 p, n, 67108864;\n"
-      "@p bra.uni WAIT;\n"
-      "trap;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-// arrive on the mbarrier at `bar` from lane 0 of the warp, by a predicated
-// instruction rather than a branch (see mbar_wait)
-__device__ __forceinline__ void mbar_arrive_lane0(uint32_t bar, int lane) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.eq.u32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-      "}\n" ::"r"(bar),
-      "r"(lane)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
-          dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 template <int VT>
 __device__ __forceinline__ void w_mma(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
   if constexpr (VT == VT_BF16) {
@@ -522,11 +479,11 @@ __global__ void __launch_bounds__(W_THREADS, 1)
           mbar_expect_tx(full, W_STAGE);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {  // boxes of 64 rows (A) and 64 columns (B)
-            tma_load_2d(st + h * (W_TILE / 2), &tma_a, full, kt * KEL, m0 + h * 64);
+            tma::load_2d(st + h * (W_TILE / 2), &tma_a, full, kt * KEL, m0 + h * 64);
             if constexpr (VT == VT_BF16) {
-              tma_load_2d(st + W_TILE + h * (W_TILE / 2), &tma_b, full, n0 + h * 64, kt * KEL);
+              tma::load_2d(st + W_TILE + h * (W_TILE / 2), &tma_b, full, n0 + h * 64, kt * KEL);
             } else {
-              tma_load_2d(st + W_TILE + h * (W_TILE / 2), &tma_b, full, kt * KEL, n0 + h * 64);
+              tma::load_2d(st + W_TILE + h * (W_TILE / 2), &tma_b, full, kt * KEL, n0 + h * 64);
             }
           }
           if (++stage == q.stages) {
@@ -984,43 +941,6 @@ cudaError_t smem_attribute_once(Kernel kernel, std::atomic<unsigned long long>& 
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (err == cudaSuccess) ready.fetch_or(bit);
   return err;
-}
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point (no link
-// against libcuda), looked up once
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static std::atomic<EncodeTiled> fn{nullptr};
-  EncodeTiled f = fn.load();
-  if (f == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      f = reinterpret_cast<EncodeTiled>(ptr);
-      fn.store(f);
-    }
-  }
-  return f;
-}
-
-// A 2D row-major (outer, inner) matrix with row stride `ld` elements, read
-// in boxes of (box_outer, box_inner) with the 128-byte swizzle; zeros past
-// its edges
-bool tensor_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int esize, long long inner,
-                long long outer, long long ld, int box_inner, int box_outer) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * esize};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int VT, int CK, typename OutT>

@@ -22,16 +22,17 @@ attention kernel takes ``chunk`` at run time, since the chunk bounds the
 span one fp32 ``exp`` covers (``ops.linear_attention``'s overflow guard).
 
 The kernels' other run-time geometry comes from their planners
-(``gemm.plan_f32``, ``gemm_scaled.plan``, ``spmm.plan``, ``spmspm.plan``,
-``stencil.plan``, ``flash_attention.plan``). Each planner asks
-``lookup_plan(op, args)`` first: a plan set with ``set_plan_override`` /
-``plan_override`` for exactly those planner arguments (shapes, dtype,
-alignment, SMs), else its cost model's pick. Block overrides are op-wide;
-a plan override holds at one shape only, since a plan that fits one shape
-says nothing of another. ``PLAN_HITS`` counts the planner calls an
-override answered, by op. ``PlanCandidate`` is one entry of a planner's
-``candidates(...)``: every plan its model weighs, with the model's cost,
-its shared memory, threads and registers, and whether it fits the card.
+(``gemm.plan_f32``, ``gemm.plan_bf16``, ``gemm_scaled.plan``,
+``spmm.plan``, ``spmspm.plan``, ``stencil.plan``, ``flash_attention.plan``).
+Each planner asks ``lookup_plan(op, args)`` first: a plan set with
+``set_plan_override`` / ``plan_override`` for exactly those planner
+arguments (shapes, dtype, alignment, SMs), else its cost model's pick.
+Block overrides are op-wide; a plan override holds at one shape only,
+since a plan that fits one shape says nothing of another. ``PLAN_HITS``
+counts the planner calls an override answered, by op. ``PlanCandidate``
+is one entry of a planner's ``candidates(...)``: every plan its model
+weighs, with the model's cost, its shared memory, threads and registers,
+and whether it fits the card.
 
 ``KernelStreams`` is a kernel's dataflow declaration: the operands it
 reads (values, scales with their block, indices), the dtype it sums in

@@ -9,7 +9,12 @@ For CPU tensors, and only for them, it runs the plain version
 
 A (M, K) and B (K, N) share one dtype, fp32 (CUDA-core FFMA) or bf16
 (tensor cores); the output is ``out_dtype`` (fp32 or bf16, default
-``a.dtype``), accumulated in fp32. Rows must be unit-stride; any row
+``a.dtype``), accumulated in fp32. bf16 takes one of two kernels, picked
+by ``plan_bf16`` from shapes, strides and alignment alone: ``wgmma`` (a
+TMA-fed warpgroup-MMA kernel) where both operands' rows start on 16 bytes
+and M and N are at least 64, ``mma`` (mma.sync) at every other shape.
+Each is a kernel of its own for its shapes, not a fallback: a build or
+launch error raises. Rows must be unit-stride; any row
 stride is taken, so row slices go in without a copy. Ragged M, N, K are
 masked in the kernel. Inputs it does not take raise; nothing is copied to
 make them fit.
@@ -22,8 +27,9 @@ multiple of the kernel's K step (``K_STEP``) or cover K.
 
 The fp32 kernel's tiles, ring and grid are chosen here, by ``plan_f32``
 (pure Python, so the CPU tests reach it; ``candidates`` lists every plan
-its model weighs): the kernel takes them at run time and refuses a plan
-that does not fit.
+its model weighs), and the bf16 route with its tile width, ring and grid
+by ``plan_bf16`` (``candidates_bf16``): the kernels take them at run time
+and refuse a plan that does not fit.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from repro_torch.hopper.dispatch import (LAUNCHES, KernelStreams, PlanCandidate,
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACCUM = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 K_STEP = {torch.float32: 16, torch.bfloat16: 32}  # each kernel's K step (csrc/gemm.cu)
+ROUTES = {"ffma": 0, "mma": 1, "wgmma": 2}  # repro_gemm's route argument
 
 # csrc/gemm.cu's fp32 kernel and the H100's limits the plan must fit
 BK = 16                       # k values per ring stage
@@ -190,16 +197,139 @@ def plan_f32(M: int, N: int, K: int, sms: int, vec: bool) -> F32Plan:
 plan_f32.cache_clear = _model_f32.cache_clear
 
 
+# csrc/gemm.cu's bf16 wgmma kernel: 128 x bn output tiles, a stage holds
+# 64 k of A's 128 rows and of B's bn columns; 384 threads (a producer
+# warpgroup and two consumer warpgroups) at the register cap of one CTA an
+# SM (168; setmaxnreg gives the consumers 232 and the producer 40)
+W_BM = 128
+W_STAGE_K = 64
+W_BNS = (256, 128)            # an fp32 accumulator's tile widths; a narrow one takes 128
+W_MAX_STAGES = 8
+W_THREADS = 384
+W_REGS = 168
+MIN_MN = 64                   # below it a 128-row tile is mostly padding
+# csrc/gemm.cu's bf16 mma kernel: 128 threads, (128 + 64) rows of 40 bf16
+# in static shared memory, at most 255 registers a thread
+MMA_THREADS = 128
+MMA_SMEM = (128 + 64) * 40 * 2
+MMA_REGS = 255
+# The wgmma model, in units of one 256-column stage's products: a stage
+# costs bn / 256 of them plus W_STAGE_COST (its barrier waits, issue and
+# release), a tile's epilogue W_EPILOGUE x bn / 256, and a ring shallower
+# than W_DEPTH stages exposes (W_DEPTH - stages) / W_DEPTH of a load's
+# latency a stage. Among rings of W_DEPTH stages or more, an fp32
+# accumulator takes W_DEPTH and a narrow one the deepest: swept on an H100
+# at 4096^3 (gemm_plans.py, PERF.md), the 128-column fp32 tile ran slower
+# past 4 stages and the narrow accumulators faster (their folds hold a
+# stage longer).
+W_STAGE_COST = 0.25
+W_EPILOGUE = 1.0
+W_DEPTH = 4
+
+
+class Bf16Plan(NamedTuple):
+    route: str        # "wgmma" or "mma"
+    bn: int = 0       # wgmma: the output tile's columns (256 or 128)
+    stages: int = 0   # wgmma: TMA ring depth
+    grid: int = 0     # wgmma: persistent CTAs
+    smem: int = 0     # wgmma: dynamic shared memory, bytes
+
+    def args(self) -> tuple:
+        """The route and seven plan integers ``repro_gemm`` takes."""
+        if self.route == "wgmma":
+            return (ROUTES["wgmma"], self.bn, self.stages, self.grid, 0, 0, 0, 0)
+        return (ROUTES["mma"],) + (0,) * 7
+
+
+def wgmma_smem_bytes(bn: int, stages: int) -> int:
+    """The wgmma kernel's shared memory (csrc/gemm.cu ``w_smem_bytes``):
+    ``stages`` stages of A's 128 rows and B's ``bn`` columns, 128 bytes of k
+    each, 1 KB to align them for the 128-byte swizzle, and a full and an
+    empty mbarrier a stage."""
+    return stages * (W_BM + bn) * 128 + 1024 + 16 * stages
+
+
+def rows16(*xs) -> bool:
+    """Every row of every matrix in ``xs`` starts on 16 bytes (its base
+    address and its row stride in bytes): TMA and 16-byte copies take it."""
+    return all(x.data_ptr() % 16 == 0 and x.stride(0) * x.element_size() % 16 == 0
+               for x in xs)
+
+
+def candidates_bf16(M: int, N: int, K: int, aligned: bool, sms: int = 132, narrow: bool = False,
+                    *, smem_budget: int = SMEM_PER_CTA) -> list[PlanCandidate]:
+    """Every bf16 plan ``plan_bf16``'s model weighs for C (M, N) = A (M, K)
+    B (K, N) on a card of ``sms`` SMs; ``aligned``: both operands' rows
+    start on 16 bytes (``rows16``); ``narrow``: a bf16 or fp16 accumulator.
+    The ``mma`` kernel alone (no run-time geometry) where the rows are not
+    aligned or M or N is below MIN_MN; else the ``wgmma`` kernel's tile
+    width (``W_BNS``; 128 for a narrow accumulator, whose two partial tiles
+    take the registers) and ring depth (W_MAX_STAGES..2, pruned where it
+    passes ``smem_budget``), on min(tiles, sms) persistent CTAs. The model
+    (see W_STAGE_COST): each CTA walks ``rounds`` tiles of ceil(K / 64)
+    stages and an epilogue. Least cost wins; ties go to W_DEPTH stages
+    (an fp32 accumulator) or the deepest ring (a narrow one)."""
+    if not aligned or min(M, N) < MIN_MN:
+        return [PlanCandidate(Bf16Plan("mma"), {}, 0.0, (0.0,), MMA_SMEM, MMA_THREADS, MMA_REGS)]
+    nkt = -(-K // W_STAGE_K)
+    out = []
+    for bn in ((128,) if narrow else W_BNS):
+        tiles = -(-M // W_BM) * -(-N // bn)
+        grid = min(tiles, sms)
+        rounds = -(-tiles // grid)
+        for stages in range(W_MAX_STAGES, 1, -1):
+            smem = wgmma_smem_bytes(bn, stages)
+            plan = Bf16Plan("wgmma", bn, stages, grid, smem)
+            knobs = {"bn": bn, "stages": stages}
+            if smem > smem_budget:
+                out.append(PlanCandidate(plan, knobs, float("inf"), (float("inf"),), smem,
+                                         W_THREADS, W_REGS, "shared memory"))
+                continue
+            exposed = 1 + max(0, W_DEPTH - stages) / W_DEPTH
+            cost = rounds * (nkt * (bn / 256 + W_STAGE_COST) * exposed + W_EPILOGUE * bn / 256)
+            depth = -stages if narrow else abs(stages - W_DEPTH)
+            out.append(PlanCandidate(plan, knobs, cost, (round(cost, 6), depth), smem,
+                                     W_THREADS, W_REGS))
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _model_bf16(M: int, N: int, K: int, aligned: bool, sms: int, narrow: bool) -> Bf16Plan:
+    return model_pick(candidates_bf16(M, N, K, aligned, sms, narrow)).plan
+
+
+def plan_bf16(M: int, N: int, K: int, aligned: bool, sms: int = 132,
+              narrow: bool = False) -> Bf16Plan:
+    """The bf16 kernel, and its tile width, ring and grid, for C (M, N) =
+    A (M, K) B (K, N) on a card of ``sms`` SMs: a plan override at exactly
+    these arguments (``dispatch.lookup_plan("gemm", ("bf16", M, N, K,
+    aligned, sms, narrow))``, a key no fp32 plan has), else the least-cost
+    feasible entry of ``candidates_bf16`` (cached behind the lookup)."""
+    return (lookup_plan("gemm", ("bf16", M, N, K, aligned, sms, narrow))
+            or _model_bf16(M, N, K, aligned, sms, narrow))
+
+
+plan_bf16.cache_clear = _model_bf16.cache_clear
+
+
 @register_streams("gemm", kernel="gemm")
 def streams(structs, policy=None, *, out_dtype=None, accum_dtype=torch.float32, **_):
     """The kernel's streams for ``ops.gemm`` with no ``precision``: a
     (M, K) and b (K, N) values, summed in ``accum_dtype`` (fp32, or the
     narrow bf16/fp16 running sum), written as ``out_dtype`` (default a's
-    dtype). The route is ``ffma`` for fp32 values, ``mma`` for bf16."""
+    dtype). The route is ``ffma`` for fp32 values; for bf16 it is
+    ``plan_bf16``'s at these shapes with contiguous, 16-byte-aligned
+    operands (``wgmma`` or ``mma``)."""
     if policy is not None:
         return None
     (a_shape, dtype), (b_shape, b_dtype) = structs[:2]
-    name = "gemm/" + ("ffma" if dtype == torch.float32 else "mma")
+    if dtype == torch.float32:
+        route = "ffma"
+    else:
+        (M, K), N = a_shape, b_shape[1]
+        aligned = K * 2 % 16 == 0 and N * 2 % 16 == 0
+        route = plan_bf16(M, N, K, aligned, narrow=accum_dtype != torch.float32).route
+    name = f"gemm/{route}"
     if accum_dtype != torch.float32:
         name += f"+{str(accum_dtype).replace('torch.', '')}-accum"
     return KernelStreams(
@@ -218,7 +348,7 @@ def _kernel():
         fn = lib.repro_gemm
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i64, i64, i64,
-                       i32, i32, i32, i32, i32, i32, i32, ptr]
+                       i32, i32, i32, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
         _lib, _fn = lib, fn
     return _fn
@@ -278,9 +408,11 @@ def gemm_cuda(a, b, *, out_dtype=None, accum_dtype=torch.float32, bm=None, bk=No
         dev = a.device.index
         if a.dtype == torch.float32:
             q = plan_f32(M, N, K, sm_count(dev), vec16(a, b))
-            plan = (q.tm, q.wr, q.wc, q.stages, int(q.resident), int(q.vec), q.grid)
+            plan = (ROUTES["ffma"], q.tm, q.wr, q.wc, q.stages, int(q.resident), int(q.vec), q.grid)
+            route = "ffma"
         else:
-            plan = (0,) * 7
+            q = plan_bf16(M, N, K, rows16(a, b), sm_count(dev), accum_dtype != torch.float32)
+            plan, route = q.args(), q.route
         args = (a.data_ptr(), b.data_ptr(), c.data_ptr(), DTYPES[a.dtype], DTYPES[out_dtype],
                 ACCUM[accum_dtype], bk, M, N, K, a.stride(0), b.stride(0), c.stride(0), *plan)
         if torch.cuda.current_device() == dev:  # the usual case: no device switch
@@ -289,7 +421,7 @@ def gemm_cuda(a, b, *, out_dtype=None, accum_dtype=torch.float32, bm=None, bk=No
             with torch.cuda.device(dev):
                 err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
         if err:
-            build.check(_lib, err, "gemm kernel launch")
+            build.check(_lib, err, f"gemm kernel launch ({route} route)")
         LAUNCHES["gemm"] += 1
     return c
 

@@ -41,7 +41,7 @@ from repro_torch.hopper import blocked, build
 from repro_torch.hopper.dispatch import (LAUNCHES, KernelStreams, PlanCandidate, StreamOperand,
                                         lookup_plan, model_pick, register_streams,
                                         resolve_blocks)
-from repro_torch.hopper.gemm import CHUNK_SLOTS, COPY_SLOTS, EFF, SMEM_PER_CTA
+from repro_torch.hopper.gemm import CHUNK_SLOTS, COPY_SLOTS, EFF, SMEM_PER_CTA, rows16
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
           torch.float8_e5m2: 3}
@@ -109,13 +109,6 @@ def ffma_smem_bytes(tm: int, wr: int, wc: int, stages: int) -> int:
     ``f_smem_bytes``): ``stages`` ring stages of A (bm rows of F_AS) and B
     (F_BK rows of bn)."""
     return 4 * stages * (8 * tm * wr * F_AS + F_BK * 48 * wc)
-
-
-def rows16(*xs) -> bool:
-    """Every row of every matrix in ``xs`` starts on 16 bytes (its base
-    address and its row stride in bytes): TMA and 16-byte copies take it."""
-    return all(x.data_ptr() % 16 == 0 and x.stride(0) * x.element_size() % 16 == 0
-               for x in xs)
 
 
 def _ffma_candidates(M, N, K, bk, sms, vec, smem_budget) -> list[PlanCandidate]:

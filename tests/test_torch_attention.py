@@ -247,7 +247,7 @@ def test_library_hash_covers_the_included_headers(tmp_path, monkeypatch):
     """A library's file name hashes its source and the ``csrc/`` headers it
     includes (directly or through each other), so an edited header builds
     every library that includes it anew and leaves the others alone."""
-    for name in ("flash_attention.cu", "gemm.cu", "wgmma.cuh"):
+    for name in ("flash_attention.cu", "gemm.cu", "spmm.cu", "wgmma.cuh", "tma.cuh"):
         (tmp_path / name).write_bytes((build.CSRC_DIR / name).read_bytes())
     (tmp_path / "outer.cuh").write_text('#pragma once\n#include "wgmma.cuh"\n')
     (tmp_path / "flash_attention.cu").write_text(
@@ -255,11 +255,19 @@ def test_library_hash_covers_the_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
     assert build.local_includes(tmp_path / "flash_attention.cu") == [
         tmp_path / "outer.cuh", tmp_path / "wgmma.cuh"]
-    assert build.local_includes(tmp_path / "gemm.cu") == []
+    assert build.local_includes(tmp_path / "gemm.cu") == [
+        tmp_path / "tma.cuh", tmp_path / "wgmma.cuh"]
+    assert build.local_includes(tmp_path / "spmm.cu") == []
     fa, gemm = build.library_path("flash_attention"), build.library_path("gemm")
+    spmm = build.library_path("spmm")
+    (tmp_path / "tma.cuh").write_text((tmp_path / "tma.cuh").read_text() + "// edited\n")
+    assert build.library_path("gemm") != gemm
+    assert build.library_path("flash_attention") == fa
+    gemm = build.library_path("gemm")
     (tmp_path / "wgmma.cuh").write_text((tmp_path / "wgmma.cuh").read_text() + "// edited\n")
     assert build.library_path("flash_attention") != fa
-    assert build.library_path("gemm") == gemm
+    assert build.library_path("gemm") != gemm
+    assert build.library_path("spmm") == spmm
 
 
 @pytest.mark.cuda

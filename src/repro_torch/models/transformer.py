@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch import tracing
 from repro_torch.core import precision as prec
 from repro_torch.device import resolve_device
 from repro_torch.hopper import ops
@@ -461,12 +462,13 @@ def attention_decode_paged(p, cfg, x, cos, sin, k_pool, v_pool, block_table,
     for pool, row in rows.values():
         as_bytes(pool)[phys[:, None], heads, offset[:, None]] = as_bytes(row.to(pool.dtype))
 
-    if attn_fn is None:
-        o = ops.decode_attention(q, k_pool, v_pool, position, paged=True,
-                                 block_table=block_table, window=window,
-                                 k_scale=k_scale, v_scale=v_scale)
-    else:
-        o = attn_fn(q, k_pool, v_pool, k_scale, v_scale, block_table, position, window)
+    with tracing.span("decode.pages"):
+        if attn_fn is None:
+            o = ops.decode_attention(q, k_pool, v_pool, position, paged=True,
+                                     block_table=block_table, window=window,
+                                     k_scale=k_scale, v_scale=v_scale)
+        else:
+            o = attn_fn(q, k_pool, v_pool, k_scale, v_scale, block_table, position, window)
     return torch.matmul(o.reshape(B, H * hd), p["wo"])
 
 

@@ -31,6 +31,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.parallel.mesh import RingMesh
 from repro_torch.serving import ring_decode
@@ -204,7 +205,8 @@ class PagedModel:
         logits, self.cache = self._transformer.decode_step_paged(
             self.params, self.cfg, self.cache, batch, attn_fn=self.attn_fn
         )
-        return torch.argmax(logits[:, : self.vocab], dim=-1).cpu().numpy()
+        with tracing.span("decode.fetch"):
+            return torch.argmax(logits[:, : self.vocab], dim=-1).cpu().numpy()
 
     # -- preemption payloads -------------------------------------------------
 
@@ -269,6 +271,10 @@ class ServingEngine:
     def step(self) -> int:
         """Admissions + one decode over all slots. Returns the number of
         live tokens produced this step."""
+        with tracing.span("engine.step", step=self.step_count):
+            return self._step()
+
+    def _step(self) -> int:
         s = self.step_count
         sc = self.scheduler
 
@@ -279,7 +285,8 @@ class ServingEngine:
                 if hasattr(self.model, "sync_table"):
                     self.model.sync_table(seq)
             else:
-                first = self.model.prefill(seq, seq.blocks)
+                with tracing.span("engine.prefill", rid=seq.rid):
+                    first = self.model.prefill(seq, seq.blocks)
                 sc.record_token(seq, first)
                 if sc.should_retire(seq, self.eos_id):
                     self._retire(seq, s)
@@ -312,7 +319,9 @@ class ServingEngine:
                 tokens[slot] = seq.generated[-1]
                 positions[slot] = seq.next_position()
                 tables[slot, : len(seq.blocks)] = seq.blocks
-            next_tokens = self.model.decode(tokens, positions, tables, active)
+            pages = self._pages(positions, active, tables) if tracing.live() else {}
+            with tracing.span("engine.decode", **pages):
+                next_tokens = self.model.decode(tokens, positions, tables, active)
             for slot, seq in live.items():
                 sc.record_token(seq, int(next_tokens[slot]))
                 produced += 1
@@ -321,6 +330,16 @@ class ServingEngine:
 
         self.step_count += 1
         return produced
+
+    def _pages(self, positions, active, tables) -> dict:
+        """The decode's page counters: every slot walks every table column
+        in every layer (``pages_walked``); the active slots' pages up to
+        the position each writes (``pages_live``)."""
+        bs = self.scheduler.block_size
+        cfg = getattr(self.model, "cfg", None)
+        layers = cfg.num_layers if cfg is not None else 1
+        live = int(((positions[active] + bs) // bs).sum())
+        return {"pages_live": live * layers, "pages_walked": tables.size * layers}
 
     def _retire(self, seq, step: int) -> None:
         self.scheduler.retire(seq, step)

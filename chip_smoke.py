@@ -31,6 +31,11 @@ Phases, in order; any failure exits non-zero:
      the scaled GEMM and scaled FA-2 (phase 5's kernels) at their shapes,
      the GEMM through each of its three routes (wgmma, ffma, mma) and the
      fp8 wgmma route at both promotion intervals it offers;
+     the split-KV decode kernel at the serving cell's shapes (B 64, H = K
+     16, D 256, pages of 128, 16 columns, idle slots; bf16, fp8 e4m3 and
+     e5m2 pools; a window), GQA at G 4, 5 and 8, a ring shard's pos_offset
+     with the lse, the contiguous cache with and without precision=, one
+     launch each, and paged bitwise contiguous at one partition;
   3. run the GCN path (``repro_torch.launch.gcn_inference.run``): two
      144-wide layers over the paper's three graphs and one graph of
      ogbn-arxiv's size, with the launch counts zeroed just before and read
@@ -69,13 +74,15 @@ Phases, in order; any failure exits non-zero:
      launch counts are zeroed just before and read just after; then serve
      the same requests again with fp8 KV pools (``precision="fp8"``);
   8. check the runs (all requests complete, no leaked blocks, one FA launch
-     per layer per prefill, a prefill's logits with the kernel vs with the
-     plain version; the fp8 run's preemptions and first tokens equal the
-     bf16 run's);
+     per layer per prefill and one decode-attention launch per layer per
+     decode step, a prefill's logits with the kernel vs with the plain
+     version; the fp8 run's preemptions and first tokens equal the bf16
+     run's);
   9. still with GPT-J's weights, dense ``launch.serve.generate`` through
      the contiguous cache: 4 prompts of 512 tokens + 16 new ones, with the
-     launch counts zeroed just before and read just after (28 FA launches,
-     all in the prefill; a prefill alone 28, a decode step alone none);
+     launch counts zeroed just before and read just after (28 FA launches
+     in the prefill, 28 decode-attention launches in each decode step; a
+     prefill alone 28 FA, a decode step alone 28 decode-attention);
      the prefill's cache copied into shuffled pages of 16 and one
      contiguous ``decode_step`` (its scan pinned to bs 16) held bitwise
      against ``decode_step_paged``; decode against the teacher-forced
@@ -313,7 +320,9 @@ Phases, in order; any failure exits non-zero:
      at fp32), beside ``torch.matmul`` and SDPA on the values at bf16 and
      fp32, where unit scales make them the same function. The GEMM with
      a narrow accumulator at 4096^3, both input types, beside the same
-     kernel with an fp32 accumulator and the per-block plain version.
+     kernel with an fp32 accumulator and the per-block plain version. The
+     decode kernel at the serving cell's shapes beside its plain version
+     and its bound (live KV bytes), by events and by device time.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers (each kernel's mesh-phase launches by mesh under
@@ -352,7 +361,7 @@ NUM_BLOCKS = 56  # tight: this workload preempts twice (checked below)
 # the sources whose every ptxas line (registers, shared memory, spills)
 # the build step prints
 REDESIGNED = ("flash_attention", "bsr_spmm", "linear_attention", "gemm", "ring_hop", "gemm_scaled",
-              "flash_attention_scaled", "spmspm", "spmm", "stencil")
+              "flash_attention_scaled", "spmspm", "spmm", "stencil", "flash_decode")
 FA_REPLACES = "src/repro/kernels/flash_attention.py:57"
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 GEMM_REPLACES = "src/repro/kernels/gemm.py:23"
@@ -1570,6 +1579,211 @@ SPARSE_LA_JSON = (  # (kernel, source, replaces, the case that goes into the ker
 
 
 # ---------------------------------------------------------------------------
+# the split-KV decode-attention kernel (csrc/flash_decode.cu)
+# ---------------------------------------------------------------------------
+
+DECODE_SOURCE = "src/repro_torch/csrc/flash_decode.cu"
+DECODE_REPLACES = "none: the reference's decode attention is its XLA blocked form"
+# The kernel sums the plain form's fp32 terms in another order (a warp's
+# rows, then the warps, then the splits), so an fp32 output lies a few fp32
+# roundings of the weighted sum from the plain one: max|diff| within
+# DECODE_F32_REL of max|plain|, the log-sum-exp within DECODE_LSE_ABS (the
+# first card run read 3.9e-8 to 7.6e-7 and 4.8e-7 to 9.5e-7). A bf16 output
+# rounds on both sides, which may put one bf16 step (2^-8 of an entry)
+# between them: DECODE_BF16_REL of max|plain|, one step at the largest.
+DECODE_F32_REL = 2e-5
+DECODE_LSE_ABS = 1e-5
+DECODE_BF16_REL = 2.0 ** -7
+# the serving cell's decode (portbench gptj.serve): B 64, H = K 16, D 256,
+# pages of 128, 16 table columns, lengths 677-2048, three idle slots
+DECODE_SERVE = dict(B=64, H=16, K=16, D=256, bs=128, nb=16)
+DECODE_SERVE_LENS = (677, 2048)
+DECODE_SERVE_IDLE = (5, 17, 40)
+
+
+def _decode_paged_inputs(gen, rng_lens, B, H, K, D, bs, nb, *, spare=3):
+    """fp32 q (B, H, D) and pools (B * nb + spare, K, bs, D) from ``gen``, a
+    shuffled table whose columns past each sequence's pages hold the null
+    page 0, and int32 positions ``lens - 1``; a length of 0 is an idle
+    slot: position 0 and a table of null pages, as the engine sets it."""
+    import torch
+
+    P = B * nb + spare
+    q = torch.randn(B, H, D, generator=gen, device="cuda")
+    kp = torch.randn(P, K, bs, D, generator=gen, device="cuda")
+    vp = torch.randn(P, K, bs, D, generator=gen, device="cuda")
+    table = (torch.randperm(P - 1, generator=gen, device="cuda")[: B * nb] + 1).reshape(B, nb)
+    lens = torch.as_tensor(rng_lens, device="cuda")
+    used = torch.where(lens > 0, (lens - 1) // bs + 1, 0)
+    table = torch.where(torch.arange(nb, device="cuda")[None, :] < used[:, None], table, 0)
+    return q, kp, vp, table.to(torch.int32), (lens - 1).clamp_min(0).to(torch.int32)
+
+
+def _decode_hold(label, got, want, q_dtype, report):
+    """The kernel's (o[, lse]) against the plain form's at the tolerances
+    above; a sequence with no live row must read lse ~ -1e30 on both."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    o_tol = DECODE_F32_REL if q_dtype == torch.float32 else DECODE_BF16_REL
+    err = _hold_rel("decode_attention", label, got[0], want[0], o_tol)
+    if len(got) > 1:
+        live = want[1] > -1e29
+        lerr = float((got[1][live] - want[1][live]).abs().max()) if live.any() else 0.0
+        print(f"kernel decode_attention [{label}] lse: max_abs {lerr:.3e} over {int(live.sum())} "
+              f"live rows (tol {DECODE_LSE_ABS:g}); rows with none {int((~live).sum())}")
+        need(lerr <= DECODE_LSE_ABS, f"decode_attention [{label}]: lse off the plain form's")
+        need(bool((got[1][~live] < -1e29).all()), f"decode_attention [{label}]: an empty row's lse")
+    report.setdefault("decode_err", {})[label] = err
+
+
+def check_decode_kernel(report):
+    """The split-KV decode kernel against its plain version on the card: at
+    the serving cell's shapes (bf16 pools, bf16 and fp32 q, int32 and int64
+    indices, idle slots, a window, fp8 e4m3 and e5m2 pools with their
+    scales), GQA (G 4 at D 128 in fp16, G 8 at D 64 in fp32, G 5 at D 64
+    in bf16, each with a window and the lse), a ring shard's pos_offset
+    with the lse (sequences wholly before it read o = 0), the contiguous
+    cache (ragged lengths, the default and a pinned bs, precision="fp8");
+    one launch each, and no device-to-host synchronisation in a call;
+    paged and contiguous bitwise at one partition, and a repeated call
+    bitwise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import precision as prec
+    from repro_torch.hopper import blocked, dispatch
+    from repro_torch.hopper import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+
+    def hold(label, q, k, v, pos, **kw):
+        dispatch.reset_launches()
+        got = da.decode_attention_cuda(q, k, v, pos, **kw)
+        torch.cuda.synchronize()
+        need(dict(dispatch.LAUNCHES) == {"decode_attention": 1},
+             f"decode_attention [{label}]: launches {dict(dispatch.LAUNCHES)}")
+        _decode_hold(label, got, blocked.decode_attention_blocked(q, k, v, pos, **kw), q.dtype,
+                     report)
+
+    c = DECODE_SERVE
+    lens = rng.integers(DECODE_SERVE_LENS[0], DECODE_SERVE_LENS[1] + 1, c["B"])
+    lens[list(DECODE_SERVE_IDLE)] = 0
+    q, kp, vp, table, pos = _decode_paged_inputs(gen, lens, **c)
+    kb, vb = kp.bfloat16(), vp.bfloat16()
+    serve = f"serve B {c['B']} H=K {c['H']} D {c['D']} pages of {c['bs']} x {c['nb']}"
+    hold(f"{serve} bf16", q.bfloat16(), kb, vb, pos, block_table=table)
+    torch.cuda.set_sync_debug_mode("error")  # a call that waits on the card raises
+    try:
+        da.decode_attention_cuda(q.bfloat16(), kb, vb, pos, block_table=table, return_lse=True)
+        try:  # the control: a copy to the host must raise in this mode
+            pos.cpu()
+            caught = False
+        except RuntimeError:
+            caught = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"kernel decode_attention: a call under torch.cuda.set_sync_debug_mode('error') made no "
+          f"device-to-host synchronisation (a copy to the host raised there: {caught})")
+    need(caught, "decode_attention: the synchronisation check caught no copy to the host")
+    hold(f"{serve} bf16 pools, fp32 q, lse", q, kb, vb, pos, block_table=table, return_lse=True)
+    hold(f"{serve} int64 indices", q, kb, vb, pos.long(), block_table=table.long())
+    hold(f"{serve} window 300", q, kb, vb, pos, block_table=table, window=300)
+    for pol in ("fp8", "fp8_e5m2"):
+        kq, ks, vq, vs = prec.quantize_kv_cache(kp, vp, pol)
+        hold(f"{serve} {pol} pools", q, kq, vq, pos, block_table=table, k_scale=ks, v_scale=vs)
+        del kq, ks, vq, vs
+    del q, kp, vp, kb, vb
+    torch.cuda.empty_cache()
+    for B, H, K, D, bs, nb, dt in ((8, 32, 8, 128, 16, 40, torch.float16),
+                                   (4, 8, 1, 64, 64, 12, torch.float32),
+                                   (3, 20, 4, 64, 32, 9, torch.bfloat16)):
+        q, kp, vp, table, pos = _decode_paged_inputs(gen, rng.integers(1, nb * bs + 1, B),
+                                                     B, H, K, D, bs, nb)
+        label = f"GQA B {B} H {H} K {K} D {D} pages of {bs} {str(dt).replace('torch.', '')}"
+        hold(label, q, kp.to(dt), vp.to(dt), pos, block_table=table)
+        hold(f"{label} window 37, lse", q, kp.to(dt), vp.to(dt), pos, block_table=table,
+             window=37, return_lse=True)
+    q, kp, vp, table, pos = _decode_paged_inputs(gen, [1, 100, 128, 129, 250, 256],
+                                                 6, 16, 16, 256, 16, 8)
+    hold("ring shard pos_offset 128, lse", q, kp.bfloat16(), vp.bfloat16(), pos,
+         block_table=table, pos_offset=128, return_lse=True)
+    for S, bs in ((528, None), (528, 16), (1500, None), (2048, 512)):
+        q = torch.randn(4, 16, 256, generator=gen, device="cuda")
+        kc, vc = (torch.randn(4, 16, S, 256, generator=gen, device="cuda") for _ in range(2))
+        pos = torch.as_tensor(rng.integers(0, S, 4), device="cuda", dtype=torch.int32)
+        hold(f"contiguous S {S} bs {bs}", q, kc.bfloat16(), vc.bfloat16(), pos, bs=bs)
+        hold(f"contiguous S {S} bs {bs} precision fp8, lse", q, kc, vc, pos, bs=bs,
+             precision=prec.resolve("fp8"), return_lse=True)
+
+    # paged and contiguous at one partition (pages of 16, 33 columns)
+    B, bs, nb = 4, 16, 33
+    q, kp, vp, _, pos = _decode_paged_inputs(gen, rng.integers(1, nb * bs + 1, B),
+                                             B, 16, 16, 256, bs, nb, spare=1)
+    table = (torch.randperm(B * nb, generator=gen, device="cuda") + 1).reshape(B, nb).int()
+    q, kp, vp = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+    paged = da.decode_attention_cuda(q, kp, vp, pos, block_table=table, return_lse=True)
+    kc, vc = (x[table.long()].transpose(1, 2).reshape(B, 16, nb * bs, 256).contiguous()
+              for x in (kp, vp))
+    contig = da.decode_attention_cuda(q, kc, vc, pos, bs=bs, return_lse=True)
+    again = da.decode_attention_cuda(q, kp, vp, pos, block_table=table, return_lse=True)
+    same = all(torch.equal(a, b) for a, b in zip(paged, contig))
+    repeat = all(torch.equal(a, b) for a, b in zip(paged, again))
+    print(f"kernel decode_attention: paged (pages of {bs}, shuffled) vs contiguous (bs {bs}), "
+          f"B {B} x {nb * bs} rows: bitwise {same}; a repeated call bitwise {repeat}")
+    need(same, "decode_attention: paged != contiguous bitwise at one partition")
+    need(repeat, "decode_attention: a repeated call differs")
+    del q, kp, vp, kc, vc
+    torch.cuda.empty_cache()
+
+
+def time_decode_kernel(report):
+    """The kernel at the serving cell's shapes against its plain version (by
+    events) and its bound (the live K and V rows, q and o read or written
+    once; 4 H D operations a live row), and its device time (a CUDA graph's
+    replay). No library call takes a block table."""
+    import numpy as np
+    import torch
+
+    from repro_torch.hopper import blocked
+    from repro_torch.hopper import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    c = DECODE_SERVE
+    lens = rng.integers(DECODE_SERVE_LENS[0], DECODE_SERVE_LENS[1] + 1, c["B"])
+    lens[list(DECODE_SERVE_IDLE)] = 0
+    q, kp, vp, table, pos = _decode_paged_inputs(gen, lens, **c)
+    q, kp, vp = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+    pages = int(da.live_pages(pos.cpu().numpy(), bs=c["bs"], nb=c["nb"]).sum())
+    rows = int(np.minimum(lens, c["nb"] * c["bs"]).clip(min=1).sum())
+    nbytes = (pages * c["K"] * c["bs"] * c["D"] * 2 + 2 * q.numel()) * 2
+    bound, by = bound_ms(nbytes, 4 * c["H"] * c["D"] * rows, "bfloat16")
+
+    def kernel():
+        return da.decode_attention_cuda(q, kp, vp, pos, block_table=table)
+
+    def plain():
+        return blocked.decode_attention_blocked(q, kp, vp, pos, block_table=table)
+
+    turns = [time_ms(plain, iters=3), time_ms(kernel), time_ms(kernel), time_ms(plain, iters=3)]
+    ms, plain_ms = min(turns[1:3]), min(turns[0], turns[3])
+    dev = device_ms(kernel)
+    shape = f"B {c['B']} H=K {c['H']} D {c['D']} pages of {c['bs']} x {c['nb']}, bf16"
+    print(f"time decode_attention [{shape}, {pages} live pages of {c['B'] * c['nb']}]: kernel "
+          f"{ms:.4f} ms (events, turns {[round(t, 4) for t in turns]}), device "
+          f"{dev if dev is None else round(dev, 4)} ms; plain {plain_ms:.3f} ms; bound "
+          f"{bound:.4f} ms ({by}); kernel / bound {ms / bound:.3f}; library: none (no call takes "
+          f"a block table)")
+    report["decode_time"] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bound,
+                                 bound_by=by, library_ms=None, shape=shape, live_pages=pages)
+    del q, kp, vp
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # the precision ladder (paper Fig. 10): scaled GEMM, scaled FA-2
 # ---------------------------------------------------------------------------
 
@@ -1584,9 +1798,9 @@ SCALED_REL_TOL = 1e-4
 ORACLE_TOL = {"gemm": {"fp32": 1e-5, "bf16": 0.02, "fp8": 0.1, "fp8_e5m2": 0.2},
               "flash_attention": {"fp32": 1e-5, "bf16": 0.02, "fp8": 0.1, "fp8_e5m2": 0.2},
               "decode_attention": {"fp32": 1e-5, "bf16": 0.02, "fp8": 0.1, "fp8_e5m2": 0.2}}
-# per ladder run: four policies, a warm-up and a timed call each; decode
-# has no kernel
-LADDER_LAUNCHES = {"gemm_scaled": 2 * len(POLICIES), "flash_attention_scaled": 2 * len(POLICIES)}
+# per ladder run: four policies, a warm-up and a timed call each
+LADDER_LAUNCHES = {"gemm_scaled": 2 * len(POLICIES), "flash_attention_scaled": 2 * len(POLICIES),
+                   "decode_attention": 2 * len(POLICIES)}
 GEMM_SCALED_REPLACES = "src/repro/kernels/gemm.py:96"
 GEMM_SCALED_SOURCE = "src/repro_torch/csrc/gemm_scaled.cu"
 FA_SCALED_REPLACES = "src/repro/kernels/flash_attention.py:57"
@@ -1801,8 +2015,7 @@ def precision_ladder_phase(report):
     torch.cuda.synchronize()
     launches = dict(dispatch.LAUNCHES)
     print(f"precision_ladder: {len(rows)} rows; kernel launches during the run: {launches}; "
-          f"expected {LADDER_LAUNCHES} (four policies, a warm-up and a timed call each; "
-          f"decode has no kernel)")
+          f"expected {LADDER_LAUNCHES} (four policies, a warm-up and a timed call each)")
     need(launches == LADDER_LAUNCHES, "precision_ladder launch counts != the path's counts")
     shapes = {"gemm": (cases[0].operands[0].shape[0], cases[0].operands[1].shape[1]),
               "flash_attention": tuple(cases[1].operands[0].shape),
@@ -2029,6 +2242,7 @@ def serve(report):
     engine, run = _engine_run("serve", cfg, params, reqs)
     out = run["out"]
     report["fa_launches"] = run["launches"]["flash_attention"]
+    report["serve_launches"] = run["launches"]
     report["serve"] = dict(prefill_ms=run["prefill_ms"], decode_tok_s=run["tok_s"])
 
     check_prefill_logits(cfg, params, reqs, out)
@@ -2042,9 +2256,10 @@ def _engine_run(label, cfg, params, reqs):
     """``reqs`` through ``ServingEngine.with_model`` over a pool tight
     enough to preempt (NUM_BLOCKS of BLOCK_SIZE, SLOTS slots): every
     request complete, no leaked block, at least one preemption, and one
-    FA launch per layer per prefill and no other launch, with the counts
-    zeroed just before and read just after. Returns (engine, the run with
-    its decode ``tok_s``)."""
+    FA launch per layer per prefill, one decode-attention launch per layer
+    per decode step and no other launch, with the counts zeroed just before
+    and read just after. Returns (engine, the run with its decode
+    ``tok_s``)."""
     from repro_torch.serving.engine import ServingEngine
 
     engine = ServingEngine.with_model(
@@ -2053,19 +2268,21 @@ def _engine_run(label, cfg, params, reqs):
     )
     run = _drive(engine, reqs)
     out, launches = run["out"], run["launches"]
-    expected = {"flash_attention": cfg.num_layers * run["prefills"]}
+    expected = _engine_launches(cfg, run)
     print(f"{label}: completed={len(out)}/{len(reqs)} steps={engine.step_count} "
           f"preemptions={run['preempts']} prefills={run['prefills']} resumes={run['resumes']} "
           f"leaked={engine.leaked_blocks()} wall={run['wall']:.3f} s")
     print(f"{label}: kernel launches during the run: {launches}; expected {expected} "
-          f"({cfg.num_layers} layers x {run['prefills']} prefills)")
+          f"({cfg.num_layers} layers x {run['prefills']} prefills, x {len(run['decode_ms'])} "
+          f"decode steps)")
     need(len(out) == len(reqs), f"{label}: not every request completed")
     need(all(len(out[r.rid]) == r.max_new_tokens for r in reqs), f"{label}: short token stream")
     need(all(0 <= t < cfg.vocab_size for s in out.values() for t in s),
          f"{label}: token outside the vocab")
     need(engine.leaked_blocks() == 0, f"{label}: leaked cache blocks")
     need(run["preempts"] >= 1, f"{label}: the pool never preempted")
-    need(launches == expected, f"{label}: launch counts != one FA launch per layer per prefill")
+    need(launches == expected, f"{label}: launch counts != one FA launch per layer per prefill "
+                               f"and one decode-attention launch per layer per decode step")
     for n, ms in run["prefill_ms"]:
         print(f"{label} time prefill: prompt {n} tokens -> {ms:.2f} ms")
     step_ms, run["tok_s"] = _decode_rate(run)
@@ -2073,6 +2290,13 @@ def _engine_run(label, cfg, params, reqs):
           f"over {SLOTS} slots, {run['tok_s']:.1f} tok/s (first step excluded)")
     run["step_ms"] = step_ms
     return engine, run
+
+
+def _engine_launches(cfg, run):
+    """An engine run's kernel launches: one FA launch a layer a prefill and
+    one decode-attention launch a layer a decode step."""
+    return {"flash_attention": cfg.num_layers * run["prefills"],
+            "decode_attention": cfg.num_layers * len(run["decode_ms"])}
 
 
 def _drive(engine, reqs):
@@ -2140,8 +2364,8 @@ def serve_fp8(report, cfg, params, bf16_engine, bf16_run):
     complete, none leak, the preemptions equal the bf16 run's (the
     scheduler sees lengths only), every first token equals the bf16 run's
     (prefill attention is unquantized; only the pages are fp8), one FA
-    launch per layer per prefill and no other launch (decode is the plain
-    paged form, dequantizing each page at use)."""
+    launch per layer per prefill and one decode-attention launch per layer
+    per decode step (the kernel reads the fp8 pages with their scales)."""
     import torch
 
     from repro_torch.serving.engine import ServingEngine
@@ -2158,7 +2382,7 @@ def serve_fp8(report, cfg, params, bf16_engine, bf16_run):
     out, launches, want = run["out"], run["launches"], bf16_run["out"]
     same_first = sum(out[r.rid][0] == want[r.rid][0] for r in reqs)
     same_stream = sum(out[r.rid] == want[r.rid] for r in reqs)
-    expected = {"flash_attention": cfg.num_layers * run["prefills"]}
+    expected = _engine_launches(cfg, run)
     print(f"serve fp8: completed={len(out)}/{len(reqs)} steps={engine.step_count} "
           f"preemptions={run['preempts']} (bf16 {bf16_run['preempts']}) prefills={run['prefills']} "
           f"resumes={run['resumes']} leaked={engine.leaked_blocks()} wall={run['wall']:.3f} s")
@@ -2170,7 +2394,8 @@ def serve_fp8(report, cfg, params, bf16_engine, bf16_run):
     need(engine.leaked_blocks() == 0, "fp8: leaked cache blocks")
     need(run["preempts"] == bf16_run["preempts"], "fp8: preemptions differ from the bf16 run's")
     need(same_first == len(reqs), "fp8: a first token differs from the bf16 run's")
-    need(launches == expected, "fp8: launch counts != one FA launch per layer per prefill")
+    need(launches == expected, "fp8: launch counts != one FA launch per layer per prefill "
+                               "and one decode-attention launch per layer per decode step")
     step_ms, tok_s = _decode_rate(run)
     bf16_step_ms, _ = _decode_rate(bf16_run)
     fp8_bytes, bf16_bytes = _pool_bytes(cache), _pool_bytes(bf16_engine.model.cache)
@@ -2459,9 +2684,9 @@ def _paged_copy(cfg, cache, rng):
 def dense_generate_phase(report, arch, cfg, params, *, paged=False):
     """``launch.serve.generate`` of DENSE_B prompts of DENSE_PROMPT tokens
     plus DENSE_NEW new ones through the contiguous cache, with the launch
-    counts zeroed just before and read just after (one FA launch per layer,
-    all in the prefill); a prefill and a decode step alone with their
-    counts; decode against the teacher-forced forward; the prefill and the
+    counts zeroed just before and read just after (one FA launch per layer
+    in the prefill, one decode-attention launch per layer in each decode
+    step); a prefill and a decode step alone with their counts; decode against the teacher-forced forward; the prefill and the
     contiguous decode step profiled (wall, device busy, idle share). With
     ``paged``: the prefill's cache in pages, one contiguous step bitwise
     against ``decode_step_paged`` at a pinned page size, and the paged step
@@ -2476,7 +2701,8 @@ def dense_generate_phase(report, arch, cfg, params, *, paged=False):
     nl, S0 = cfg.num_layers, DENSE_PROMPT
     rng = np.random.default_rng(SEED)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (DENSE_B, S0))).cuda()
-    fa = {"flash_attention": nl}
+    fa, dec_want = {"flash_attention": nl}, {"decode_attention": nl}
+    gen_want = {**fa, "decode_attention": nl * (DENSE_NEW - 1)}
     with torch.no_grad():
         torch.cuda.synchronize()
         dispatch.reset_launches()
@@ -2486,9 +2712,10 @@ def dense_generate_phase(report, arch, cfg, params, *, paged=False):
         gen_s = time.perf_counter() - t
         launches = dict(dispatch.LAUNCHES)
         print(f"{arch} generate B={DENSE_B} prompt {S0} + {DENSE_NEW} new (contiguous cache): "
-              f"{gen_s:.3f} s (first call), kernel launches {launches}, expected {fa} "
-              f"(the prefill's, one a layer; none in the {DENSE_NEW - 1} decode steps)")
-        need(launches == fa, f"{arch} generate launch counts != {fa}")
+              f"{gen_s:.3f} s (first call), kernel launches {launches}, expected {gen_want} "
+              f"(FA in the prefill, one a layer; decode attention one a layer in each of the "
+              f"{DENSE_NEW - 1} decode steps)")
+        need(launches == gen_want, f"{arch} generate launch counts != {gen_want}")
         need(tuple(out.shape) == (DENSE_B, S0 + DENSE_NEW), f"{arch} generate shape")
         need(bool((out[:, :S0] == tokens).all()), f"{arch} generate changed the prompt")
         new = out[:, S0:]
@@ -2509,7 +2736,7 @@ def dense_generate_phase(report, arch, cfg, params, *, paged=False):
         torch.cuda.synchronize()
         dec = dict(dispatch.LAUNCHES)
         print(f"{arch} launches: prefill alone {pre}, one contiguous decode step alone {dec}")
-        need(pre == fa and dec == {}, f"{arch}: prefill / decode launch counts")
+        need(pre == fa and dec == dec_want, f"{arch}: prefill / decode launch counts")
 
         res = dict(gen_s=gen_s, launches=launches, cut_layers=nl)
         if paged:
@@ -2724,12 +2951,18 @@ def family_phase(report, arch, layers, why, check_layers):
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t
         launches = dict(dispatch.LAUNCHES)
-        want = {"flash_attention": fa_gen}
+        # decode attention: one a layer a decode step, and whisper's cross
+        # attention one more; whisper feeds its prompt through decode_step
+        dec_want = {"decode_attention": (2 if audio else 1) * cfg.num_layers}
+        steps = (S0 if audio else 0) + DENSE_NEW - 1
+        want = {"flash_attention": fa_gen,
+                "decode_attention": dec_want["decode_attention"] * steps}
         where = ("the encoder's, once; the prompt is fed through decode_step" if audio else
                  "the prefill's, one a layer")
         print(f"{arch} generate B={B} {f'{P} patches + ' if P else ''}prompt {S0} + {DENSE_NEW} "
               f"new: {gen_s:.3f} s (first call), kernel launches {launches}, expected {want} "
-              f"({where}; none in the decode steps)")
+              f"(FA: {where}; decode attention: {dec_want['decode_attention']} in each of "
+              f"{steps} decode steps)")
         need(launches == want, f"{arch} generate launch counts != {want}")
         need(tuple(out.shape) == (B, S0 + DENSE_NEW), f"{arch} generate shape")
         need(bool((out[:, :S0] == tokens).all()), f"{arch} generate changed the prompt")
@@ -2759,7 +2992,7 @@ def family_phase(report, arch, layers, why, check_layers):
         dec = dict(dispatch.LAUNCHES)
         print(f"{arch} launches: {'cross cache' if audio else 'prefill'} alone {pre}, one decode "
               f"step alone {dec}")
-        need(pre == pre_want and dec == {}, f"{arch}: prefill / decode launch counts")
+        need(pre == pre_want and dec == dec_want, f"{arch}: prefill / decode launch counts")
 
         seq = out[:2, : S0 + DECODE_CHECK_STEPS]
         check_cfg = cfg
@@ -3507,7 +3740,12 @@ def ring_phase(report):
         need(row["bitwise_reference"] and row["bitwise_overlap"],
              f"{row['name']}: not bitwise ring_decode_reference / overlap invariant")
         need(row["rel_err_contiguous"] <= tol, f"{row['name']}: far from contiguous decode")
-        need("ring_hop" not in row["launches"], f"{row['name']}: ring decode launched ring_hop")
+        need(row["launches"] == {"decode_attention": RING_N},
+             f"{row['name']}: a ring call launched {row['launches']}, not one decode-attention "
+             f"kernel a rank and no ring_hop")
+        c = row["calls"]  # each ring call (and its reference) one launch a rank
+        want["decode_attention"] = (want.get("decode_attention", 0) + c["contiguous"]
+                                    + RING_N * (c["ring"] + c["sync"] + c["reference"]))
     need(all(r["bitwise"] for r in out["hops"]), "hop sweep: the hop differs from copy_")
     print(f"ring phase ({RING_N} ranks on {cards} card(s)): launches {launches}, expected {want}")
     need(launches == want, f"ring phase launch counts {launches} != {want}")
@@ -3610,8 +3848,6 @@ def _mesh_launches(op, plan, mesh, **kw):
     kernel = {"gemm": "gemm_scaled" if kw.get("precision") else "gemm",
               "flash_attention": "flash_attention_scaled" if kw.get("precision")
               else "flash_attention"}.get(op, op)
-    if op == "decode_attention":
-        return {}  # no kernel (as in the reference)
     if plan is None:
         return {kernel: 1}
     per_rank = {kernel: 1}
@@ -5049,9 +5285,9 @@ def mesh_train_phase(report):
 # the production mesh and the bench twins' roofline columns
 # ---------------------------------------------------------------------------
 
-# each op case's kernel (its ``dispatch.LAUNCHES`` name); decode attention
-# has none (its blocked form is plain tensor code, as the reference's)
-OP_KERNELS = {"gemm": "gemm", "flash_attention": "flash_attention", "decode_attention": None,
+# each op case's kernel (its ``dispatch.LAUNCHES`` name)
+OP_KERNELS = {"gemm": "gemm", "flash_attention": "flash_attention",
+              "decode_attention": "decode_attention",
               "linear_attention": "linear_attention", "spmm": "spmm", "bsr_spmm": "bsr_spmm",
               "spmspm": "spmspm", "stencil": "stencil"}
 # an op may not run faster than its bound by more than the timing's noise,
@@ -5129,14 +5365,11 @@ def _cold_ms(fn, flush, reps=OP_COLD_REPS):
 def _op_case_hold(op, call, out, args, kw):
     """The kernel's output at the case's shapes against its plain version
     (impl ``torch``) at the suite's tolerances; flash attention against
-    SDPA (its plain form at Sq = 32768 would take minutes); decode
-    attention, which launches no kernel, finite. Returns max|diff|."""
+    SDPA (its plain form at Sq = 32768 would take minutes). Returns
+    max|diff|."""
     import torch
     import torch.nn.functional as F
 
-    if op == "decode_attention":
-        need(bool(torch.isfinite(out.float()).all()), "op case decode_attention: non-finite")
-        return 0.0
     if op == "flash_attention":
         want = F.scaled_dot_product_attention(*args, is_causal=False)
         rel = _frob(out, want)
@@ -5148,6 +5381,8 @@ def _op_case_hold(op, call, out, args, kw):
         want = call(impl="torch")
     if op == "linear_attention":
         return _hold_rel("linear_attention", "op case", out[0], want[0], LA_REL_TOL)
+    if op == "decode_attention":
+        return _hold_rel("decode_attention", "op case", out, want, DECODE_BF16_REL)
     tol = {"gemm": GEMM_TOL["bfloat16"], "spmm": SPMM_TOL["float32"], "bsr_spmm": SPARSE_TOL,
            "spmspm": SPARSE_TOL, "stencil": STENCIL_TOL}[op]
     return _hold(op, "op case", out, want, tol)
@@ -5190,7 +5425,7 @@ def op_case_phase(report):
     launches = dict(dispatch.LAUNCHES)
     print(f"op cases: one call each, launches {launches}")
     for op, kernel in OP_KERNELS.items():
-        need(kernel is None or launches.get(kernel, 0) >= 1,
+        need(launches.get(kernel, 0) >= 1,
              f"op case {op}: no {kernel} launch ({launches})")
     report["op_roofline_launches"] = launches
     rows = {}
@@ -5623,7 +5858,7 @@ TUNE_GPTJ_WHY = ("a decode step's attention and its launches repeat per layer; 8
 TUNE_CLIMB = ("occamy-gptj", "prefill_32k")
 # the kernels whose plans or knobs the suite tunes (bsr_spmm: the default alone)
 TUNE_KERNELS = ("gemm", "gemm_scaled", "flash_attention", "linear_attention", "spmm",
-                "bsr_spmm", "spmspm", "stencil")
+                "bsr_spmm", "spmspm", "stencil", "decode_attention")
 QUICKSTART_BOUNDS = {"gemm_err": 1e-3, "spmm_err": 1e-5, "fp32": 1e-6, "bf16": 1e-2, "fp8": 0.1}
 # benchmarks/run.py's row names, in its order
 REF_ROW_NAMES = (
@@ -6124,6 +6359,15 @@ def analysis_probe_phase(report, ctx):
             need(bool(torch.isfinite(o).all()), f"analysis (c): non-finite attention@{pol}")
             _probe_reading(f"flash_attention@{pol}", s, row_sum(lse), exact, narrow, report)
             probed.add(s.name)
+        # decode attention, the same keys as one contiguous cache of K rows
+        # (the default bs cuts it into 8 blocks, so 8 splits merge)
+        qd, kd, vd = q[:, :, 0], k, v
+        pos = torch.tensor([K - 1], dtype=torch.int32, device=dev)
+        s = declared("decode_attention", (qd, kd, vd, pos), return_lse=True)
+        o, lse = ops.decode_attention(qd, kd, vd, pos, return_lse=True, impl="cuda")
+        need(bool(torch.isfinite(o.float()).all()), "analysis (c): a non-finite decode output")
+        _probe_reading("decode_attention bf16", s, row_sum(lse), exact, narrow, report)
+        probed.add(s.name)
         # the scan (bf16 r/k/v, no decay): state entry (0, 0) starts at 256
         # and k_t v_t^T adds 2^-12 to it every step
         r = torch.zeros((1, 1, K, 64), dtype=bf, device=dev)
@@ -6169,7 +6413,7 @@ def analysis_phase(report):
     analysis_probe_phase(report, ctx)
     report["analysis_launches"] = dict(dispatch.LAUNCHES)
     print(f"analysis: launches in (b) and (c) {report['analysis_launches']}")
-    for k in PROBE_PLANNED + ("flash_attention_scaled", "linear_attention"):
+    for k in PROBE_PLANNED + ("flash_attention_scaled", "linear_attention", "decode_attention"):
         need(report["analysis_launches"].get(k, 0) > 0, f"analysis: no {k} launch")
     del ctx
     gc.collect()
@@ -6215,6 +6459,7 @@ def main() -> int:
         check_gcn_kernels(report)
         check_gemm_accum(report)
         check_precision_kernels(report)
+        check_decode_kernel(report)
         gcn_phase(report)
         cases = _sparse_la_cases()
         check_sparse_la_kernels(report, cases)
@@ -6264,6 +6509,7 @@ def main() -> int:
         time_sparse_la_kernels(report, cases)
         time_precision_kernels(report)
         time_la_kernels(report)
+        time_decode_kernel(report)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -6391,6 +6637,18 @@ def main() -> int:
         "cold_ms_by_bytes": {str(n): [r["ms"], r["plain_ms"]]
                              for n, r in report["ring_hop_time"].items()},
         "ranks": RING_N, "cards": report["ring_cards"],
+    })
+    t = report["decode_time"]
+    kernels.append({
+        "name": "decode_attention", "route": "cuda", "source": DECODE_SOURCE,
+        "replaces": DECODE_REPLACES,
+        # serving's engine runs: one a layer a decode step
+        "launches": report["serve_launches"]["decode_attention"],
+        "max_abs_err": max(report["decode_err"].values()),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
+        "device_ms": t["device_ms"], "live_pages": t["live_pages"],
+        "ring_launches": report["ring_launches"].get("decode_attention", 0),
     })
     for k in kernels:  # the mesh phase's launches of each kernel, by mesh
         k["mesh_launches"] = {m: c.get(k["name"], 0) for m, c in report["mesh_launches"].items()}

@@ -24,7 +24,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("flash_attention", "gemm", "spmm", "bsr_spmm", "spmspm", "stencil",
-           "gemm_scaled", "flash_attention_scaled", "linear_attention", "ring_hop")
+           "gemm_scaled", "flash_attention_scaled", "linear_attention", "ring_hop",
+           "flash_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -46,9 +46,10 @@ smoke run probes the accumulator on the card.
 launches its kernel, and nowhere else. The scaled kernels count under
 their own keys (``gemm_scaled``, ``flash_attention_scaled``), apart from
 the unscaled ``gemm`` and ``flash_attention``; the chunked scan counts
-under ``linear_attention`` (its single-token step has no kernel); the ring
-hop (``hopper/ring_hop.py``, no op of its own) under ``ring_hop``, once per
-leaf pushed.
+under ``linear_attention`` (its single-token step has no kernel); the
+split-KV decode kernel under ``decode_attention``, once a call (its merge
+launch included); the ring hop (``hopper/ring_hop.py``, no op of its own)
+under ``ring_hop``, once per leaf pushed.
 """
 from __future__ import annotations
 

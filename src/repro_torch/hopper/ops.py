@@ -8,10 +8,12 @@ Public signatures and argument checks follow ``repro.kernels.ops``'s
   - ``cuda``:  the Hopper kernels' wrappers, ``hopper/gemm.py``,
                ``hopper/gemm_scaled.py``, ``hopper/flash_attention.py``,
                ``hopper/flash_attention_scaled.py``,
+               ``hopper/decode_attention.py``,
                ``hopper/linear_attention.py``, ``hopper/spmm.py``,
                ``hopper/bsr_spmm.py``, ``hopper/spmspm.py`` and
-               ``hopper/stencil.py`` (decode attention and the linear
-               attention step have no kernel, as in the reference)
+               ``hopper/stencil.py`` (the linear attention step has no
+               kernel, as in the reference; decode attention has one,
+               which the reference's XLA blocked form does not)
   - ``torch``: ``hopper/blocked.py``, the plain forms
   - ``ref``:   ``hopper/ref.py``, the naive oracles
 
@@ -47,6 +49,7 @@ from repro_torch.core import precision as prec
 from repro_torch.core.sparse import BsrMatrix, EllMatrix
 from repro_torch.hopper import blocked as _blocked
 from repro_torch.hopper import bsr_spmm as _bsr
+from repro_torch.hopper import decode_attention as _decode
 from repro_torch.hopper import dispatch
 from repro_torch.hopper import flash_attention as _fa
 from repro_torch.hopper import flash_attention_scaled as _fa_scaled
@@ -245,6 +248,9 @@ def decode_attention(q, k, v, position, *, window=0, scale=None,
     )
 
 
+dispatch.register_kernel("decode_attention", impl="cuda")(
+    grads.forward_only("decode_attention", _decode.decode_attention_cuda)
+)
 dispatch.register_kernel("decode_attention", impl="torch")(
     _blocked.decode_attention_blocked
 )

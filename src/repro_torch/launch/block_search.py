@@ -710,8 +710,8 @@ def _stencil_case(rng, *, device="cpu", card=False) -> TuneCase:
 
 
 def _decode_attention_case(rng, *, device="cpu", card=False) -> TuneCase:
-    """decode has no kernel: its plain blocked form runs on the card too,
-    and ``bs`` sets its loop's block count (so its launches)."""
+    """The contiguous cache: ``bs`` cuts it into the blocks the decode
+    kernel splits over (and the plain form loops over, one block a step)."""
     if card:  # occamy-gptj's contiguous generate: B = 4 at 512 + 16 tokens, bf16
         B, H, K, S, D, dtype = 4, 16, 16, 528, 256, torch.bfloat16
         gen = _card_gen(rng, device)

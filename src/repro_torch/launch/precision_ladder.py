@@ -4,8 +4,8 @@
 Sweeps the ``core.precision`` policies (fp32, bf16, fp8 = e4m3, fp8_e5m2)
 through the scaled paths of the three ops that have one: ``ops.gemm`` and
 ``ops.flash_attention`` (the scaled GEMM and scaled FA-2 kernels on the
-card) and ``ops.decode_attention`` (the quantized-cache plain form: decode
-has no kernel, as in the reference). Each row gives the call's wall time,
+card) and ``ops.decode_attention`` (the cache quantized per row, then the
+split-KV decode kernel with the scales). Each row gives the call's wall time,
 its GFLOP/s (the bench's operation counts), the card's bound for the same
 work, and the numerics: ``max_err`` / ``rel_err`` (Frobenius) against the
 fp32 oracle on the same operands, so the accuracy cost of each rung sits
@@ -33,7 +33,8 @@ from repro_torch.hopper import build, ops, ref
 from repro_torch.launch import roofline
 
 POLICY_NAMES = ("fp32", "bf16", "fp8", "fp8_e5m2")
-KERNELS = ("gemm_scaled", "flash_attention_scaled")  # csrc/ sources the sweep launches
+# csrc/ sources the sweep launches
+KERNELS = ("gemm_scaled", "flash_attention_scaled", "flash_decode")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,14 +107,12 @@ def oracle(case: Case) -> torch.Tensor:
 
 
 def call(case: Case, policy, impl=None):
-    """The case's op under ``policy``. Decode has no kernel: it runs its
-    plain form whatever ``impl`` names a kernel."""
+    """The case's op under ``policy``."""
     if case.op == "gemm":
         return ops.gemm(*case.operands, precision=policy, impl=impl)
     if case.op == "flash_attention":
         return ops.flash_attention(*case.operands, causal=True, precision=policy, impl=impl)
-    return ops.decode_attention(*case.operands, precision=policy,
-                                impl=None if impl == "cuda" else impl)
+    return ops.decode_attention(*case.operands, precision=policy, impl=impl)
 
 
 def bound_ms(case: Case, policy) -> tuple[float, str]:

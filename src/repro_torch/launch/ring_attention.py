@@ -295,28 +295,35 @@ def ring_decode_rows(mesh, cases, time_ms, seed=0):
     """Ring decode with the pools as given (``cases.dtype``) and as fp8
     e4m3 pools with their scales: against ``ring_decode_reference``
     (bitwise), ``overlap=False`` (bitwise) and contiguous decode of the
-    same cache (at the same precision)."""
+    same cache (at the same precision). ``launches``: the kernel launches
+    of one ring call; ``calls``: the calls made of each variant."""
     q, k, v, pos, kp, vp, tbl = decode_inputs(cases, mesh.n, mesh.devices[0], seed)
     rows = []
     for pools in (cases.dtype, "fp8"):
         if pools == "fp8":
             kq, ks, vq, vs = prec.quantize_kv_cache(kp, vp, "fp8")
-            scales = dict(k_scale=ks, v_scale=vs)
-            contiguous = ops.decode_attention(q, k, v, pos, precision="fp8")
+            scales, precision = dict(k_scale=ks, v_scale=vs), "fp8"
         else:
-            kq, vq, scales = kp, vp, {}
-            contiguous = ops.decode_attention(q, k, v, pos)
-        got, launches = _counted(lambda: ring_decode(q, kq, vq, tbl, pos, mesh, **scales))
-        sync = ring_decode(q, kq, vq, tbl, pos, mesh, overlap=False, **scales)
-        ref = ring_decode_reference(q, kq, vq, tbl, pos, mesh.n, **scales)
+            kq, vq, scales, precision = kp, vp, {}, None
+        calls = {
+            "ring": _CallCount(lambda: ring_decode(q, kq, vq, tbl, pos, mesh, **scales)),
+            "sync": _CallCount(lambda: ring_decode(q, kq, vq, tbl, pos, mesh, overlap=False,
+                                                   **scales)),
+            "reference": _CallCount(lambda: ring_decode_reference(q, kq, vq, tbl, pos, mesh.n,
+                                                                  **scales)),
+            "contiguous": _CallCount(lambda: ops.decode_attention(q, k, v, pos,
+                                                                  precision=precision)),
+        }
+        contiguous = calls["contiguous"]()
+        got, launches = _counted(calls["ring"])
+        sync, ref = calls["sync"](), calls["reference"]()
         diff = (got.float() - contiguous.float()).norm() / contiguous.float().norm().clamp_min(1e-30)
         rows.append(dict(
             name=f"ring decode {pools} pools", pools=pools, launches=launches,
             bitwise_reference=torch.equal(got, ref), bitwise_overlap=torch.equal(got, sync),
             rel_err_contiguous=float(diff),
-            ring_ms=time_ms(lambda: ring_decode(q, kq, vq, tbl, pos, mesh, **scales)),
-            reference_ms=time_ms(lambda: ring_decode_reference(q, kq, vq, tbl, pos, mesh.n,
-                                                               **scales)),
+            ring_ms=time_ms(calls["ring"]), reference_ms=time_ms(calls["reference"]),
+            calls={key: c.calls for key, c in calls.items()},
         ))
     return rows
 

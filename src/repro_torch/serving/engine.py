@@ -33,6 +33,7 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.device import resolve_device
+from repro_torch.hopper import decode_attention
 from repro_torch.parallel.mesh import RingMesh
 from repro_torch.serving import ring_decode
 from repro_torch.serving import scheduler as sched
@@ -332,14 +333,22 @@ class ServingEngine:
         return produced
 
     def _pages(self, positions, active, tables) -> dict:
-        """The decode's page counters: every slot walks every table column
-        in every layer (``pages_walked``); the active slots' pages up to
-        the position each writes (``pages_live``)."""
+        """The decode's page counters in every layer: the active slots'
+        pages up to the position each writes (``pages_live``), and the
+        pages the resolved decode attention walks (``pages_walked``): the
+        kernel the live pages of each slot, an idle one's scratch page
+        included (``decode_attention.live_pages``), the plain form every
+        table column of every slot."""
         bs = self.scheduler.block_size
         cfg = getattr(self.model, "cfg", None)
         layers = cfg.num_layers if cfg is not None else 1
         live = int(((positions[active] + bs) // bs).sum())
-        return {"pages_live": live * layers, "pages_walked": tables.size * layers}
+        walked = tables.size
+        if decode_attention.walks_live_pages(getattr(self.model, "device", "cpu")):
+            window = getattr(cfg, "sliding_window", 0) or 0
+            walked = int(decode_attention.live_pages(positions, bs=bs, nb=tables.shape[1],
+                                                     window=window).sum())
+        return {"pages_live": live * layers, "pages_walked": walked * layers}
 
     def _retire(self, seq, step: int) -> None:
         self.scheduler.retire(seq, step)

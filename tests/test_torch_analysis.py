@@ -491,6 +491,49 @@ def test_scaled_flash_declaration_equals_the_quantized_operands(monkeypatch, pol
     _hold(streams, (qq, kq, vq), out, (qs, ks, vs), block=32)
 
 
+DECODE_CASES = ["contiguous-fp32", "contiguous-bf16-lse", "paged-bf16", "paged-fp8-lse",
+                "contiguous-precision-fp8"]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_declarations_equal_the_plain_forms_tensors(monkeypatch, case):
+    gen = torch.Generator().manual_seed(5)
+    dtype = torch.float32 if case.endswith("fp32") or "fp8" in case else torch.bfloat16
+    lse = case.endswith("lse")
+    B, H, K, D, bs, nb = 2, 4, 2, 64, 8, 3
+    q = _rand(B, H, D, dtype=dtype, gen=gen)
+    pos = torch.tensor([5, 20], dtype=torch.int32)
+    kw, scales, policy = {"return_lse": lse}, (), None
+    if case.startswith("paged"):
+        k, v = (_rand(B * nb + 1, K, bs, D, dtype=dtype, gen=gen) for _ in range(2))
+        kw["block_table"] = torch.arange(1, B * nb + 1, dtype=torch.int32).reshape(B, nb)
+        if "fp8" in case:
+            k, ks, v, vs = prec.quantize_kv_cache(k, v, "fp8")
+            kw.update(k_scale=ks, v_scale=vs)
+            scales = (ks, vs)
+        seen = _torch_impl(monkeypatch, "decode_attention")
+        out = ops.decode_attention(q, k, v, pos, paged=True, impl="torch", **kw)
+        ins = (*seen["args"], kw["block_table"])
+    else:
+        k, v = (_rand(B, K, nb * bs, D, dtype=dtype, gen=gen) for _ in range(2))
+        if "precision" in case:
+            policy = prec.resolve("fp8")
+            seen = _record(monkeypatch, prec, "quantize_kv_cache")
+            out = ops.decode_attention(q, k, v, pos, precision=policy, impl="torch", **kw)
+            kq, ks, vq, vs = seen["out"]
+            ins, scales = (q, kq, vq, pos), (ks, vs)
+        else:
+            seen = _torch_impl(monkeypatch, "decode_attention")
+            out = ops.decode_attention(q, k, v, pos, impl="torch", **kw)
+            ins = seen["args"]
+    streams = dispatch.kernel_streams("decode_attention", _structs(ins[:4]), policy, **kw)
+    assert streams.name == "flash_decode/" + case.split("-")[0]
+    assert streams.accum == torch.float32
+    _hold(streams, ins, out, scales, block=D if scales else 0)
+    assert not plan_rules.check_accum_widening(streams)
+    assert not check_dtype_dataflow(streams, policy)
+
+
 SPARSE_CASES = ["spmm", "bsr_spmm", "spmspm", "stencil", "linear_attention", "ring_hop"]
 
 
@@ -606,11 +649,12 @@ def test_sweeps_read_every_kernel_case_and_name_the_kernelless(full_run):
     _, stats = full_run
     for rule in ("accum-dtype-widening", "dtype-dataflow"):
         s = stats[rule]
-        assert set(s["kernelless"]) == {"decode_attention", "decode_attention#decode"}
-        assert "no kernel" in s["kernelless"]["decode_attention"]
+        assert s["kernelless"] == {}  # decode attention has its kernel now
+        for case in ("decode_attention", "decode_attention#decode"):
+            assert s[case]["kernel"] == "flash_decode/contiguous" and s[case]["accum"] == "float32"
         assert s["gemm@fp8"]["kernel"] == "gemm_scaled/wgmma@fp8"
         assert s["gemm@fp8"]["operands"] == ["value:float8_e4m3fn"] * 2 + ["scale:float32"] * 2
-        assert len(s) == 12
+        assert len(s) == 14
 
 
 # ---------------------------------------------------------------------------

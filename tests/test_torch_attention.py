@@ -174,17 +174,19 @@ def test_decode_attention_argument_checks(rng):
         ops.flash_attention(q[:, :, None], k, v, bk=8, block_k=16)
 
 
-def test_dispatch_resolution_and_block_overrides():
+def test_dispatch_resolution_and_block_overrides(monkeypatch):
     assert dispatch.resolve_impl("flash_attention") == "cuda"
-    assert dispatch.resolve_impl("decode_attention") == "torch"
+    assert dispatch.resolve_impl("decode_attention") == "cuda"
     assert dispatch.resolve_impl("decode_attention", "ref") == "ref"
     with dispatch.default_impl("torch"):
         assert dispatch.resolve_impl("flash_attention") == "torch"
     assert dispatch.resolve_impl("flash_attention") == "cuda"
     with pytest.raises(ValueError, match="unknown impl"):
         dispatch.resolve_impl("flash_attention", "pallas")
+    # every op of the port has a kernel now; an op without one raises
+    monkeypatch.setitem(dispatch._REGISTRY, "plain_only", {"torch": lambda: None})
     with pytest.raises(NotImplementedError, match="no 'cuda'"):
-        dispatch.kernel_call("decode_attention", impl="cuda")
+        dispatch.kernel_call("plain_only", impl="cuda")
     assert dispatch.resolve_blocks("flash_attention") == {"bq": 128, "bk": 128}
     with dispatch.block_override("flash_attention", bk=32):
         assert dispatch.resolve_blocks("flash_attention")["bk"] == 32

@@ -186,11 +186,13 @@ def _calls(x):
                                                             impl="cuda")),
         ("mesh", lambda: ops.gemm(rg, a, impl="torch",
                                   mesh=DeviceMesh({"data": 2}, device="cpu"))),
+        ("decode_attention", lambda: ops.decode_attention(x(q[:, :, 0]), q, q, torch.tensor([7]),
+                                                          impl="cuda")),
     ]
 
 
 NO_GRAD_CALLS = ("gemm", "gemm_scaled", "spmm", "spmm dense", "bsr_spmm", "spmspm", "stencil",
-                 "flash_attention scaled", "flash_attention lse", "mesh")
+                 "flash_attention scaled", "flash_attention lse", "mesh", "decode_attention")
 
 
 @pytest.mark.parametrize("label", NO_GRAD_CALLS)

@@ -157,12 +157,12 @@ def test_sharded_op_matches_reference_unsharded(mesh, name, impl):
     _check(got, _want(name))
 
 
-def test_decode_has_no_kernel_impl():
-    """Decode attention has no kernel, in the port as in the reference (its
-    ``pallas`` impl is the ref form): its sharded cases run ``torch`` and
-    ``ref``."""
-    assert _impls("decode") == ["torch", "ref"]
-    assert all(_impls(n) == list(IMPLS) for n in CASES if n != "decode")
+def test_every_case_runs_all_three_impls():
+    """Every sharded case runs ``cuda``, ``torch`` and ``ref``: decode
+    attention too, whose kernel (``hopper/decode_attention.py``) the
+    reference lacks (its ``pallas`` impl is the ref form)."""
+    assert _impls("decode") == ["cuda", "torch", "ref"]
+    assert all(_impls(n) == list(IMPLS) for n in CASES)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

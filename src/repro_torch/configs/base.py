@@ -132,6 +132,61 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class GraniteHybridConfig(ModelConfig):
+    """A ``ModelConfig`` with what Granite-4.0-H's layers add (the
+    ``granite_hybrid`` family, ``models/granite_hybrid.py``): a block kind
+    per layer (``"mamba"`` or ``"attention"``), the Mamba-2 mixer's conv
+    width and B/C groups, the shared expert's width, the three scalar
+    multipliers, and ``nope`` (no positional encoding). The Mamba-2 sizes
+    are the base's ``d_inner``, ``ssm_head_dim`` and ``ssm_state``; the
+    routed experts' width is ``d_ff``. The base keeps its fields, which
+    the tests hold field for field to the reference package's."""
+
+    layer_types: tuple = ()
+    conv_kernel: int = 4
+    ssm_groups: int = 1
+    shared_d_ff: int = 0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    nope: bool = False
+    attention_multiplier: float = dataclasses.field(kw_only=True)
+
+    def __post_init__(self):
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        if len(self.layer_types) != self.num_layers or not set(self.layer_types) <= {
+                "mamba", "attention"}:
+            raise ValueError(f"{self.name}: layer_types must give 'mamba' or 'attention' "
+                             f"for each of {self.num_layers} layers")
+
+    def layers_of(self, kind: str) -> list:
+        return [i for i, t in enumerate(self.layer_types) if t == kind]
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.resolved_d_inner() // self.ssm_head_dim
+
+    @property
+    def conv_dim(self) -> int:
+        return self.resolved_d_inner() + 2 * self.ssm_groups * self.ssm_state
+
+    def num_params(self) -> int:
+        d, hd, f, E = self.d_model, self.resolved_head_dim(), self.d_ff, self.num_experts
+        H, K, di, nh = self.num_heads, self.num_kv_heads, self.resolved_d_inner(), self.ssm_heads
+        attn = d * (H * hd) + 2 * d * (K * hd) + (H * hd) * d
+        mamba = (d * (di + self.conv_dim + nh) + self.conv_dim * (self.conv_kernel + 1)
+                 + 3 * nh + di + di * d)
+        ffn = E * 3 * d * f + d * E + 3 * d * self.shared_d_ff + 2 * d
+        n_attn = len(self.layers_of("attention"))
+        total = n_attn * attn + (self.num_layers - n_attn) * mamba + self.num_layers * ffn
+        return total + self.vocab_size * d * (1 if self.tie_embeddings else 2) + d
+
+    def num_active_params(self) -> int:
+        inactive = (self.num_experts - self.experts_per_token) * 3 * self.d_model * self.d_ff
+        return self.num_params() - self.num_layers * inactive
+
+
+@dataclass(frozen=True)
 class ShapeSpec:
     name: str
     kind: str  # train | prefill | decode

@@ -17,6 +17,10 @@ Public signatures and argument checks follow ``repro.kernels.ops``'s
   - ``torch``: ``hopper/blocked.py``, the plain forms
   - ``ref``:   ``hopper/ref.py``, the naive oracles
 
+Mamba-2's exact scan, ``ssd_scan`` (and its single-token ``ssd_step``),
+is plain tensor code outside the dispatch table, as the linear attention
+step is: one scalar decay per head and token, never clamped.
+
 ``precision=`` on ``gemm``, ``flash_attention`` and ``decode_attention``
 selects a ``core.precision`` policy (fp32, bf16, fp8 = e4m3, fp8_e5m2):
 operands are quantized (per K-block for the GEMM, per row over the head
@@ -44,6 +48,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import precision as prec
 from repro_torch.core.sparse import BsrMatrix, EllMatrix
@@ -342,6 +347,113 @@ def linear_attention_step(r, k, v, w_log, u, S):
         o = (torch.einsum("bhn,bhnm->bhm", rf, S)
              + (rf * (u[None].float() * kf)).sum(-1, keepdim=True) * vf)
     return o.to(v.dtype), S_new
+
+
+# ---------------------------------------------------------------------------
+# SSD scan (Mamba-2: one scalar decay per head and token, never clamped)
+# ---------------------------------------------------------------------------
+
+# tokens a chunk and heads a pass of the chunked scan: a pass holds
+# (SSD_HEADS, S, SSD_CHUNK) fp32 decay and score matrices
+SSD_CHUNK = 128
+SSD_HEADS = 32
+
+
+def _segsum(a):
+    """a (..., T) -> (..., T, T): entry [t, s] is sum(a[s+1 .. t]) for
+    s <= t, -inf above the diagonal. Each entry is a direct sum of its own
+    terms, not a difference of two running sums, so exp() of it is <= 1
+    exactly where every a <= 0."""
+    T = a.shape[-1]
+    rep = a[..., None].expand(*a.shape, T)
+    below = torch.tril(torch.ones(T, T, dtype=torch.bool, device=a.device), -1)
+    seg = torch.cumsum(rep.masked_fill(~below, 0), dim=-2)
+    diag = torch.tril(torch.ones(T, T, dtype=torch.bool, device=a.device))
+    return seg.masked_fill(~diag, float("-inf"))
+
+
+def _ssd_heads(xd, a, B, C, s0, Q):
+    """One pass over a block of heads of one B/C group. xd (Bt, nc, Q, h,
+    P) = dt * x; a (Bt, h, nc, Q) = dt * A; B, C (Bt, nc, Q, N), the
+    group's; s0 (Bt, h, P, N). Returns (y (Bt, nc, Q, h, P), final state
+    (Bt, h, P, N))."""
+    acum = torch.cumsum(a, dim=-1)
+    # within a chunk: y_t = sum_{s <= t} exp(a_{s+1..t}) (C_t . B_s) xd_s
+    M = torch.exp(_segsum(a)).mul_(torch.einsum("bcln,bcsn->bcls", C, B)[:, None])
+    y = torch.einsum("bhcls,bcshp->bclhp", M, xd)
+    del M
+    # each chunk's own state at its end: sum_s exp(a_{s+1..end}) xd_s B_s^T
+    rest = torch.cat([a[..., 1:].flip(-1).cumsum(-1).flip(-1), torch.zeros_like(a[..., :1])], -1)
+    states = torch.einsum("bcsn,bcshp->bchpn", B, xd * torch.exp(rest).permute(0, 2, 3, 1)[..., None])
+    # the state entering each chunk, and the final one: the chunks' totals
+    # segment-summed across chunks, s0 entering first
+    decay = torch.exp(_segsum(F.pad(acum[..., -1], (1, 0))))  # (Bt, h, nc+1, nc+1)
+    states = torch.einsum("bhzc,bchpn->bzhpn", decay, torch.cat([s0[:, None], states], dim=1))
+    # read-out of the entering state: y_t += exp(a_{..t}) C_t . S_in
+    y += (torch.einsum("bcln,bchpn->bclhp", C, states[:, :-1])
+          * torch.exp(acum).permute(0, 2, 3, 1)[..., None])
+    return y, states[:, -1]
+
+
+def ssd_scan(x, dt, A, B, C, D=None, s0=None):
+    """Mamba-2's scan, exact: S_t = exp(dt_t A) S_{t-1} + dt_t x_t B_t^T,
+    y_t = S_t C_t + D x_t, per head, with nothing clamped.
+
+    x (Bt, S, nh, P); dt (Bt, S, nh) after softplus (a token with dt 0
+    leaves the state as it was and adds nothing); A (nh,) <= 0; B, C
+    (Bt, S, G, N), head h reading group h // (nh / G); D (nh,) or None;
+    s0 (Bt, nh, P, N) or None (zeros). Returns (y (Bt, S, nh, P) fp32,
+    final state (Bt, nh, P, N) fp32).
+
+    The chunked form (SSD's block decomposition): every decay factor is
+    exp of a direct sum of dt A over the tokens it spans, so each is at
+    most 1 whatever the decay, where a chunked scan of exp(cumsum) ratios
+    must bound the per-token decay (``linear_attention``'s floor). Plain
+    tensor code in fp32 on any device, in passes of at most ``SSD_HEADS``
+    heads of one group."""
+    Q = SSD_CHUNK
+    Bt, S, nh, P = x.shape
+    G, N = B.shape[-2:]
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    xf, dtf = x.float(), dt.float()
+    a = F.pad(dtf * A.float(), (0, 0, 0, pad)).view(Bt, nc, Q, nh).permute(0, 3, 1, 2)
+    xd = F.pad(xf * dtf[..., None], (0, 0, 0, 0, 0, pad)).view(Bt, nc, Q, nh, P)
+    Bc, Cc = (F.pad(t.float(), (0, 0, 0, 0, 0, pad)).view(Bt, nc, Q, G, N) for t in (B, C))
+    s0 = (torch.zeros(Bt, nh, P, N, dtype=torch.float32, device=x.device)
+          if s0 is None else s0.float())
+    per = nh // G
+    ys, finals = [], []
+    for lo in range(0, nh, min(SSD_HEADS, per)):
+        hi, g = min(lo + SSD_HEADS, (lo // per + 1) * per), lo // per
+        y, final = _ssd_heads(xd[:, :, :, lo:hi], a[:, lo:hi], Bc[..., g, :], Cc[..., g, :],
+                              s0[:, lo:hi], Q)
+        ys.append(y)
+        finals.append(final)
+    y = torch.cat(ys, dim=3).reshape(Bt, nc * Q, nh, P)[:, :S]
+    if D is not None:
+        y = y + D.float()[:, None] * xf
+    return y, torch.cat(finals, dim=1)
+
+
+def ssd_step(x, dt, A, B, C, D, state):
+    """One token of ``ssd_scan`` for each row, the state advanced **in
+    place**: x (Bt, nh, P); dt (Bt, nh); B, C (Bt, G, N); D (nh,) or None;
+    state (Bt, nh, P, N) fp32. Returns y (Bt, nh, P) fp32. The decay
+    exp(dt A) is at most 1 and is not clamped."""
+    Bt, nh, P = x.shape
+    G, N = B.shape[-2:]
+    g = torch.arange(nh, device=x.device) // (nh // G)
+    Bh, Ch = B.float()[:, g], C.float()[:, g]  # (Bt, nh, N)
+    dtf = dt.float()
+    xd = x.float() * dtf[..., None]
+    flat = state.view(Bt * nh, P, N)
+    state.mul_(torch.exp(dtf * A.float())[..., None, None])
+    flat.baddbmm_(xd.reshape(Bt * nh, P, 1), Bh.reshape(Bt * nh, 1, N))
+    y = torch.bmm(flat, Ch.reshape(Bt * nh, N, 1)).view(Bt, nh, P)
+    if D is not None:
+        y = y + D.float()[:, None] * x.float()
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -104,6 +104,13 @@ def generate() -> str:
         lines.append(f"| `{op}` | {impls} | {blocks} | {precs} |")
     lines.append("")
     lines.append(
+        "Plain tensor entries outside the dispatch table (one impl, any device, "
+        "no mesh): `linear_attention_step` (one token of the chunked scan, its "
+        "decay floored as the scan's is) and `ssd_scan` / `ssd_step` (Mamba-2's "
+        "scan with one scalar decay a head and token, exact: every decay factor "
+        "is exp of a direct sum of dt A, never clamped; the scan chunked, "
+        "`SSD_CHUNK` tokens and `SSD_HEADS` heads a pass).\n")
+    lines.append(
         "The precisions column lists the `core/precision.py` policies each op "
         "takes through `precision=` (fp32 is the `precision=None` path; the "
         "others run the block-scaled kernels). An op listing only fp32 has no "

@@ -194,3 +194,38 @@ def moe_mlp_decode(p, x, cfg):
         h = act(torch.matmul(x[None], p["moe_wg"]).float()) * h
     y = torch.matmul(h.to(x.dtype), p["moe_wo"])  # (E, B, d)
     return (y.float() * w.t()[..., None]).sum(0).to(x.dtype)
+
+
+def moe_mlp_dropless(p, x, cfg):
+    """x (..., d) -> (..., d): every (token, choice) pair reaches its
+    expert, none dropped (no capacity). The pairs are sorted by expert
+    (stable) and each expert runs once on the rows routed to it, so the
+    buffers grow with k S, not with E S; its weighted output is added back
+    at its tokens in fp32. Gated activations only (``_route``'s top-k
+    softmax renormalised, as the published top-k-then-softmax gives).
+    One device-to-host read of the experts' row counts a call."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    act = L.activation_fn(cfg.activation)
+    flat = x.reshape(-1, x.shape[-1])
+    topv, topi, _ = _route(p, flat, cfg)
+    order = torch.argsort(topi.reshape(-1), stable=True)
+    tok = order // k
+    weight = topv.reshape(-1)[order]
+    counts = torch.bincount(topi.reshape(-1), minlength=E).tolist()
+    out = torch.zeros(flat.shape, dtype=torch.float32, device=x.device)
+    start = 0
+    for e, n in enumerate(counts):
+        if n:
+            rows = tok[start:start + n]
+            xe = flat[rows]
+            h = act(torch.matmul(xe, p["moe_wg"][e]).float()) * torch.matmul(xe, p["moe_wi"][e]).float()
+            y = torch.matmul(h.to(x.dtype), p["moe_wo"][e])
+            out.index_add_(0, rows, y.float() * weight[start:start + n, None])
+        start += n
+    return out.to(x.dtype).reshape(x.shape)
+
+
+def shared_expert(p, x, activation):
+    """The shared expert every token takes, unweighted: ``sh_wi`` (up),
+    ``sh_wg`` (gate), ``sh_wo`` (down)."""
+    return L.mlp({"wi": p["sh_wi"], "wg": p["sh_wg"], "wo": p["sh_wo"]}, x, activation)

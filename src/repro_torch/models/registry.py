@@ -13,7 +13,9 @@ model families the port runs.
 Every family of the reference is covered: ``dense``, ``moe`` and ``vlm``
 (the transformer), ``ssm`` (rwkv6), ``hybrid`` (hymba) and ``audio``
 (whisper, ``models/multimodal.py``); every decode updates its cache in
-place. A family the port does not know raises ``NotImplementedError``.
+place. The port's own ``granite_hybrid`` family (Granite-4.0-H, which the
+reference lacks) has init and forward here and decodes through the paged
+engine only (``serving/engine.py``). A family the port does not know raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,10 +23,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import hybrid, layers, multimodal, ssm, transformer
+from repro_torch.models import granite_hybrid, hybrid, layers, multimodal, ssm, transformer
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
-             "ssm": ssm, "hybrid": hybrid, "audio": multimodal}
+             "ssm": ssm, "hybrid": hybrid, "audio": multimodal,
+             "granite_hybrid": granite_hybrid}
 
 
 def _family_mod(cfg):

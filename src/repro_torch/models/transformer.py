@@ -213,12 +213,13 @@ def _ffn(p, cfg, x):
 
 
 def attention(p, cfg, x, cos, sin, *, causal=True, window=0, q_offset=0,
-              kv_input=None, kv_cos_sin=None, return_kv=False):
+              kv_input=None, kv_cos_sin=None, return_kv=False, scale=None):
     """x (B, S, d) -> (B, S, d); with ``return_kv`` also the (B, K, Skv, hd)
     k/v this layer caches. ``kv_input`` (B, Skv, d) makes it
     cross-attention: k/v come from it, with its own length. Rope (where
     ``cos`` is given) turns q and, in self-attention, k; in
-    cross-attention k turns only by ``kv_cos_sin``, where given."""
+    cross-attention k turns only by ``kv_cos_sin``, where given. ``scale``
+    multiplies the scores (default 1 / sqrt(head_dim))."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
     H, K = cfg.num_heads, cfg.num_kv_heads
@@ -246,7 +247,7 @@ def attention(p, cfg, x, cos, sin, *, causal=True, window=0, q_offset=0,
     # (B, S, H, hd) -> (B, H, S, hd) views: the kernel takes the strides
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     o = ops.flash_attention(qt, kt, vt, causal=causal, window=window,
-                            q_offset=q_offset)
+                            q_offset=q_offset, scale=scale)
     out = torch.matmul(o.transpose(1, 2).reshape(B, S, H * hd), p["wo"])
     if return_kv:
         return out, (kt, vt)
@@ -420,7 +421,7 @@ def decode_step(params, cfg, cache, batch):
 
 def attention_decode_paged(p, cfg, x, cos, sin, k_pool, v_pool, block_table,
                            position, *, window=0, k_scale=None, v_scale=None,
-                           policy=None, attn_fn=None):
+                           policy=None, attn_fn=None, scale=None):
     """One layer's decode against paged pools ``k_pool``/``v_pool``
     (P, K, bs, hd). The new token's k/v is written **in place** into page
     ``block_table[b, pos // bs]`` at row ``pos % bs``, then attention runs
@@ -433,7 +434,11 @@ def attention_decode_paged(p, cfg, x, cos, sin, k_pool, v_pool, block_table,
     Under ``policy`` the pools hold the cache narrow: the new k/v row is
     quantized per row (``precision.quantize_kv_cache``) and written with
     its scales into ``k_scale``/``v_scale`` (P, K, bs, 1), and the pools'
-    scales go to ``ops.decode_attention``, which dequantizes at use."""
+    scales go to ``ops.decode_attention``, which dequantizes at use.
+    ``scale`` multiplies the scores (default 1 / sqrt(head_dim)); an
+    ``attn_fn`` takes the default only."""
+    if scale is not None and attn_fn is not None:
+        raise ValueError("attention_decode_paged: an attn_fn takes the default scale only")
     B, _ = x.shape
     hd = cfg.resolved_head_dim()
     H, K = cfg.num_heads, cfg.num_kv_heads
@@ -465,7 +470,7 @@ def attention_decode_paged(p, cfg, x, cos, sin, k_pool, v_pool, block_table,
     with tracing.span("decode.pages"):
         if attn_fn is None:
             o = ops.decode_attention(q, k_pool, v_pool, position, paged=True,
-                                     block_table=block_table, window=window,
+                                     block_table=block_table, window=window, scale=scale,
                                      k_scale=k_scale, v_scale=v_scale)
         else:
             o = attn_fn(q, k_pool, v_pool, k_scale, v_scale, block_table, position, window)
@@ -500,3 +505,26 @@ def decode_step_paged(params, cfg, cache, batch, *, attn_fn=None):
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     # fp32 logits, as the reference's einsum with an fp32 result
     return torch.matmul(h.float(), _head(params).float()), cache
+
+
+# the paged engine's interface (``serving/engine.py`` ``PagedModel``), which
+# ``models/granite_hybrid.py`` shares
+
+
+def paged_layout(cfg, slots: int, *, device=None):
+    """(the window of each layer that keeps KV, the per-slot state pool):
+    every layer keeps KV, and none a state."""
+    return (cfg.sliding_window or 0,) * cfg.num_layers, {}
+
+
+def paged_prefill(params, cfg, tokens, length: int):
+    """One prompt padded to its bucket, tokens (1, S) of which ``length``
+    are real: -> (logits (V_pad,) at the last real token, {"k", "v"}:
+    (nl, 1, K, S, hd), the slot's state: none)."""
+    logits, kv = prefill_step(params, cfg, {"tokens": tokens}, max_len=tokens.shape[1])
+    return logits[0, length - 1], kv, {}
+
+
+def paged_decode(params, cfg, cache, batch, state, attn_fn=None):
+    """``decode_step_paged``; ``state`` is the empty pool."""
+    return decode_step_paged(params, cfg, cache, batch, attn_fn=attn_fn)

@@ -19,7 +19,10 @@ One ``step()`` is one unit of virtual time, in the reference's order:
 The model half sits behind a small protocol (``prefill``/``decode``/
 ``save_blocks``/``restore_blocks``), so the scheduler runs against the
 host-only ``StubModel`` too. ``PagedModel`` serves the transformer
-families the reference's engine serves, dense and MoE, on ``device`` (``cuda`` unless the caller passes another); with
+families the reference's engine serves, dense and MoE, and the port's
+granite_hybrid (Mamba-2 and attention layers: KV pages for the attention
+layers, a per-slot state pool for the others), on ``device`` (``cuda``
+unless the caller passes another); with
 ``precision=`` its KV pools hold the cache narrow (values plus per-row fp32
 scales, dequantized at use in decode); with ``mesh=`` its decode attention
 runs as ring decode over the mesh's ``ring_axis`` (``ring_attn_fn``).
@@ -108,8 +111,18 @@ def ring_attn_fn(mesh, ring_axis: str = "data"):
 
 class PagedModel:
     """The real model half: bucketed paged prefill + all-slot paged decode
-    of the dense or MoE transformer over a ``PagedKVCache`` on ``device``;
-    with a ``precision`` policy the pools hold the cache quantized per row.
+    of the dense or MoE transformer, or of the granite_hybrid family, over
+    a ``PagedKVCache`` on ``device``; with a ``precision`` policy the pools
+    hold the cache quantized per row.
+
+    The family's module gives the model half its interface
+    (``paged_layout``, ``paged_prefill``, ``paged_decode``).
+    granite_hybrid keeps KV pages for its attention layers only, and beside
+    them a state pool indexed by slot (``granite_hybrid.init_state``; a
+    transformer's pool is empty): the prefill writes the slot's whole state as it stands after the last real
+    prompt token (the bucket's padding leaves it unmoved), each decode
+    advances every slot's state in place, and a preempted sequence's state
+    goes to the host with its pages and comes back into its new slot.
 
     The prefill runs on the prompt padded to its block bucket, as the
     reference's does: causal attention keeps the real rows independent of
@@ -120,30 +133,38 @@ class PagedModel:
     ``mesh`` (a ``DeviceMesh`` with a ``ring_axis``): decode attention runs
     as ring decode over that axis (``ring_attn_fn``); ``num_blocks`` and
     ``max_blocks_per_seq`` must divide by its size, as in the reference.
-    The prefill stays unsharded."""
+    The prefill stays unsharded. granite_hybrid decodes on one device."""
 
     def __init__(self, cfg, params, *, num_blocks, block_size, max_slots,
                  max_blocks_per_seq, precision=None, device=None, mesh=None,
                  ring_axis: str = "data"):
-        from repro_torch.models import transformer
+        from repro_torch.models import granite_hybrid, transformer
         from repro_torch.serving import paged_cache
 
-        if cfg.family not in ("dense", "moe"):
+        family = {"dense": transformer, "moe": transformer,
+                  "granite_hybrid": granite_hybrid}.get(cfg.family)
+        if family is None:
             raise NotImplementedError(
-                f"PagedModel serves the transformer families (dense, moe), got {cfg.family!r}"
+                "PagedModel serves the transformer families (dense, moe) and "
+                f"granite_hybrid, got {cfg.family!r}"
             )
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
                 f"params live on {params['embed'].device}, the engine on {self.device}"
             )
-        self._transformer = transformer
+        self.family = family
         self.cfg, self.params = cfg, params
         self.block_size = block_size
         self.vocab = cfg.vocab_size
+        # the window of each layer that keeps KV, in layer order, and the
+        # state pool by slot of the layers that keep a state instead
+        self.attention_windows, self.state = family.paged_layout(
+            cfg, max_slots, device=self.device)
         self.cache = paged_cache.init_paged_cache(
             cfg, num_blocks=num_blocks, block_size=block_size, device=self.device,
             policy=None if precision is None else getattr(precision, "name", precision),
+            num_layers=len(self.attention_windows),
         )
         self.tables = np.full(
             (max_slots, max_blocks_per_seq), NULL_BLOCK, np.int32
@@ -175,17 +196,21 @@ class PagedModel:
         ids = np.full(nbp, NULL_BLOCK, np.int64)
         ids[: len(block_ids)] = block_ids  # prompt pages (the grant covers them)
         # tokens padded to the bucket: causal attention keeps every real
-        # row independent of the padded tail
-        logits, kv = self._transformer.prefill_step(
-            self.params, self.cfg, {"tokens": self._tensor(tokens)}, max_len=sb,
-        )
+        # row independent of the padded tail, and a recurrent layer's state
+        # is taken after the last real token
+        last, kv, state = self.family.paged_prefill(
+            self.params, self.cfg, self._tensor(tokens), len(prompt))
+        if state:
+            with tracing.span("engine.state", rid=seq.rid, slot=seq.slot, op="write"):
+                for name, pool in self.state.items():  # the slot's whole state: reset and written
+                    pool[:, seq.slot].copy_(state[name])
         nl, _, K, _, hd = kv["k"].shape
 
         def rows(x):  # (nl, 1, K, sb, hd) -> (nl, nbp, K, bs, hd)
             return x[:, 0].reshape(nl, K, nbp, self.block_size, hd).transpose(1, 2)
 
         self.cache.write_prompt(ids, rows(kv["k"]), rows(kv["v"]))
-        first = int(torch.argmax(logits[0, len(prompt) - 1, : self.vocab]))
+        first = int(torch.argmax(last[: self.vocab]))
         self.tables[seq.slot, :] = NULL_BLOCK
         self.tables[seq.slot, : len(block_ids)] = block_ids
         return first
@@ -203,18 +228,30 @@ class PagedModel:
             "position": self._tensor(slot_positions),
             "block_table": self._tensor(slot_tables, torch.int32),
         }
-        logits, self.cache = self._transformer.decode_step_paged(
-            self.params, self.cfg, self.cache, batch, attn_fn=self.attn_fn
-        )
+        logits, self.cache = self.family.paged_decode(
+            self.params, self.cfg, self.cache, batch, self.state, self.attn_fn)
         with tracing.span("decode.fetch"):
             return torch.argmax(logits[:, : self.vocab], dim=-1).cpu().numpy()
 
     # -- preemption payloads -------------------------------------------------
 
     def save_blocks(self, seq, block_ids):
-        return self.cache.gather_blocks(np.asarray(block_ids, np.int64))
+        """The sequence's pages on the host and, with a state pool, its
+        slot's state beside them."""
+        pages = self.cache.gather_blocks(np.asarray(block_ids, np.int64))
+        if not self.state:
+            return pages
+        with tracing.span("engine.state", rid=seq.rid, slot=seq.slot, op="save"):
+            return {"pages": pages,
+                    "state": {n: pool[:, seq.slot].to("cpu", copy=True)  # not a view
+                              for n, pool in self.state.items()}}
 
     def restore_blocks(self, seq, block_ids, payload):
+        if self.state:
+            with tracing.span("engine.state", rid=seq.rid, slot=seq.slot, op="restore"):
+                for n, pool in self.state.items():
+                    pool[:, seq.slot].copy_(payload["state"][n])
+            payload = payload["pages"]
         n = payload["k"].shape[1]
         self.cache.restore_blocks(np.asarray(block_ids[:n], np.int64), payload)
 
@@ -333,22 +370,30 @@ class ServingEngine:
         return produced
 
     def _pages(self, positions, active, tables) -> dict:
-        """The decode's page counters in every layer: the active slots'
-        pages up to the position each writes (``pages_live``), and the
-        pages the resolved decode attention walks (``pages_walked``): the
-        kernel the live pages of each slot, an idle one's scratch page
-        included (``decode_attention.live_pages``), the plain form every
-        table column of every slot."""
+        """The decode's page counters over the layers that keep KV: the
+        active slots' pages up to the position each writes
+        (``pages_live``), and the pages the resolved decode attention walks
+        (``pages_walked``): the kernel the live pages of each slot in the
+        window of each layer, an idle one's scratch page included
+        (``decode_attention.live_pages``), the plain form every table
+        column of every slot. With a state pool, the slot states the step
+        reads and writes (``state_rows``, every slot's) and the active
+        slots' among them (``state_live``)."""
         bs = self.scheduler.block_size
-        cfg = getattr(self.model, "cfg", None)
-        layers = cfg.num_layers if cfg is not None else 1
-        live = int(((positions[active] + bs) // bs).sum())
-        walked = tables.size
+        windows = getattr(self.model, "attention_windows", None)
+        if windows is None:  # a model that names no windows: its config's, every layer
+            cfg = getattr(self.model, "cfg", None)
+            windows = ((getattr(cfg, "sliding_window", 0) or 0),) * getattr(cfg, "num_layers", 1)
+        live = int(((positions[active] + bs) // bs).sum()) * len(windows)
+        walked = tables.size * len(windows)
         if decode_attention.walks_live_pages(getattr(self.model, "device", "cpu")):
-            window = getattr(cfg, "sliding_window", 0) or 0
-            walked = int(decode_attention.live_pages(positions, bs=bs, nb=tables.shape[1],
-                                                     window=window).sum())
-        return {"pages_live": live * layers, "pages_walked": walked * layers}
+            walked = sum(int(decode_attention.live_pages(positions, bs=bs, nb=tables.shape[1],
+                                                         window=w).sum()) * windows.count(w)
+                         for w in set(windows))
+        out = {"pages_live": live, "pages_walked": walked}
+        if getattr(self.model, "state", None):
+            out.update(state_live=int(active.sum()), state_rows=len(active))
+        return out
 
     def _retire(self, seq, step: int) -> None:
         self.scheduler.retire(seq, step)

@@ -100,12 +100,15 @@ class PagedKVCache:
 
 
 def init_paged_cache(cfg, *, num_blocks: int, block_size: int,
-                     policy: str | None = None, device=None) -> PagedKVCache:
+                     policy: str | None = None, device=None,
+                     num_layers: int | None = None) -> PagedKVCache:
     """Zero pools sized from the model config on ``device`` (default
     ``cuda``): in its activation dtype, or with a ``policy`` in the
-    policy's compute dtype with unit fp32 scales."""
+    policy's compute dtype with unit fp32 scales. ``num_layers`` (default
+    ``cfg.num_layers``) is the number of layers that keep KV, where some
+    layers keep none (a hybrid's recurrent layers)."""
     device = resolve_device(device)
-    nl, K = cfg.num_layers, cfg.num_kv_heads
+    nl, K = num_layers or cfg.num_layers, cfg.num_kv_heads
     shape = (nl, num_blocks, K, block_size, cfg.resolved_head_dim())
     k_scale = v_scale = None
     if policy is None:
